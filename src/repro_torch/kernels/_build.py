@@ -1,0 +1,99 @@
+"""Builds the port's CUDA sources and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into ``build/lib<name>-<digest>.so`` beside this file, at first use.  The
+sources expose a plain C interface and include no PyTorch header, so a
+build takes seconds; the wrappers pass pointers and the stream as
+``c_void_p`` and raise when an entry point returns a CUDA error.  The
+digest covers the sources and the flags, so an edited source is rebuilt
+and a stale library is never loaded.  ``build`` starts one ``nvcc`` per
+source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).with_name("build")
+SOURCES = ("flex_gemm", "sfu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# activation codes of csrc/act.cuh
+ACT_CODE = {"none": 0, "gelu": 1, "relu": 2, "relu2": 3, "silu": 4}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels need the "
+                       "CUDA toolkit to build")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def nvcc_command(name: str, out: Path) -> list[str]:
+    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build(names: tuple[str, ...] = SOURCES) -> list[Path]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` each, in parallel; returns the library paths."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    outs = [library_path(n) for n in names]
+    procs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((name, out, tmp, subprocess.Popen(
+            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)     # atomic: readers never see half a file
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return outs
+
+
+def load(name: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, built on first use, with
+    ``argtypes`` set from ``signatures`` (entry point -> ctypes types) and
+    every entry point returning a C int (the CUDA error code)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        (path,) = build((name,))
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
+                           f"{err}")

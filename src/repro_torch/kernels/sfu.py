@@ -1,0 +1,119 @@
+"""SFU row kernels: DORA's special-function unit (paper §3.5) on the H100.
+
+Replaces the Pallas TPU kernels of ``src/repro/kernels/sfu.py``
+(``_softmax_kernel``, ``_layernorm_kernel``, ``_gelu_kernel``) with the
+hand-written CUDA kernels of ``csrc/sfu.cu``: one block per row with
+warp-shuffle reductions over the row's true width, and one element-wise
+kernel for the runtime's GELU / ReLU / ReLU² / SiLU ops.  All are bound by
+device-memory bytes on the card.  fp32 in, fp32 out, as the runtime's LMU
+tiles are.
+
+A tensor on the CPU goes to the plain version in ``ref``; a CUDA tensor
+goes to the kernel, or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, ref
+from .ref import ACTIVATIONS
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "sfu_softmax_f32": (_P, _P, _I, _I, _P),
+    "sfu_layernorm_f32": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
+    "sfu_act_f32": (_P, _P, ctypes.c_longlong, _I, _P),
+}
+
+
+def _on_card(x: torch.Tensor, what: str, *params: torch.Tensor | None
+             ) -> bool:
+    """Validate ``x`` and its per-column params; True when the call goes
+    to the kernel, False when it goes to the CPU's plain version."""
+    if x.dim() != 2:
+        raise ValueError(f"{what} takes a 2-D (rows, cols) tensor, got "
+                         f"{tuple(x.shape)}")
+    for t in (x, *(p for p in params if p is not None)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} takes float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: operands on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+    for p in params:
+        if p is not None and tuple(p.shape) != (x.shape[1],):
+            raise ValueError(f"{what}: gamma/beta must be ({x.shape[1]},)")
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda (or cpu), not {x.device}")
+    return True
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("sfu", _SIGNATURES)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def softmax_rows(x: torch.Tensor) -> torch.Tensor:
+    """Row softmax, max-subtracted, fp32."""
+    if not _on_card(x, "softmax_rows"):
+        return ref.softmax_rows(x)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    R, N = x.shape
+    with torch.cuda.device(x.device):
+        err = _lib().sfu_softmax_f32(x.data_ptr(), out.data_ptr(), R, N,
+                                     _stream(x))
+    _build.check(err, "softmax_rows")
+    softmax_rows.launches += 1
+    return out
+
+
+def layernorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
+                   beta: torch.Tensor | None = None, eps: float = 1e-5
+                   ) -> torch.Tensor:
+    """Row layernorm with population variance; gamma and beta optional."""
+    if not _on_card(x, "layernorm_rows", gamma, beta):
+        return ref.layernorm_rows(x, gamma, beta, eps)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    R, N = x.shape
+    with torch.cuda.device(x.device):
+        err = _lib().sfu_layernorm_f32(
+            x.data_ptr(), gamma.data_ptr() if gamma is not None else None,
+            beta.data_ptr() if beta is not None else None, out.data_ptr(),
+            R, N, eps, _stream(x))
+    _build.check(err, "layernorm_rows")
+    layernorm_rows.launches += 1
+    return out
+
+
+def act_rows(x: torch.Tensor, act: str) -> torch.Tensor:
+    """Element-wise ``act`` (gelu in the tanh form, relu, relu2, silu)."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    if not _on_card(x, "act_rows"):
+        return ref.ACT_FN[act](x)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _lib().sfu_act_f32(x.data_ptr(), out.data_ptr(), x.numel(),
+                                 _build.ACT_CODE[act], _stream(x))
+    _build.check(err, "act_rows")
+    act_rows.launches += 1
+    return out
+
+
+softmax_rows.launches = 0
+layernorm_rows.launches = 0
+act_rows.launches = 0
