@@ -13,8 +13,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    card: ``flex_gemm`` over the reference's GEMM shapes, every epilogue,
    with and without the accumulator, fp32 and bf16, plus every MMU tile
    shape of BERT-L; the SFU row kernels over the reference's SFU shapes
-   and the main path's row shapes.
-4. main path: compiles paper workloads with ``DoraCompiler`` and runs
+   and the main path's row shapes; ``rmsnorm_rows`` over the SFU shapes
+   (fp32) and the serving rows (bf16), with and without gamma;
+   ``flash_attention`` over the reference's attention shapes x causal
+   (fp32), its bf16 case, and qwen3-4b's prefill and decode shapes.
+4. DORA path: compiles paper workloads with ``DoraCompiler`` and runs
    each compiled binary through ``DoraCompiler.execute`` on the card from
    ``random_inputs(0)``: BERT-L and DeiT-L at full width, MLP-L (the one
    paper workload whose binary carries an element-wise SFU op) and every
@@ -24,8 +27,20 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    the inputs the binary gave it (rtol 5e-4, atol 5e-4 scaled up only
    past |ref| = 100); the chained outputs against ``reference_execute``
    of the whole graph by relative L2 error (see ``CHAIN_RTOL``).
-5. timing: BERT-L's compile and execute seconds, its device time by
-   kernel (profiler), and each kernel's device time at the main path's
+5. serving: ``repro_torch.launch.serve.BatchServer`` serves qwen3-4b at
+   full width and depth (36 layers, d 2560, vocab 151,936, bf16 compute,
+   random weights from seed 0) to 4 greedy requests of 512, 384, 200 and
+   37 prompt tokens, 32 new tokens each.  The rmsnorm and flash-attention
+   launch counts, zeroed just before, must equal what the model's call
+   structure gives (printed with its derivation).  The same weights then
+   run teacher-forced on the served tokens through the kernels and
+   through the plain versions (``plain=True``); every step's logits are
+   held by relative L2 (see ``SERVE_RTOL``).  qwen3-4b at full width,
+   4 layers, fp32 compute: prefill + decode held against ``forward``
+   (see ``FP32_DECODE_TOL``).
+6. timing: BERT-L's compile and execute seconds and its device time by
+   kernel (profiler); serving's prefill seconds and decode tokens/s, and
+   a profiled decode step; each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
    PyTorch library call and the card's bound.
 
@@ -64,24 +79,53 @@ LAYER_RTOL, LAYER_ATOL, LAYER_ATOL_REL = 5e-4, 5e-4, 5e-6
 # The element-wise guarantee is the per-layer check; this one catches
 # gross errors only.
 CHAIN_RTOL = 0.1
+# The reference's attention sweep (B, Hq, Hkv, Sq, Skv, D).
+ATTN_SHAPES = [(1, 4, 2, 64, 64, 32), (2, 8, 2, 32, 128, 64),
+               (1, 2, 1, 1, 96, 32), (1, 4, 4, 50, 50, 16),
+               (1, 2, 2, 1, 500, 64), (2, 6, 3, 40, 100, 32)]
+# Serving traffic: qwen3-4b, 4 greedy requests, prompts left-padded to
+# 512, 32 new tokens each, a 1024-row cache.
+SERVE_ARCH, SERVE_PROMPTS, SERVE_NEW, SERVE_MAX_LEN = \
+    "qwen3-4b", (512, 384, 200, 37), 32, 1024
+# qwen3-4b's rmsnorm rows (rows, width): prefill of 4 x 512 tokens
+# (norm1/norm2, q-norm over 32 heads, k-norm over 8), decode of 4 tokens
+# (norms and the prefill's last-position final norm, q-norm, k-norm).
+RMS_SERVING = [(2048, 2560), (65536, 128), (16384, 128), (4, 2560),
+               (128, 128), (32, 128)]
+# Kernels against plain versions on the serving path, both bf16: each
+# step's logits by relative L2.  The two differ by one bf16 rounding here
+# and there (the kernels sum in another order), and 36 bf16 layers carry
+# that forward; 2e-2 is the bound this check starts from for bf16, above
+# the worst step measured on the H100 (see PERF.md).
+SERVE_RTOL = 2e-2
+# fp32 compute, 4 layers at full width: prefill + decode against forward,
+# |err| <= FP32_DECODE_TOL * max|logit| (tests/test_models.py holds the
+# reduced configs to 2e-3 absolute; logits here are of order 1-10).
+FP32_DECODE_TOL = 2e-3
 # Peak rates from NVIDIA's data sheets: fp32 FLOP/s outside the tensor
-# cores (every timed kernel computes in fp32), device-memory bytes/s.
-PEAKS = (("H100 PCIe", 51e12, 2.0e12),
-         ("H100 NVL", 60e12, 3.9e12),
-         ("H200", 67e12, 4.8e12),
-         ("H100", 67e12, 3.35e12))
+# cores, dense bf16 FLOP/s of the tensor cores, device-memory bytes/s.
+PEAKS = (("H100 PCIe", 51e12, 756e12, 2.0e12),
+         ("H100 NVL", 60e12, 835e12, 3.9e12),
+         ("H200", 67e12, 989e12, 4.8e12),
+         ("H100", 67e12, 989e12, 3.35e12))
 REPLACES = {
     "flex_gemm": "src/repro/kernels/flex_gemm.py:58",
     "sfu_softmax": "src/repro/kernels/sfu.py:32",
     "sfu_layernorm": "src/repro/kernels/sfu.py:41",
     "sfu_act": "src/repro/kernels/sfu.py:67",
+    "rmsnorm": "src/repro/kernels/sfu.py:56",
+    "flash_attention": "src/repro/kernels/flash_attention.py:28",
 }
 SOURCES = {
     "flex_gemm": "src/repro_torch/kernels/csrc/flex_gemm.cu",
     "sfu_softmax": "src/repro_torch/kernels/csrc/sfu.cu",
     "sfu_layernorm": "src/repro_torch/kernels/csrc/sfu.cu",
     "sfu_act": "src/repro_torch/kernels/csrc/sfu.cu",
+    "rmsnorm": "src/repro_torch/kernels/csrc/sfu.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+DORA_KERNELS = ("flex_gemm", "sfu_softmax", "sfu_layernorm", "sfu_act")
+SERVING_KERNELS = ("rmsnorm", "flash_attention")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -89,12 +133,23 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def peaks(name: str) -> tuple[float, float]:
-    for key, fp32, bw in PEAKS:
+def peaks(name: str) -> tuple[float, float, float]:
+    for key, fp32, bf16, bw in PEAKS:
         if key in name:
-            return fp32, bw
+            return fp32, bf16, bw
     print(f"note: no data-sheet peaks for {name!r}; using the H100 SXM's")
     return PEAKS[-1][1:]
+
+
+def causal_pairs(sq: int, skv: int) -> int:
+    """(query, key) pairs a causal attention computes: row i sees
+    keys 0 .. i + skv - sq."""
+    return sum(max(0, min(skv, i + skv - sq + 1)) for i in range(sq))
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
 def cuda_ms(torch, fn, iters: int = 50) -> tuple[float, float]:
@@ -133,6 +188,8 @@ def close(got, want, rtol: float, atol: float) -> bool:
 
 
 def main() -> None:
+    import dataclasses
+
     import torch
     require(torch.cuda.is_available(), "no CUDA device")
     import numpy as np
@@ -140,15 +197,19 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import paper_models
+    from repro_torch.configs import get_config, paper_models
     from repro_torch.core import (CompileOptions, DoraCompiler, Epilogue,
                               OpType, UnitKind)
     from repro_torch.core.graph import LayerKind, WorkloadGraph
     from repro_torch.core.runtime import EPILOGUE_NAME, SFU_ACT
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flex_gemm import flex_gemm
     from repro_torch.kernels.ref import EPILOGUES
-    from repro_torch.kernels.sfu import act_rows, layernorm_rows, softmax_rows
+    from repro_torch.kernels.sfu import (act_rows, layernorm_rows,
+                                         rmsnorm_rows, softmax_rows)
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.models import lm
 
     # fp32 products in full fp32 for the plain versions and yardsticks
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -161,7 +222,7 @@ def main() -> None:
         check=True).stdout.strip().splitlines()[0]
     print(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
-    fp32_peak, bw_peak = peaks(kind)
+    fp32_peak, bf16_peak, bw_peak = peaks(kind)
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
@@ -229,6 +290,50 @@ def main() -> None:
             f"{k} {check_sfu(k, R, N):.3g}"
             for k in ("sfu_softmax", "sfu_layernorm", "sfu_act")))
 
+    def check_rmsnorm(R, N, dt) -> float:
+        """Max |kernel - plain| with and without gamma; fp32 at
+        tests/test_kernels.py's tolerance, bf16 within one bf16 ulp
+        (both compute in fp32 and may round to neighbouring values)."""
+        x, g = randn(R, N, dtype=dt, scale=2.0), randn(N)
+        rtol, atol = (1e-4, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-6)
+        worst = 0.0
+        for gamma in (None, g):
+            got, want = rmsnorm_rows(x, gamma), ref.rmsnorm_rows(x, gamma)
+            torch.cuda.synchronize()
+            require(got.dtype == dt and close(got, want, rtol, atol),
+                    f"rmsnorm {R}x{N} {dt}: max err {max_err(got, want)}")
+            worst = max(worst, max_err(got, want))
+        return worst
+
+    def check_attention(B, Hq, Hkv, Sq, Skv, D, causal, dt, cache=None
+                        ) -> float:
+        """Max |kernel - plain|; tests/test_kernels.py's tolerances (fp32
+        1e-4 / 2e-5, bf16 3e-2).  ``cache`` rows: decode reads the first
+        Skv rows of a longer cache, the rest NaN."""
+        rows = cache or Skv
+        q = randn(B, Hq, Sq, D, dtype=dt)
+        k, v = randn(B, Hkv, rows, D, dtype=dt), randn(B, Hkv, rows, D, dtype=dt)
+        k[:, :, Skv:] = float("nan")
+        v[:, :, Skv:] = float("nan")
+        got = flash_attention(q, k, v, causal=causal, kv_len=Skv)
+        want = ref.mha_attention(q, k, v, causal=causal, kv_len=Skv)
+        torch.cuda.synchronize()
+        rtol, atol = (1e-4, 2e-5) if dt == torch.float32 else (3e-2, 3e-2)
+        require(close(got, want, rtol, atol),
+                f"flash_attention {(B, Hq, Hkv, Sq, Skv, D)} causal={causal} "
+                f"{dt}: max err {max_err(got, want)}")
+        return max_err(got, want)
+
+    for R, N in SFU_SHAPES:
+        print(f"[check] rmsnorm {R}x{N} fp32: max err "
+              f"{check_rmsnorm(R, N, torch.float32):.3g}")
+    for shape in ATTN_SHAPES:
+        print(f"[check] flash_attention {shape} fp32: max err causal "
+              f"{check_attention(*shape, True, torch.float32):.3g}, "
+              f"full {check_attention(*shape, False, torch.float32):.3g}")
+    print(f"[check] flash_attention (1, 4, 2, 32, 64, 64) bf16 causal: max "
+          f"err {check_attention(1, 4, 2, 32, 64, 64, True, torch.bfloat16):.3g}")
+
     # every shape the main path gives each kernel, as its binaries give it
     # (fp32, the instruction's epilogue and accumulate flag); these errors
     # go into the kernels' JSON record
@@ -255,16 +360,40 @@ def main() -> None:
         e = check_sfu(kernel, R, N, form)
         errs[kernel] = max(errs[kernel], e)
         print(f"[check] main-path {op.name} {R}x{N}: max err {e:.3g}")
+    # every shape the serving path gives the two serving kernels (bf16)
+    for R, N in RMS_SERVING:
+        errs["rmsnorm"] = max(errs["rmsnorm"],
+                              check_rmsnorm(R, N, torch.bfloat16))
+        print(f"[check] serving rmsnorm {R}x{N} bf16: max err so far "
+              f"{errs['rmsnorm']:.3g}")
+    cfg, plen = get_config(SERVE_ARCH), max(SERVE_PROMPTS)
+    for Sq, Skv, causal, rows in (
+            (plen, plen, True, None),                          # prefill
+            *((1, plen + t, False, SERVE_MAX_LEN)              # decode
+              for t in (1, SERVE_NEW // 2, SERVE_NEW - 1))):
+        e = check_attention(len(SERVE_PROMPTS), cfg.n_heads, cfg.n_kv_heads,
+                            Sq, Skv, cfg.head_dim, causal, torch.bfloat16,
+                            rows)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        print(f"[check] serving flash_attention Sq={Sq} Skv={Skv} "
+              f"{'causal' if causal else f'over a {rows}-row cache'} bf16: "
+              f"max err {e:.3g}")
 
-    # ----------------------------------------------------------- main path
+    # ----------------------------------------------------------- DORA path
     counters = {"flex_gemm": flex_gemm, "sfu_softmax": softmax_rows,
-                "sfu_layernorm": layernorm_rows, "sfu_act": act_rows}
+                "sfu_layernorm": layernorm_rows, "sfu_act": act_rows,
+                "rmsnorm": rmsnorm_rows, "flash_attention": flash_attention}
+    whole = dict.fromkeys(counters, 0)     # launches over the whole script
+
+    def zero_counts():
+        for k, fn in counters.items():
+            whole[k] += fn.launches
+            fn.launches = 0
     sfu_ops = {"sfu_softmax": {OpType.SFU_SOFTMAX},
                "sfu_layernorm": {OpType.SFU_LAYERNORM},
                "sfu_act": set(SFU_ACT)}
     inputs, outputs = {}, {}
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts()
     for name in MAIN_MODELS:
         res = programs[name]
         prog = res.codegen.program.instructions
@@ -273,6 +402,7 @@ def main() -> None:
         expected["flex_gemm"] = sum(1 for i in prog
                                     if i.op_type == OpType.MMU_GEMM
                                     and i.body.ping_op == 1)
+        expected |= {k: 0 for k in SERVING_KERNELS}
         before = {k: fn.launches for k, fn in counters.items()}
         inputs[name] = res.graph.random_inputs(0)
         outputs[name] = DoraCompiler().execute(res, inputs[name])
@@ -282,9 +412,9 @@ def main() -> None:
         require(ran == expected, f"{name}: launches {ran} differ from the "
                 f"binary's instruction counts {expected}")
     launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"[main] launches over the main path: {launches}")
-    require(all(n > 0 for n in launches.values()),
-            "a kernel of the main path was never launched")
+    print(f"[main] launches over the DORA path: {launches}")
+    require(all(launches[k] > 0 for k in DORA_KERNELS),
+            "a kernel of the DORA path was never launched")
 
     for name in MAIN_MODELS:
         g = programs[name].graph
@@ -323,6 +453,122 @@ def main() -> None:
               f"rel L2 err {worst_chain[0]:.3g} ({worst_chain[1]})")
     del outputs
 
+    # -------------------------------------------------------- serving path
+    t0 = time.perf_counter()
+    server = BatchServer(cfg, max_len=SERVE_MAX_LEN, seed=0)
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B parameters "
+          f"drawn on the card and cast to {cfg.compute_dtype} in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    def requests(max_new=SERVE_NEW):
+        return [Request(i, p, max_new) for i, p in enumerate(prompts)]
+
+    server.serve(requests(2))            # warm-up: cuBLAS plans, allocator
+    torch.cuda.synchronize()
+    # rmsnorm: norm1, norm2, and q-/k-norm when qk_norm, per layer, plus the
+    # final norm; attention: one per layer; per prefill and decode step
+    steps = SERVE_NEW
+    per_step = {"rmsnorm": (4 if cfg.qk_norm else 2) * cfg.n_layers + 1,
+                "flash_attention": cfg.n_layers}
+    expected = {k: 0 for k in counters} | {k: steps * n
+                                           for k, n in per_step.items()}
+    print(f"[serve] expected launches: 1 prefill + {steps - 1} decode steps "
+          f"= {steps} steps x (rmsnorm {per_step['rmsnorm']} = "
+          f"{4 if cfg.qk_norm else 2} x {cfg.n_layers} layers + 1 final; "
+          f"flash_attention {cfg.n_layers} = 1 x {cfg.n_layers} layers) = "
+          f"rmsnorm {expected['rmsnorm']}, flash_attention "
+          f"{expected['flash_attention']}; the DORA kernels 0")
+    zero_counts()
+    stats = server.serve(requests())
+    torch.cuda.synchronize()
+    serve_launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"[serve] launches over the serving path: {serve_launches}")
+    require(serve_launches == expected,
+            f"serving launches {serve_launches} differ from {expected}")
+    for k in SERVING_KERNELS:
+        launches[k] = serve_launches[k]
+    outs = stats["outputs"]
+    require(sorted(outs) == list(range(len(prompts)))
+            and all(len(t) == SERVE_NEW and all(0 <= x < cfg.vocab_size
+                                                for x in t)
+                    for t in outs.values()),
+            f"served outputs malformed: {outs}")
+    print(f"[serve] prefill {stats['prefill_s']} s, decode {stats['decode_s']} "
+          f"s = {stats['decode_tok_per_s']} tok/s ({len(prompts)} x "
+          f"{SERVE_NEW - 1} tokens, host clock around synchronize) on {smi}")
+    print(f"[serve] first tokens: " + "; ".join(
+        f"req {i}: {t[:8]}" for i, t in outs.items()))
+
+    # the same weights, teacher-forced on the served tokens, through the
+    # kernels and through the plain versions
+    B, plen = len(prompts), max(SERVE_PROMPTS)
+    padded = np.zeros((B, plen), np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, plen - len(p):] = p
+    served = torch.tensor([outs[i] for i in range(B)], device=dev)
+    tokens = torch.from_numpy(padded).to(dev)
+    k_logits, k_cache = lm.prefill(cfg, server.params, tokens,
+                                   max_len=SERVE_MAX_LEN)
+    p_logits, p_cache = lm.prefill(cfg, server.params, tokens,
+                                   max_len=SERVE_MAX_LEN, plain=True)
+    errs_l2, agree = [], []
+    for t in range(SERVE_NEW):
+        require(bool(torch.isfinite(k_logits).all())
+                and k_logits.shape == (B, cfg.vocab_size),
+                f"step {t}: logits {tuple(k_logits.shape)} or non-finite")
+        require(torch.equal(k_logits.argmax(-1), served[:, t]),
+                f"step {t}: the kernels' greedy tokens differ from the "
+                f"served ones")
+        errs_l2.append(rel_l2(k_logits, p_logits))
+        agree.append(float((k_logits.argmax(-1) == p_logits.argmax(-1))
+                           .float().mean()))
+        if t + 1 < SERVE_NEW:
+            step = served[:, t:t + 1]
+            k_logits, k_cache = lm.decode_step(cfg, server.params, k_cache,
+                                               step, plen + t)
+            p_logits, p_cache = lm.decode_step(cfg, server.params, p_cache,
+                                               step, plen + t, plain=True)
+    del k_cache, p_cache
+    print(f"[serve] kernels vs plain versions, teacher-forced: logits rel L2 "
+          f"prefill {errs_l2[0]:.4g}, decode max {max(errs_l2[1:]):.4g} "
+          f"(step {int(np.argmax(errs_l2[1:])) + 1}), mean "
+          f"{float(np.mean(errs_l2[1:])):.4g}; greedy tokens agree on "
+          f"{float(np.mean(agree)):.1%} (limit rel L2 {SERVE_RTOL})")
+    require(max(errs_l2) <= SERVE_RTOL,
+            f"serving logits differ from the plain path: {errs_l2}")
+
+    # fp32 compute at full width, 4 layers: prefill + decode == forward
+    cfg32 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
+    p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(1), dev)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 48))).to(dev)
+    Sp = 32
+    full = lm.forward(cfg32, p32, tok)
+    plain_full = lm.forward(cfg32, p32, tok, plain=True)
+    pre, cache = lm.prefill(cfg32, p32, tok[:, :Sp], max_len=48)
+    errs32 = [float((pre - full[:, Sp - 1]).abs().max())]
+    for t in range(Sp, 48):
+        step, cache = lm.decode_step(cfg32, p32, cache, tok[:, t:t + 1], t)
+        errs32.append(float((step - full[:, t]).abs().max()))
+    scale = float(full.abs().max())
+    print(f"[serve] fp32 {cfg.name} at full width, 4 layers: prefill + "
+          f"{48 - Sp} decode steps vs forward: max |err| {max(errs32):.4g} "
+          f"(limit {FP32_DECODE_TOL} x max|logit| {scale:.4g} = "
+          f"{FP32_DECODE_TOL * scale:.4g}); forward kernels vs plain rel L2 "
+          f"{rel_l2(full, plain_full):.3g}")
+    require(max(errs32) <= FP32_DECODE_TOL * scale,
+            f"fp32 decode differs from forward: {errs32}")
+    require(rel_l2(full, plain_full) <= 1e-4,
+            "fp32 forward: kernels differ from the plain versions")
+    del p32, cache, full, plain_full
+
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")
     t0 = time.perf_counter()
@@ -338,25 +584,63 @@ def main() -> None:
           f"(host), execute {execute_s} s (host clock around "
           f"synchronize, after one warm-up run), "
           f"{bert.total_flops / execute_s / 1e12:.4f} TFLOP/s")
-    # where the execute time goes: device time by kernel (CUPTI trace)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        DoraCompiler().execute(res, inputs["BERT-L"])
-        torch.cuda.synchronize()
-    by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA
-                        and e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(t for t, _, _ in by_kernel) / 1e3
-    if by_kernel:
-        print(f"[profile] BERT-L execute: device busy {busy_ms:.4f} ms of "
-              f"{execute_s * 1e3:.4f} ms unprofiled host time "
-              f"({busy_ms / (execute_s * 1e3):.1%})")
+    def device_profile(label, fn, host_s):
+        """Device time by kernel over one call of ``fn`` (CUPTI trace),
+        beside ``host_s``, the same call's unprofiled host time."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            and e.self_device_time_total > 0), reverse=True)
+        busy_ms = sum(t for t, _, _ in by_kernel) / 1e3
+        if not by_kernel:
+            print(f"[profile] {label}: device time not measured: the "
+                  f"profiler recorded no CUDA kernel")
+            return
+        print(f"[profile] {label}: device busy {busy_ms:.4f} ms of "
+              f"{host_s * 1e3:.4f} ms unprofiled host time "
+              f"({busy_ms / (host_s * 1e3):.1%}), "
+              f"{sum(n for _, n, _ in by_kernel)} device activities")
         for t, n, key in by_kernel[:8]:
             print(f"[profile]   {t / 1e3:.4f} ms in {n} launches: {key[:90]}")
-    else:
-        print("[profile] device time not measured: the profiler recorded "
-              "no CUDA kernel")
+
+    # where BERT-L's execute time goes
+    device_profile("BERT-L execute",
+                   lambda: DoraCompiler().execute(res, inputs["BERT-L"]),
+                   execute_s)
+
+    # where serving's time goes: one prefill and one decode step of the
+    # served batch, each timed unprofiled after a warm-up call
+    def host_s(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    _, cache = lm.prefill(cfg, server.params, tokens, max_len=SERVE_MAX_LEN)
+    prefill_fn = lambda: lm.prefill(cfg, server.params, tokens,  # noqa: E731
+                                    max_len=SERVE_MAX_LEN)
+    decode_fn = lambda: lm.decode_step(  # noqa: E731
+        cfg, server.params, cache, served[:, :1], plen)
+    prefill_s, decode_s = host_s(prefill_fn), host_s(decode_fn)
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       (server.params["lm_head"],
+                        *(w for lp in server.params["layers"]
+                          for sub in lp.values() for w in sub.values())))
+    print(f"[time] {cfg.name} serving on {smi}: prefill {B}x{plen} "
+          f"{prefill_s} s, one decode step {decode_s * 1e3:.4f} ms "
+          f"({B / decode_s:.1f} tok/s); the step reads at least "
+          f"{weight_bytes / 1e9:.3f} GB of bf16 weights, "
+          f"{1e3 * weight_bytes / bw_peak:.4f} ms at the memory rate")
+    device_profile(f"{cfg.name} prefill {B}x{plen}", prefill_fn, prefill_s)
+    device_profile(f"{cfg.name} decode step at pos {plen}", decode_fn,
+                   decode_s)
+    del cache
 
     # flex_gemm at the BERT-L tile shape that carries the most FLOPs
     tile_flops = {}
@@ -371,8 +655,16 @@ def main() -> None:
     cin = c if acc else None
     x_sm, x_ln, x_act = randn(512, 512, scale=3.0), randn(512, 768), \
         randn(3072, 4096)
+    # the serving kernels at qwen3-4b's shapes (bf16)
+    x_rms = randn(2 * 1024, cfg.d_model, dtype=torch.bfloat16)
+    g_rms = randn(cfg.d_model)
+    g_lib = g_rms.to(torch.bfloat16)
+    qp = randn(B, cfg.n_heads, plen, cfg.head_dim, dtype=torch.bfloat16)
+    kp, vp = (randn(B, cfg.n_kv_heads, plen, cfg.head_dim,
+                    dtype=torch.bfloat16) for _ in range(2))
     # name: (shape, kernel, plain version, one library call, FLOPs,
-    #        bytes moved: each input read once, each output written once)
+    #        bytes moved: each input read once, each output written once,
+    #        the peak FLOP/s of the operations' type)
     rows = {
         "flex_gemm": (
             f"{M}x{K}x{N}{' +c' if acc else ''} fp32",
@@ -393,7 +685,56 @@ def main() -> None:
             "3072x4096 relu fp32 (MLP-L)", lambda: act_rows(x_act, "relu"),
             lambda: ref.relu_rows(x_act), lambda: torch.relu(x_act),
             x_act.numel(), 8 * x_act.numel()),
+        "rmsnorm": (
+            f"{x_rms.shape[0]}x{x_rms.shape[1]} bf16 +gamma (prefill norm1)",
+            lambda: rmsnorm_rows(x_rms, g_rms),
+            lambda: ref.rmsnorm_rows(x_rms, g_rms),
+            lambda: F.rms_norm(x_rms, (cfg.d_model,), g_lib, 1e-6),
+            4 * x_rms.numel(), 4 * x_rms.numel() + 4 * cfg.d_model),
+        "flash_attention": (
+            f"{tuple(qp.shape)} over {tuple(kp.shape)} causal bf16 (prefill)",
+            lambda: flash_attention(qp, kp, vp, causal=True),
+            lambda: ref.mha_attention(qp, kp, vp, causal=True),
+            lambda: F.scaled_dot_product_attention(qp, kp, vp, is_causal=True,
+                                                   enable_gqa=True),
+            4 * cfg.head_dim * B * cfg.n_heads * causal_pairs(plen, plen),
+            2 * (2 * qp.numel() + 2 * kp.numel())),
     }
+    ops_peak = {"flash_attention": bf16_peak}   # else fp32_peak
+
+    def report(name, shape, kernel, plain, library, flops, nbytes, peak):
+        (ms, ms_b2b), (plain_ms, plain_b2b), (lib_ms, lib_b2b) = (
+            cuda_ms(torch, fn) for fn in (kernel, plain, library))
+        t_ops, t_bytes = flops / peak, nbytes / bw_peak
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[time] {name} {shape}: device ms: kernel {ms:.4f}, plain "
+              f"{plain_ms:.4f}, library {lib_ms:.4f}, bound {bound_ms:.4f} "
+              f"({bound_by}); back-to-back ms: kernel {ms_b2b:.4f}, plain "
+              f"{plain_b2b:.4f}, library {lib_b2b:.4f}; on {smi}")
+        return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+    # the serving kernels' other shapes, printed only
+    for R, N in RMS_SERVING[1:]:
+        x, g = randn(R, N, dtype=torch.bfloat16), randn(N)
+        gl = g.to(torch.bfloat16)
+        report("rmsnorm", f"{R}x{N} bf16 +gamma", lambda: rmsnorm_rows(x, g),
+               lambda: ref.rmsnorm_rows(x, g),
+               lambda: F.rms_norm(x, (N,), gl, 1e-6),
+               4 * x.numel(), 4 * x.numel() + 4 * N, fp32_peak)
+    skv = plen + 28
+    qd = randn(B, cfg.n_heads, 1, cfg.head_dim, dtype=torch.bfloat16)
+    kd, vd = (randn(B, cfg.n_kv_heads, SERVE_MAX_LEN, cfg.head_dim,
+                    dtype=torch.bfloat16) for _ in range(2))
+    report("flash_attention",
+           f"decode {tuple(qd.shape)} over {skv} rows of {tuple(kd.shape)} bf16",
+           lambda: flash_attention(qd, kd, vd, causal=False, kv_len=skv),
+           lambda: ref.mha_attention(qd, kd, vd, causal=False, kv_len=skv),
+           lambda: F.scaled_dot_product_attention(
+               qd, kd[:, :, :skv], vd[:, :, :skv], enable_gqa=True),
+           4 * cfg.head_dim * B * cfg.n_heads * skv,
+           2 * (2 * qd.numel() + 2 * B * cfg.n_kv_heads * skv * cfg.head_dim),
+           bf16_peak)
     xg = randn(512, 3072)
     gelu, gelu_lib = (cuda_ms(torch, lambda: act_rows(xg, "gelu")),
                       cuda_ms(torch, lambda: F.gelu(xg, approximate="tanh")))
@@ -402,22 +743,18 @@ def main() -> None:
           f"(back-to-back {gelu_lib[1]:.4f})")
 
     kernels = []
-    for name, (shape, kernel, plain, library, flops, nbytes) in rows.items():
-        (ms, ms_b2b), (plain_ms, plain_b2b), (lib_ms, lib_b2b) = (
-            cuda_ms(torch, fn) for fn in (kernel, plain, library))
-        t_ops, t_bytes = flops / fp32_peak, nbytes / bw_peak
-        bound_ms = 1e3 * max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[time] {name} {shape}: device ms: kernel {ms:.4f}, plain "
-              f"{plain_ms:.4f}, library {lib_ms:.4f}, bound {bound_ms:.4f} "
-              f"({bound_by}); back-to-back ms: kernel {ms_b2b:.4f}, plain "
-              f"{plain_b2b:.4f}, library {lib_b2b:.4f}; on {smi}")
+    for name, row in rows.items():
+        ms, plain_ms, lib_ms, bound_ms, bound_by = report(
+            name, *row, ops_peak.get(name, fp32_peak))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
 
+    zero_counts()
+    print(f"[main] launches over the whole script, checks and timing "
+          f"included: {whole}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,20 +3,24 @@
 The two packages compute on the same numbers only if they start from the
 same numbers: ``WorkloadGraph.random_inputs(seed)`` (numpy, seeded) makes
 the inputs and weights, and ``inputs_to_torch`` checks each against the
-compiled memory map and puts it on the device.  ``resolve_device`` is the
-port's one rule for where an entry point runs: the CUDA card unless the
-caller names another device, and an error where there is no card.
+compiled memory map and puts it on the device.  ``params_from_jax``
+carries a language model's parameters, made by ``repro.models.lm.init``
+and handed over as numpy arrays, into the port's per-layer layout.
+``resolve_device`` is the port's one rule for where an entry point runs:
+the CUDA card unless the caller names another device, and an error where
+there is no card.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Mapping
+from typing import TYPE_CHECKING, Any, Mapping
 
 import numpy as np
 import torch
 
 if TYPE_CHECKING:
     from .core.codegen import MemoryMap
+    from .models.config import ArchConfig
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -48,3 +52,57 @@ def inputs_to_torch(inputs: Mapping[str, np.ndarray | torch.Tensor],
         out[name] = torch.as_tensor(arr).to(device=dev, dtype=torch.float32,
                                             copy=True).contiguous()
     return out
+
+
+def _leaf_to_torch(arr: Any, device: torch.device) -> torch.Tensor:
+    """A copy of one array on ``device``, in its own dtype (bf16 arrays
+    arrive as numpy's ml_dtypes bfloat16, which torch cannot read)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=device
+                            ).to(torch.bfloat16)
+    return torch.tensor(arr, device=device)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(cfg: ArchConfig, tree: Mapping,
+                    device: str | torch.device | None = None) -> dict:
+    """The port's parameters from the reference's tree.
+
+    ``tree`` is ``repro.models.lm.init(cfg, key)[0]`` with its leaves as
+    numpy arrays (or anything ``np.asarray`` takes): ``embed``,
+    ``lm_head``, ``final_norm`` and ``blocks/pos{i}/...`` stacked with a
+    leading dim of ``cfg.n_blocks``.  Returns ``{"embed", "lm_head",
+    "final_norm", "layers": [one dict per layer]}`` on ``device``, layer
+    ``b * pattern_len + i`` from ``blocks/pos{i}[b]``.  Weights keep the
+    reference's ``(in, out)`` layout, applied as ``x @ w``; dtypes are
+    kept.
+    """
+    dev = resolve_device(device)
+    V, D = cfg.vocab_size, cfg.d_model
+    embed, head = np.asarray(tree["embed"]), np.asarray(tree["lm_head"])
+    if embed.shape != (V, D) or head.shape != (D, V):
+        raise ValueError(f"{cfg.name}: embed {embed.shape} / lm_head "
+                         f"{head.shape} do not match vocab {V}, d_model {D}")
+    stacked = {}
+    for pi in range(cfg.pattern_len):
+        stacked[pi] = _tree_map(np.asarray, tree["blocks"][f"pos{pi}"])
+        _tree_map(lambda a: _check_stacked(cfg, a), stacked[pi])
+    layers = [_tree_map(lambda a, b=b: _leaf_to_torch(a[b], dev), stacked[pi])
+              for b in range(cfg.n_blocks) for pi in range(cfg.pattern_len)]
+    return {"embed": _leaf_to_torch(embed, dev),
+            "lm_head": _leaf_to_torch(head, dev),
+            "final_norm": _tree_map(lambda a: _leaf_to_torch(a, dev),
+                                    tree["final_norm"]),
+            "layers": layers}
+
+
+def _check_stacked(cfg: ArchConfig, arr: np.ndarray) -> None:
+    if arr.ndim == 0 or arr.shape[0] != cfg.n_blocks:
+        raise ValueError(f"{cfg.name}: a block leaf of shape {arr.shape} is "
+                         f"not stacked over {cfg.n_blocks} blocks")

@@ -6,6 +6,10 @@
 //                                           gamma and/or beta)
 //   act_rows       <- `_gelu_kernel`, and the element-wise SFU_RELU /
 //                     SFU_RELU2 / SFU_SILU ops of the runtime
+//   rmsnorm_rows   <- `_rmsnorm_kernel` (src/repro/kernels/sfu.py:56;
+//                     x * rsqrt(sum(x^2)/N + eps) * gamma, fp32 or bf16
+//                     rows, fp32 gamma, fp32 arithmetic, output in x's
+//                     type)
 //
 // Bound on the H100: device-memory bytes (a few FLOP per element).  The
 // TPU kernels hold `block_rows` whole rows in VMEM and mask the lanes past
@@ -15,7 +19,16 @@
 // (max/sum/write or mean/var/write); rows of the paper workloads are at
 // most a few KB, so the re-reads hit L1/L2 and device memory sees about
 // one read and one write per element.
+//
+// rmsnorm serves the decoder's norms: rows of d_model (2560 for
+// qwen3-4b) and the q/k-norm rows of head_dim (128), 40 of them per
+// token and layer.  A 256-thread block on a 128-wide row would leave half
+// its threads idle and cost a block per row, so rows up to WARP_ROW_MAX
+// wide get one warp each (8 rows per block, shuffles only, no shared
+// memory); wider rows get the block-per-row kernel.  Bound: bytes, one
+// read and one write of the row (the second pass over the row hits L1).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -26,6 +39,17 @@ namespace {
 
 constexpr int ROW_THREADS = 256;
 constexpr int ACT_THREADS = 256;
+constexpr int WARP_ROW_MAX = 1024;
+constexpr int WARP_ROWS = 8;   // rows (warps) per block of the warp kernel
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
 
 template <bool IS_MAX>
 __device__ __forceinline__ float warp_reduce(float v) {
@@ -102,6 +126,66 @@ act_kernel(const float* __restrict__ x, float* __restrict__ y, size_t n,
   if (i < n) y[i] = activate(x[i], act);
 }
 
+// One warp per row, for rows of at most WARP_ROW_MAX elements.
+template <typename T>
+__global__ void __launch_bounds__(WARP_ROWS * 32)
+rmsnorm_warp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                    T* __restrict__ y, int R, int N, float eps) {
+  const int row = blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= R) return;   // whole warps leave together: no shuffle is cut
+  const T* xr = x + (size_t)row * N;
+  T* yr = y + (size_t)row * N;
+  float ss = 0.0f;
+  for (int j = lane; j < N; j += 32) {
+    const float v = to_f32(xr[j]);
+    ss += v * v;
+  }
+  const float r = rsqrtf(warp_reduce<false>(ss) / static_cast<float>(N) + eps);
+  for (int j = lane; j < N; j += 32) {
+    float v = to_f32(xr[j]) * r;
+    if (gamma != nullptr) v *= gamma[j];
+    store(yr + j, v);
+  }
+}
+
+// One block per row, for wider rows.
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                     T* __restrict__ y, int N, float eps) {
+  const T* xr = x + (size_t)blockIdx.x * N;
+  T* yr = y + (size_t)blockIdx.x * N;
+  float ss = 0.0f;
+  for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
+    const float v = to_f32(xr[j]);
+    ss += v * v;
+  }
+  const float r =
+      rsqrtf(block_reduce<false>(ss) / static_cast<float>(N) + eps);
+  for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
+    float v = to_f32(xr[j]) * r;
+    if (gamma != nullptr) v *= gamma[j];
+    store(yr + j, v);
+  }
+}
+
+template <typename T>
+int launch_rmsnorm(const void* x, const void* gamma, void* y, int R, int N,
+                   float eps, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const float* g = static_cast<const float*>(gamma);
+  T* yt = static_cast<T*>(y);
+  if (N <= WARP_ROW_MAX) {
+    rmsnorm_warp_kernel<T><<<(R + WARP_ROWS - 1) / WARP_ROWS,
+                             WARP_ROWS * 32, 0, s>>>(xt, g, yt, R, N, eps);
+  } else {
+    rmsnorm_block_kernel<T><<<R, ROW_THREADS, 0, s>>>(xt, g, yt, N, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes, all fp32 and contiguous.  Each returns
@@ -131,4 +215,15 @@ extern "C" int sfu_act_f32(const void* x, void* y, long long n, int act,
       static_cast<const float*>(x), static_cast<float*>(y),
       static_cast<size_t>(n), act);
   return static_cast<int>(cudaGetLastError());
+}
+
+// gamma may be null; x and y are fp32 (f32) or bf16 (bf16), gamma fp32.
+extern "C" int sfu_rmsnorm_f32(const void* x, const void* gamma, void* y,
+                               int R, int N, float eps, void* stream) {
+  return launch_rmsnorm<float>(x, gamma, y, R, N, eps, stream);
+}
+
+extern "C" int sfu_rmsnorm_bf16(const void* x, const void* gamma, void* y,
+                                int R, int N, float eps, void* stream) {
+  return launch_rmsnorm<__nv_bfloat16>(x, gamma, y, R, N, eps, stream);
 }

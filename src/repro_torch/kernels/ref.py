@@ -2,12 +2,16 @@
 
 Counterpart of ``repro.kernels.ref``.  Each function computes what its
 hand-written CUDA kernel computes, in fp32, written out step by step:
-the wrappers in ``flex_gemm.py`` / ``sfu.py`` use these for tensors on
-the CPU, and the tests and ``chip_smoke.py`` hold the kernels against
-them.  Nothing on the card's main path calls them.
+the wrappers in ``flex_gemm.py`` / ``sfu.py`` / ``flash_attention.py``
+use these for tensors on the CPU, and the tests and ``chip_smoke.py``
+hold the kernels against them.  On the card they run only where a caller
+asks for them by name (``plain=True`` of ``ops`` and the model code).
 
 Numerics follow the reference: GELU is the tanh form (``jax.nn.gelu``'s
-default and ``NonLinear.GELU``), layernorm uses the population variance.
+default and ``NonLinear.GELU``), layernorm uses the population variance,
+rmsnorm divides the sum of squares by the true width.  Attention follows
+the Pallas kernel where it and the jnp oracle differ (see
+``mha_attention``).
 """
 
 from __future__ import annotations
@@ -91,3 +95,57 @@ def layernorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
     if beta is not None:
         y = y + beta.float()
     return y.to(x.dtype)
+
+
+def rmsnorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x²) + eps) * gamma`` in fp32, in x's dtype."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    if gamma is not None:
+        y = y * gamma.float()
+    return y.to(x.dtype)
+
+
+# ----------------------------------------------------------- attention
+
+NEG_INF = -1e30     # the Pallas kernel's mask value (flash_attention.py:24)
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, kv_len: int | None = None
+                  ) -> torch.Tensor:
+    """Grouped-query attention as ``_attn_kernel`` computes it.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0; only the
+    first ``kv_len`` (default S) KV rows are read, as decode reads a
+    cache.  Scale 1/sqrt(D), fp32 arithmetic, output in q's dtype.
+    Query i sees key j when ``j <= i + (Skv - Sq)`` (causal) with
+    ``Skv = kv_len``.  Where it differs from the jnp oracle
+    ``repro.kernels.ref.mha_attention`` it follows the kernel: the causal
+    mask applies at every ``Sq`` (at ``Sq = 1`` the offset makes it
+    admit every key, so the two agree), masked scores are -1e30 and a
+    row with no visible key gives 0 where the oracle gives NaN.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
+    skv = k.shape[2] if kv_len is None else kv_len
+    group = Hq // Hkv
+    qf = q.float() * (1.0 / math.sqrt(D))
+    kf = k[:, :, :skv].float().repeat_interleave(group, dim=1)
+    vf = v[:, :, :skv].float().repeat_interleave(group, dim=1)
+    s = qf @ kf.transpose(-1, -2)                       # (B, Hq, Sq, Skv)
+    if causal:
+        qi = torch.arange(Sq, device=q.device)[:, None] + (skv - Sq)
+        ki = torch.arange(skv, device=q.device)[None, :]
+        mask = ki <= qi
+        s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True) if skv else s.sum(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if causal:
+        p = torch.where(mask, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (p @ vf) / torch.where(l == 0.0, 1.0, l)
+    return out.to(q.dtype)

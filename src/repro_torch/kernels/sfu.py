@@ -1,12 +1,15 @@
 """SFU row kernels: DORA's special-function unit (paper §3.5) on the H100.
 
 Replaces the Pallas TPU kernels of ``src/repro/kernels/sfu.py``
-(``_softmax_kernel``, ``_layernorm_kernel``, ``_gelu_kernel``) with the
-hand-written CUDA kernels of ``csrc/sfu.cu``: one block per row with
-warp-shuffle reductions over the row's true width, and one element-wise
-kernel for the runtime's GELU / ReLU / ReLU² / SiLU ops.  All are bound by
-device-memory bytes on the card.  fp32 in, fp32 out, as the runtime's LMU
-tiles are.
+(``_softmax_kernel``, ``_layernorm_kernel``, ``_gelu_kernel``,
+``_rmsnorm_kernel``) with the hand-written CUDA kernels of
+``csrc/sfu.cu``: one block per row with warp-shuffle reductions over the
+row's true width, one element-wise kernel for the runtime's GELU / ReLU
+/ ReLU² / SiLU ops, and rmsnorm with one warp per row up to 1024 wide
+(the decoder's q/k-norm rows of head_dim) and a block per wider row.  All
+are bound by device-memory bytes on the card.  softmax, layernorm and
+the activations take fp32, as the runtime's LMU tiles are; rmsnorm takes
+fp32 or bf16 rows (the decoder's activations) with an fp32 gamma.
 
 A tensor on the CPU goes to the plain version in ``ref``; a CUDA tensor
 goes to the kernel, or the call raises.
@@ -26,6 +29,8 @@ _SIGNATURES = {
     "sfu_softmax_f32": (_P, _P, _I, _I, _P),
     "sfu_layernorm_f32": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
     "sfu_act_f32": (_P, _P, ctypes.c_longlong, _I, _P),
+    "sfu_rmsnorm_f32": (_P, _P, _P, _I, _I, ctypes.c_float, _P),
+    "sfu_rmsnorm_bf16": (_P, _P, _P, _I, _I, ctypes.c_float, _P),
 }
 
 
@@ -114,6 +119,45 @@ def act_rows(x: torch.Tensor, act: str) -> torch.Tensor:
     return out
 
 
+def rmsnorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Row rmsnorm, ``x * rsqrt(sum(x²)/N + eps) * gamma``: x fp32 or
+    bf16, gamma fp32 (optional), fp32 arithmetic, output in x's dtype."""
+    if x.dim() != 2:
+        raise ValueError(f"rmsnorm_rows takes a 2-D (rows, cols) tensor, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rmsnorm_rows takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("rmsnorm_rows: x must be contiguous")
+    if gamma is not None:
+        if gamma.dtype != torch.float32 or tuple(gamma.shape) != (x.shape[1],):
+            raise ValueError(f"rmsnorm_rows: gamma must be float32 "
+                             f"({x.shape[1]},), got {gamma.dtype} "
+                             f"{tuple(gamma.shape)}")
+        if gamma.device != x.device or not gamma.is_contiguous():
+            raise ValueError("rmsnorm_rows: gamma must be contiguous, on "
+                             "x's device")
+    if x.device.type == "cpu":
+        return ref.rmsnorm_rows(x, gamma, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_rows runs on cuda (or cpu), not {x.device}")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    R, N = x.shape
+    fn = (_lib().sfu_rmsnorm_f32 if x.dtype == torch.float32
+          else _lib().sfu_rmsnorm_bf16)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), gamma.data_ptr() if gamma is not None else None,
+                 out.data_ptr(), R, N, eps, _stream(x))
+    _build.check(err, "rmsnorm_rows")
+    rmsnorm_rows.launches += 1
+    return out
+
+
 softmax_rows.launches = 0
 layernorm_rows.launches = 0
 act_rows.launches = 0
+rmsnorm_rows.launches = 0

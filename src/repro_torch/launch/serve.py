@@ -1,0 +1,153 @@
+"""Batched serving driver: static-batch prefill, then lock-step decode.
+
+Port of ``repro.launch.serve``.  Requests of different prompt lengths
+are left-padded with token 0 to the longest prompt and prefilled
+together with positions ``0 .. plen-1`` and no padding mask, so the
+padding is attended to, exactly as in the reference; the whole batch
+then decodes one token per step at ``pos = plen + t - 1``.  Sampling is
+greedy (``argmax``, the first maximum) or by temperature, drawn from a
+``torch.Generator`` seeded with 0 for each ``serve`` call (it cannot
+reproduce ``jax.random.categorical``'s bits).  One model replica on one
+device; there is no mesh (the multi-device layer is ROADMAP A.6).
+
+Run on the card:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..convert import resolve_device
+from ..models import lm
+from ..models.config import ArchConfig
+
+
+@dataclass
+class Request:
+    id: int
+    prompt: np.ndarray               # (len,) int32
+    max_new: int = 16
+    temperature: float = 0.0
+    tokens_out: list[int] = field(default_factory=list)
+
+
+class BatchServer:
+    """Fixed-slot batched decoder (one model replica on one device).
+
+    ``device=None`` means the CUDA card and raises without one.  The
+    parameters are drawn on the device from ``seed``, or taken from
+    ``params`` (e.g. ``convert.params_from_jax``), and cast once to the
+    compute dtype (``lm.cast_params``)."""
+
+    def __init__(self, cfg: ArchConfig, max_len: int = 256, seed: int = 0,
+                 device: str | torch.device | None = None,
+                 params: dict | None = None):
+        self.device = resolve_device(device)
+        lm.check_supported(cfg)
+        self.cfg = cfg
+        self.max_len = max_len
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = lm.init(cfg, gen, self.device)
+        self.params = lm.cast_params(cfg, params)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray,
+                gen: torch.Generator) -> np.ndarray:
+        greedy = logits.argmax(dim=-1).cpu().numpy()
+        if (temps <= 0).all():
+            return greedy
+        t = torch.as_tensor(np.maximum(temps, 1e-4), device=logits.device)
+        probs = torch.softmax(logits / t[:, None], dim=-1)
+        noisy = torch.multinomial(probs, 1, generator=gen)[:, 0].cpu().numpy()
+        return np.where(temps > 0, noisy, greedy)
+
+    def serve(self, requests: list[Request]) -> dict:
+        """Serve one batch; returns ``prefill_s``, ``decode_s``,
+        ``decode_tok_per_s`` (host clock around a device synchronize) and
+        ``outputs`` (request id -> generated token ids)."""
+        cfg, dev = self.cfg, self.device
+        B = len(requests)
+        plen = max(len(r.prompt) for r in requests)
+        max_new = max(r.max_new for r in requests)
+        if plen + max_new - 1 > self.max_len:
+            raise ValueError(f"prompt {plen} + {max_new} new tokens need "
+                             f"{plen + max_new - 1} cache rows; max_len is "
+                             f"{self.max_len}")
+        prompts = np.zeros((B, plen), np.int64)
+        for i, r in enumerate(requests):
+            prompts[i, plen - len(r.prompt):] = r.prompt   # left pad
+        tokens = torch.from_numpy(prompts).to(dev)
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cfg, self.params, tokens,
+                                   max_len=self.max_len)
+        self._sync()
+        t_prefill = time.perf_counter() - t0
+
+        temps = np.array([r.temperature for r in requests], np.float32)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tok = self._sample(logits, temps, gen)
+        for i, r in enumerate(requests):
+            r.tokens_out.append(int(tok[i]))
+        self._sync()
+        t0 = time.perf_counter()
+        ndec = 0
+        for t in range(1, max_new):
+            step = torch.from_numpy(tok[:, None].astype(np.int64)).to(dev)
+            logits, cache = lm.decode_step(cfg, self.params, cache, step,
+                                           plen + t - 1)
+            tok = self._sample(logits, temps, gen)
+            ndec += 1
+            for i, r in enumerate(requests):
+                if len(r.tokens_out) < r.max_new:
+                    r.tokens_out.append(int(tok[i]))
+        self._sync()
+        t_decode = time.perf_counter() - t0
+        return {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_tok_per_s": B * ndec / t_decode if ndec else 0.0,
+            "outputs": {r.id: r.tokens_out for r in requests},
+        }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's tiny same-family config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (raises without one)")
+    args = ap.parse_args()
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    server = BatchServer(cfg, max_len=128, device=args.device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size,
+                                    rng.integers(4, 24)).astype(np.int32),
+                    max_new=args.gen, temperature=0.7 * (i % 2))
+            for i in range(args.batch)]
+    stats = server.serve(reqs)
+    print(f"prefill {stats['prefill_s']:.3f}s, "
+          f"decode {stats['decode_tok_per_s']:.1f} tok/s")
+    for rid, toks in stats["outputs"].items():
+        print(f"  req {rid}: {toks[:12]}...")
+
+
+if __name__ == "__main__":
+    main()

@@ -117,14 +117,7 @@ COPIES = ("graph", "isa", "perf_model", "schedule", "partition", "milp",
 def _code(path):
     """The module's syntax tree without docstrings (comments are not in
     it): what the copy must keep equal to the reference."""
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        body = getattr(node, "body", None)
-        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
-                and isinstance(body[0].value, ast.Constant)
-                and isinstance(body[0].value.value, str)):
-            node.body = body[1:]
-    return ast.dump(tree)
+    return _code_tree(ast.parse(path.read_text()))
 
 
 @pytest.mark.parametrize("module", COPIES)
@@ -134,3 +127,37 @@ def test_numpy_core_modules_are_code_identical_copies(module):
     the byte-identical binaries above."""
     assert _code(SRC / "repro_torch" / "core" / f"{module}.py") == \
         _code(SRC / "repro" / "core" / f"{module}.py")
+
+
+CONFIG_COPIES = ["models/config"] + [
+    f"configs/{m}" for m in ("dbrx_132b", "internlm2_20b", "jamba_1_5_large",
+                             "llama4_maverick", "mamba2_2_7b", "nemotron_4_15b",
+                             "qwen1_5_4b", "qwen2_vl_2b", "qwen3_4b", "whisper_medium")]
+
+
+def _code_without_imports(path):
+    """``_code`` with the module's import statements left out: the copies
+    import ``ArchConfig`` from the port's package."""
+    tree = ast.parse(path.read_text())
+    tree.body = [n for n in tree.body
+                 if not isinstance(n, (ast.Import, ast.ImportFrom))]
+    return _code_tree(tree)
+
+
+def _code_tree(tree):
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", CONFIG_COPIES)
+def test_config_modules_are_code_identical_copies(module):
+    """``ArchConfig`` and the ten arch files carry the reference's code;
+    only their imports differ."""
+    port = _code_without_imports(SRC / "repro_torch" / f"{module}.py")
+    assert port == _code_without_imports(SRC / "repro" / f"{module}.py")
+    assert "ArchConfig" in (SRC / "repro_torch" / f"{module}.py").read_text()

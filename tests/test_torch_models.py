@@ -1,0 +1,255 @@
+"""The port's dense decoders against the JAX package's.
+
+Parameters come from ``repro.models.lm.init`` (the two RNGs never
+agree), with the norm gains and QKV biases perturbed so that ones and
+zeros hide nothing, and cross as numpy through ``params_from_jax``.
+Tokens come from seeded numpy.  Configs are the reduced ones (fp32
+compute); the JAX side runs its oracles, the port its plain versions on
+``device="cpu"``.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as REF_ARCH_IDS
+from repro.configs import get_config as ref_get_config
+from repro.models import lm as ref_lm
+from repro_torch.configs import ARCH_IDS, all_configs, get_config
+from repro_torch.convert import params_from_jax
+from repro_torch.models import lm
+
+DENSE = ["qwen3-4b", "qwen1.5-4b", "internlm2-20b", "nemotron-4-15b",
+         "qwen3-4b-gqa"]
+UNSUPPORTED = ["mamba2-2.7b", "jamba-1.5-large-398b",
+               "llama4-maverick-400b-a17b", "dbrx-132b", "whisper-medium",
+               "qwen2-vl-2b"]
+
+
+def _configs(arch):
+    """(port cfg, reference cfg), reduced; "qwen3-4b-gqa" is reduced
+    qwen3-4b with 2 KV heads for its 4 query heads (every reduced arch
+    has as many KV heads as query heads)."""
+    base = arch.removesuffix("-gqa")
+    cfg, rcfg = get_config(base, reduced=True), ref_get_config(base, reduced=True)
+    if arch.endswith("-gqa"):
+        cfg = dataclasses.replace(cfg, n_kv_heads=2)
+        rcfg = dataclasses.replace(rcfg, n_kv_heads=2)
+    return cfg, rcfg
+
+
+def _perturb(tree, rng, path=""):
+    if isinstance(tree, dict):
+        return {k: _perturb(v, rng, f"{path}/{k}") for k, v in tree.items()}
+    arr = np.asarray(tree)
+    leaf = path.rsplit("/", 1)[-1]
+    if "norm" in path or leaf in ("bq", "bk", "bv"):
+        arr = arr + rng.normal(scale=0.1, size=arr.shape).astype(arr.dtype)
+    return arr
+
+
+_PARAMS = {}
+
+
+def _params(arch):
+    """(port cfg, ref cfg, numpy tree, jax tree, port params on the CPU)."""
+    if arch not in _PARAMS:
+        cfg, rcfg = _configs(arch)
+        tree, _ = ref_lm.init(rcfg, jax.random.PRNGKey(3))
+        np_tree = _perturb(jax.tree.map(np.asarray, tree),
+                           np.random.default_rng(4))
+        _PARAMS[arch] = (cfg, rcfg, np_tree, jax.tree.map(jnp.asarray, np_tree),
+                         params_from_jax(cfg, np_tree, "cpu"))
+    return _PARAMS[arch]
+
+
+def _tokens(cfg, shape, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def _close(got, want, scale):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_logits_match_the_reference(arch):
+    cfg, rcfg, _, jp, p = _params(arch)
+    tok = _tokens(cfg, (2, 12), 5)
+    want, _ = ref_lm.forward(rcfg, jp, jnp.asarray(tok, jnp.int32))
+    got = lm.forward(cfg, p, torch.from_numpy(tok))
+    assert got.dtype == torch.float32
+    _close(got.numpy(), want, float(jnp.abs(want).max()))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_match_the_reference(arch):
+    cfg, rcfg, _, jp, p = _params(arch)
+    tok = _tokens(cfg, (2, 12), 6)
+    want, rcache = ref_lm.prefill(rcfg, jp, jnp.asarray(tok[:, :8], jnp.int32),
+                                  max_len=12)
+    got, cache = lm.prefill(cfg, p, torch.from_numpy(tok[:, :8]), max_len=12)
+    scale = float(jnp.abs(want).max())
+    _close(got.numpy(), want, scale)
+    for kv in ("k", "v"):
+        np.testing.assert_allclose(cache["pos0"][kv].numpy(),
+                                   np.asarray(rcache["pos0"][kv]),
+                                   rtol=1e-5, atol=1e-5)
+    for t in range(8, 12):
+        want, rcache = ref_lm.decode_step(
+            rcfg, jp, rcache, jnp.asarray(tok[:, t:t + 1], jnp.int32),
+            jnp.int32(t))
+        got, cache = lm.decode_step(cfg, p, cache,
+                                    torch.from_numpy(tok[:, t:t + 1]), t)
+        _close(got.numpy(), want, scale)
+
+
+def test_decode_consistency():
+    """Port of tests/test_models.py::test_decode_consistency on qwen3-4b:
+    prefill + decode steps give forward's logits, on the port's own
+    parameters."""
+    cfg = get_config("qwen3-4b", reduced=True)
+    B, S, Sp = 2, 12, 8
+    tok = torch.from_numpy(_tokens(cfg, (B, S), 1))
+    p = lm.init(cfg, torch.Generator().manual_seed(1), "cpu")
+    full = lm.forward(cfg, p, tok)
+    pre, cache = lm.prefill(cfg, p, tok[:, :Sp], max_len=S)
+    errs = [float((pre - full[:, Sp - 1]).abs().max())]
+    for t in range(Sp, S):
+        step, cache = lm.decode_step(cfg, p, cache, tok[:, t:t + 1], t)
+        errs.append(float((step - full[:, t]).abs().max()))
+    assert max(errs) < 2e-3, errs
+
+
+def test_init_has_the_reference_tree_and_shapes():
+    cfg, _, _, _, carried = _params("qwen3-4b")
+    own = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [shapes(v) for v in tree]
+        return (tuple(tree.shape), tree.dtype)
+
+    assert shapes(own) == shapes(carried)
+    assert len(own["layers"]) == cfg.n_layers
+    # the reference's scales: embed 0.02, lm_head 1/sqrt(d)
+    assert abs(float(own["embed"].std()) - 0.02) < 2e-3
+    assert abs(float(own["lm_head"].std()) - cfg.d_model ** -0.5) < 0.02
+
+
+def test_casting_once_at_load_gives_the_numbers_of_casting_at_use():
+    """bf16 compute: ``cast_params`` at load against the weights cast at
+    every use (the reference's ``.astype(x.dtype)``), bit for bit."""
+    cfg = dataclasses.replace(get_config("qwen3-4b", reduced=True),
+                              compute_dtype="bfloat16")
+    p = lm.init(cfg, torch.Generator().manual_seed(2), "cpu")
+    cast = lm.cast_params(cfg, p)
+    assert cast["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
+    assert cast["layers"][0]["attn"]["q_norm"].dtype == torch.float32
+    assert cast["layers"][0]["norm1"]["scale"].dtype == torch.float32
+    tok = torch.from_numpy(_tokens(cfg, (2, 6), 7))
+    assert torch.equal(lm.forward(cfg, p, tok), lm.forward(cfg, cast, tok))
+    pre, c1 = lm.prefill(cfg, p, tok, max_len=8)
+    pre_c, c2 = lm.prefill(cfg, cast, tok, max_len=8)
+    assert torch.equal(pre, pre_c)
+    assert c1["pos0"]["k"].dtype == torch.bfloat16
+    assert torch.equal(c1["pos0"]["k"], c2["pos0"]["k"])
+
+
+def test_params_from_jax_keeps_the_in_out_layout():
+    cfg, _, np_tree, _, p = _params("qwen3-4b")
+    wq = np_tree["blocks"]["pos0"]["attn"]["wq"]
+    assert wq.shape == (cfg.n_blocks, cfg.d_model, cfg.q_dim)
+    for b in range(cfg.n_blocks):
+        np.testing.assert_array_equal(p["layers"][b]["attn"]["wq"].numpy(),
+                                      wq[b])
+    with pytest.raises(ValueError):
+        params_from_jax(dataclasses.replace(cfg, n_layers=cfg.n_layers + 1),
+                        np_tree, "cpu")
+
+
+def _plain(value):
+    """A config field in a form both packages compare equal in: the
+    pattern's ``LayerPattern``s (two classes) as (name, fields)."""
+    if isinstance(value, tuple):
+        return tuple(_plain(v) for v in value)
+    if dataclasses.is_dataclass(value):
+        return (type(value).__name__, dataclasses.astuple(value))
+    return value
+
+
+def test_arch_configs_equal_the_reference_field_by_field():
+    assert ARCH_IDS == REF_ARCH_IDS
+    for reduced in (False, True):
+        configs = all_configs(reduced)
+        for arch in ARCH_IDS:
+            port, want = configs[arch], ref_get_config(arch, reduced)
+            fields = [f.name for f in dataclasses.fields(want)]
+            assert [f.name for f in dataclasses.fields(port)] == fields
+            for name in fields:
+                assert _plain(getattr(port, name)) == \
+                    _plain(getattr(want, name)), (arch, name)
+            for prop in ("n_blocks", "q_dim", "kv_dim", "ssm_inner",
+                         "is_encdec", "param_count", "active_param_count"):
+                got, ref = getattr(port, prop), getattr(want, prop)
+                if callable(got):
+                    got, ref = got(), ref()
+                assert got == ref, (arch, prop)
+    with pytest.raises(KeyError):
+        get_config("gpt-2")
+
+
+def test_qwen3_4b_is_served_at_its_published_width():
+    cfg = get_config("qwen3-4b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
+        (36, 2560, 32, 8, 128, 9728, 151936)
+    assert cfg.qk_norm and cfg.param_dtype == "float32" \
+        and cfg.compute_dtype == "bfloat16"
+    assert abs(cfg.param_count() - 4.41e9) < 0.01e9
+    lm.check_supported(cfg)
+
+
+@pytest.mark.parametrize("arch", UNSUPPORTED)
+def test_unported_archs_raise(arch):
+    cfg = get_config(arch, reduced=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        lm.init(cfg, torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        lm.forward(cfg, {}, torch.zeros(1, 2, dtype=torch.long))
+
+
+def test_every_norm_and_attention_goes_through_the_kernel_wrappers(monkeypatch):
+    """The call structure chip_smoke.py's launch counts derive from: per
+    prefill or decode step, 4 rmsnorm calls a layer (norm1, q-norm,
+    k-norm, norm2) plus the final norm, and one attention a layer; with
+    ``plain=True`` the wrappers are never called."""
+    from repro_torch.kernels import ops
+    calls = {"rmsnorm": 0, "attention": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(ops, "rmsnorm_rows", counted("rmsnorm", ops.rmsnorm_rows))
+    monkeypatch.setattr(ops, "flash_attention",
+                        counted("attention", ops.flash_attention))
+    cfg = get_config("qwen3-4b", reduced=True)
+    p = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.from_numpy(_tokens(cfg, (2, 9), 8))
+    for plain in (True, False):
+        _, cache = lm.prefill(cfg, p, tok[:, :6], max_len=9, plain=plain)
+        for t in range(6, 9):
+            lm.decode_step(cfg, p, cache, tok[:, t:t + 1], t, plain=plain)
+        steps = 0 if plain else 4
+        assert calls == {"rmsnorm": steps * (4 * cfg.n_layers + 1),
+                         "attention": steps * cfg.n_layers}

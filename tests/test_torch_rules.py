@@ -17,10 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import paper_models
-from repro_torch.convert import inputs_to_torch, resolve_device
+from repro_torch.configs import get_config, paper_models
+from repro_torch.convert import inputs_to_torch, params_from_jax, resolve_device
 from repro_torch.core import CompileOptions, DoraCompiler, DoraRuntime
 from repro_torch.kernels import _build
+from repro_torch.launch.serve import BatchServer
+from repro_torch.models import lm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -61,6 +63,13 @@ g = paper_models.get("BERT-S")
 res = DoraCompiler().compile(g, CompileOptions(engine="list"))
 out = DoraCompiler().execute(res, g.random_inputs(0), device="cpu")
 assert set(l.name for l in g.layers) <= set(out)
+import numpy as np
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import BatchServer, Request
+cfg = get_config("qwen3-4b", reduced=True)
+stats = BatchServer(cfg, max_len=16, device="cpu").serve(
+    [Request(0, np.arange(5, dtype=np.int32), 3)])
+assert len(stats["outputs"][0]) == 3
 print("ok")
 """
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -82,6 +91,15 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         inputs_to_torch(g.random_inputs(0), res.codegen.memmap)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
+    cfg = get_config("qwen3-4b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchServer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax(cfg, {})
     assert resolve_device("cpu") == torch.device("cpu")
 
 
