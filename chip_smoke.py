@@ -16,7 +16,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    and the main path's row shapes; ``rmsnorm_rows`` over the SFU shapes
    (fp32) and the serving rows (bf16), with and without gamma;
    ``flash_attention`` over the reference's attention shapes x causal
-   (fp32), its bf16 case, and qwen3-4b's prefill and decode shapes.
+   (fp32), its bf16 case, and qwen3-4b's prefill and decode shapes;
+   ``ssd`` over the reference's SSD sweep (fp32, chunks 32 and 64, from
+   zero and from an initial state, y and the final state), its tail case,
+   G > 1 with a tail, and mamba2-2.7b's prefill (bf16) and short-prompt
+   (fp32) shapes; ``rmsnorm_rows`` over mamba2-2.7b's gated-norm rows.
 4. DORA path: compiles paper workloads with ``DoraCompiler`` and runs
    each compiled binary through ``DoraCompiler.execute`` on the card from
    ``random_inputs(0)``: BERT-L and DeiT-L at full width, MLP-L (the one
@@ -30,19 +34,26 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 5. serving: ``repro_torch.launch.serve.BatchServer`` serves qwen3-4b at
    full width and depth (36 layers, d 2560, vocab 151,936, bf16 compute,
    random weights from seed 0) to 4 greedy requests of 512, 384, 200 and
-   37 prompt tokens, 32 new tokens each.  The rmsnorm and flash-attention
-   launch counts, zeroed just before, must equal what the model's call
-   structure gives (printed with its derivation).  The same weights then
-   run teacher-forced on the served tokens through the kernels and
-   through the plain versions (``plain=True``); every step's logits are
-   held by relative L2 (see ``SERVE_RTOL``).  qwen3-4b at full width,
-   4 layers, fp32 compute: prefill + decode held against ``forward``
-   (see ``FP32_DECODE_TOL``).
+   37 prompt tokens, 32 new tokens each.  The kernels' launch counts,
+   zeroed just before, must equal what the model's call structure gives
+   (printed with its derivation).  The same weights then run
+   teacher-forced on the served tokens through the kernels and through
+   the plain versions (``plain=True``); every step's logits are held by
+   relative L2 (see ``SERVE_RTOL``).  The prefill and a decode step are
+   timed (host clock) and profiled (device busy share, time by kernel).
+   qwen3-4b at full width, 4 layers, fp32 compute: prefill + decode held
+   against ``forward`` (see ``FP32_DECODE_TOL``).  Then, with qwen3-4b's
+   server freed, the same for mamba2-2.7b at full width and depth (64
+   SSM layers, d 2560, 80 SSD heads of 64, state 128, vocab 50,280)
+   on the same traffic, with ``SSM_RTOL`` for the logits, the same
+   weights cut to 8 layers (``SSM_SHALLOW_RTOL``), and its prefill once
+   more at fp32 compute and full depth, kernels against plain versions
+   (see ``SSM_FP32_RTOL``).
 6. timing: BERT-L's compile and execute seconds and its device time by
-   kernel (profiler); serving's prefill seconds and decode tokens/s, and
-   a profiled decode step; each kernel's device time at its main path's
+   kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
-   PyTorch library call and the card's bound.
+   PyTorch library call where one computes the same function, and the
+   card's bound.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -98,6 +109,44 @@ RMS_SERVING = [(2048, 2560), (65536, 128), (16384, 128), (4, 2560),
 # that forward; 2e-2 is the bound this check starts from for bf16, above
 # the worst step measured on the H100 (see PERF.md).
 SERVE_RTOL = 2e-2
+# mamba2-2.7b serving: the same traffic; an SSM cache holds a conv window
+# and a state per layer, whatever max_len is.
+SSM_ARCH = "mamba2-2.7b"
+# ssd: (B, S, H, P, G, N, chunk).  The reference's sweep
+# (tests/test_kernels.py:160-196) at chunks 32 and 64, its tail case
+# S = 100, and G > 1 with a tail, in fp32; mamba2-2.7b's own shapes are
+# derived from its config (see SSM_SHAPES in main).
+SSD_SHAPES = [(2, 128, 4, 16, 2, 8, 32), (2, 128, 4, 16, 2, 8, 64),
+              (1, 64, 2, 8, 1, 4, 32), (1, 64, 2, 8, 1, 4, 64),
+              (2, 256, 8, 32, 2, 16, 32), (2, 256, 8, 32, 2, 16, 64),
+              (1, 100, 2, 8, 1, 4, 64), (2, 77, 8, 32, 4, 16, 32)]
+# mamba2-2.7b's rmsnorm rows beyond qwen3-4b's: the gated norm (5120 wide)
+# of 4 x 512 prefill tokens and of 4 decode tokens.
+RMS_SSM = [(2048, 5120), (4, 5120)]
+# Kernels against plain versions on mamba2-2.7b, both bf16: each step's
+# logits by relative L2.  Far looser than SERVE_RTOL, and examined: the
+# SSD kernel and ssd_chunked sum in different fp32 orders, so their bf16
+# outputs differ by one ulp here and there (held element-wise in phase 3),
+# and 64 SSM layers of random bf16 weights carry such differences much
+# further than qwen3-4b's 36 attention layers do:
+# tests/test_torch_ssm.py::test_bf16_drift_grows_with_depth_and_fp32_holds
+# shows two fp32 orders of the same SSD drifting by several percent over
+# 64 bf16 layers at d_model 128, and by about 1e-5 in fp32.  So this bound
+# catches a gross fault only; SSM_SHALLOW_RTOL and SSM_FP32_RTOL below
+# are the sharper end-to-end checks.
+SSM_RTOL = 0.35
+# The same served weights cut to their first 8 layers, bf16, prefill
+# logits of the kernels against the plain versions by relative L2: the
+# CPU drift test above gives 0.0124 at 8 layers against 0.113 at 64
+# (d_model 128), so the 0.156 measured at full depth on the H100 scales to
+# about 0.017 here; 0.05 leaves 3x, where a fault in the SSD kernel's
+# decay or masking moves the logits by tens of percent.
+SSM_SHALLOW_LAYERS, SSM_SHALLOW_RTOL = 8, 0.05
+# The same weights at fp32 compute, full width and depth: prefill logits
+# of the kernels against the plain versions by relative L2.  fp32
+# reordering alone gives ~1e-5 over 64 layers (the test above); a 1 %
+# error in the decay gives tens of percent.
+SSM_FP32_RTOL = 1e-3
 # fp32 compute, 4 layers at full width: prefill + decode against forward,
 # |err| <= FP32_DECODE_TOL * max|logit| (tests/test_models.py holds the
 # reduced configs to 2e-3 absolute; logits here are of order 1-10).
@@ -115,6 +164,7 @@ REPLACES = {
     "sfu_act": "src/repro/kernels/sfu.py:67",
     "rmsnorm": "src/repro/kernels/sfu.py:56",
     "flash_attention": "src/repro/kernels/flash_attention.py:28",
+    "ssd": "src/repro/kernels/ssd.py:31",
 }
 SOURCES = {
     "flex_gemm": "src/repro_torch/kernels/csrc/flex_gemm.cu",
@@ -123,9 +173,10 @@ SOURCES = {
     "sfu_act": "src/repro_torch/kernels/csrc/sfu.cu",
     "rmsnorm": "src/repro_torch/kernels/csrc/sfu.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "ssd": "src/repro_torch/kernels/csrc/ssd.cu",
 }
 DORA_KERNELS = ("flex_gemm", "sfu_softmax", "sfu_layernorm", "sfu_act")
-SERVING_KERNELS = ("rmsnorm", "flash_attention")
+SERVING_KERNELS = ("rmsnorm", "flash_attention", "ssd")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -145,6 +196,22 @@ def causal_pairs(sq: int, skv: int) -> int:
     """(query, key) pairs a causal attention computes: row i sees
     keys 0 .. i + skv - sq."""
     return sum(max(0, min(skv, i + skv - sq + 1)) for i in range(sq))
+
+
+def ssd_work(B, S, H, P, G, N, chunk, esize) -> tuple[int, int]:
+    """(FLOPs, bytes) of the chunked SSD.  Per (row, chunk of true length
+    L): C Bᵀ and its product with X over the causal pairs only, L(L+1)/2
+    (N + P) multiply-adds (the pairs above the diagonal are 0 and need
+    none, as ``causal_pairs`` counts for attention), plus the readout of
+    the carried state and its update, 2LNP.  Bytes: x and y (``esize``
+    bytes an element), a (fp32) and b, c (once per group) read or written
+    once, plus the fp32 final state."""
+    lens = [min(chunk, S - s) for s in range(0, S, chunk)]
+    macs = B * H * sum(L * (L + 1) // 2 * (N + P) + 2 * L * N * P
+                       for L in lens)
+    nbytes = esize * (2 * B * S * H * P + 2 * B * S * G * N) \
+        + 4 * B * S * H + 4 * B * H * P * N
+    return 2 * macs, nbytes
 
 
 def rel_l2(got, want) -> float:
@@ -208,6 +275,7 @@ def main() -> None:
     from repro_torch.kernels.ref import EPILOGUES
     from repro_torch.kernels.sfu import (act_rows, layernorm_rows,
                                          rmsnorm_rows, softmax_rows)
+    from repro_torch.kernels.ssd import ssd
     from repro_torch.launch.serve import BatchServer, Request
     from repro_torch.models import lm
 
@@ -324,6 +392,41 @@ def main() -> None:
                 f"{dt}: max err {max_err(got, want)}")
         return max_err(got, want)
 
+    def ssd_inputs(B, S, H, P, G, N, dt):
+        """x ~ N(0, 1), b and c ~ N(0, 0.3²) in ``dt``; a in fp32 as
+        mamba2 makes it, -exp(A_log) dt with A_log's 1..16 over the heads
+        and dt in [0.005, 0.1]: the last heads decay by up to e^-1.6 a
+        step, so exp(acs) underflows within a chunk of 128."""
+        dts = torch.rand((B, S, H), generator=gen, device=dev) * 0.095 + 0.005
+        a = -torch.linspace(1.0, 16.0, H, device=dev)[None, None] * dts
+        return (randn(B, S, H, P, dtype=dt), a,
+                randn(B, S, G, N, dtype=dt, scale=0.3),
+                randn(B, S, G, N, dtype=dt, scale=0.3))
+
+    def check_ssd(B, S, H, P, G, N, chunk, dt) -> float:
+        """Max |kernel - plain| over y and the final state, from zero and
+        from an initial state, against ``ref.ssd_plain`` (the chunked
+        algorithm when S is a multiple of the chunk and longer, else the
+        recurrence).  y: fp32 to 1e-4 (reordered fp32 sums; the reference
+        holds its kernel to 5e-5 at unit-scale inputs), bf16 to that plus
+        one bf16 ulp (both compute in fp32 and round once); the fp32
+        state to 1e-4."""
+        x, a, b, c = ssd_inputs(B, S, H, P, G, N, dt)
+        rtol, atol = (1e-4, 1e-4) if dt == torch.float32 else (2 ** -7, 1e-4)
+        worst = 0.0
+        for init in (None, randn(B, H, P, N)):
+            (y, st), (yw, stw) = (
+                ssd(x, a, b, c, chunk=chunk, initial_state=init),
+                ref.ssd_plain(x, a, b, c, chunk=chunk, initial_state=init))
+            torch.cuda.synchronize()
+            require(y.dtype == dt and close(y, yw, rtol, atol)
+                    and close(st, stw, 1e-4, 1e-4),
+                    f"ssd {(B, S, H, P, G, N)} chunk {chunk} {dt} init="
+                    f"{init is not None}: max err y {max_err(y, yw)}, state "
+                    f"{max_err(st, stw)}")
+            worst = max(worst, max_err(y, yw), max_err(st, stw))
+        return worst
+
     for R, N in SFU_SHAPES:
         print(f"[check] rmsnorm {R}x{N} fp32: max err "
               f"{check_rmsnorm(R, N, torch.float32):.3g}")
@@ -333,6 +436,10 @@ def main() -> None:
               f"full {check_attention(*shape, False, torch.float32):.3g}")
     print(f"[check] flash_attention (1, 4, 2, 32, 64, 64) bf16 causal: max "
           f"err {check_attention(1, 4, 2, 32, 64, 64, True, torch.bfloat16):.3g}")
+    for *shape, chunk in SSD_SHAPES:
+        print(f"[check] ssd {tuple(shape)} chunk {chunk} fp32, from zero and "
+              f"from an initial state: max err (y, state) "
+              f"{check_ssd(*shape, chunk, torch.float32):.3g}")
 
     # every shape the main path gives each kernel, as its binaries give it
     # (fp32, the instruction's epilogue and accumulate flag); these errors
@@ -360,8 +467,9 @@ def main() -> None:
         e = check_sfu(kernel, R, N, form)
         errs[kernel] = max(errs[kernel], e)
         print(f"[check] main-path {op.name} {R}x{N}: max err {e:.3g}")
-    # every shape the serving path gives the two serving kernels (bf16)
-    for R, N in RMS_SERVING:
+    # every shape the serving paths give the serving kernels (bf16); ssd at
+    # mamba2-2.7b's prefill was checked above
+    for R, N in RMS_SERVING + RMS_SSM:
         errs["rmsnorm"] = max(errs["rmsnorm"],
                               check_rmsnorm(R, N, torch.bfloat16))
         print(f"[check] serving rmsnorm {R}x{N} bf16: max err so far "
@@ -378,11 +486,26 @@ def main() -> None:
         print(f"[check] serving flash_attention Sq={Sq} Skv={Skv} "
               f"{'causal' if causal else f'over a {rows}-row cache'} bf16: "
               f"max err {e:.3g}")
+    # mamba2-2.7b's shapes: the served prefill (bf16, the SSM block's
+    # chunk min(128, max(16, S))), the 4-layer fp32 check's prefill and
+    # forward, and a 37-token prompt
+    scfg = get_config(SSM_ARCH)
+    heads = (scfg.ssm_heads, scfg.ssm_head_dim, scfg.ssm_groups,
+             scfg.ssm_state)
+    ssm_prefill = (len(SERVE_PROMPTS), plen, *heads)
+    errs["ssd"] = check_ssd(*ssm_prefill, min(128, plen), torch.bfloat16)
+    print(f"[check] serving ssd {ssm_prefill} chunk {min(128, plen)} bf16, "
+          f"from zero and from an initial state: max err (y, state) "
+          f"{errs['ssd']:.3g}")
+    for S in (32, 48, 37):
+        print(f"[check] ssd {(2, S, *heads)} chunk {S} fp32: max err "
+              f"{check_ssd(2, S, *heads, S, torch.float32):.3g}")
 
     # ----------------------------------------------------------- DORA path
     counters = {"flex_gemm": flex_gemm, "sfu_softmax": softmax_rows,
                 "sfu_layernorm": layernorm_rows, "sfu_act": act_rows,
-                "rmsnorm": rmsnorm_rows, "flash_attention": flash_attention}
+                "rmsnorm": rmsnorm_rows, "flash_attention": flash_attention,
+                "ssd": ssd}
     whole = dict.fromkeys(counters, 0)     # launches over the whole script
 
     def zero_counts():
@@ -454,136 +577,6 @@ def main() -> None:
     del outputs
 
     # -------------------------------------------------------- serving path
-    t0 = time.perf_counter()
-    server = BatchServer(cfg, max_len=SERVE_MAX_LEN, seed=0)
-    torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B parameters "
-          f"drawn on the card and cast to {cfg.compute_dtype} in "
-          f"{time.perf_counter() - t0:.2f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in SERVE_PROMPTS]
-
-    def requests(max_new=SERVE_NEW):
-        return [Request(i, p, max_new) for i, p in enumerate(prompts)]
-
-    server.serve(requests(2))            # warm-up: cuBLAS plans, allocator
-    torch.cuda.synchronize()
-    # rmsnorm: norm1, norm2, and q-/k-norm when qk_norm, per layer, plus the
-    # final norm; attention: one per layer; per prefill and decode step
-    steps = SERVE_NEW
-    per_step = {"rmsnorm": (4 if cfg.qk_norm else 2) * cfg.n_layers + 1,
-                "flash_attention": cfg.n_layers}
-    expected = {k: 0 for k in counters} | {k: steps * n
-                                           for k, n in per_step.items()}
-    print(f"[serve] expected launches: 1 prefill + {steps - 1} decode steps "
-          f"= {steps} steps x (rmsnorm {per_step['rmsnorm']} = "
-          f"{4 if cfg.qk_norm else 2} x {cfg.n_layers} layers + 1 final; "
-          f"flash_attention {cfg.n_layers} = 1 x {cfg.n_layers} layers) = "
-          f"rmsnorm {expected['rmsnorm']}, flash_attention "
-          f"{expected['flash_attention']}; the DORA kernels 0")
-    zero_counts()
-    stats = server.serve(requests())
-    torch.cuda.synchronize()
-    serve_launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"[serve] launches over the serving path: {serve_launches}")
-    require(serve_launches == expected,
-            f"serving launches {serve_launches} differ from {expected}")
-    for k in SERVING_KERNELS:
-        launches[k] = serve_launches[k]
-    outs = stats["outputs"]
-    require(sorted(outs) == list(range(len(prompts)))
-            and all(len(t) == SERVE_NEW and all(0 <= x < cfg.vocab_size
-                                                for x in t)
-                    for t in outs.values()),
-            f"served outputs malformed: {outs}")
-    print(f"[serve] prefill {stats['prefill_s']} s, decode {stats['decode_s']} "
-          f"s = {stats['decode_tok_per_s']} tok/s ({len(prompts)} x "
-          f"{SERVE_NEW - 1} tokens, host clock around synchronize) on {smi}")
-    print(f"[serve] first tokens: " + "; ".join(
-        f"req {i}: {t[:8]}" for i, t in outs.items()))
-
-    # the same weights, teacher-forced on the served tokens, through the
-    # kernels and through the plain versions
-    B, plen = len(prompts), max(SERVE_PROMPTS)
-    padded = np.zeros((B, plen), np.int64)
-    for i, p in enumerate(prompts):
-        padded[i, plen - len(p):] = p
-    served = torch.tensor([outs[i] for i in range(B)], device=dev)
-    tokens = torch.from_numpy(padded).to(dev)
-    k_logits, k_cache = lm.prefill(cfg, server.params, tokens,
-                                   max_len=SERVE_MAX_LEN)
-    p_logits, p_cache = lm.prefill(cfg, server.params, tokens,
-                                   max_len=SERVE_MAX_LEN, plain=True)
-    errs_l2, agree = [], []
-    for t in range(SERVE_NEW):
-        require(bool(torch.isfinite(k_logits).all())
-                and k_logits.shape == (B, cfg.vocab_size),
-                f"step {t}: logits {tuple(k_logits.shape)} or non-finite")
-        require(torch.equal(k_logits.argmax(-1), served[:, t]),
-                f"step {t}: the kernels' greedy tokens differ from the "
-                f"served ones")
-        errs_l2.append(rel_l2(k_logits, p_logits))
-        agree.append(float((k_logits.argmax(-1) == p_logits.argmax(-1))
-                           .float().mean()))
-        if t + 1 < SERVE_NEW:
-            step = served[:, t:t + 1]
-            k_logits, k_cache = lm.decode_step(cfg, server.params, k_cache,
-                                               step, plen + t)
-            p_logits, p_cache = lm.decode_step(cfg, server.params, p_cache,
-                                               step, plen + t, plain=True)
-    del k_cache, p_cache
-    print(f"[serve] kernels vs plain versions, teacher-forced: logits rel L2 "
-          f"prefill {errs_l2[0]:.4g}, decode max {max(errs_l2[1:]):.4g} "
-          f"(step {int(np.argmax(errs_l2[1:])) + 1}), mean "
-          f"{float(np.mean(errs_l2[1:])):.4g}; greedy tokens agree on "
-          f"{float(np.mean(agree)):.1%} (limit rel L2 {SERVE_RTOL})")
-    require(max(errs_l2) <= SERVE_RTOL,
-            f"serving logits differ from the plain path: {errs_l2}")
-
-    # fp32 compute at full width, 4 layers: prefill + decode == forward
-    cfg32 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
-    p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(1), dev)
-    tok = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 48))).to(dev)
-    Sp = 32
-    full = lm.forward(cfg32, p32, tok)
-    plain_full = lm.forward(cfg32, p32, tok, plain=True)
-    pre, cache = lm.prefill(cfg32, p32, tok[:, :Sp], max_len=48)
-    errs32 = [float((pre - full[:, Sp - 1]).abs().max())]
-    for t in range(Sp, 48):
-        step, cache = lm.decode_step(cfg32, p32, cache, tok[:, t:t + 1], t)
-        errs32.append(float((step - full[:, t]).abs().max()))
-    scale = float(full.abs().max())
-    print(f"[serve] fp32 {cfg.name} at full width, 4 layers: prefill + "
-          f"{48 - Sp} decode steps vs forward: max |err| {max(errs32):.4g} "
-          f"(limit {FP32_DECODE_TOL} x max|logit| {scale:.4g} = "
-          f"{FP32_DECODE_TOL * scale:.4g}); forward kernels vs plain rel L2 "
-          f"{rel_l2(full, plain_full):.3g}")
-    require(max(errs32) <= FP32_DECODE_TOL * scale,
-            f"fp32 decode differs from forward: {errs32}")
-    require(rel_l2(full, plain_full) <= 1e-4,
-            "fp32 forward: kernels differ from the plain versions")
-    del p32, cache, full, plain_full
-
-    # -------------------------------------------------------------- timing
-    bert = paper_models.get("BERT-L")
-    t0 = time.perf_counter()
-    res = DoraCompiler().compile(bert, CompileOptions(engine="list"))
-    compile_s = time.perf_counter() - t0
-    DoraCompiler().execute(res, inputs["BERT-L"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    DoraCompiler().execute(res, inputs["BERT-L"])
-    torch.cuda.synchronize()
-    execute_s = time.perf_counter() - t0
-    print(f"[time] BERT-L on {kind} ({smi}): compile {compile_s} s "
-          f"(host), execute {execute_s} s (host clock around "
-          f"synchronize, after one warm-up run), "
-          f"{bert.total_flops / execute_s / 1e12:.4f} TFLOP/s")
     def device_profile(label, fn, host_s):
         """Device time by kernel over one call of ``fn`` (CUPTI trace),
         beside ``host_s``, the same call's unprofiled host time."""
@@ -607,14 +600,9 @@ def main() -> None:
         for t, n, key in by_kernel[:8]:
             print(f"[profile]   {t / 1e3:.4f} ms in {n} launches: {key[:90]}")
 
-    # where BERT-L's execute time goes
-    device_profile("BERT-L execute",
-                   lambda: DoraCompiler().execute(res, inputs["BERT-L"]),
-                   execute_s)
-
-    # where serving's time goes: one prefill and one decode step of the
-    # served batch, each timed unprofiled after a warm-up call
     def host_s(fn):
+        """Host seconds of one call of ``fn`` after a warm-up call, up to a
+        synchronize."""
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -622,25 +610,235 @@ def main() -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    _, cache = lm.prefill(cfg, server.params, tokens, max_len=SERVE_MAX_LEN)
-    prefill_fn = lambda: lm.prefill(cfg, server.params, tokens,  # noqa: E731
-                                    max_len=SERVE_MAX_LEN)
-    decode_fn = lambda: lm.decode_step(  # noqa: E731
-        cfg, server.params, cache, served[:, :1], plen)
-    prefill_s, decode_s = host_s(prefill_fn), host_s(decode_fn)
-    weight_bytes = sum(t.numel() * t.element_size() for t in
-                       (server.params["lm_head"],
-                        *(w for lp in server.params["layers"]
-                          for sub in lp.values() for w in sub.values())))
-    print(f"[time] {cfg.name} serving on {smi}: prefill {B}x{plen} "
-          f"{prefill_s} s, one decode step {decode_s * 1e3:.4f} ms "
-          f"({B / decode_s:.1f} tok/s); the step reads at least "
-          f"{weight_bytes / 1e9:.3f} GB of bf16 weights, "
-          f"{1e3 * weight_bytes / bw_peak:.4f} ms at the memory rate")
-    device_profile(f"{cfg.name} prefill {B}x{plen}", prefill_fn, prefill_s)
-    device_profile(f"{cfg.name} decode step at pos {plen}", decode_fn,
-                   decode_s)
-    del cache
+    def serve_model(cfg, per_step, per_prefill, derivation, rtol, shape):
+        """Serves ``cfg`` at full width and depth on the card: builds the
+        server, checks the counted serve's launches against ``per_step``
+        (kernel -> launches per prefill or decode step) and
+        ``per_prefill`` (kernel -> launches in the prefill only), printed
+        with ``derivation``, the teacher-forced logits of the kernels against
+        the plain versions (relative L2 <= ``rtol``), and times a prefill
+        and a decode step.  Returns the server, the padded prompts and the
+        served tokens."""
+        t0 = time.perf_counter()
+        server = BatchServer(cfg, max_len=SERVE_MAX_LEN, seed=0)
+        torch.cuda.synchronize()
+        print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+              f"{shape}, vocab {cfg.vocab_size}, "
+              f"{cfg.param_count() / 1e9:.3f} B parameters drawn on the card "
+              f"and cast to {cfg.compute_dtype} in "
+              f"{time.perf_counter() - t0:.2f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in SERVE_PROMPTS]
+
+        def requests(max_new=SERVE_NEW):
+            return [Request(i, p, max_new) for i, p in enumerate(prompts)]
+
+        server.serve(requests(2))        # warm-up: cuBLAS plans, allocator
+        torch.cuda.synchronize()
+        steps = SERVE_NEW
+        expected = {k: 0 for k in counters} | {
+            k: steps * n for k, n in per_step.items()} | per_prefill
+        print(f"[serve] {cfg.name} expected launches: 1 prefill + "
+              f"{steps - 1} decode steps = {steps} steps {derivation} = "
+              + ", ".join(f"{k} {expected[k]}"
+                          for k in {**per_step, **per_prefill})
+              + "; the other kernels 0")
+        zero_counts()
+        stats = server.serve(requests())
+        torch.cuda.synchronize()
+        serve_launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"[serve] launches over {cfg.name}'s serving path: "
+              f"{serve_launches}")
+        require(serve_launches == expected,
+                f"serving launches {serve_launches} differ from {expected}")
+        for k in SERVING_KERNELS:
+            launches[k] += serve_launches[k]
+        outs = stats["outputs"]
+        require(sorted(outs) == list(range(len(prompts)))
+                and all(len(t) == SERVE_NEW and all(0 <= x < cfg.vocab_size
+                                                    for x in t)
+                        for t in outs.values()),
+                f"served outputs malformed: {outs}")
+        print(f"[serve] {cfg.name}: prefill {stats['prefill_s']} s, decode "
+              f"{stats['decode_s']} s = {stats['decode_tok_per_s']} tok/s "
+              f"({len(prompts)} x {SERVE_NEW - 1} tokens, host clock around "
+              f"synchronize) on {smi}")
+        print(f"[serve] first tokens: " + "; ".join(
+            f"req {i}: {t[:8]}" for i, t in outs.items()))
+
+        # the same weights, teacher-forced on the served tokens, through the
+        # kernels and through the plain versions
+        B, plen = len(prompts), max(SERVE_PROMPTS)
+        padded = np.zeros((B, plen), np.int64)
+        for i, p in enumerate(prompts):
+            padded[i, plen - len(p):] = p
+        served = torch.tensor([outs[i] for i in range(B)], device=dev)
+        tokens = torch.from_numpy(padded).to(dev)
+        k_logits, k_cache = lm.prefill(cfg, server.params, tokens,
+                                       max_len=SERVE_MAX_LEN)
+        p_logits, p_cache = lm.prefill(cfg, server.params, tokens,
+                                       max_len=SERVE_MAX_LEN, plain=True)
+        errs_l2, agree = [], []
+        for t in range(SERVE_NEW):
+            require(bool(torch.isfinite(k_logits).all())
+                    and k_logits.shape == (B, cfg.vocab_size),
+                    f"step {t}: logits {tuple(k_logits.shape)} or non-finite")
+            require(torch.equal(k_logits.argmax(-1), served[:, t]),
+                    f"step {t}: the kernels' greedy tokens differ from the "
+                    f"served ones")
+            errs_l2.append(rel_l2(k_logits, p_logits))
+            agree.append(float((k_logits.argmax(-1) == p_logits.argmax(-1))
+                               .float().mean()))
+            if t + 1 < SERVE_NEW:
+                step = served[:, t:t + 1]
+                k_logits, k_cache = lm.decode_step(cfg, server.params,
+                                                   k_cache, step, plen + t)
+                p_logits, p_cache = lm.decode_step(cfg, server.params,
+                                                   p_cache, step, plen + t,
+                                                   plain=True)
+        del k_cache, p_cache
+        print(f"[serve] {cfg.name} kernels vs plain versions, teacher-forced: "
+              f"logits rel L2 prefill {errs_l2[0]:.4g}, decode max "
+              f"{max(errs_l2[1:]):.4g} (step {int(np.argmax(errs_l2[1:])) + 1}"
+              f"), mean {float(np.mean(errs_l2[1:])):.4g}; greedy tokens agree "
+              f"on {float(np.mean(agree)):.1%} (limit rel L2 {rtol})")
+        require(max(errs_l2) <= rtol,
+                f"serving logits differ from the plain path: {errs_l2}")
+
+        # where serving's time goes: one prefill and one decode step of the
+        # served batch, each timed unprofiled after a warm-up call
+        _, cache = lm.prefill(cfg, server.params, tokens,
+                              max_len=SERVE_MAX_LEN)
+        prefill_fn = lambda: lm.prefill(  # noqa: E731
+            cfg, server.params, tokens, max_len=SERVE_MAX_LEN)
+        decode_fn = lambda: lm.decode_step(  # noqa: E731
+            cfg, server.params, cache, served[:, :1], plen)
+        prefill_s, decode_s = host_s(prefill_fn), host_s(decode_fn)
+        weight_bytes = sum(t.numel() * t.element_size() for t in
+                           (server.params["lm_head"],
+                            *(w for lp in server.params["layers"]
+                              for sub in lp.values() for w in sub.values())))
+        print(f"[time] {cfg.name} serving on {smi}: prefill {B}x{plen} "
+              f"{prefill_s} s, one decode step {decode_s * 1e3:.4f} ms "
+              f"({B / decode_s:.1f} tok/s); the step reads at least "
+              f"{weight_bytes / 1e9:.3f} GB of bf16 weights, "
+              f"{1e3 * weight_bytes / bw_peak:.4f} ms at the memory rate")
+        device_profile(f"{cfg.name} prefill {B}x{plen}", prefill_fn,
+                       prefill_s)
+        device_profile(f"{cfg.name} decode step at pos {plen}", decode_fn,
+                       decode_s)
+        del cache
+        return server, tokens, served
+
+    def fp32_decode_check(cfg):
+        """fp32 compute at full width, 4 layers: prefill of 32 tokens + 16
+        decode steps == forward of 48, and forward through the kernels ==
+        through the plain versions."""
+        cfg32 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
+        p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(1), dev)
+        tok = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 48))).to(dev)
+        Sp = 32
+        full = lm.forward(cfg32, p32, tok)
+        plain_full = lm.forward(cfg32, p32, tok, plain=True)
+        pre, cache = lm.prefill(cfg32, p32, tok[:, :Sp], max_len=48)
+        errs32 = [float((pre - full[:, Sp - 1]).abs().max())]
+        for t in range(Sp, 48):
+            step, cache = lm.decode_step(cfg32, p32, cache, tok[:, t:t + 1], t)
+            errs32.append(float((step - full[:, t]).abs().max()))
+        scale = float(full.abs().max())
+        print(f"[serve] fp32 {cfg.name} at full width, 4 layers: prefill + "
+              f"{48 - Sp} decode steps vs forward: max |err| "
+              f"{max(errs32):.4g} (limit {FP32_DECODE_TOL} x max|logit| "
+              f"{scale:.4g} = {FP32_DECODE_TOL * scale:.4g}); forward kernels "
+              f"vs plain rel L2 {rel_l2(full, plain_full):.3g}")
+        require(max(errs32) <= FP32_DECODE_TOL * scale,
+                f"fp32 decode differs from forward: {errs32}")
+        require(rel_l2(full, plain_full) <= 1e-4,
+                "fp32 forward: kernels differ from the plain versions")
+
+    # qwen3-4b: rmsnorm for norm1, norm2, and q-/k-norm when qk_norm, per
+    # layer, plus the final norm; attention: one per layer; per prefill and
+    # decode step
+    norms = 4 if cfg.qk_norm else 2
+    server, tokens, served = serve_model(
+        cfg, {"rmsnorm": norms * cfg.n_layers + 1,
+              "flash_attention": cfg.n_layers}, {},
+        f"x (rmsnorm {norms * cfg.n_layers + 1} = {norms} x {cfg.n_layers} "
+        f"layers + 1 final; flash_attention {cfg.n_layers} = 1 x "
+        f"{cfg.n_layers} layers)", SERVE_RTOL,
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}")
+    fp32_decode_check(cfg)
+    B = len(SERVE_PROMPTS)
+    del server, tokens, served
+    torch.cuda.empty_cache()
+
+    # mamba2-2.7b: rmsnorm for norm1 and the gated norm per layer, plus the
+    # final norm, per step; ssd once per layer in prefill only (decode
+    # updates the state in plain PyTorch, as the reference does)
+    sserver, stokens, _ = serve_model(
+        scfg, {"rmsnorm": 2 * scfg.n_layers + 1}, {"ssd": scfg.n_layers},
+        f"x (rmsnorm {2 * scfg.n_layers + 1} = 2 x {scfg.n_layers} layers + "
+        f"1 final); ssd 1 x {scfg.n_layers} layers in the prefill only",
+        SSM_RTOL,
+        f"{scfg.ssm_heads} SSD heads of {scfg.ssm_head_dim}, state "
+        f"{scfg.ssm_state}, groups {scfg.ssm_groups}, no FFN")
+    # the served weights cut to their first layers: less depth to carry
+    # the bf16 ulps, so a tighter bound on the kernels against plain
+    scfg_s = dataclasses.replace(scfg, n_layers=SSM_SHALLOW_LAYERS)
+    p_s = {**sserver.params,
+           "layers": sserver.params["layers"][:SSM_SHALLOW_LAYERS]}
+    k_logits, _ = lm.prefill(scfg_s, p_s, stokens, max_len=SERVE_MAX_LEN)
+    p_logits, _ = lm.prefill(scfg_s, p_s, stokens, max_len=SERVE_MAX_LEN,
+                             plain=True)
+    e_s = rel_l2(k_logits, p_logits)
+    print(f"[serve] bf16 {scfg.name}, the served weights' first "
+          f"{SSM_SHALLOW_LAYERS} layers: prefill logits kernels vs plain "
+          f"rel L2 {e_s:.4g} (limit {SSM_SHALLOW_RTOL})")
+    require(bool(torch.isfinite(k_logits).all()) and e_s <= SSM_SHALLOW_RTOL,
+            f"bf16 {scfg.name}, {SSM_SHALLOW_LAYERS} layers: kernels differ "
+            f"from the plain versions: {e_s}")
+    del sserver, p_s, k_logits, p_logits
+    torch.cuda.empty_cache()
+    # the same weights at fp32 compute and full depth: prefill of the
+    # served prompts through the kernels against the plain versions
+    scfg32 = dataclasses.replace(scfg, compute_dtype="float32")
+    p32 = lm.init(scfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    k_logits, _ = lm.prefill(scfg32, p32, stokens, max_len=SERVE_MAX_LEN)
+    p_logits, _ = lm.prefill(scfg32, p32, stokens, max_len=SERVE_MAX_LEN,
+                             plain=True)
+    e32 = rel_l2(k_logits, p_logits)
+    print(f"[serve] fp32 {scfg.name} at full width and depth: prefill "
+          f"{tuple(stokens.shape)} logits kernels vs plain rel L2 {e32:.4g} "
+          f"(limit {SSM_FP32_RTOL}); greedy tokens agree on "
+          f"{float((k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean()):.1%}")
+    require(bool(torch.isfinite(k_logits).all()) and e32 <= SSM_FP32_RTOL,
+            f"fp32 {scfg.name}: kernels differ from the plain versions: {e32}")
+    del p32, k_logits, p_logits
+    torch.cuda.empty_cache()
+    fp32_decode_check(scfg)
+
+    # -------------------------------------------------------------- timing
+    bert = paper_models.get("BERT-L")
+    t0 = time.perf_counter()
+    res = DoraCompiler().compile(bert, CompileOptions(engine="list"))
+    compile_s = time.perf_counter() - t0
+    DoraCompiler().execute(res, inputs["BERT-L"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    DoraCompiler().execute(res, inputs["BERT-L"])
+    torch.cuda.synchronize()
+    execute_s = time.perf_counter() - t0
+    print(f"[time] BERT-L on {kind} ({smi}): compile {compile_s} s "
+          f"(host), execute {execute_s} s (host clock around "
+          f"synchronize, after one warm-up run), "
+          f"{bert.total_flops / execute_s / 1e12:.4f} TFLOP/s")
+    # where BERT-L's execute time goes
+    device_profile("BERT-L execute",
+                   lambda: DoraCompiler().execute(res, inputs["BERT-L"]),
+                   execute_s)
 
     # flex_gemm at the BERT-L tile shape that carries the most FLOPs
     tile_flops = {}
@@ -662,7 +860,9 @@ def main() -> None:
     qp = randn(B, cfg.n_heads, plen, cfg.head_dim, dtype=torch.bfloat16)
     kp, vp = (randn(B, cfg.n_kv_heads, plen, cfg.head_dim,
                     dtype=torch.bfloat16) for _ in range(2))
-    # name: (shape, kernel, plain version, one library call, FLOPs,
+    # ssd at mamba2-2.7b's prefill (bf16, chunk 128)
+    ssd_in = ssd_inputs(*ssm_prefill, torch.bfloat16)
+    # name: (shape, kernel, plain version, one library call or None, FLOPs,
     #        bytes moved: each input read once, each output written once,
     #        the peak FLOP/s of the operations' type)
     rows = {
@@ -699,23 +899,34 @@ def main() -> None:
                                                    enable_gqa=True),
             4 * cfg.head_dim * B * cfg.n_heads * causal_pairs(plen, plen),
             2 * (2 * qp.numel() + 2 * kp.numel())),
+        # no single PyTorch call computes the SSD scan: library_ms is null
+        "ssd": (
+            f"{ssm_prefill} chunk 128 bf16 (mamba2-2.7b prefill)",
+            lambda: ssd(*ssd_in, chunk=128),
+            lambda: ref.ssd_chunked(*ssd_in, chunk=128), None,
+            *ssd_work(*ssm_prefill, 128, 2)),
     }
     ops_peak = {"flash_attention": bf16_peak}   # else fp32_peak
 
     def report(name, shape, kernel, plain, library, flops, nbytes, peak):
-        (ms, ms_b2b), (plain_ms, plain_b2b), (lib_ms, lib_b2b) = (
-            cuda_ms(torch, fn) for fn in (kernel, plain, library))
+        (ms, ms_b2b), (plain_ms, plain_b2b) = (
+            cuda_ms(torch, fn) for fn in (kernel, plain))
+        lib_ms, lib_b2b = cuda_ms(torch, library) if library else (None, None)
         t_ops, t_bytes = flops / peak, nbytes / bw_peak
         bound_ms = 1e3 * max(t_ops, t_bytes)
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        lib = ("library none" if library is None else
+               f"library {lib_ms:.4f}")
+        lib_b = "" if library is None else f", library {lib_b2b:.4f}"
         print(f"[time] {name} {shape}: device ms: kernel {ms:.4f}, plain "
-              f"{plain_ms:.4f}, library {lib_ms:.4f}, bound {bound_ms:.4f} "
-              f"({bound_by}); back-to-back ms: kernel {ms_b2b:.4f}, plain "
-              f"{plain_b2b:.4f}, library {lib_b2b:.4f}; on {smi}")
+              f"{plain_ms:.4f}, {lib}, bound {bound_ms:.4f} ({bound_by}, "
+              f"{flops / 1e9:.4g} GFLOP, {nbytes / 1e6:.4g} MB); "
+              f"back-to-back ms: kernel {ms_b2b:.4f}, plain {plain_b2b:.4f}"
+              f"{lib_b}; on {smi}")
         return ms, plain_ms, lib_ms, bound_ms, bound_by
 
     # the serving kernels' other shapes, printed only
-    for R, N in RMS_SERVING[1:]:
+    for R, N in RMS_SERVING[1:] + RMS_SSM:
         x, g = randn(R, N, dtype=torch.bfloat16), randn(N)
         gl = g.to(torch.bfloat16)
         report("rmsnorm", f"{R}x{N} bf16 +gamma", lambda: rmsnorm_rows(x, g),
@@ -735,6 +946,13 @@ def main() -> None:
            4 * cfg.head_dim * B * cfg.n_heads * skv,
            2 * (2 * qd.numel() + 2 * B * cfg.n_kv_heads * skv * cfg.head_dim),
            bf16_peak)
+    # ssd at the 4-layer fp32 check's prefill and forward (S = 32, 48)
+    for S in (32, 48):
+        shape = (2, S, *ssm_prefill[2:])
+        xs = ssd_inputs(*shape, torch.float32)
+        report("ssd", f"{shape} chunk {S} fp32",
+               lambda: ssd(*xs, chunk=S), lambda: ref.ssd_plain(*xs, chunk=S),
+               None, *ssd_work(*shape, S, 4), fp32_peak)
     xg = randn(512, 3072)
     gelu, gelu_lib = (cuda_ms(torch, lambda: act_rows(xg, "gelu")),
                       cuda_ms(torch, lambda: F.gelu(xg, approximate="tanh")))

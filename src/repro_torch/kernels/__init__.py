@@ -4,6 +4,7 @@ flex_gemm        — dynamic-loop-bound GEMM (the paper's MMU, §3.3)
 sfu              — row softmax / layernorm / rmsnorm and element-wise
                    activations (§3.5)
 flash_attention  — GQA attention with an online softmax (serving)
+ssd              — the Mamba-2 chunked SSD scan (SSM prefill)
 ops              — the model code's entry points (leading dims flattened)
 
 Sources live in ``csrc/`` and are built by ``_build`` at first use.
@@ -13,3 +14,4 @@ from . import ref
 from .flex_gemm import flex_gemm
 from .flash_attention import flash_attention
 from .sfu import act_rows, layernorm_rows, rmsnorm_rows, softmax_rows
+from .ssd import ssd

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("flex_gemm", "sfu", "flash_attention")
+SOURCES = ("flex_gemm", "sfu", "flash_attention", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # activation codes of csrc/act.cuh

@@ -11,7 +11,11 @@ Numerics follow the reference: GELU is the tanh form (``jax.nn.gelu``'s
 default and ``NonLinear.GELU``), layernorm uses the population variance,
 rmsnorm divides the sum of squares by the true width.  Attention follows
 the Pallas kernel where it and the jnp oracle differ (see
-``mha_attention``).
+``mha_attention``).  The SSD functions
+(``ssd_scan``, ``ssd_chunked``, ``ssd_decode_step``) copy the
+reference's contract, ``(B, S, H, P)`` heads over ``(B, S, G, N)``
+groups returning ``(y, final_state)``; ``ssd_plain`` is the choice
+between the first two that the reference's ``ops.ssd`` makes.
 """
 
 from __future__ import annotations
@@ -149,3 +153,121 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True)
     out = (p @ vf) / torch.where(l == 0.0, 1.0, l)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------- mamba2 ssd
+
+def _ssd_heads(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """b, c (..., G, N) as fp32 per head (..., H, N): head h reads group
+    ``h // (H / G)``, as ``jnp.repeat`` along the group axis gives."""
+    H, G = x.shape[-2], b.shape[-2]
+    if H % G:
+        raise ValueError(f"{H} heads do not group over {G} state groups")
+    rep = H // G
+    return (b.float().repeat_interleave(rep, dim=-2),
+            c.float().repeat_interleave(rep, dim=-2))
+
+
+def _ssd_state0(x: torch.Tensor, N: int,
+                initial_state: torch.Tensor | None) -> torch.Tensor:
+    B, _, H, P = x.shape
+    if initial_state is None:
+        return torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    return initial_state.float()
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, *, initial_state: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 state-space duality by the plain recurrence.
+
+    x: (B, S, H, P) per-head inputs; a: (B, S, H) log-decay (a <= 0);
+    b, c: (B, S, G, N) with H % G == 0; initial_state (B, H, P, N).
+    ``state[t] = exp(a[t]) state[t-1] + x[t] b[t]ᵀ``, ``y[t] = state[t]
+    c[t]``.  fp32 arithmetic; returns (y in x's dtype, the fp32 state
+    after the last position).
+    """
+    bf, cf = _ssd_heads(x, b, c)
+    xf, af = x.float(), a.float()
+    state = _ssd_state0(x, b.shape[-1], initial_state)
+    ys = []
+    for t in range(x.shape[1]):
+        state = (torch.exp(af[:, t])[:, :, None, None] * state
+                 + xf[:, t, :, :, None] * bf[:, t, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.clone()
+    return y.to(x.dtype), state
+
+
+def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, *, chunk: int = 64,
+                initial_state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD algorithm of the kernel, with the contract of
+    ``ssd_scan`` (S a multiple of ``chunk``): per chunk the
+    attention-like intra-chunk term ``((C Bᵀ) ∘ L) X`` with ``L[t, s] =
+    exp(acs[t] - acs[s])`` for s <= t, plus the inter-chunk term
+    ``exp(acs[t]) · C S_prevᵀ``; the chunk states chain by a recurrence
+    over the chunks."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    if S % chunk:
+        raise ValueError(f"ssd_chunked: S {S} is not a multiple of chunk "
+                         f"{chunk}")
+    nc = S // chunk
+    bh, ch = _ssd_heads(x, b, c)
+    xf = x.float().reshape(B, nc, chunk, H, P)
+    af = a.float().reshape(B, nc, chunk, H)
+    bf = bh.reshape(B, nc, chunk, H, N)
+    cf = ch.reshape(B, nc, chunk, H, N)
+
+    acs = torch.cumsum(af, dim=2)                          # (B,nc,L,H)
+    seg = acs[:, :, :, None, :] - acs[:, :, None, :, :]    # (B,nc,L,L,H)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()
+    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+
+    cb = torch.einsum("bnthi,bnshi->bnhts", cf, bf)        # (B,nc,H,L,L)
+    y_diag = torch.einsum("bnhts,bnshp->bnthp", cb * L.movedim(-1, 2), xf)
+
+    decay_out = torch.exp(acs[:, :, -1:, :] - acs)         # (B,nc,L,H)
+    states = torch.einsum("bnsh,bnshi,bnshp->bnhpi", decay_out, bf, xf)
+    chunk_decay = torch.exp(acs[:, :, -1, :])              # (B,nc,H)
+    state = _ssd_state0(x, N, initial_state)
+    prevs = []
+    for n in range(nc):
+        prevs.append(state)        # the state entering chunk n
+        state = chunk_decay[:, n, :, None, None] * state + states[:, n]
+    prev = torch.stack(prevs, dim=1)                       # (B,nc,H,P,N)
+
+    y_off = torch.einsum("bnthi,bnhpi,bnth->bnthp", cf, prev, torch.exp(acs))
+    y = (y_diag + y_off).reshape(B, S, H, P)
+    return y.to(x.dtype), state
+
+
+def ssd_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, *, chunk: int = 128,
+              initial_state: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain side of ``ops.ssd``, chosen as the reference chooses
+    (``src/repro/kernels/ops.py:127-131``): the chunked algorithm when S
+    is a multiple of ``chunk`` and longer than it, else the recurrence."""
+    S = x.shape[1]
+    if S % chunk == 0 and S > chunk:
+        return ssd_chunked(x, a, b, c, chunk=chunk,
+                           initial_state=initial_state)
+    return ssd_scan(x, a, b, c, initial_state=initial_state)
+
+
+def ssd_decode_step(x_t: torch.Tensor, a_t: torch.Tensor, b_t: torch.Tensor,
+                    c_t: torch.Tensor, state: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token of SSD: x_t (B, H, P), a_t (B, H), b_t / c_t (B, G, N),
+    state (B, H, P, N) fp32.  Returns (y (B, H, P) in x_t's dtype, the
+    new fp32 state)."""
+    bf, cf = _ssd_heads(x_t, b_t, c_t)
+    decay = torch.exp(a_t.float())[:, :, None, None]
+    state = decay * state + x_t.float()[..., None] * bf[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", state, cf)
+    return y.to(x_t.dtype), state

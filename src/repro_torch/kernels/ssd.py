@@ -1,0 +1,125 @@
+"""ssd: the Mamba-2 chunked SSD scan on the H100.
+
+Replaces the Pallas TPU kernel ``_ssd_kernel`` (``src/repro/kernels/ssd.py``)
+and the layout work of the reference's ``ops.ssd`` around it with the
+hand-written CUDA kernel ``csrc/ssd.cu``: one block per (batch, head)
+loops over the chunks with the fp32 ``(P, N)`` state in registers, reads
+x ``(B, S, H, P)`` and b, c ``(B, S, G, N)`` where they lie (head ``h``
+reads group ``h // (H / G)``; batch and position strides are arguments,
+so a slice of a wider tensor needs no copy), masks the positions past
+the true length inside, starts from an initial state when one is given,
+and writes the state after the last position.  The reference's kernel
+returns no state (its ``ops.ssd`` gives ``(y, None)``); this one does,
+so prefill needs no second pass.
+
+Bound on the card: fp32 FMA operations at mamba2-2.7b's prefill (see the
+source note).
+
+A tensor on the CPU goes to the plain version ``ref.ssd_plain``; a CUDA
+tensor goes to the kernel, or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, ref
+
+# what the kernel is built for: chunk length, head dim P, state dim N
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGS = (_P,) * 7 + (_I,) * 7 + (_LL,) * 8 + (_P,)
+_SIGNATURES = {"ssd_f32": _ARGS, "ssd_bf16": _ARGS}
+
+
+def _check(x, a, b, c, chunk, initial_state) -> None:
+    if x.dim() != 4 or a.dim() != 3 or b.dim() != 4 or c.shape != b.shape:
+        raise ValueError(f"ssd needs x (B,S,H,P), a (B,S,H) and b, c "
+                         f"(B,S,G,N), got {tuple(x.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}")
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if tuple(a.shape) != (B, S, H) or tuple(b.shape[:2]) != (B, S):
+        raise ValueError(f"a {tuple(a.shape)} / b {tuple(b.shape)} do not fit "
+                         f"x {tuple(x.shape)}")
+    if G < 1 or H % G:
+        raise ValueError(f"{H} heads do not group over {G} state groups")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd takes float32 or bfloat16 x, got {x.dtype}")
+    for name, t in (("b", b), ("c", c)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x is {x.dtype}")
+    if a.dtype != torch.float32:
+        raise TypeError(f"a must be float32, got {a.dtype}")
+    tensors = [("a", a), ("b", b), ("c", c)]
+    if initial_state is not None:
+        if initial_state.dtype != torch.float32 or \
+                tuple(initial_state.shape) != (B, H, P, N):
+            raise ValueError(f"initial_state must be float32 {(B, H, P, N)}, "
+                             f"got {initial_state.dtype} "
+                             f"{tuple(initial_state.shape)}")
+        if not initial_state.is_contiguous():
+            raise ValueError("ssd: initial_state must be contiguous")
+        tensors.append(("initial_state", initial_state))
+    for name, t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x is on {x.device}")
+    # batch and position dims may be strided; the rest must be packed
+    def packed(t, inner):
+        return all(t.stride(d) == want for d, want in inner
+                   if t.shape[d] > 1)
+
+    if not (packed(x, ((3, 1), (2, P))) and packed(a, ((2, 1),))
+            and all(packed(t, ((3, 1), (2, N))) for t in (b, c))):
+        raise ValueError("ssd reads x's (H, P), a's H and b/c's (G, N) "
+                         "packed; only the batch and position dims may be "
+                         "strided")
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        *, chunk: int = 128, initial_state: torch.Tensor | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD over ``chunk``-long chunks: returns (y (B, S, H, P) in
+    x's dtype, the fp32 state (B, H, P, N) after the last position).
+
+    x, b, c fp32 or bf16 (one dtype), a and ``initial_state`` fp32; see
+    ``ref.ssd_scan`` for the function.  The chunk shapes the arithmetic
+    (not the function beyond fp32 rounding); the kernel takes chunks of
+    ``min(chunk, S)`` positions, at most 128.
+    """
+    _check(x, a, b, c, chunk, initial_state)
+    if x.device.type == "cpu":
+        return ref.ssd_plain(x, a, b, c, chunk=chunk,
+                             initial_state=initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd runs on cuda (or cpu), not {x.device}")
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
+        raise ValueError(f"ssd's kernel is built for chunk <= {MAX_CHUNK}, "
+                         f"P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}; got chunk "
+                         f"{chunk}, P {P}, N {N}")
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    if final.numel() == 0:
+        return y, final
+    lib = _build.load("ssd", _SIGNATURES)
+    fn = lib.ssd_f32 if x.dtype == torch.float32 else lib.ssd_bf16
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                 initial_state.data_ptr() if initial_state is not None
+                 else None, y.data_ptr(), final.data_ptr(),
+                 B, S, H, P, G, N, min(chunk, max(S, 1)),
+                 x.stride(0), x.stride(1), a.stride(0), a.stride(1),
+                 b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd")
+    ssd.launches += 1
+    return y, final
+
+
+ssd.launches = 0

@@ -8,11 +8,15 @@ then decodes one token per step at ``pos = plen + t - 1``.  Sampling is
 greedy (``argmax``, the first maximum) or by temperature, drawn from a
 ``torch.Generator`` seeded with 0 for each ``serve`` call (it cannot
 reproduce ``jax.random.categorical``'s bits).  One model replica on one
-device; there is no mesh (the multi-device layer is ROADMAP A.6).
+device; there is no mesh (the multi-device layer is ROADMAP A.6).  It
+serves the dense archs (qwen3-4b, qwen1.5-4b, internlm2-20b,
+nemotron-4-15b) and mamba2-2.7b, whose cache is a conv window and an SSD
+state per layer; MoE, encoder-decoder and M-RoPE archs raise.
 
 Run on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 """
 

@@ -2,6 +2,9 @@
 
 config  — ``ArchConfig`` / ``LayerPattern`` (a copy of the reference's)
 layers  — norms, RoPE, GQA attention, dense MLP (``repro.models.layers``)
+ssm     — the Mamba-2 block: init, prefill with its cache, decode
+          (``repro.models.ssm``)
 lm      — ``init``, ``forward``, ``init_cache``, ``prefill``,
-          ``decode_step`` for the dense archs (``repro.models.lm``)
+          ``decode_step`` for the dense, SSM and hybrid patterns without
+          MoE (``repro.models.lm``)
 """

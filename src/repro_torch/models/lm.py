@@ -1,13 +1,17 @@
-"""Decoder-only language model, dense archs (qwen3, qwen1.5, internlm2,
-nemotron).
+"""Decoder-only language model over a repeating block pattern: the dense
+archs (qwen3, qwen1.5, internlm2, nemotron), the pure-SSM mamba2 and
+hybrids of the two.
 
-Port of ``repro.models.lm`` for the layer pattern ``attn`` + dense FFN.
-The reference scans over the stacked ``blocks/pos{i}`` leaves; the port
-keeps one dict per layer in ``params["layers"]`` (layer ``i`` is block
-``i // pattern_len``, position ``i % pattern_len``) and loops over them
-in Python.  The decode cache keeps the reference's layout, one
-``(n_blocks, B, Hkv, max_len, D)`` tensor each for k and v under
-``pos{i}``, and prefill and decode write it in place (slice assignment)
+Port of ``repro.models.lm`` for the layer patterns whose mixer is ``attn``
+or ``ssm`` and whose FFN is ``dense`` or ``none``.  The reference scans
+over the stacked ``blocks/pos{i}`` leaves; the port keeps one dict per
+layer in ``params["layers"]`` (layer ``i`` is block ``i // pattern_len``,
+pattern position ``i % pattern_len``) and loops over them in Python.  The
+decode cache keeps the reference's layout under ``pos{i}``: for an
+attention position one ``(n_blocks, B, Hkv, max_len, D)`` tensor each
+for k and v, for an SSM position the conv window ``(n_blocks, B, K-1,
+conv_dim)`` in the compute dtype and the fp32 SSD state ``(n_blocks, B,
+H, P, N)``.  Prefill and decode write it in place (slice assignment)
 where the reference's ``dynamic_update_slice`` builds new arrays: the
 cache passed in is the cache returned.
 
@@ -20,8 +24,8 @@ Entry points:
   decode_step(cfg, params, cache, tokens, pos) -> (logits (B, V), cache)
 
 ``device=None`` means the CUDA card and raises without one.  ``plain``
-runs the norms and attention on their plain versions instead of the
-kernels.  SSM, MoE, encoder-decoder and M-RoPE archs, and
+runs the norms, attention and the SSD scan on their plain versions
+instead of the kernels.  MoE, encoder-decoder and M-RoPE archs, and
 ``kv_cache_repeat > 1``, raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
@@ -34,6 +38,7 @@ import torch
 
 from ..convert import resolve_device
 from . import layers as L
+from . import ssm as SSM
 from .config import ArchConfig
 
 
@@ -42,10 +47,6 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet: ROADMAP A.4")
-    if any(p.mixer != "attn" for p in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: SSM layers (ssd kernel, "
-                                  f"models/ssm.py) are not ported yet: "
-                                  f"ROADMAP A.2")
     if any(p.ffn == "moe" for p in cfg.pattern):
         raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported "
                                   f"yet: ROADMAP A.4")
@@ -64,12 +65,22 @@ def _dtype(name: str) -> torch.dtype:
 
 # ---------------------------------------------------------------------- init
 
-def _init_layer(cfg: ArchConfig, gen: torch.Generator,
+def _pattern(cfg: ArchConfig, i: int):
+    return cfg.pattern[i % cfg.pattern_len]
+
+
+def _init_layer(cfg: ArchConfig, pat, gen: torch.Generator,
                 device: torch.device) -> dict:
-    return {"norm1": L.init_norm(cfg, device),
-            "attn": L.init_attention(cfg, gen, device),
-            "norm2": L.init_norm(cfg, device),
-            "mlp": L.init_mlp(cfg, gen, device)}
+    p = {"norm1": L.init_norm(cfg, device)}
+    if pat.mixer == "attn":
+        p["attn"] = L.init_attention(cfg, gen, device)
+    else:
+        p["ssm"] = SSM.init_ssm(cfg, gen, device)
+    if pat.ffn == "dense":
+        p["norm2"] = L.init_norm(cfg, device)
+        p["mlp"] = L.init_mlp(cfg, gen, device)
+    # pat.ffn == "none": a mixer-only layer (mamba2)
+    return p
 
 
 def init(cfg: ArchConfig, gen: torch.Generator,
@@ -92,19 +103,24 @@ def init(cfg: ArchConfig, gen: torch.Generator,
         "lm_head": torch.randn((D, V), generator=gen,
                                device=dev).mul_(1.0 / math.sqrt(D)),
         "final_norm": L.init_norm(cfg, dev),
-        "layers": [_init_layer(cfg, gen, dev) for _ in range(cfg.n_layers)],
+        "layers": [_init_layer(cfg, _pattern(cfg, i), gen, dev)
+                   for i in range(cfg.n_layers)],
     }
 
 
-_KEEP_FP = ("q_norm", "k_norm")     # gains inside "attn"
+# leaves of "attn" / "ssm" that the model code uses in fp32: the q/k-norm
+# gains, the SSM's A_log (-exp(A_log) in fp32), dt_bias (added to the fp32
+# dt_raw) and the gated norm's gain
+_KEEP_FP = ("q_norm", "k_norm", "A_log", "dt_bias", "norm")
 
 
 def cast_params(cfg: ArchConfig, params: dict) -> dict:
     """The parameters as compute sees them: embedding, head, weights and
-    biases in ``cfg.compute_dtype``, norm gains unchanged.  The model code
-    casts each weight at use as the reference does (``w.to(x.dtype)``);
-    casting once at load gives the same numbers and spares every decode
-    step a pass over the fp32 weights."""
+    biases in ``cfg.compute_dtype``; norm gains and the leaves the model
+    code uses in fp32 (``_KEEP_FP``) unchanged.  The model code casts each
+    weight at use as the reference does (``w.to(x.dtype)``); casting once
+    at load gives the same numbers and spares every decode step a pass
+    over the fp32 weights."""
     cd = _dtype(cfg.compute_dtype)
 
     def layer(lp):
@@ -120,7 +136,9 @@ def cast_params(cfg: ArchConfig, params: dict) -> dict:
 
 # ------------------------------------------------------------------- blocks
 
-def _ffn(cfg, lp, x, plain):
+def _ffn(cfg, pat, lp, x, plain):
+    if pat.ffn == "none":
+        return x
     return x + L.mlp_fwd(cfg, lp["mlp"],
                          L.apply_norm(cfg, lp["norm2"], x, plain=plain))
 
@@ -147,11 +165,15 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     check_supported(cfg)
     h = _embed(cfg, params, tokens)
     positions = _positions(tokens)
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
+        pat = _pattern(cfg, i)
         hn = L.apply_norm(cfg, lp["norm1"], h, plain=plain)
-        mix, _ = L.attention_fwd(cfg, lp["attn"], hn, positions, causal=True,
-                                 plain=plain)
-        h = _ffn(cfg, lp, h + mix, plain)
+        if pat.mixer == "attn":
+            mix, _ = L.attention_fwd(cfg, lp["attn"], hn, positions,
+                                     causal=True, plain=plain)
+        else:
+            mix = SSM.ssm_fwd(cfg, lp["ssm"], hn, plain=plain)
+        h = _ffn(cfg, pat, lp, h + mix, plain)
     return _logits(cfg, params, h, plain)
 
 
@@ -162,24 +184,39 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: str | torch.device | None = None) -> dict:
     check_supported(cfg)
     dtype = dtype or _dtype(cfg.compute_dtype)
-    shape = (cfg.n_blocks, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     dev = resolve_device(device)
-    return {f"pos{pi}": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                         "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for pi in range(cfg.pattern_len)}
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((cfg.n_blocks, batch, *shape), dtype=dt,
+                           device=dev)
+
+    cache = {}
+    for pi, pat in enumerate(cfg.pattern):
+        if pat.mixer == "attn":
+            kv = (cfg.n_kv_heads, max_len, cfg.head_dim)
+            cache[f"pos{pi}"] = {"k": zeros(*kv), "v": zeros(*kv)}
+        else:
+            conv_dim = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            cache[f"pos{pi}"] = {
+                "conv": zeros(cfg.ssm_conv_width - 1, conv_dim),
+                "state": zeros(cfg.ssm_heads, cfg.ssm_head_dim,
+                               cfg.ssm_state, dt=torch.float32)}
+    return cache
 
 
-def _cache_at(cfg, cache, i):
-    c = cache[f"pos{i % cfg.pattern_len}"]
+def _cache_at(cfg, cache, i) -> dict:
+    """Layer ``i``'s slice of the cache: views of block ``i //
+    pattern_len`` under ``pos{i % pattern_len}``."""
     blk = i // cfg.pattern_len
-    return c["k"][blk], c["v"][blk]
+    return {k: t[blk] for k, t in cache[f"pos{i % cfg.pattern_len}"].items()}
 
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             max_len: int | None = None, *, plain: bool = False
             ) -> tuple[torch.Tensor, dict]:
     """Run the prompt; return last-position logits (B, V) and a cache of
-    ``max_len`` (>= prompt length) rows holding the prompt's k/v."""
+    ``max_len`` (>= prompt length) rows holding the prompt's k/v, and for
+    the SSM layers its conv window and the SSD state after it."""
     check_supported(cfg)
     B, Sp = tokens.shape
     max_len = max_len or Sp
@@ -187,13 +224,20 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     positions = _positions(tokens)
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     for i, lp in enumerate(params["layers"]):
+        pat = _pattern(cfg, i)
         hn = L.apply_norm(cfg, lp["norm1"], h, plain=plain)
-        mix, (k, v) = L.attention_fwd(cfg, lp["attn"], hn, positions,
-                                      causal=True, plain=plain)
-        ck, cv = _cache_at(cfg, cache, i)
-        ck[:, :, :Sp] = k
-        cv[:, :, :Sp] = v
-        h = _ffn(cfg, lp, h + mix, plain)
+        c = _cache_at(cfg, cache, i)
+        if pat.mixer == "attn":
+            mix, (k, v) = L.attention_fwd(cfg, lp["attn"], hn, positions,
+                                          causal=True, plain=plain)
+            c["k"][:, :, :Sp] = k
+            c["v"][:, :, :Sp] = v
+        else:
+            mix, state, conv = SSM.ssm_fwd_with_cache(cfg, lp["ssm"], hn,
+                                                      plain=plain)
+            c["conv"].copy_(conv)
+            c["state"].copy_(state)
+        h = _ffn(cfg, pat, lp, h + mix, plain)
     return _logits(cfg, params, h[:, -1:], plain)[:, 0], cache
 
 
@@ -205,9 +249,14 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     check_supported(cfg)
     h = _embed(cfg, params, tokens)
     for i, lp in enumerate(params["layers"]):
+        pat = _pattern(cfg, i)
         hn = L.apply_norm(cfg, lp["norm1"], h, plain=plain)
-        ck, cv = _cache_at(cfg, cache, i)
-        mix, _, _ = L.attention_decode(cfg, lp["attn"], hn, ck, cv, pos,
-                                       plain=plain)
-        h = _ffn(cfg, lp, h + mix, plain)
+        c = _cache_at(cfg, cache, i)
+        if pat.mixer == "attn":
+            mix, _, _ = L.attention_decode(cfg, lp["attn"], hn, c["k"],
+                                           c["v"], pos, plain=plain)
+        else:
+            mix, _, _ = SSM.ssm_decode(cfg, lp["ssm"], hn, c["conv"],
+                                       c["state"], plain=plain)
+        h = _ffn(cfg, pat, lp, h + mix, plain)
     return _logits(cfg, params, h, plain)[:, 0], cache

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (act_rows, flash_attention, flex_gemm, layernorm_rows, ref,
-                                 rmsnorm_rows, softmax_rows)
+                                 rmsnorm_rows, softmax_rows, ssd)
 from repro_torch.kernels.ref import ACTIVATIONS, EPILOGUES
 
 # the reference's sweeps (tests/test_kernels.py) plus BERT-L tile shapes
@@ -23,6 +23,9 @@ SFU_SHAPES = [(64, 128), (100, 300), (8, 17), (256, 512), (5, 1000),
 # k-norm), decode of 4 tokens (norms, q-norm, k-norm)
 RMS_SERVING = [(2048, 2560), (65536, 128), (16384, 128), (4, 2560),
                (128, 128), (32, 128)]
+# mamba2-2.7b's rmsnorm rows: the gated norm of 4 x 512 prefill tokens and
+# of 4 decode tokens (its norm1 rows are qwen3-4b's 2048 x 2560 / 4 x 2560)
+RMS_SSM = [(2048, 5120), (4, 5120)]
 # (B, Hq, Hkv, Sq, Skv, D): the reference's sweep, then qwen3-4b prefill
 ATTN_SHAPES = [(1, 4, 2, 64, 64, 32), (2, 8, 2, 32, 128, 64),
                (1, 2, 1, 1, 96, 32), (1, 4, 4, 50, 50, 16),
@@ -94,7 +97,7 @@ def _bf16_tol():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SFU_SHAPES + RMS_SERVING)
+@pytest.mark.parametrize("shape", SFU_SHAPES + RMS_SERVING + RMS_SSM)
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_cuda_rmsnorm_matches_plain(cuda, shape, tdt):
@@ -163,3 +166,88 @@ def test_cuda_flash_attention_empty_rows_give_zero(cuda):
     assert torch.equal(got[:, :, :16], torch.zeros_like(got[:, :, :16]))
     torch.testing.assert_close(got, ref.mha_attention(q, k, v, causal=True),
                                rtol=1e-4, atol=2e-5)
+
+
+# (B, S, H, P, G, N): the reference's sweep (tests/test_kernels.py), its
+# tail case S = 100, G > 1 with a tail, then mamba2-2.7b's prefill and
+# two short prompts at its widths (80 heads of 64, state 128, one group)
+SSD_SHAPES = [(2, 128, 4, 16, 2, 8), (1, 64, 2, 8, 1, 4),
+              (2, 256, 8, 32, 2, 16), (1, 100, 2, 8, 1, 4),
+              (2, 77, 8, 32, 4, 16), (4, 512, 80, 64, 1, 128),
+              (2, 48, 80, 64, 1, 128), (2, 37, 80, 64, 1, 128)]
+
+
+def _ssd_inputs(shape, seed, cuda, tdt):
+    """x ~ N(0, 1), b and c ~ N(0, 0.3²) in ``tdt``; a fp32 as mamba2
+    makes it, -exp(A_log) dt with A_log's 1..16 over the heads and dt
+    in [0.005, 0.1], so the last heads decay by up to e^-1.6 a step."""
+    B, S, H, P, G, N = shape
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.005, 0.1, size=(B, S, H))
+    a = -np.linspace(1.0, 16.0, H)[None, None] * dt
+    x = torch.from_numpy(_np((B, S, H, P), seed + 1)).to(cuda, tdt)
+    b = torch.from_numpy(_np((B, S, G, N), seed + 2, 0.3)).to(cuda, tdt)
+    c = torch.from_numpy(_np((B, S, G, N), seed + 3, 0.3)).to(cuda, tdt)
+    return x, torch.from_numpy(a.astype(np.float32)).to(cuda), b, c
+
+
+def _ssd_close(got, want, tdt):
+    """y: fp32 to reordered fp32 sums (1e-4); bf16 to those sums plus one
+    bf16 ulp, since both compute in fp32 and round once (where terms of
+    order 1 cancel to 1e-4, the fp32 difference outweighs the ulp); the
+    state is fp32 either way."""
+    rtol, atol = (1e-4, 1e-4) if tdt == torch.float32 else (2 ** -7, 1e-4)
+    assert got[0].dtype == tdt and got[1].dtype == torch.float32
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               rtol=rtol, atol=atol)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("chunk", [32, "model"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+def test_cuda_ssd_matches_plain(cuda, shape, chunk, tdt, with_init):
+    """Kernel against ``ref.ssd_plain`` (the chunked algorithm when S is
+    a multiple of the chunk and longer, else the recurrence), in y and
+    in the final state; ``chunk="model"`` is the SSM block's
+    min(128, max(16, S))."""
+    B, S, H, P, G, N = shape
+    chunk = min(128, max(16, S)) if chunk == "model" else chunk
+    x, a, b, c = _ssd_inputs(shape, 40, cuda, tdt)
+    init = torch.from_numpy(_np((B, H, P, N), 45)).to(cuda) \
+        if with_init else None
+    before = ssd.launches
+    got = ssd(x, a, b, c, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    _ssd_close(got, ref.ssd_plain(x, a, b, c, chunk=chunk,
+                                  initial_state=init), tdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_ssd_reads_strided_views_and_nothing_past_s(cuda, tdt):
+    """x, a, b, c as views of wider buffers whose positions past S hold
+    NaN, and b, c as slices of one (B, S, conv_dim) tensor as the SSM
+    block hands them over: nothing past S may leak into y or the state."""
+    B, S, H, P, G, N = 2, 100, 8, 32, 2, 16
+    x, a, b, c = _ssd_inputs((B, S, H, P, G, N), 50, cuda, tdt)
+    pad = 28
+    xb = torch.full((B, S + pad, H, P), float("nan"), device=cuda, dtype=tdt)
+    ab = torch.full((B, S + pad, H), float("nan"), device=cuda)
+    bc = torch.full((B, S + pad, 3 * G * N), float("nan"), device=cuda,
+                    dtype=tdt)
+    xb[:, :S], ab[:, :S] = x, a
+    bc[:, :S, G * N:2 * G * N] = b.reshape(B, S, G * N)
+    bc[:, :S, 2 * G * N:] = c.reshape(B, S, G * N)
+    bv = bc[:, :S, G * N:2 * G * N].reshape(B, S, G, N)
+    cv = bc[:, :S, 2 * G * N:].reshape(B, S, G, N)
+    assert not bv.is_contiguous() and not xb[:, :S].is_contiguous()
+    got = ssd(xb[:, :S], ab[:, :S], bv, cv, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[0].float()).all() and torch.isfinite(got[1]).all()
+    _ssd_close(got, ref.ssd_plain(x, a, b, c, chunk=64), tdt)

@@ -66,10 +66,11 @@ assert set(l.name for l in g.layers) <= set(out)
 import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import BatchServer, Request
-cfg = get_config("qwen3-4b", reduced=True)
-stats = BatchServer(cfg, max_len=16, device="cpu").serve(
-    [Request(0, np.arange(5, dtype=np.int32), 3)])
-assert len(stats["outputs"][0]) == 3
+for arch in ("qwen3-4b", "mamba2-2.7b"):
+    stats = BatchServer(get_config(arch, reduced=True), max_len=16,
+                        device="cpu").serve(
+        [Request(0, np.arange(5, dtype=np.int32), 3)])
+    assert len(stats["outputs"][0]) == 3
 print("ok")
 """
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -94,6 +95,8 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     cfg = get_config("qwen3-4b", reduced=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchServer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchServer(get_config("mamba2-2.7b", reduced=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):

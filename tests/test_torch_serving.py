@@ -73,4 +73,5 @@ def test_serve_refuses_what_the_cache_cannot_hold_and_unported_archs():
     with pytest.raises(ValueError, match="max_len"):
         server.serve([Request(0, np.zeros(12, np.int32), 6)])
     with pytest.raises(NotImplementedError):
-        BatchServer(get_config("mamba2-2.7b", reduced=True), device="cpu")
+        BatchServer(get_config("llama4-maverick-400b-a17b", reduced=True),
+                    device="cpu")
