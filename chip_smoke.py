@@ -53,7 +53,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
    PyTorch library call where one computes the same function, and the
-   card's bound.
+   card's bound: ``flex_gemm`` at every distinct tile of each main-path
+   model with the launch-weighted sum over a run, ``flash_attention``
+   decode over 65, 540 and 1,024 cache rows, the gelu row kernel.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -65,6 +67,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -151,6 +154,9 @@ SSM_FP32_RTOL = 1e-3
 # |err| <= FP32_DECODE_TOL * max|logit| (tests/test_models.py holds the
 # reduced configs to 2e-3 absolute; logits here are of order 1-10).
 FP32_DECODE_TOL = 2e-3
+# Operations of one tanh-GELU (x³, times 0.044715, plus x, times
+# sqrt(2/pi), tanh, plus 1, times x / 2)
+GELU_FLOPS = 9
 # Peak rates from NVIDIA's data sheets: fp32 FLOP/s outside the tensor
 # cores, dense bf16 FLOP/s of the tensor cores, device-memory bytes/s.
 PEAKS = (("H100 PCIe", 51e12, 756e12, 2.0e12),
@@ -271,7 +277,7 @@ def main() -> None:
     from repro_torch.core.runtime import EPILOGUE_NAME, SFU_ACT
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flex_gemm import flex_gemm
+    from repro_torch.kernels.flex_gemm import flex_gemm, gemm_plan
     from repro_torch.kernels.ref import EPILOGUES
     from repro_torch.kernels.sfu import (act_rows, layernorm_rows,
                                          rmsnorm_rows, softmax_rows)
@@ -933,19 +939,23 @@ def main() -> None:
                lambda: ref.rmsnorm_rows(x, g),
                lambda: F.rms_norm(x, (N,), gl, 1e-6),
                4 * x.numel(), 4 * x.numel() + 4 * N, fp32_peak)
-    skv = plen + 28
     qd = randn(B, cfg.n_heads, 1, cfg.head_dim, dtype=torch.bfloat16)
     kd, vd = (randn(B, cfg.n_kv_heads, SERVE_MAX_LEN, cfg.head_dim,
                     dtype=torch.bfloat16) for _ in range(2))
-    report("flash_attention",
-           f"decode {tuple(qd.shape)} over {skv} rows of {tuple(kd.shape)} bf16",
-           lambda: flash_attention(qd, kd, vd, causal=False, kv_len=skv),
-           lambda: ref.mha_attention(qd, kd, vd, causal=False, kv_len=skv),
-           lambda: F.scaled_dot_product_attention(
-               qd, kd[:, :, :skv], vd[:, :, :skv], enable_gqa=True),
-           4 * cfg.head_dim * B * cfg.n_heads * skv,
-           2 * (2 * qd.numel() + 2 * B * cfg.n_kv_heads * skv * cfg.head_dim),
-           bf16_peak)
+    # decode over a short, the served (plen + 28) and a full cache
+    for skv in (65, plen + 28, SERVE_MAX_LEN):
+        report("flash_attention",
+               f"decode {tuple(qd.shape)} over {skv} rows of "
+               f"{tuple(kd.shape)} bf16",
+               lambda: flash_attention(qd, kd, vd, causal=False, kv_len=skv),
+               lambda: ref.mha_attention(qd, kd, vd, causal=False,
+                                         kv_len=skv),
+               lambda: F.scaled_dot_product_attention(
+                   qd, kd[:, :, :skv], vd[:, :, :skv], enable_gqa=True),
+               4 * cfg.head_dim * B * cfg.n_heads * skv,
+               2 * (2 * qd.numel()
+                    + 2 * B * cfg.n_kv_heads * skv * cfg.head_dim),
+               bf16_peak)
     # ssd at the 4-layer fp32 check's prefill and forward (S = 32, 48)
     for S in (32, 48):
         shape = (2, S, *ssm_prefill[2:])
@@ -954,11 +964,43 @@ def main() -> None:
                lambda: ssd(*xs, chunk=S), lambda: ref.ssd_plain(*xs, chunk=S),
                None, *ssd_work(*shape, S, 4), fp32_peak)
     xg = randn(512, 3072)
-    gelu, gelu_lib = (cuda_ms(torch, lambda: act_rows(xg, "gelu")),
-                      cuda_ms(torch, lambda: F.gelu(xg, approximate="tanh")))
-    print(f"[time] act_rows gelu 512x3072 fp32: device {gelu[0]:.4f} ms "
-          f"(back-to-back {gelu[1]:.4f}), F.gelu(tanh) {gelu_lib[0]:.4f} ms "
-          f"(back-to-back {gelu_lib[1]:.4f})")
+    report("sfu_act", "512x3072 gelu fp32", lambda: act_rows(xg, "gelu"),
+           lambda: ref.gelu_rows(xg),
+           lambda: F.gelu(xg, approximate="tanh"),
+           GELU_FLOPS * xg.numel(), 8 * xg.numel(), fp32_peak)
+    # flex_gemm at every distinct tile (shape, accumulator, epilogue) of
+    # each main-path binary beside torch.addmm / torch.matmul (which leave
+    # the epilogue out), weighted by the tile's launches in one run
+    for model in MAIN_MODELS:
+        tiles = Counter((i.body.bound_i, i.body.bound_k, i.body.bound_j,
+                         bool(i.body.accumulate),
+                         EPILOGUE_NAME[Epilogue(i.body.epilogue)])
+                        for i in programs[model].codegen.program.instructions
+                        if i.op_type == OpType.MMU_GEMM
+                        and i.body.ping_op == 1)
+        weighted = [0.0, 0.0, 0.0]       # kernel, library, bound ms
+        for (tm, tk, tn, tacc, tepi), n in sorted(tiles.items()):
+            ta, tb, tc = randn(tm, tk), randn(tk, tn), randn(tm, tn)
+            tcin = tc if tacc else None
+            plan = gemm_plan(tm, tk, tn, _build.sm_count(dev))
+            ms, _, lib_ms, bound_ms, _ = report(
+                "flex_gemm",
+                f"{model} tile {tm}x{tk}x{tn}{' +c' if tacc else ''} {tepi} "
+                f"fp32 ({n} launches a run; {plan.blocks} blocks x "
+                f"{plan.splits} K slabs)",
+                lambda: flex_gemm(ta, tb, epilogue=tepi, c=tcin),
+                lambda: ref.gemm(ta, tb, None, tepi, tcin),
+                (lambda: torch.addmm(tc, ta, tb)) if tacc
+                else (lambda: torch.matmul(ta, tb)),
+                2 * tm * tk * tn,
+                4 * (tm * tk + tk * tn + tm * tn * (2 if tacc else 1)),
+                fp32_peak)
+            for i, t in enumerate((ms, lib_ms, bound_ms)):
+                weighted[i] += n * t
+        print(f"[time] flex_gemm over {model}'s {sum(tiles.values())} tiles "
+              f"({len(tiles)} distinct), launch-weighted device ms: kernel "
+              f"{weighted[0]:.4f}, library {weighted[1]:.4f}, bound "
+              f"{weighted[2]:.4f}; on {smi}")
 
     kernels = []
     for name, row in rows.items():

@@ -93,6 +93,13 @@ def load(name: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
     return lib
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device, which the kernels'
+    launch plans fill."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error "

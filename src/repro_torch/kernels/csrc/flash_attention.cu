@@ -1,47 +1,72 @@
-// flash_attention: grouped-query attention with an online softmax, as a
-// hand-written Hopper kernel.
+// flash_attention: grouped-query attention with an online softmax, as
+// hand-written Hopper kernels.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel`
 // (src/repro/kernels/flash_attention.py:28): o = softmax(q k^T / sqrt(D)) v
 // for q (B, Hq, Sq, D), k and v (B, Hkv, *, D), query head h reading KV
 // head h / (Hq / Hkv).  Query i sees key j when j < Skv and, if causal,
-// j <= i + (Skv - Sq).  Masked scores are -1e30, masked probabilities
-// 0, K/V rows past Skv are zeroed at the load (0 * NaN would poison
-// p @ v), and a row with no visible key gives 0.  fp32 arithmetic, output
-// in q's type (fp32 or bf16).
+// j <= i + (Skv - Sq).  Masked scores are -1e30, masked probabilities are
+// selected as 0 (never exp of a masked score), K/V rows past Skv are
+// zero-filled at the load and never read (0 * NaN would poison p @ v),
+// and a row with no visible key gives 0.  Output in q's type.
 //
-// The TPU kernel walks its KV blocks along a sequential fourth grid axis
-// and carries the running max, sum and output accumulator in VMEM
-// scratch.  Here blocks run in parallel and in no order, so one block owns
-// one (batch, query head, BQ-row query tile) and loops over the KV tiles
-// itself; the running max and sum of its rows and the fp32 (BQ, D)
-// accumulator stay in registers for the whole loop.  K and V of a tile are
-// staged in shared memory as fp32, read by every query row of the tile.
-// GQA needs no copy: the block indexes KV head h / group directly.  Decode
-// passes the cache (B, Hkv, max_len, D) with Skv = pos + 1 and a KV row
-// stride of max_len, so it reads the first pos + 1 rows in place.
-// Causal tiles stop at the last key the tile's last row can see.
+// The TPU kernel walks its KV blocks along a sequential grid axis and
+// carries the running max, sum and accumulator in VMEM scratch.  Here
+// blocks run in parallel and in no order, so a block loops over its KV
+// tiles itself with the running max, sum and fp32 accumulator in
+// registers.  GQA needs no copy: a block indexes its KV head directly.
+// Decode passes the cache (B, Hkv, max_len, D) with Skv = pos + 1 and a
+// KV row stride of max_len, so the first pos + 1 rows are read in place.
 //
-// Loads: a thread stages its share of a Q, K or V tile with 16-byte
-// loads, all issued before its first shared-memory store (the operands
-// must be 16-byte aligned; the wrapper checks).  Rows past Skv are
-// zero-filled, never read.
+// Three kernels, chosen by shape and type in the C dispatch (never as a
+// fallback):
 //
-// Work split: 256 threads as a 16 x 16 grid; a thread owns rows
-// ty + 16 i of the tile, score columns tx + 16 j and output columns
-// tx + 16 j, so a row's 16 threads share a half warp and reduce its max
-// and sum with four shuffles.  Shared rows are padded by one float so the
-// column reads of K hit 16 different banks.  Prefill tiles are 64 query
-// rows by 32 keys (74.5 KB of shared memory at D = 128, three blocks an
-// SM); a query length of at most 16 (decode) takes 16-row tiles by 64
-// keys, so a thread does one row's work, not four rows of padding.
-//
-// Bound on the H100: at the serving shapes, prefill is bound by its
-// bf16 tensor-core operations or its bytes (whichever chip_smoke.py's
-// count makes larger) and decode by the bytes of the KV cache it reads.
-// This kernel computes with fp32 FMA on the CUDA cores (no mma, wgmma or
-// TMA): it is the simple kernel that is right, and far from the prefill
-// bound; tensor cores are later work.
+// 1. Prefill, bf16 (flash_attention_bf16): FlashAttention-2 on the
+//    tensor cores.  Bound: at qwen3-4b's prefill (4 x 32 x 512 over
+//    4 x 8 x 512, causal) the bytes (0.0125 ms at 3.35 TB/s) outweigh
+//    the bf16 operations (0.0087 ms at 989 TFLOP/s); the FMA kernel it
+//    replaces reached 16 TFLOP/s of fp32 FMA.  One block of 4 warps per
+//    (query head, batch, 64-row query tile); each warp owns 16 query
+//    rows.  Q, K and V are staged in shared memory as bf16 by 16-byte
+//    cp.async copies (rows past Sq / Skv zero-filled with src-size 0),
+//    rows padded by 16 bytes so ldmatrix is free of bank conflicts; K/V
+//    tiles of 32 keys are double-buffered, tile j + 1 in flight while
+//    tile j computes, one __syncthreads a tile.  S = Q K^T and O += P V
+//    run as mma.sync.m16n8k16 bf16 with fp32 accumulators; Q's A
+//    fragments are loaded once, V's B fragments by ldmatrix.trans, and P
+//    goes from the S accumulators to bf16 A fragments in registers (the
+//    m16n8 layout of two adjacent n-tiles is the m16k16 A layout).  The
+//    scale is applied to the fp32 scores inside the exponent (one FMA and
+//    one ex2 a score); rounding P to bf16 is what the TPU's MXU does to
+//    the Pallas kernel's fp32 p at default precision.  The row max and
+//    sum are reduced inside the quad of 4 threads that holds a row.  Only
+//    tiles that cross the diagonal or Skv are masked; tiles wholly above
+//    the diagonal are skipped, and the grid puts the query tile on its
+//    slowest axis, reversed, so that the heaviest causal tiles of every
+//    head start first.  32-key tiles keep the kernel at 164 registers,
+//    three blocks an SM: it is bound by latency, not by the tensor cores
+//    or shared memory (PERF.md).
+// 2. Prefill, fp32 (flash_attention_f32): fp32 FMA on the CUDA cores,
+//    since the fp32 checks need fp32 products and the port uses no TF32.
+//    256 threads as 16 x 16; K and V staged in shared memory as fp32 rows
+//    of D + 1 floats; 64 query rows by 32 keys.
+// 3. Decode, both types (flash_decode_*), when Sq * Hq / Hkv <= 16:
+//    flash-decoding.  Bound by the bytes of the KV cache (0.0027 ms for
+//    qwen3-4b's 540 rows at batch 4).  The FMA kernel it replaces ran one
+//    block per query head, each reading its KV head's rows once more, in
+//    16-row tiles of which one row was real.  Here one block per (KV
+//    split, KV head, batch) holds every query row of the GQA group (at
+//    most 4 or 16: two instantiations, so the loops over rows unroll), so
+//    each cache row is read from memory once.  It streams its slice of
+//    rows in chunks of 32 keys through a 3-stage cp.async ring (16-byte
+//    copies, two chunks in flight; q comes with the first) and computes
+//    fp32 dots on the CUDA cores: a thread scores one key against its
+//    warp's rows with 8 partial sums, and owns one output column of its
+//    rows, so each staged element is read once per use.  With one split
+//    it writes the output; with more, each split writes its fp32
+//    (m, l, acc[D]) to a workspace and a second kernel merges the splits
+//    in a fixed order.  The split count comes from decode_plan
+//    (kernels/flash_attention.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,18 +75,322 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+typedef __nv_bfloat16 bf16;
+
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// 16 bytes of T at src (16-byte aligned) as VEC<T> floats.
-template <typename T>
-constexpr int VEC = 16 / sizeof(T);
+// ------------------------------------------------------ async copies, mma
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared.  `in` false zero-fills the 16 bytes and reads
+// nothing (src-size 0); `src` must still be a valid address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, `lo` in the low half (the lower column).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// 2^x by the special-function unit (ftz, about 2 ulp).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (past 48 KB only on
+// request).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// ------------------------------------------- 1. bf16 prefill, tensor cores
+
+constexpr int MMA_THREADS = 128;  // 4 warps, 16 query rows each
+constexpr int MMA_BQ = 64;        // query rows a block
+constexpr int MMA_BK = 32;        // keys a K/V tile
+constexpr int MMA_STAGES = 2;     // K/V tiles in shared memory
+
+template <int D>
+constexpr size_t mma_smem_bytes() {  // Q + the K/V stages, padded rows
+  return sizeof(bf16) * (MMA_BQ + 2 * MMA_STAGES * MMA_BK) * (D + 8);
+}
+
+// Issues the copies of rows [r0, r0 + ROWS) of src (rows of D, row-major)
+// into dst (rows of D + 8); rows at or past `limit` are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src,
+                                           int r0, int limit) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  constexpr int N = ROWS * CPR;
+#pragma unroll
+  for (int it = 0; it < (N + MMA_THREADS - 1) / MMA_THREADS; ++it) {
+    const int i = threadIdx.x + it * MMA_THREADS;
+    if (N % MMA_THREADS != 0 && i >= N) break;
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool in = r0 + r < limit;
+    cp_async16(dst + r * (D + 8) + c,
+               in ? src + (size_t)(r0 + r) * D + c : src, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_attention_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                           int Hq, int Hkv, int Sq, int Skv, int kv_stride,
+                           int causal, float scale_log2) {
+  constexpr int LD = D + 8;         // padded smem row, in bf16
+  constexpr int KD = D / 16;        // k-steps of Q K^T
+  constexpr int NS = MMA_BK / 8;    // 8-key n-tiles of S
+  constexpr int ND = D / 8;         // 8-column n-tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + MMA_BQ * LD;      // MMA_STAGES tiles of MMA_BK x LD
+  bf16* Vs = Ks + MMA_STAGES * MMA_BK * LD;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  // blocks start in grid order, x fastest: the query tile is the slowest
+  // axis, reversed, so every head's heaviest causal tiles start first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * MMA_BQ;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const bf16* qh = q + ((size_t)b * Hq + h) * Sq * D;
+  bf16* oh = o + ((size_t)b * Hq + h) * Sq * D;
+  const bf16* kh = k + ((size_t)b * Hkv + hk) * kv_stride * D;
+  const bf16* vh = v + ((size_t)b * Hkv + hk) * kv_stride * D;
+  const int offset = Skv - Sq;  // causal: row i sees keys <= i + offset
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, min(q0 + MMA_BQ, Sq) + offset);
+  const int n_tiles = kv_end > 0 ? (kv_end + MMA_BK - 1) / MMA_BK : 0;
+  // this thread's two query rows: fragment rows g and g + 8 of its warp
+  const int row0 = q0 + warp * 16 + g;
+
+  // K/V tile j goes to stage j % MMA_STAGES, one commit group a tile (Q
+  // with tile 0); the next tile is in flight while one computes
+  auto issue = [&](int j) {
+    const int st = j % MMA_STAGES;
+    stage_bf16<D, MMA_BK>(Ks + st * MMA_BK * LD, kh, j * MMA_BK, Skv);
+    stage_bf16<D, MMA_BK>(Vs + st * MMA_BK * LD, vh, j * MMA_BK, Skv);
+  };
+  stage_bf16<D, MMA_BQ>(Qs, qh, q0, Sq);
+#pragma unroll
+  for (int j = 0; j < MMA_STAGES - 1; ++j) {
+    if (j < n_tiles) issue(j);
+    cp_async_commit();
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  unsigned qf[KD][4];
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<MMA_STAGES - 2>();  // tile j (and Q) have landed
+    __syncthreads();                  // and tile j - 1's stage is free
+    if (j + MMA_STAGES - 1 < n_tiles) issue(j + MMA_STAGES - 1);
+    cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                (lane >> 4) * 8);
+    }
+    const bf16* Kt = Ks + (j % MMA_STAGES) * MMA_BK * LD;
+    const bf16* Vt = Vs + (j % MMA_STAGES) * MMA_BK * LD;
+
+    // S = Q K^T: 16 rows x MMA_BK keys a warp
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        unsigned kb[4];
+        ldmatrix_x4(kb, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // mask where the tile crosses Skv or the diagonal; online softmax in
+    // base 2, the scale applied to the fp32 scores inside the exponent:
+    // p = 2^(s * scale log2 e - m * scale log2 e), one FMA and one ex2
+    const int k0 = j * MMA_BK;
+    const bool masked = k0 + MMA_BK > Skv ||
+                        (causal && k0 + MMA_BK - 1 > q0 + offset);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (masked) {
+          const int key = k0 + n * 8 + 2 * t + (e & 1);
+          const int qi = row0 + (e >> 1) * 8;
+          if (key >= Skv || (causal && key > qi + offset)) s[n][e] = NEG_INF;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2], mscaled[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = ex2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      mscaled[r] = mx[r] * scale_log2;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        bool ok = true;
+        if (masked) {
+          const int key = k0 + n * 8 + 2 * t + (e & 1);
+          const int qi = row0 + r * 8;
+          ok = key < Skv && (!causal || key <= qi + offset);
+        }
+        const float p = ok ? ex2(fmaf(s[n][e], scale_log2, -mscaled[r])) : 0.0f;
+        s[n][e] = p;
+        l[r] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's accumulators of n-tiles 2kk, 2kk + 1 are the A
+    // fragment of keys 16kk .. 16kk + 15
+#pragma unroll
+    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        unsigned vb[4];
+        ldmatrix_x4_trans(
+            vb, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + r * 8;
+    const float sum = quad_sum(l[r]);
+    if (qi >= Sq) continue;
+    const float inv = 1.0f / (sum == 0.0f ? 1.0f : sum);  // empty row -> 0
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      const __nv_bfloat162 out = __floats2bfloat162_rn(
+          acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)qi * D + n * 8 +
+                                         2 * t) = out;
+    }
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
+               float scale, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  auto kernel = flash_attention_mma_kernel<D>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(Hq, B, (Sq + MMA_BQ - 1) / MMA_BQ);
+  kernel<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Sq, Skv,
+      kv_stride, causal, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------ 2. fp32 prefill, FMA
+
+constexpr int THREADS = 256;
+
+// 16 bytes of float at src (16-byte aligned).
 __device__ __forceinline__ void load16(const float* src, float* v) {
   const float4 t = *reinterpret_cast<const float4*>(src);
   v[0] = t.x;
@@ -69,27 +398,16 @@ __device__ __forceinline__ void load16(const float* src, float* v) {
   v[2] = t.z;
   v[3] = t.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* v) {
-  const uint4 t = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
 
-// Stages rows [r0, r0 + ROWS) of the NM row-major (*, D) matrices src[m]
-// into shared memory as fp32 rows of D + 1 floats, times `scale`; rows at
+// Stages rows [r0, r0 + ROWS) of the NM row-major (*, D) fp32 matrices
+// src[m] into shared memory as rows of D + 1 floats, times `scale`; rows at
 // or past `limit` are zero.  Each thread issues all its 16-byte loads
-// before its first shared store, so a tile costs one memory latency, not
-// one per element.
-template <typename T, int D, int ROWS, int NM>
-__device__ __forceinline__ void stage(const T* const (&src)[NM],
+// before its first shared store, so a tile costs one memory latency.
+template <int D, int ROWS, int NM>
+__device__ __forceinline__ void stage(const float* const (&src)[NM],
                                       float* const (&dst)[NM], int r0,
                                       int limit, float scale) {
-  constexpr int V = VEC<T>, PER_ROW = D / V, N = ROWS * PER_ROW;
+  constexpr int V = 4, PER_ROW = D / V, N = ROWS * PER_ROW;
   constexpr int ITERS = (N + THREADS - 1) / THREADS;
   float v[NM][ITERS][V];
 #pragma unroll
@@ -136,12 +454,13 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
 }
 
-template <typename T, int D, int BQ, int BK>
+template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hkv, int Sq, int Skv, int kv_stride, int causal,
-                       float scale) {
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int Hq, int Hkv, int Sq, int Skv, int kv_stride,
+                       int causal, float scale) {
   constexpr int RPT = BQ / 16;  // query rows per thread
   constexpr int CPT = BK / 16;  // key columns per thread
   constexpr int DPT = D / 16;   // output columns per thread
@@ -157,16 +476,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const T* qh = q + ((size_t)b * Hq + h) * Sq * D;
-  T* oh = o + ((size_t)b * Hq + h) * Sq * D;
-  const T* kh = k + ((size_t)b * Hkv + hk) * kv_stride * D;
-  const T* vh = v + ((size_t)b * Hkv + hk) * kv_stride * D;
+  const float* qh = q + ((size_t)b * Hq + h) * Sq * D;
+  float* oh = o + ((size_t)b * Hq + h) * Sq * D;
+  const float* kh = k + ((size_t)b * Hkv + hk) * kv_stride * D;
+  const float* vh = v + ((size_t)b * Hkv + hk) * kv_stride * D;
   const int offset = Skv - Sq;  // causal: row i sees keys <= i + offset
 
   {
-    const T* const src[1] = {qh};
+    const float* const src[1] = {qh};
     float* const dst[1] = {Qs};
-    stage<T, D, BQ, 1>(src, dst, q0, Sq, scale);
+    stage<D, BQ, 1>(src, dst, q0, Sq, scale);
   }
   int kv_end = Skv;
   if (causal) kv_end = min(Skv, min(q0 + BQ, Sq) + offset);
@@ -183,9 +502,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the last tile's Ks / Vs / Ps are read
     {
-      const T* const src[2] = {kh, vh};
+      const float* const src[2] = {kh, vh};
       float* const dst[2] = {Ks, Vs};
-      stage<T, D, BK, 2>(src, dst, k0, Skv, 1.0f);
+      stage<D, BK, 2>(src, dst, k0, Skv, 1.0f);
     }
     __syncthreads();
 
@@ -256,40 +575,331 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = l[i] == 0.0f ? 1.0f : l[i];  // empty row -> 0
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd)
-      store(oh + (size_t)qpos * D + tx + 16 * jd, acc[i][jd] / denom);
+      oh[(size_t)qpos * D + tx + 16 * jd] = acc[i][jd] / denom;
   }
 }
 
-template <typename T, int D, int BQ, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
-           float scale, cudaStream_t stream) {
+template <int D, int BQ, int BK>
+int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
+               int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
+               float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, BQ, BK>();
-  auto kernel = flash_attention_kernel<T, D, BQ, BK>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  auto kernel = flash_attention_kernel<D, BQ, BK>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
       kv_stride, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The prefill kernel of each type: tensor cores for bf16, FMA for fp32.
 template <typename T, int D>
-int launch_tiles(const void* q, const void* k, const void* v, void* o, int B,
+struct Prefill;
+template <int D>
+struct Prefill<bf16, D> {
+  static int run(const void* q, const void* k, const void* v, void* o, int B,
                  int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
-                 float scale, cudaStream_t stream) {
-  if (Sq <= 16)
-    return launch<T, D, 16, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
-                                causal, scale, stream);
-  return launch<T, D, 64, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
-                              causal, scale, stream);
+                 float scale, cudaStream_t s) {
+    return launch_mma<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride, causal,
+                         scale, s);
+  }
+};
+template <int D>
+struct Prefill<float, D> {
+  static int run(const void* q, const void* k, const void* v, void* o, int B,
+                 int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
+                 float scale, cudaStream_t s) {
+    return launch_fma<D, 64, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
+                                 causal, scale, s);
+  }
+};
+
+// ----------------------------------------------- 3. decode, split KV
+
+constexpr int DEC_THREADS = 128;
+constexpr int DEC_ROWS = 16;    // most query rows (Sq * Hq / Hkv) a block holds
+constexpr int DEC_KC = 32;      // keys a chunk stages
+constexpr int DEC_STAGES = 3;
+
+// 16 bytes at p (16-byte aligned) as floats.
+__device__ __forceinline__ void widen16(const float* p, float* out) {
+  load16(p, out);
 }
+__device__ __forceinline__ void widen16(const bf16* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T, int D, int GR>
+struct DecodeLayout {
+  static constexpr int VEC = 16 / sizeof(T);     // elements in 16 bytes
+  static constexpr int LD = D + VEC;             // padded row, elements
+  static constexpr size_t kv_bytes = sizeof(T) * DEC_STAGES * 2 * DEC_KC * LD;
+  static constexpr size_t q_bytes = sizeof(T) * GR * D;      // as copied
+  static constexpr size_t bytes = kv_bytes + q_bytes + sizeof(float) *
+      (GR * D + GR * DEC_KC + 3 * GR);   // q in fp32, p, alpha, m, l
+};
+
+// One block per (split, KV head, batch) holds the G <= GR query rows of
+// the group, which lie contiguous in q and o at ((b * Hkv + hk) * G + r)
+// * D.  Keys [k0, k1) of the split.  ws == nullptr: write o; else write
+// (m, l, acc[D]) for the row at ws[(((b * Hkv + hk) * G + r) * splits +
+// split) * (D + 2)].  A thread scores one key of the chunk (its lane)
+// against the rows of its warp (warp, warp + 4, ...), so a K row is read
+// once for all of them, and owns column tid % D of the output rows
+// tid / D + i * (128 / D), so a V element is read once for all of its
+// rows.  GR, the rows a block can hold, is a template argument so that
+// the loops over rows unroll without runtime trip counts.
+template <typename T, int D, int GR>
+__global__ void __launch_bounds__(DEC_THREADS)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ ws, int Hkv, int Sq, int G, int Skv,
+                    int kv_stride, int causal, float scale,
+                    int rows_per_split) {
+  using L = DecodeLayout<T, D, GR>;
+  constexpr int VEC = L::VEC, LD = L::LD, CPR = D / VEC;
+  constexpr int WARPS = DEC_THREADS / 32;
+  constexpr int RW = (GR + WARPS - 1) / WARPS;       // rows a warp scores
+  constexpr int ACC = (GR * D + DEC_THREADS - 1) / DEC_THREADS;  // outputs
+  static_assert(DEC_KC == 32 && DEC_THREADS % D == 0, "key = lane");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* kv = reinterpret_cast<T*>(smem_raw);       // [stage][k or v][key][LD]
+  T* q_raw = reinterpret_cast<T*>(smem_raw + L::kv_bytes);       // [G][D]
+  float* qs = reinterpret_cast<float*>(smem_raw + L::kv_bytes + L::q_bytes);
+  float* ps = qs + GR * D;                      // [G][DEC_KC]
+  float* alpha_s = ps + GR * DEC_KC;            // [G]
+  float* m_s = alpha_s + GR;
+  float* l_s = m_s + GR;
+
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t rows0 = ((size_t)b * Hkv + hk) * G;   // first row of q / o
+  const T* kh = k + ((size_t)b * Hkv + hk) * kv_stride * D;
+  const T* vh = v + ((size_t)b * Hkv + hk) * kv_stride * D;
+  const int k0 = split * rows_per_split;
+  const int k1 = min(Skv, k0 + rows_per_split);
+  const int n_chunks = k1 > k0 ? (k1 - k0 + DEC_KC - 1) / DEC_KC : 0;
+  const int offset = Skv - Sq;
+
+  // q rows go with the first chunk's copies
+  for (int i = tid; i < G * CPR; i += DEC_THREADS)
+    cp_async16(q_raw + i * VEC, q + rows0 * D + i * VEC, true);
+  auto issue = [&](int c) {
+    T* dst = kv + (c % DEC_STAGES) * 2 * DEC_KC * LD;
+    const int kc0 = k0 + c * DEC_KC;
+    for (int i = tid; i < 2 * DEC_KC * CPR; i += DEC_THREADS) {
+      const int m = i / (DEC_KC * CPR), r = (i / CPR) % DEC_KC;
+      const int e = (i % CPR) * VEC;
+      const T* src = m ? vh : kh;
+      const bool in = kc0 + r < k1;
+      cp_async16(dst + (m * DEC_KC + r) * LD + e,
+                 in ? src + (size_t)(kc0 + r) * D + e : src, in);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < DEC_STAGES - 1; ++c) {
+    if (c < n_chunks) issue(c);
+    cp_async_commit();
+  }
+
+  const int d_own = tid % D;  // this thread's output column
+  float acc[ACC], m_r[RW], l_r[RW];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    m_r[i] = NEG_INF;
+    l_r[i] = 0.0f;
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncthreads();  // chunk c landed; chunk c - 1's stage is free
+    if (c + DEC_STAGES - 1 < n_chunks) issue(c + DEC_STAGES - 1);
+    cp_async_commit();
+    if (c == 0) {     // q, landed with chunk 0, widened once
+      for (int i = tid; i < G * D; i += DEC_THREADS)
+        qs[i] = to_f32(q_raw[i]);
+      __syncthreads();
+    }
+    const T* Kc = kv + (c % DEC_STAGES) * 2 * DEC_KC * LD;
+    const T* Vc = Kc + DEC_KC * LD;
+    const int key = k0 + c * DEC_KC + lane;
+
+    // scores of key `lane` against rows warp + i * WARPS, VEC partial
+    // sums a row
+    float part[RW][VEC];
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) part[i][e] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; d += VEC) {
+      float kf[VEC];
+      widen16(Kc + lane * LD + d, kf);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        const int r = min(warp + i * WARPS, G - 1);  // rows past G: unused
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qs + r * D + d + e);
+          part[i][e] = fmaf(qv.x, kf[e], part[i][e]);
+          part[i][e + 1] = fmaf(qv.y, kf[e + 1], part[i][e + 1]);
+          part[i][e + 2] = fmaf(qv.z, kf[e + 2], part[i][e + 2]);
+          part[i][e + 3] = fmaf(qv.w, kf[e + 3], part[i][e + 3]);
+        }
+      }
+    }
+
+    // online softmax, a warp a row, lane = key
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int r = warp + i * WARPS;
+      if (r >= G) continue;  // warp-uniform
+#pragma unroll
+      for (int w = VEC / 2; w > 0; w >>= 1)
+#pragma unroll
+        for (int e = 0; e < w; ++e) part[i][e] += part[i][e + w];
+      const int qi = r % Sq;
+      const bool ok = key < k1 && (!causal || key <= qi + offset);
+      const float x = ok ? part[i][0] * scale : NEG_INF;
+      float mx = x;
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m_r[i], mx);
+      const float p = ok ? expf(x - m_new) : 0.0f;
+      float sum = p;
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, w);
+      const float alpha = expf(m_r[i] - m_new);
+      l_r[i] = alpha * l_r[i] + sum;
+      m_r[i] = m_new;
+      ps[r * DEC_KC + lane] = p;
+      if (lane == 0) alpha_s[r] = alpha;
+    }
+    __syncthreads();
+
+    // acc = alpha acc + P V over this chunk's keys; rows past G compute
+    // on row G - 1 and are never written
+    int rr[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) {
+      rr[i] = min(tid / D + i * (DEC_THREADS / D), G - 1);
+      acc[i] *= alpha_s[rr[i]];
+    }
+#pragma unroll 8
+    for (int jj = 0; jj < DEC_KC; ++jj) {
+      const float vv = to_f32(Vc[jj * LD + d_own]);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i)
+        acc[i] = fmaf(ps[rr[i] * DEC_KC + jj], vv, acc[i]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + i * WARPS;
+    if (r < G && lane == 0) {
+      m_s[r] = m_r[i];
+      l_s[r] = l_r[i];
+    }
+  }
+  __syncthreads();
+  const int splits = gridDim.x;
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) {
+    const int r = tid / D + i * (DEC_THREADS / D);
+    if (r >= G) continue;
+    if (ws == nullptr) {
+      const float den = l_s[r] == 0.0f ? 1.0f : l_s[r];  // empty row -> 0
+      store(o + (rows0 + r) * D + d_own, acc[i] / den);
+    } else {
+      float* w = ws + ((rows0 + r) * splits + split) * (D + 2);
+      if (d_own == 0) {
+        w[0] = m_s[r];
+        w[1] = l_s[r];
+      }
+      w[2 + d_own] = acc[i];
+    }
+  }
+}
+
+// Merges the splits of one row (blockIdx.x) in split order.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+flash_decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
+                            int splits) {
+  const size_t row = blockIdx.x;
+  const float* w = ws + row * splits * (D + 2);
+  float M = NEG_INF;
+#pragma unroll 4
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, w[s * (D + 2)]);
+  float L = 0.0f, acc = 0.0f;
+#pragma unroll 4
+  for (int s = 0; s < splits; ++s) {
+    const float* ws_s = w + s * (D + 2);
+    const float f = expf(ws_s[0] - M);  // 0 for a split that saw no key
+    L = fmaf(f, ws_s[1], L);
+    acc = fmaf(f, ws_s[2 + threadIdx.x], acc);
+  }
+  store(o + row * D + threadIdx.x, acc / (L == 0.0f ? 1.0f : L));
+}
+
+template <typename T, int D, int GR>
+int launch_decode_rows(const void* q, const void* k, const void* v, void* o,
+                       float* part, int B, int Hkv, int Sq, int G, int Skv,
+                       int kv_stride, int causal, float scale,
+                       int rows_per_split, int splits, cudaStream_t stream) {
+  constexpr size_t smem = DecodeLayout<T, D, GR>::bytes;
+  auto kernel = flash_decode_kernel<T, D, GR>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(splits, Hkv, B), DEC_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), part, Hkv, Sq, G, Skv,
+      kv_stride, causal, scale, rows_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_decode(const void* q, const void* k, const void* v, void* o,
+                  void* ws, int B, int Hq, int Hkv, int Sq, int Skv,
+                  int kv_stride, int causal, float scale, int rows_per_split,
+                  int splits, cudaStream_t stream) {
+  const int G = Sq * (Hq / Hkv);
+  if (G < 1 || G > DEC_ROWS || splits < 1 || rows_per_split < 1 ||
+      (splits > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* part = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  const int err =
+      G <= 4 ? launch_decode_rows<T, D, 4>(q, k, v, o, part, B, Hkv, Sq, G,
+                                            Skv, kv_stride, causal, scale,
+                                            rows_per_split, splits, stream)
+             : launch_decode_rows<T, D, DEC_ROWS>(
+                   q, k, v, o, part, B, Hkv, Sq, G, Skv, kv_stride, causal,
+                   scale, rows_per_split, splits, stream);
+  if (err != 0 || splits == 1) return err;
+  flash_decode_combine_kernel<T, D><<<B * Hkv * G, D, 0, stream>>>(
+      part, static_cast<T*>(o), splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------- dispatch
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
@@ -298,17 +908,45 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_tiles<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
+      return Prefill<T, 16>::run(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
                                  causal, scale, s);
     case 32:
-      return launch_tiles<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
+      return Prefill<T, 32>::run(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
                                  causal, scale, s);
     case 64:
-      return launch_tiles<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
+      return Prefill<T, 64>::run(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
                                  causal, scale, s);
     case 128:
-      return launch_tiles<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
-                                  causal, scale, s);
+      return Prefill<T, 128>::run(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+                                  kv_stride, causal, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int dispatch_decode(const void* q, const void* k, const void* v, void* o,
+                    void* ws, int B, int Hq, int Hkv, int Sq, int Skv,
+                    int kv_stride, int D, int causal, float scale,
+                    int rows_per_split, int splits, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_decode<T, 16>(q, k, v, o, ws, B, Hq, Hkv, Sq, Skv,
+                                  kv_stride, causal, scale, rows_per_split,
+                                  splits, s);
+    case 32:
+      return launch_decode<T, 32>(q, k, v, o, ws, B, Hq, Hkv, Sq, Skv,
+                                  kv_stride, causal, scale, rows_per_split,
+                                  splits, s);
+    case 64:
+      return launch_decode<T, 64>(q, k, v, o, ws, B, Hq, Hkv, Sq, Skv,
+                                  kv_stride, causal, scale, rows_per_split,
+                                  splits, s);
+    case 128:
+      return launch_decode<T, 128>(q, k, v, o, ws, B, Hq, Hkv, Sq, Skv,
+                                   kv_stride, causal, scale, rows_per_split,
+                                   splits, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -318,8 +956,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 // Plain C entry points for ctypes.  q, o: (B, Hq, Sq, D) contiguous;
 // k, v: (B, Hkv, kv_stride, D) contiguous, of which rows [0, Skv) are
-// read; q, k and v 16-byte aligned.  D is one of 16, 32, 64, 128.  Each returns cudaGetLastError()
-// after the launch (0 = launched).
+// read; q, k and v 16-byte aligned.  D is one of 16, 32, 64, 128.  Each
+// returns cudaGetLastError() after its launches (0 = launched).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int Hq,
                                    int Hkv, int Sq, int Skv, int kv_stride,
@@ -334,6 +972,30 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int Hkv, int Sq, int Skv, int kv_stride,
                                     int D, int causal, float scale,
                                     void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
-                                 D, causal, scale, stream);
+  return dispatch<bf16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride, D,
+                        causal, scale, stream);
+}
+
+// Split-KV decode for Sq * Hq / Hkv <= 16: `splits` blocks per (batch, KV
+// head), each over `rows_per_split` keys; with splits > 1, ws is an fp32
+// workspace of B * Hkv * Sq * (Hq / Hkv) * splits * (D + 2) floats and a
+// second kernel merges the splits.
+extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
+                                void* o, void* ws, int B, int Hq, int Hkv,
+                                int Sq, int Skv, int kv_stride, int D,
+                                int causal, float scale, int rows_per_split,
+                                int splits, void* stream) {
+  return dispatch_decode<float>(q, k, v, o, ws, B, Hq, Hkv, Sq, Skv,
+                                kv_stride, D, causal, scale, rows_per_split,
+                                splits, stream);
+}
+
+extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
+                                 void* o, void* ws, int B, int Hq, int Hkv,
+                                 int Sq, int Skv, int kv_stride, int D,
+                                 int causal, float scale, int rows_per_split,
+                                 int splits, void* stream) {
+  return dispatch_decode<bf16>(q, k, v, o, ws, B, Hq, Hkv, Sq, Skv,
+                               kv_stride, D, causal, scale, rows_per_split,
+                               splits, stream);
 }

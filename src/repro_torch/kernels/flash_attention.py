@@ -2,26 +2,34 @@
 
 Replaces the Pallas TPU kernel ``_attn_kernel``
 (``src/repro/kernels/flash_attention.py``) with the hand-written CUDA
-kernel ``csrc/flash_attention.cu``: one block per (batch, query head,
-query tile), a loop over KV tiles inside the block with the running max,
-sum and fp32 accumulator in registers, and query head ``h`` reading KV
-head ``h // (Hq / Hkv)`` in place.  The true query and KV lengths are
+kernels of ``csrc/flash_attention.cu``.  Query head ``h`` reads KV head
+``h // (Hq / Hkv)`` in place, and the true query and KV lengths are
 kernel arguments, so one program serves prefill and every decode step;
-decode hands it the KV cache with ``kv_len = pos + 1``, and the kernel
-reads those rows of the cache where they lie.
+decode hands it the KV cache with ``kv_len = pos + 1``, and the kernels
+read those rows of the cache where they lie.
 
-Bound on the card: bf16 tensor-core operations or bytes for prefill,
-the bytes of the KV cache for decode (the kernel computes with fp32 FMA;
-see the source note).
+- Prefill (``Sq * Hq / Hkv > DECODE_ROWS``): bf16 operands go to a
+  FlashAttention-2 kernel on the tensor cores (``mma.sync`` bf16, fp32
+  accumulators, K/V double-buffered by ``cp.async``); fp32 operands to an
+  fp32 FMA kernel, since the port uses no TF32.  Bound: the bytes at
+  qwen3-4b's prefill, then the bf16 operations.
+- Decode (``Sq * Hq / Hkv <= DECODE_ROWS``, both dtypes): split-KV
+  flash-decoding, bound by the bytes of the cache.  A block per (batch,
+  KV head, split) holds all query rows of the GQA group, so each cache
+  row is read once; ``decode_plan`` chooses the splits, and a second
+  kernel merges them when there are more than one.
 
-A tensor on the CPU goes to the plain version ``ref.mha_attention``; a
-CUDA tensor goes to the kernel, or the call raises.
+``flash_attention.launches`` counts wrapper calls, whatever number of
+device kernels a call launches.  A tensor on the CPU goes to the plain
+version ``ref.mha_attention``; a CUDA tensor goes to the kernels, or the
+call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -30,7 +38,34 @@ from . import _build, ref
 HEAD_DIMS = (16, 32, 64, 128)   # the head widths the kernel is built for
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = (_P,) * 4 + (_I,) * 8 + (ctypes.c_float, _P)
-_SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS}
+_DECODE_ARGS = (_P,) * 5 + (_I,) * 8 + (ctypes.c_float, _I, _I, _P)
+_SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS,
+               "flash_decode_f32": _DECODE_ARGS,
+               "flash_decode_bf16": _DECODE_ARGS}
+
+DECODE_ROWS = 16       # query rows (Sq * Hq / Hkv) a decode block holds
+DECODE_CHUNK = 32      # keys a decode block stages at a time
+MIN_SPLIT_ROWS = 64    # keys a decode split holds at least
+
+
+class DecodePlan(NamedTuple):
+    """Keys ``[0, Skv)`` cut into ``splits`` slices of ``rows_per_split``
+    (whole chunks; the last may be shorter), one block each per (batch,
+    KV head); ``combine``: a second kernel merges the splits."""
+    splits: int
+    rows_per_split: int
+    combine: bool
+
+
+def decode_plan(skv: int, pairs: int, sms: int) -> DecodePlan:
+    """Splits for ``pairs`` (batch, KV head) blocks over ``skv`` keys: at
+    least two blocks an SM where ``skv`` allows ``MIN_SPLIT_ROWS`` keys a
+    split."""
+    want = max(1, -(-2 * sms // max(pairs, 1)))
+    per = -(-skv // want)
+    rows = max(MIN_SPLIT_ROWS, -(-per // DECODE_CHUNK) * DECODE_CHUNK)
+    splits = max(1, -(-skv // rows))
+    return DecodePlan(splits, rows, splits > 1)
 
 
 def _check(q, k, v, kv_len) -> int:
@@ -88,13 +123,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     lib = _build.load("flash_attention", _SIGNATURES)
-    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
-          else lib.flash_attention_bf16)
+    f32 = q.dtype == torch.float32
+    Hkv, stride = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Hq, k.shape[1], Sq, skv, k.shape[2], D, int(causal),
-                 1.0 / math.sqrt(D),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        if Sq * (Hq // Hkv) <= DECODE_ROWS:
+            plan = decode_plan(skv, B * Hkv, _build.sm_count(q.device))
+            ws = (torch.empty(B * Hq * Sq * plan.splits * (D + 2),
+                              dtype=torch.float32, device=q.device)
+                  if plan.combine else None)
+            fn = lib.flash_decode_f32 if f32 else lib.flash_decode_bf16
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                     B, Hq, Hkv, Sq, skv, stride, D, int(causal),
+                     1.0 / math.sqrt(D), plan.rows_per_split, plan.splits,
+                     stream)
+        else:
+            fn = lib.flash_attention_f32 if f32 else lib.flash_attention_bf16
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     B, Hq, Hkv, Sq, skv, stride, D, int(causal),
+                     1.0 / math.sqrt(D), stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

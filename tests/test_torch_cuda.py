@@ -5,13 +5,19 @@ CUDA device; the file imports no JAX, so it runs wherever the port does:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (act_rows, flash_attention, flex_gemm, layernorm_rows, ref,
-                                 rmsnorm_rows, softmax_rows, ssd)
+from repro_torch.kernels import (_build, act_rows, flash_attention, flex_gemm, layernorm_rows,
+                                 ref, rmsnorm_rows, softmax_rows, ssd)
 from repro_torch.kernels.ref import ACTIVATIONS, EPILOGUES
+
+# the modules, not the wrappers of the same name that the package exports
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+fg = importlib.import_module("repro_torch.kernels.flex_gemm")
 
 # the reference's sweeps (tests/test_kernels.py) plus BERT-L tile shapes
 GEMM_SHAPES = [(128, 128, 128), (100, 200, 300), (7, 33, 129),
@@ -26,6 +32,12 @@ RMS_SERVING = [(2048, 2560), (65536, 128), (16384, 128), (4, 2560),
 # mamba2-2.7b's rmsnorm rows: the gated norm of 4 x 512 prefill tokens and
 # of 4 decode tokens (its norm1 rows are qwen3-4b's 2048 x 2560 / 4 x 2560)
 RMS_SSM = [(2048, 5120), (4, 5120)]
+# BERT-L's MMU tiles (M, K, N), DeiT-L's ragged 197-row ones (K = 197 and
+# N = 197 take the scalar-staged kernel) and the -S models' N = 1
+MMU_TILES = [(256, 256, 256), (512, 256, 192), (512, 512, 384),
+             (512, 512, 768), (512, 768, 768), (256, 256, 3072),
+             (197, 197, 768), (197, 256, 197), (197, 1024, 384),
+             (1024, 32, 1)]
 # (B, Hq, Hkv, Sq, Skv, D): the reference's sweep, then qwen3-4b prefill
 ATTN_SHAPES = [(1, 4, 2, 64, 64, 32), (2, 8, 2, 32, 128, 64),
                (1, 2, 1, 1, 96, 32), (1, 4, 4, 50, 50, 16),
@@ -70,6 +82,39 @@ def test_cuda_flex_gemm_matches_plain(cuda, shape, tdt):
             torch.testing.assert_close(
                 got.float(), ref.gemm(a, b, bias, epilogue, acc).float(),
                 rtol=rtol, atol=atol * K ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MMU_TILES)
+@pytest.mark.parametrize("split", ["plan", "one_slab"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flex_gemm_tiles_with_and_without_split_k(cuda, shape, split,
+                                                       tdt):
+    """The main path's tiles as ``gemm_plan`` cuts them for this card (split-K
+    where the output has too few blocks) and in one slab, every epilogue,
+    with and without the accumulator; split-K sums the same way every run."""
+    M, K, N = shape
+    a = torch.from_numpy(_np((M, K), 35)).to(cuda, tdt)
+    b = torch.from_numpy(_np((K, N), 36)).to(cuda, tdt)
+    bias = torch.from_numpy(_np((N,), 37)).to(cuda, tdt)
+    c = torch.from_numpy(_np((M, N), 38)).to(cuda, tdt)
+    plan = fg.gemm_plan(M, K, N, _build.sm_count(cuda))
+    if split == "one_slab":
+        plan = fg.GemmPlan(plan.blocks, 1, max(1, -(-K // fg.BLOCK_K)))
+    rtol, atol = _tol(tdt)
+    for epilogue in EPILOGUES:
+        for acc in (None, c):
+            got = fg._launch(a, b, bias, epilogue, acc, plan)
+            again = fg._launch(a, b, bias, epilogue, acc, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            torch.testing.assert_close(
+                got.float(), ref.gemm(a, b, bias, epilogue, acc).float(),
+                rtol=rtol, atol=atol * K ** 0.5)
+    before = flex_gemm.launches
+    flex_gemm(a, b, c=c)
+    assert flex_gemm.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -166,6 +211,108 @@ def test_cuda_flash_attention_empty_rows_give_zero(cuda):
     assert torch.equal(got[:, :, :16], torch.zeros_like(got[:, :, :16]))
     torch.testing.assert_close(got, ref.mha_attention(q, k, v, causal=True),
                                rtol=1e-4, atol=2e-5)
+
+
+def _qkv(shape, seed, cuda, tdt, cache=None):
+    """q (B, Hq, Sq, D) and k, v of ``cache`` rows (default Skv), NaN past
+    Skv: the kernels must never read there."""
+    B, Hq, Hkv, Sq, Skv, D = shape
+    rows = cache or Skv
+    q = torch.from_numpy(_np((B, Hq, Sq, D), seed)).to(cuda, tdt)
+    k = torch.from_numpy(_np((B, Hkv, rows, D), seed + 1)).to(cuda, tdt)
+    v = torch.from_numpy(_np((B, Hkv, rows, D), seed + 2)).to(cuda, tdt)
+    k[:, :, Skv:] = float("nan")
+    v[:, :, Skv:] = float("nan")
+    return q, k, v
+
+
+def _attn_close(got, q, k, v, causal, skv, tdt):
+    """tests/test_kernels.py's tolerances: fp32 1e-4 / 2e-5, bf16 3e-2."""
+    rtol, atol = (1e-4, 2e-5) if tdt == torch.float32 else (3e-2, 3e-2)
+    want = ref.mha_attention(q, k, v, causal=causal, kv_len=skv)
+    assert got.dtype == tdt and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [37, 200, 384, 512])
+@pytest.mark.parametrize("cached", [0, 29])
+def test_cuda_flash_attention_bf16_prefill_at_qwen3_4b(cuda, sq, cached):
+    """The tensor-core kernel at qwen3-4b's widths (32 query heads over 8 KV
+    heads of 128) and the served prompt lengths, causal, with ``cached``
+    more keys than queries (offset Skv - Sq), read from a longer cache."""
+    skv = sq + cached
+    q, k, v = _qkv((4, 32, 8, sq, skv, 128), 60, cuda, torch.bfloat16,
+                   cache=skv + 19)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, kv_len=skv)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _attn_close(got, q, k, v, True, skv, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_bf16_prefill_head_dims(cuda, d, causal):
+    """Every head width of the tensor-core kernel, ragged query and key
+    tiles, Skv > Sq."""
+    q, k, v = _qkv((2, 6, 2, 100, 130, d), 63, cuda, torch.bfloat16)
+    _attn_close(flash_attention(q, k, v, causal=causal), q, k, v, causal,
+                130, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", [1, 63, 64, 65, 540, 1024])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_split_kv_decode(cuda, skv, tdt):
+    """qwen3-4b decode over the first ``skv`` rows of a 1024-row cache, NaN
+    past them: one split up to 64 rows (no combine), several past."""
+    q, k, v = _qkv((4, 32, 8, 1, skv, 128), 66, cuda, tdt, cache=1024)
+    for causal in (False, True):
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal, kv_len=skv)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        _attn_close(got, q, k, v, causal, skv, tdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 1, 1, 300, 16),
+                                   (1, 4, 1, 1, 300, 32),
+                                   (1, 4, 1, 1, 300, 64),
+                                   (2, 8, 2, 4, 100, 64),
+                                   (1, 16, 1, 1, 200, 128)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_decode_head_dims_and_groups(cuda, shape, tdt):
+    """The decode path at every head width and at 16 query rows a block
+    (4 causal queries x 4 heads, and 1 query x 16 heads)."""
+    q, k, v = _qkv(shape, 69, cuda, tdt, cache=shape[4] + 7)
+    for causal in (False, True):
+        got = flash_attention(q, k, v, causal=causal, kv_len=shape[4])
+        torch.cuda.synchronize()
+        _attn_close(got, q, k, v, causal, shape[4], tdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2, 1, 40, 24, 32),
+                                   (1, 2, 1, 8, 4, 32)],
+                         ids=["prefill", "decode"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_empty_rows_give_zero_on_both_paths(cuda, shape,
+                                                                 tdt):
+    """Causal with Sq > Skv: the first Sq - Skv rows see no key and give 0,
+    in the prefill kernels (bf16 on the tensor cores) and the decode path."""
+    q, k, v = _qkv(shape, 72, cuda, tdt)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    empty = shape[3] - shape[4]
+    assert torch.equal(got[:, :, :empty], torch.zeros_like(got[:, :, :empty]))
+    _attn_close(got, q, k, v, True, shape[4], tdt)
 
 
 # (B, S, H, P, G, N): the reference's sweep (tests/test_kernels.py), its

@@ -1,0 +1,147 @@
+"""The launch plans of the port's redesigned kernels, on the CPU.
+
+``gemm_plan`` cuts K into split-K slabs for ``flex_gemm`` and
+``decode_plan`` cuts the KV rows into splits for ``flash_attention``'s
+decode path.  Both are pure functions of the shape and the card's SM
+count, so they are checked here: each covers K (or the KV rows) exactly
+once in whole tiles, and fills the card where the length allows.  The
+kernels that follow the plans are held against the plain versions on
+the card in test_torch_cuda.py.
+"""
+
+import importlib
+from collections import Counter
+
+import pytest
+
+from repro_torch.configs import get_config, paper_models
+from repro_torch.core import CompileOptions, DoraCompiler, OpType
+
+# the modules, not the wrappers of the same name that the package exports
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+fg = importlib.import_module("repro_torch.kernels.flex_gemm")
+
+H100_SMS = 132
+# BERT-L's MMU_GEMM tiles (M, K, N) and their launches in one run, as the
+# port's compiler gives them (engine "list")
+BERT_L_TILES = {(256, 256, 256): 48, (512, 256, 192): 48,
+                (512, 512, 384): 48, (512, 512, 768): 4,
+                (512, 768, 768): 12, (256, 256, 3072): 24}
+# the reference's GEMM sweep, DeiT-L's ragged 197-row tiles, the -S
+# models' narrow ones (N = 1)
+OTHER_GEMMS = [(128, 128, 128), (100, 200, 300), (7, 33, 129),
+               (256, 512, 384), (1, 17, 5), (130, 257, 131), (512, 64, 1024),
+               (197, 197, 768), (197, 256, 197), (197, 1024, 384),
+               (1024, 32, 1), (256, 512, 512), (64, 0, 64)]
+# qwen3-4b's decode reads 513..543 cache rows; the card tests' lengths
+DECODE_LENGTHS = [0, 1, 63, 64, 65, 513, 540, 543, 1024]
+
+
+def _mmu_tiles(name):
+    res = DoraCompiler().compile(paper_models.get(name),
+                                 CompileOptions(engine="list"))
+    return Counter((i.body.bound_i, i.body.bound_k, i.body.bound_j)
+                   for i in res.codegen.program.instructions
+                   if i.op_type == OpType.MMU_GEMM and i.body.ping_op == 1)
+
+
+def test_bert_l_tiles_are_the_ones_the_plan_is_checked_at():
+    assert dict(_mmu_tiles("BERT-L")) == BERT_L_TILES
+
+
+def _slabs(K, plan):
+    """[start, end) of each slab in K, as the kernel walks them."""
+    k_tiles = -(-K // fg.BLOCK_K)
+    return [(z * plan.tiles_per_split * fg.BLOCK_K,
+             min(K, min(k_tiles, (z + 1) * plan.tiles_per_split) * fg.BLOCK_K))
+            for z in range(plan.splits)]
+
+
+@pytest.mark.parametrize("shape", list(BERT_L_TILES) + OTHER_GEMMS)
+def test_gemm_plan_covers_k_once_in_whole_tiles(shape):
+    M, K, N = shape
+    plan = fg.gemm_plan(M, K, N, H100_SMS)
+    assert plan.blocks == -(-M // 64) * -(-N // 64)
+    slabs = _slabs(K, plan)
+    # contiguous, non-empty, from 0 to K, each a whole number of tiles but
+    # the last
+    assert slabs[0][0] == 0 and slabs[-1][1] == K
+    for (a0, a1), (b0, _) in zip(slabs, slabs[1:]):
+        assert a1 == b0 and a1 > a0 and (a1 - a0) % fg.BLOCK_K == 0
+    assert plan.splits == 1 or plan.tiles_per_split >= fg.MIN_SPLIT_TILES
+
+
+@pytest.mark.parametrize("shape", list(BERT_L_TILES) + OTHER_GEMMS)
+def test_gemm_plan_fills_the_card_where_k_allows(shape):
+    """Where slabs of at least MIN_SPLIT_TILES tiles can give every SM a
+    block, the plan does; else it cuts K into the most such slabs the
+    cost model finds worth a reduce, and never splits an output that
+    fills the card alone."""
+    M, K, N = shape
+    plan = fg.gemm_plan(M, K, N, H100_SMS)
+    k_tiles = -(-K // fg.BLOCK_K)
+    most = max(1, k_tiles // fg.MIN_SPLIT_TILES)    # slabs of 2 tiles
+    if plan.blocks * most >= H100_SMS:
+        assert plan.blocks * plan.splits >= H100_SMS
+    if plan.blocks >= H100_SMS:
+        assert plan.splits == 1
+
+
+def test_gemm_plan_at_bert_l():
+    """BERT-L's tiles: a block for every SM at all but 256x256x256, whose
+    16 K tiles allow 8 slabs of 2 (128 blocks); where the output is
+    short of the card, K is cut so that the blocks come in nearly whole
+    waves of 132 (384 blocks: 3 an SM on most SMs)."""
+    got = {s: fg.gemm_plan(*s, H100_SMS) for s in BERT_L_TILES}
+    assert {s: (p.blocks, p.splits) for s, p in got.items()} == {
+        (256, 256, 256): (16, 8), (512, 256, 192): (24, 8),
+        (512, 512, 384): (48, 8), (512, 512, 768): (96, 4),
+        (512, 768, 768): (96, 4), (256, 256, 3072): (192, 1)}
+    assert sum(n for s, n in BERT_L_TILES.items()
+               if got[s].blocks * got[s].splits < H100_SMS) == 48
+
+
+def test_gemm_plan_prices_the_reduce():
+    """One slab where the output fills the card; the reduce's cost keeps
+    a cut that adds no wave from being taken."""
+    assert fg.gemm_plan(3072, 1024, 4096, H100_SMS).splits == 1
+    assert fg.gemm_plan(256, 256, 3072, H100_SMS).splits == 1
+    assert fg.gemm_plan(7, 33, 129, H100_SMS).splits == 1
+
+
+@pytest.mark.parametrize("skv", DECODE_LENGTHS)
+@pytest.mark.parametrize("pairs", [1, 32, 64, 256])
+def test_decode_plan_covers_the_rows_once_in_whole_chunks(skv, pairs):
+    plan = fa.decode_plan(skv, pairs, H100_SMS)
+    assert plan.rows_per_split % fa.DECODE_CHUNK == 0
+    assert plan.rows_per_split >= fa.MIN_SPLIT_ROWS
+    assert plan.splits >= 1
+    # every split non-empty, together exactly [0, skv)
+    assert (plan.splits - 1) * plan.rows_per_split < max(skv, 1)
+    assert plan.splits * plan.rows_per_split >= skv
+    assert plan.combine == (plan.splits > 1)
+
+
+@pytest.mark.parametrize("skv", DECODE_LENGTHS)
+def test_decode_plan_fills_the_card_at_qwen3_4b_where_the_length_allows(skv):
+    cfg = get_config("qwen3-4b")
+    pairs = 4 * cfg.n_kv_heads          # the served batch of 4
+    plan = fa.decode_plan(skv, pairs, H100_SMS)
+    most = max(1, -(-skv // fa.MIN_SPLIT_ROWS))  # splits of 64 rows
+    assert pairs * plan.splits >= H100_SMS or plan.splits == most
+    if 513 <= skv <= 543:               # the served decode steps
+        assert pairs * plan.splits >= 2 * H100_SMS
+
+
+def test_one_split_has_no_combine():
+    plan = fa.decode_plan(64, 32, H100_SMS)
+    assert plan == fa.DecodePlan(1, 64, False)
+    assert fa.decode_plan(65, 32, H100_SMS).combine
+
+
+def test_decode_rows_bound_the_decode_path():
+    """qwen3-4b's decode (1 query x 4 heads a KV head) takes the decode
+    path, its prefill the prefill kernels."""
+    cfg = get_config("qwen3-4b")
+    group = cfg.n_heads // cfg.n_kv_heads
+    assert 1 * group <= fa.DECODE_ROWS < 37 * group
