@@ -20,7 +20,10 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    ``ssd`` over the reference's SSD sweep (fp32, chunks 32 and 64, from
    zero and from an initial state, y and the final state), its tail case,
    G > 1 with a tail, and mamba2-2.7b's prefill (bf16) and short-prompt
-   (fp32) shapes; ``rmsnorm_rows`` over mamba2-2.7b's gated-norm rows.
+   (fp32) shapes; ``rmsnorm_rows`` over mamba2-2.7b's gated-norm rows
+   and internlm2-20b's 6144-wide rows, ``layernorm_rows`` over
+   nemotron-4-15b's; unaligned and ragged operands of ``rmsnorm_rows``
+   and ``act_rows`` (their scalar kernels).
 4. DORA path: compiles paper workloads with ``DoraCompiler`` and runs
    each compiled binary through ``DoraCompiler.execute`` on the card from
    ``random_inputs(0)``: BERT-L and DeiT-L at full width, MLP-L (the one
@@ -48,14 +51,24 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    on the same traffic, with ``SSM_RTOL`` for the logits, the same
    weights cut to 8 layers (``SSM_SHALLOW_RTOL``), and its prefill once
    more at fp32 compute and full depth, kernels against plain versions
-   (see ``SSM_FP32_RTOL``).
+   (see ``SSM_FP32_RTOL``).  Then, each server freed before the next,
+   internlm2-20b (48 layers, d 6144), nemotron-4-15b (32 layers, d 6144,
+   layernorm, relu2 MLP; also the fp32 4-layer check) and qwen1.5-4b
+   (qkv bias) at full width and depth on the same traffic, within
+   ``SERVE_RTOL``.  Every server is drawn by ``lm.init_cast``; the peak
+   device memory of building it must stay under its bf16 parameters plus
+   the largest fp32 item (the embedding, the head or a layer) plus 1 GiB,
+   and under what holding one fp32 item at a time gives plus 1 GiB.
 6. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
    PyTorch library call where one computes the same function, and the
    card's bound: ``flex_gemm`` at every distinct tile of each main-path
    model with the launch-weighted sum over a run, ``flash_attention``
-   decode over 65, 540 and 1,024 cache rows, the gelu row kernel.
+   decode over 65, 540 and 1,024 cache rows, the gelu row kernel, the
+   rmsnorm and layernorm rows of the served archs; the redesigned rmsnorm
+   and activation kernels beside their scalar kernels (the kernels before
+   the redesign).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -126,6 +139,20 @@ SSD_SHAPES = [(2, 128, 4, 16, 2, 8, 32), (2, 128, 4, 16, 2, 8, 64),
 # mamba2-2.7b's rmsnorm rows beyond qwen3-4b's: the gated norm (5120 wide)
 # of 4 x 512 prefill tokens and of 4 decode tokens.
 RMS_SSM = [(2048, 5120), (4, 5120)]
+# internlm2-20b's rmsnorm rows (d_model 6144), prefill and decode; the same
+# rows go through the fp32 layernorm kernel on nemotron-4-15b.
+RMS_WIDE = [(2048, 6144), (4, 6144)]
+# Unaligned and ragged rows of the redesigned kernels, (rows, width,
+# offset): a view ``offset`` elements into its buffer is not 16-byte
+# aligned, and a width of no whole number of 16-byte vectors cannot be
+# read in them; both take the scalar kernels of csrc/sfu.cu.
+RMS_ODD = [(2048, 6144, 1), (64, 2561, 0), (8, 6143, 1), (16, 4100, 0)]
+ACT_ODD = [(512, 3072, 1), (7, 1001, 0), (1, 3, 0)]
+# The dense archs served after qwen3-4b and mamba2-2.7b, in this order, on
+# qwen3-4b's traffic: internlm2-20b (the widest, 6144), nemotron-4-15b
+# (layernorm through the fp32 row kernel, relu2 MLP, vocab 256,000) and
+# qwen1.5-4b (qkv bias).
+DENSE_ARCHS = ("internlm2-20b", "nemotron-4-15b", "qwen1.5-4b")
 # Kernels against plain versions on mamba2-2.7b, both bf16: each step's
 # logits by relative L2.  Far looser than SERVE_RTOL, and examined: the
 # SSD kernel and ssd_chunked sum in different fp32 orders, so their bf16
@@ -276,6 +303,7 @@ def main() -> None:
     from repro_torch.core.graph import LayerKind, WorkloadGraph
     from repro_torch.core.runtime import EPILOGUE_NAME, SFU_ACT
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import sfu as sfu_k
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flex_gemm import flex_gemm, gemm_plan
     from repro_torch.kernels.ref import EPILOGUES
@@ -364,18 +392,45 @@ def main() -> None:
             f"{k} {check_sfu(k, R, N):.3g}"
             for k in ("sfu_softmax", "sfu_layernorm", "sfu_act")))
 
-    def check_rmsnorm(R, N, dt) -> float:
-        """Max |kernel - plain| with and without gamma; fp32 at
-        tests/test_kernels.py's tolerance, bf16 within one bf16 ulp
-        (both compute in fp32 and may round to neighbouring values)."""
-        x, g = randn(R, N, dtype=dt, scale=2.0), randn(N)
+    def offset_view(R, N, offset, dtype=torch.float32, scale=1.0):
+        """A contiguous (R, N) view ``offset`` elements into its buffer."""
+        return randn(R * N + offset, dtype=dtype, scale=scale)[offset:].view(
+            R, N)
+
+    def check_rmsnorm(R, N, dt, offset=0) -> float:
+        """Max |kernel - plain| with and without gamma, x and gamma
+        ``offset`` elements into their buffers; fp32 at
+        tests/test_kernels.py's tolerance, bf16 within one bf16 ulp (both
+        compute in fp32 and may round to neighbouring values); a repeated
+        call gives the same bits."""
+        x = offset_view(R, N, offset, dt, scale=2.0)
+        g = offset_view(1, N, offset)[0]
         rtol, atol = (1e-4, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-6)
         worst = 0.0
         for gamma in (None, g):
             got, want = rmsnorm_rows(x, gamma), ref.rmsnorm_rows(x, gamma)
+            again = rmsnorm_rows(x, gamma)
             torch.cuda.synchronize()
-            require(got.dtype == dt and close(got, want, rtol, atol),
-                    f"rmsnorm {R}x{N} {dt}: max err {max_err(got, want)}")
+            require(got.dtype == dt and close(got, want, rtol, atol)
+                    and torch.equal(got, again),
+                    f"rmsnorm {R}x{N} {dt} offset {offset}: max err "
+                    f"{max_err(got, want)}, repeat equal "
+                    f"{torch.equal(got, again)}")
+            worst = max(worst, max_err(got, want))
+        return worst
+
+    def check_act_odd(R, N, offset) -> float:
+        """Max |kernel - plain| of every activation on a view ``offset``
+        elements into its buffer (rtol 1e-5, atol 1e-6, as check_sfu)."""
+        x = offset_view(R, N, offset, scale=2.0)
+        worst = 0.0
+        for act in ref.ACTIVATIONS:
+            got, want, again = act_rows(x, act), ref.ACT_FN[act](x), \
+                act_rows(x, act)
+            torch.cuda.synchronize()
+            require(close(got, want, 1e-5, 1e-6) and torch.equal(got, again),
+                    f"sfu_act {act} {R}x{N} offset {offset}: max err "
+                    f"{max_err(got, want)}")
             worst = max(worst, max_err(got, want))
         return worst
 
@@ -475,11 +530,27 @@ def main() -> None:
         print(f"[check] main-path {op.name} {R}x{N}: max err {e:.3g}")
     # every shape the serving paths give the serving kernels (bf16); ssd at
     # mamba2-2.7b's prefill was checked above
-    for R, N in RMS_SERVING + RMS_SSM:
+    for R, N in RMS_SERVING + RMS_SSM + RMS_WIDE:
         errs["rmsnorm"] = max(errs["rmsnorm"],
                               check_rmsnorm(R, N, torch.bfloat16))
         print(f"[check] serving rmsnorm {R}x{N} bf16: max err so far "
               f"{errs['rmsnorm']:.3g}")
+    for R, N in RMS_WIDE:
+        e = check_sfu("sfu_layernorm", R, N, (randn(N), randn(N)))
+        errs["sfu_layernorm"] = max(errs["sfu_layernorm"], e)
+        print(f"[check] serving layernorm {R}x{N} fp32 +gamma +beta "
+              f"(nemotron-4-15b): max err {e:.3g}")
+    for R, N, offset in RMS_ODD:
+        for dt in (torch.float32, torch.bfloat16):
+            e = check_rmsnorm(R, N, dt, offset)
+            errs["rmsnorm"] = max(errs["rmsnorm"], e)
+            print(f"[check] rmsnorm {R}x{N} {str(dt)[6:]} offset {offset} "
+                  f"(scalar kernel): max err {e:.3g}")
+    for R, N, offset in ACT_ODD:
+        e = check_act_odd(R, N, offset)
+        errs["sfu_act"] = max(errs["sfu_act"], e)
+        print(f"[check] sfu_act {R}x{N} offset {offset}, 4 activations: max "
+              f"err {e:.3g}")
     cfg, plen = get_config(SERVE_ARCH), max(SERVE_PROMPTS)
     for Sq, Skv, causal, rows in (
             (plen, plen, True, None),                          # prefill
@@ -585,13 +656,17 @@ def main() -> None:
     # -------------------------------------------------------- serving path
     def device_profile(label, fn, host_s):
         """Device time by kernel over one call of ``fn`` (CUPTI trace),
-        beside ``host_s``, the same call's unprofiled host time."""
+        beside ``host_s``, the same call's unprofiled host time, and the
+        host's self time in the PyTorch ops it traced (slowed by the
+        tracing; the rest of the host's time is Python and the kernels'
+        ctypes calls)."""
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        events = prof.key_averages()
         by_kernel = sorted(((e.self_device_time_total, e.count, e.key)
-                            for e in prof.key_averages()
+                            for e in events
                             if e.device_type == DeviceType.CUDA
                             and e.self_device_time_total > 0), reverse=True)
         busy_ms = sum(t for t, _, _ in by_kernel) / 1e3
@@ -605,16 +680,59 @@ def main() -> None:
               f"{sum(n for _, n, _ in by_kernel)} device activities")
         for t, n, key in by_kernel[:8]:
             print(f"[profile]   {t / 1e3:.4f} ms in {n} launches: {key[:90]}")
+        by_op = sorted(((e.self_cpu_time_total, e.count, e.key)
+                        for e in events if e.device_type == DeviceType.CPU
+                        and e.self_cpu_time_total > 0), reverse=True)
+        host_ms = sum(t for t, _, _ in by_op) / 1e3
+        print(f"[profile]   host, traced: {host_ms:.4f} ms self time in "
+              f"{sum(n for _, n, _ in by_op)} PyTorch ops; "
+              + "; ".join(f"{key[:40]} {t / 1e3:.4f} ms in {n}"
+                          for t, n, key in by_op[:6]))
 
-    def host_s(fn):
-        """Host seconds of one call of ``fn`` after a warm-up call, up to a
-        synchronize."""
+    def host_s(fn, calls=3):
+        """Host seconds of a call of ``fn``: the least of ``calls`` timed
+        calls after a warm-up call, each up to a synchronize (the host
+        clock of a machine that shares its cores varies from call to
+        call)."""
         fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        best = float("inf")
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    def load_bytes(cfg) -> tuple[int, int, int]:
+        """From the config: bytes of the parameters in the compute dtype;
+        of the largest fp32 item ``lm.init_cast`` holds (the embedding or
+        head, V x d, or one layer); and of the most it holds at once if it
+        holds one fp32 item: the cast embedding and head beside the head
+        in fp32, or every cast parameter beside the last layer in fp32.  A
+        layer is the blocks' parameters over the layers (the served archs
+        repeat one layer)."""
+        esize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                            ).element_size()
+        total, vd = cfg.param_count(), cfg.vocab_size * cfg.d_model
+        layer = (total - 2 * vd - cfg.d_model) // cfg.n_layers
+        return (esize * total, 4 * max(vd, layer),
+                max((2 * esize + 4) * vd, esize * total + 4 * layer))
+
+    def dense_steps(cfg) -> tuple[dict, str]:
+        """Kernel launches per prefill or decode step of a dense arch, and
+        their derivation: norm1, norm2 a layer and the final norm on the
+        rmsnorm kernel (or the fp32 layernorm kernel), q- and k-norm a
+        layer on rmsnorm where the arch has them, one attention a layer."""
+        L = cfg.n_layers
+        norm = "sfu_layernorm" if cfg.norm_kind == "layernorm" else "rmsnorm"
+        steps = Counter({norm: 2 * L + 1, "flash_attention": L})
+        why = [f"{norm} {2 * L + 1} = 2 x {L} layers + 1 final"]
+        if cfg.qk_norm:
+            steps["rmsnorm"] += 2 * L
+            why.append(f"rmsnorm q/k-norm 2 x {L} layers")
+        why.append(f"flash_attention {L} = 1 x {L} layers")
+        return dict(steps), "x (" + "; ".join(why) + ")"
 
     def serve_model(cfg, per_step, per_prefill, derivation, rtol, shape):
         """Serves ``cfg`` at full width and depth on the card: builds the
@@ -625,15 +743,37 @@ def main() -> None:
         the plain versions (relative L2 <= ``rtol``), and times a prefill
         and a decode step.  Returns the server, the padded prompts and the
         served tokens."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         server = BatchServer(cfg, max_len=SERVE_MAX_LEN, seed=0)
         torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        cast_bytes, item_bytes, held_bytes = load_bytes(cfg)
         print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
               f"{shape}, vocab {cfg.vocab_size}, "
               f"{cfg.param_count() / 1e9:.3f} B parameters drawn on the card "
-              f"and cast to {cfg.compute_dtype} in "
-              f"{time.perf_counter() - t0:.2f} s; "
+              f"and cast to {cfg.compute_dtype} in {load_s:.2f} s; "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        print(f"[serve] {cfg.name} load peak (max_memory_allocated over the "
+              f"build, less the {before / 2**30:.3f} GiB allocated before): "
+              f"{peak / 2**30:.3f} GiB; limit {cast_bytes / 2**30:.3f} GiB "
+              f"cast parameters + {item_bytes / 2**30:.3f} GiB largest fp32 "
+              f"item + 1 GiB = {(cast_bytes + item_bytes) / 2**30 + 1:.3f} "
+              f"GiB (drawn whole in fp32, then cast: "
+              f"{(4 * cfg.param_count() + cast_bytes) / 2**30:.3f} GiB)")
+        require(peak <= cast_bytes + item_bytes + 2**30,
+                f"{cfg.name}: load peak {peak} bytes over the limit")
+        # tighter: a second fp32 layer held beside the first (1.45 GiB at
+        # d 6144) would pass the limit above where the embedding is the
+        # largest item, but not this one
+        print(f"[serve] {cfg.name} load peak against one fp32 item held at "
+              f"a time: at most {held_bytes / 2**30:.3f} GiB + 1 GiB")
+        require(peak <= held_bytes + 2**30,
+                f"{cfg.name}: load peak {peak} bytes over one fp32 item "
+                f"held at a time ({held_bytes} + 1 GiB)")
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in SERVE_PROMPTS]
@@ -659,8 +799,8 @@ def main() -> None:
               f"{serve_launches}")
         require(serve_launches == expected,
                 f"serving launches {serve_launches} differ from {expected}")
-        for k in SERVING_KERNELS:
-            launches[k] += serve_launches[k]
+        for k, n in serve_launches.items():
+            launches[k] += n
         outs = stats["outputs"]
         require(sorted(outs) == list(range(len(prompts)))
                 and all(len(t) == SERVE_NEW and all(0 <= x < cfg.vocab_size
@@ -765,16 +905,11 @@ def main() -> None:
         require(rel_l2(full, plain_full) <= 1e-4,
                 "fp32 forward: kernels differ from the plain versions")
 
-    # qwen3-4b: rmsnorm for norm1, norm2, and q-/k-norm when qk_norm, per
-    # layer, plus the final norm; attention: one per layer; per prefill and
-    # decode step
-    norms = 4 if cfg.qk_norm else 2
+    # qwen3-4b: rmsnorm for norm1, norm2, and q-/k-norm, per layer, plus
+    # the final norm; attention: one per layer; per prefill and decode step
+    steps, why = dense_steps(cfg)
     server, tokens, served = serve_model(
-        cfg, {"rmsnorm": norms * cfg.n_layers + 1,
-              "flash_attention": cfg.n_layers}, {},
-        f"x (rmsnorm {norms * cfg.n_layers + 1} = {norms} x {cfg.n_layers} "
-        f"layers + 1 final; flash_attention {cfg.n_layers} = 1 x "
-        f"{cfg.n_layers} layers)", SERVE_RTOL,
+        cfg, steps, {}, why, SERVE_RTOL,
         f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}")
     fp32_decode_check(cfg)
     B = len(SERVE_PROMPTS)
@@ -825,6 +960,21 @@ def main() -> None:
     del p32, k_logits, p_logits
     torch.cuda.empty_cache()
     fp32_decode_check(scfg)
+
+    # the other dense archs, each server freed before the next is drawn
+    for arch in DENSE_ARCHS:
+        dcfg = get_config(arch)
+        steps, why = dense_steps(dcfg)
+        dserver, _, _ = serve_model(
+            dcfg, steps, {}, why, SERVE_RTOL,
+            f"heads {dcfg.n_heads}/{dcfg.n_kv_heads}, {dcfg.mlp_kind} d_ff "
+            f"{dcfg.d_ff}, {dcfg.norm_kind}"
+            f"{', qkv bias' if dcfg.qkv_bias else ''}")
+        del dserver
+        torch.cuda.empty_cache()
+        if dcfg.norm_kind == "layernorm":
+            fp32_decode_check(dcfg)
+            torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")
@@ -932,7 +1082,7 @@ def main() -> None:
         return ms, plain_ms, lib_ms, bound_ms, bound_by
 
     # the serving kernels' other shapes, printed only
-    for R, N in RMS_SERVING[1:] + RMS_SSM:
+    for R, N in RMS_SERVING[1:] + RMS_SSM + RMS_WIDE:
         x, g = randn(R, N, dtype=torch.bfloat16), randn(N)
         gl = g.to(torch.bfloat16)
         report("rmsnorm", f"{R}x{N} bf16 +gamma", lambda: rmsnorm_rows(x, g),
@@ -968,6 +1118,35 @@ def main() -> None:
            lambda: ref.gelu_rows(xg),
            lambda: F.gelu(xg, approximate="tanh"),
            GELU_FLOPS * xg.numel(), 8 * xg.numel(), fp32_peak)
+    # nemotron-4-15b's norms: the fp32 layernorm kernel, gamma and beta
+    for R, N in RMS_WIDE:
+        x, g, bt = randn(R, N), randn(N), randn(N)
+        report("sfu_layernorm", f"{R}x{N} fp32 +gamma +beta (nemotron-4-15b)",
+               lambda: layernorm_rows(x, g, bt),
+               lambda: ref.layernorm_rows(x, g, bt),
+               lambda: F.layer_norm(x, (N,), g, bt, 1e-5),
+               7 * x.numel(), 8 * x.numel() + 8 * N, fp32_peak)
+    # the redesigned kernels beside their scalar kernels (the kernels
+    # before the redesign, for unaligned operands now), printed only
+    for R, N in ((2048, 2560), (2048, 5120), (2048, 6144), (4, 6144)):
+        x, g = randn(R, N, dtype=torch.bfloat16), randn(N)
+        out = torch.empty_like(x)
+        for threads in (0, sfu_k.rmsnorm_plan(N, 2, True)):
+            ms, _ = cuda_ms(torch, lambda: sfu_k._launch_rmsnorm(
+                x, g, 1e-6, out, threads))
+            path = (f"one-pass kernel, {threads} threads of "
+                    f"{sfu_k.ROW_VPT} vectors" if threads else "scalar kernel")
+            print(f"[time] rmsnorm {R}x{N} bf16 +gamma, {path}: device ms "
+                  f"{ms:.4f} on {smi}")
+    for R, N, act in ((512, 3072, "gelu"), (3072, 4096, "relu")):
+        x = randn(R, N)
+        out = torch.empty_like(x)
+        for vector in (False, True):
+            ms, _ = cuda_ms(torch, lambda: sfu_k._launch_act(x, out, act,
+                                                             vector))
+            print(f"[time] sfu_act {R}x{N} {act} fp32, "
+                  f"{'float4 kernel' if vector else 'scalar kernel'}: device "
+                  f"ms {ms:.4f} on {smi}")
     # flex_gemm at every distinct tile (shape, accumulator, epilogue) of
     # each main-path binary beside torch.addmm / torch.matmul (which leave
     # the epilogue out), weighted by the tile's launches in one run
@@ -1018,7 +1197,7 @@ def main() -> None:
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 

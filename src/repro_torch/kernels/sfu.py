@@ -4,12 +4,16 @@ Replaces the Pallas TPU kernels of ``src/repro/kernels/sfu.py``
 (``_softmax_kernel``, ``_layernorm_kernel``, ``_gelu_kernel``,
 ``_rmsnorm_kernel``) with the hand-written CUDA kernels of
 ``csrc/sfu.cu``: one block per row with warp-shuffle reductions over the
-row's true width, one element-wise kernel for the runtime's GELU / ReLU
-/ ReLU² / SiLU ops, and rmsnorm with one warp per row up to 1024 wide
-(the decoder's q/k-norm rows of head_dim) and a block per wider row.  All
-are bound by device-memory bytes on the card.  softmax, layernorm and
-the activations take fp32, as the runtime's LMU tiles are; rmsnorm takes
-fp32 or bf16 rows (the decoder's activations) with an fp32 gamma.
+row's true width (softmax, layernorm); one element-wise kernel for the
+runtime's GELU / ReLU / ReLU² / SiLU ops, on 16-byte float4 loads and
+stores; and rmsnorm with one warp per row up to 1024 wide
+(the decoder's q/k-norm rows of head_dim) and, for wider rows, a one-pass
+kernel that holds two 16-byte vectors of the row in each thread's
+registers (``rmsnorm_plan``).  Unaligned operands take scalar kernels of
+the same file.  All are bound by device-memory bytes on the card.
+softmax, layernorm and the activations take fp32, as the runtime's LMU
+tiles are; rmsnorm takes fp32 or bf16 rows (the decoder's activations)
+with an fp32 gamma.
 
 A tensor on the CPU goes to the plain version in ``ref``; a CUDA tensor
 goes to the kernel, or the call raises.
@@ -18,7 +22,6 @@ goes to the kernel, or the call raises.
 from __future__ import annotations
 
 import ctypes
-
 import torch
 
 from . import _build, ref
@@ -28,10 +31,35 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sfu_softmax_f32": (_P, _P, _I, _I, _P),
     "sfu_layernorm_f32": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _P),
-    "sfu_act_f32": (_P, _P, ctypes.c_longlong, _I, _P),
-    "sfu_rmsnorm_f32": (_P, _P, _P, _I, _I, ctypes.c_float, _P),
-    "sfu_rmsnorm_bf16": (_P, _P, _P, _I, _I, ctypes.c_float, _P),
+    "sfu_act_f32": (_P, _P, ctypes.c_longlong, _I, _I, _P),
+    "sfu_rmsnorm_f32": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
+    "sfu_rmsnorm_bf16": (_P, _P, _P, _I, _I, ctypes.c_float, _I, _P),
 }
+
+WARP_ROW_MAX = 1024      # widest row of the warp-per-row rmsnorm kernel
+ROW_VPT = 2              # 16-byte vectors a thread of the one-pass kernel
+MAX_THREADS = 1024
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _aligned(*ts: torch.Tensor | None) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def rmsnorm_plan(N: int, esize: int, aligned: bool) -> int:
+    """Threads a row of the one-pass kernel, or 0 for the scalar kernels.
+    The one-pass kernel takes rows wider than ``WARP_ROW_MAX`` of a whole
+    number of 16-byte vectors, with x, y and gamma 16-byte aligned:
+    ``ROW_VPT`` vectors a thread, in whole warps of at most
+    ``MAX_THREADS``.  Two vectors a thread cover every served width (2560
+    to 6144, bf16 or fp32); wider rows take the scalar kernels."""
+    if N <= WARP_ROW_MAX or not aligned or N * esize % 16:
+        return 0
+    threads = 32 * _cdiv(_cdiv(N * esize // 16, ROW_VPT), 32)
+    return threads if threads <= MAX_THREADS else 0
 
 
 def _on_card(x: torch.Tensor, what: str, *params: torch.Tensor | None
@@ -111,12 +139,21 @@ def act_rows(x: torch.Tensor, act: str) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = _lib().sfu_act_f32(x.data_ptr(), out.data_ptr(), x.numel(),
-                                 _build.ACT_CODE[act], _stream(x))
-    _build.check(err, "act_rows")
+    _launch_act(x, out, act, _aligned(x, out))
     act_rows.launches += 1
     return out
+
+
+def _launch_act(x: torch.Tensor, out: torch.Tensor, act: str,
+                vector: bool) -> None:
+    """Runs the activation kernel on checked, non-empty CUDA operands: the
+    float4 kernel (``vector``, x and out 16-byte aligned) or the scalar
+    one."""
+    with torch.cuda.device(x.device):
+        err = _lib().sfu_act_f32(x.data_ptr(), out.data_ptr(), x.numel(),
+                                 _build.ACT_CODE[act], int(vector),
+                                 _stream(x))
+    _build.check(err, "act_rows")
 
 
 def rmsnorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
@@ -146,15 +183,25 @@ def rmsnorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    _launch_rmsnorm(x, gamma, eps, out,
+                    rmsnorm_plan(x.shape[1], x.element_size(),
+                                 _aligned(x, out, gamma)))
+    rmsnorm_rows.launches += 1
+    return out
+
+
+def _launch_rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None, eps: float,
+                    out: torch.Tensor, threads: int) -> None:
+    """Runs the rmsnorm kernel on checked, non-empty CUDA operands: the
+    one-pass kernel with ``threads`` threads a row, or the scalar kernels
+    for 0 (see ``rmsnorm_plan``)."""
     R, N = x.shape
     fn = (_lib().sfu_rmsnorm_f32 if x.dtype == torch.float32
           else _lib().sfu_rmsnorm_bf16)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), gamma.data_ptr() if gamma is not None else None,
-                 out.data_ptr(), R, N, eps, _stream(x))
+                 out.data_ptr(), R, N, eps, threads, _stream(x))
     _build.check(err, "rmsnorm_rows")
-    rmsnorm_rows.launches += 1
-    return out
 
 
 softmax_rows.launches = 0

@@ -11,7 +11,10 @@ reproduce ``jax.random.categorical``'s bits).  One model replica on one
 device; there is no mesh (the multi-device layer is ROADMAP A.6).  It
 serves the dense archs (qwen3-4b, qwen1.5-4b, internlm2-20b,
 nemotron-4-15b) and mamba2-2.7b, whose cache is a conv window and an SSD
-state per layer; MoE, encoder-decoder and M-RoPE archs raise.
+state per layer; MoE, encoder-decoder and M-RoPE archs raise.  The
+serving phase of ``chip_smoke.py`` runs each of the five at full width
+and depth on one H100 (80 GB), with random weights drawn by
+``lm.init_cast``; its times and load peaks are in PERF.md.
 
 Run on the card:
 
@@ -48,9 +51,10 @@ class BatchServer:
     """Fixed-slot batched decoder (one model replica on one device).
 
     ``device=None`` means the CUDA card and raises without one.  The
-    parameters are drawn on the device from ``seed``, or taken from
-    ``params`` (e.g. ``convert.params_from_jax``), and cast once to the
-    compute dtype (``lm.cast_params``)."""
+    parameters are drawn on the device from ``seed`` and cast one layer at
+    a time (``lm.init_cast``: the peak is the cast parameters plus one
+    fp32 item), or taken from ``params`` (e.g. ``convert.params_from_jax``)
+    and cast once to the compute dtype (``lm.cast_params``)."""
 
     def __init__(self, cfg: ArchConfig, max_len: int = 256, seed: int = 0,
                  device: str | torch.device | None = None,
@@ -61,8 +65,9 @@ class BatchServer:
         self.max_len = max_len
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = lm.init(cfg, gen, self.device)
-        self.params = lm.cast_params(cfg, params)
+            self.params = lm.init_cast(cfg, gen, self.device)
+        else:
+            self.params = lm.cast_params(cfg, params)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

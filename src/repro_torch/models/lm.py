@@ -18,6 +18,8 @@ cache passed in is the cache returned.
 Entry points:
   init(cfg, gen, device=None)                  -> params (fp32)
   cast_params(cfg, params)                     -> params for compute
+  init_cast(cfg, gen, device=None)             -> cast_params(init(...)),
+                                                  one fp32 item at a time
   forward(cfg, params, tokens)                 -> logits (B, S, V) fp32
   init_cache(cfg, batch, max_len, device=...)  -> cache
   prefill(cfg, params, tokens, max_len)        -> (logits (B, V), cache)
@@ -83,12 +85,11 @@ def _init_layer(cfg: ArchConfig, pat, gen: torch.Generator,
     return p
 
 
-def init(cfg: ArchConfig, gen: torch.Generator,
-         device: str | torch.device | None = None) -> dict:
-    """Random fp32 parameters drawn on ``device`` from ``gen`` (a generator
-    of that device), with the reference's shapes and scales.  The numbers
-    are not the reference's: carry those across with
-    ``convert.params_from_jax``."""
+def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
+    """``init``'s draws in ``init``'s order (embed, lm_head, final_norm,
+    then each layer), each item cast to ``cd`` by ``cast_params``'s rule
+    as soon as it is drawn (``cd=None`` keeps fp32), so that at most one
+    fp32 item (the embedding, the head or one layer) is held at a time."""
     check_supported(cfg)
     if cfg.param_dtype != "float32":
         raise NotImplementedError(f"{cfg.name}: param_dtype "
@@ -98,20 +99,53 @@ def init(cfg: ArchConfig, gen: torch.Generator,
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
     V, D = cfg.vocab_size, cfg.d_model
+
+    def cast(t):
+        return t if cd is None else t.to(cd)
+
+    embed = cast(torch.randn((V, D), generator=gen, device=dev).mul_(0.02))
+    lm_head = cast(torch.randn((D, V), generator=gen,
+                               device=dev).mul_(1.0 / math.sqrt(D)))
     return {
-        "embed": torch.randn((V, D), generator=gen, device=dev).mul_(0.02),
-        "lm_head": torch.randn((D, V), generator=gen,
-                               device=dev).mul_(1.0 / math.sqrt(D)),
+        "embed": embed,
+        "lm_head": lm_head,
         "final_norm": L.init_norm(cfg, dev),
-        "layers": [_init_layer(cfg, _pattern(cfg, i), gen, dev)
-                   for i in range(cfg.n_layers)],
+        "layers": [_cast_layer(_init_layer(cfg, _pattern(cfg, i), gen, dev),
+                               cd) for i in range(cfg.n_layers)],
     }
+
+
+def init(cfg: ArchConfig, gen: torch.Generator,
+         device: str | torch.device | None = None) -> dict:
+    """Random fp32 parameters drawn on ``device`` from ``gen`` (a generator
+    of that device), with the reference's shapes and scales.  The numbers
+    are not the reference's: carry those across with
+    ``convert.params_from_jax``."""
+    return _draw(cfg, gen, device, None)
+
+
+def init_cast(cfg: ArchConfig, gen: torch.Generator,
+              device: str | torch.device | None = None) -> dict:
+    """``cast_params(cfg, init(cfg, gen, device))``, bit for bit, drawn
+    and cast one item at a time: the peak is the cast parameters plus the
+    largest fp32 item, where ``init`` then ``cast_params`` holds all of
+    both (over one card's memory for internlm2-20b and nemotron-4-15b)."""
+    return _draw(cfg, gen, device, _dtype(cfg.compute_dtype))
 
 
 # leaves of "attn" / "ssm" that the model code uses in fp32: the q/k-norm
 # gains, the SSM's A_log (-exp(A_log) in fp32), dt_bias (added to the fp32
 # dt_raw) and the gated norm's gain
 _KEEP_FP = ("q_norm", "k_norm", "A_log", "dt_bias", "norm")
+
+
+def _cast_layer(lp: dict, cd: torch.dtype | None) -> dict:
+    """One layer as compute sees it (``cd=None``: as it is)."""
+    if cd is None:
+        return lp
+    return {name: sub if name.startswith("norm") else
+            {k: t if k in _KEEP_FP else t.to(cd) for k, t in sub.items()}
+            for name, sub in lp.items()}
 
 
 def cast_params(cfg: ArchConfig, params: dict) -> dict:
@@ -122,16 +156,10 @@ def cast_params(cfg: ArchConfig, params: dict) -> dict:
     at load gives the same numbers and spares every decode step a pass
     over the fp32 weights."""
     cd = _dtype(cfg.compute_dtype)
-
-    def layer(lp):
-        return {name: sub if name.startswith("norm") else
-                {k: t if k in _KEEP_FP else t.to(cd) for k, t in sub.items()}
-                for name, sub in lp.items()}
-
     return {"embed": params["embed"].to(cd),
             "lm_head": params["lm_head"].to(cd),
             "final_norm": params["final_norm"],
-            "layers": [layer(lp) for lp in params["layers"]]}
+            "layers": [_cast_layer(lp, cd) for lp in params["layers"]]}
 
 
 # ------------------------------------------------------------------- blocks

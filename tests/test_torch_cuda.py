@@ -18,6 +18,7 @@ from repro_torch.kernels.ref import ACTIVATIONS, EPILOGUES
 # the modules, not the wrappers of the same name that the package exports
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 fg = importlib.import_module("repro_torch.kernels.flex_gemm")
+sfu = importlib.import_module("repro_torch.kernels.sfu")
 
 # the reference's sweeps (tests/test_kernels.py) plus BERT-L tile shapes
 GEMM_SHAPES = [(128, 128, 128), (100, 200, 300), (7, 33, 129),
@@ -32,6 +33,9 @@ RMS_SERVING = [(2048, 2560), (65536, 128), (16384, 128), (4, 2560),
 # mamba2-2.7b's rmsnorm rows: the gated norm of 4 x 512 prefill tokens and
 # of 4 decode tokens (its norm1 rows are qwen3-4b's 2048 x 2560 / 4 x 2560)
 RMS_SSM = [(2048, 5120), (4, 5120)]
+# internlm2-20b's rmsnorm rows (d_model 6144): prefill of 4 x 512 tokens
+# and decode of 4
+RMS_WIDE = [(2048, 6144), (4, 6144)]
 # BERT-L's MMU tiles (M, K, N), DeiT-L's ragged 197-row ones (K = 197 and
 # N = 197 take the scalar-staged kernel) and the -S models' N = 1
 MMU_TILES = [(256, 256, 256), (512, 256, 192), (512, 512, 384),
@@ -142,7 +146,8 @@ def _bf16_tol():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SFU_SHAPES + RMS_SERVING + RMS_SSM)
+@pytest.mark.parametrize("shape", SFU_SHAPES + RMS_SERVING + RMS_SSM
+                         + RMS_WIDE)
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_cuda_rmsnorm_matches_plain(cuda, shape, tdt):
@@ -157,6 +162,86 @@ def test_cuda_rmsnorm_matches_plain(cuda, shape, tdt):
         torch.testing.assert_close(got.float(),
                                    ref.rmsnorm_rows(x, gamma).float(),
                                    rtol=rtol, atol=atol)
+
+
+def _offset_view(shape, seed, tdt, offset, dev, scale=1.0):
+    """A contiguous (R, N) view that starts ``offset`` elements into its
+    buffer: 16-byte aligned only when offset * element size is."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(_np((n + offset,), seed, scale)).to(dev, tdt)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 6144), (4, 6144), (64, 2561),
+                                   (33, 1025), (16, 4100), (8, 6143)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_rmsnorm_unaligned_and_ragged_rows(cuda, shape, offset, tdt):
+    """x and gamma one element into their buffers, or rows that are not a
+    whole number of 16-byte vectors, take the scalar kernel; aligned whole
+    rows the one-pass kernel; both within the plain version's tolerance
+    and the same bits on a repeated call."""
+    R, N = shape
+    x = _offset_view(shape, 26, tdt, offset, cuda, scale=2.0)
+    g = _offset_view((N,), 27, torch.float32, offset, cuda)
+    vector = offset == 0 and N * x.element_size() % 16 == 0
+    assert (sfu.rmsnorm_plan(N, x.element_size(), sfu._aligned(x, g))
+            > 0) == vector
+    rtol, atol = (1e-4, 1e-5) if tdt == torch.float32 else _bf16_tol()
+    for gamma in (None, g):
+        got, again = rmsnorm_rows(x, gamma), rmsnorm_rows(x, gamma)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(),
+                                   ref.rmsnorm_rows(x, gamma).float(),
+                                   rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1032, 2560, 6144, 8192, 16384])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_rmsnorm_one_pass_and_scalar_kernels(cuda, N, tdt):
+    """The one-pass kernel at the plan's threads (none for a row too wide
+    for it) and the scalar block kernel on the same aligned rows, an odd
+    row count, both within the plain version's tolerance."""
+    x = torch.from_numpy(_np((37, N), 28, scale=2.0)).to(cuda, tdt)
+    g = torch.from_numpy(_np((N,), 29)).to(cuda)
+    threads = sfu.rmsnorm_plan(N, x.element_size(), True)
+    assert (threads > 0) == (N * x.element_size() // 16
+                             <= sfu.ROW_VPT * sfu.MAX_THREADS)
+    rtol, atol = (1e-4, 1e-5) if tdt == torch.float32 else _bf16_tol()
+    for t in {threads, 0}:
+        out = torch.empty_like(x)
+        sfu._launch_rmsnorm(x, g, 1e-6, out, t)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(),
+                                   ref.rmsnorm_rows(x, g).float(),
+                                   rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 1001, 4096, 512 * 3072 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_act_ragged_and_unaligned(cuda, n, offset):
+    """Every activation where n % 4 != 0 (the last block's scalar tail)
+    and on a view one element into its buffer (the scalar kernel), and
+    the scalar kernel on aligned operands too, within rtol 1e-5 / atol
+    1e-6 of the plain version; a repeated call gives the same bits."""
+    x = _offset_view((1, n), 30, torch.float32, offset, cuda, scale=3.0)
+    assert sfu._aligned(x) == (offset == 0)
+    for act in ACTIVATIONS:
+        want = ref.ACT_FN[act](x)
+        got, again = act_rows(x, act), act_rows(x, act)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        out = torch.empty_like(x)
+        sfu._launch_act(x, out, act, False)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -266,3 +266,94 @@ def test_every_norm_and_attention_goes_through_the_kernel_wrappers(monkeypatch):
         steps = 0 if plain else 4
         assert calls == {"rmsnorm": steps * (4 * cfg.n_layers + 1),
                          "attention": steps * cfg.n_layers}
+
+
+# every arch the port serves, by its reduced config
+SERVED = ["qwen3-4b", "qwen1.5-4b", "internlm2-20b", "nemotron-4-15b",
+          "mamba2-2.7b"]
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", SERVED)
+def test_init_cast_is_cast_params_of_init_bit_for_bit(arch, compute):
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype=compute)
+    want = lm.cast_params(cfg, lm.init(cfg, torch.Generator().manual_seed(5),
+                                       "cpu"))
+    got = lm.init_cast(cfg, torch.Generator().manual_seed(5), "cpu")
+    want_leaves, got_leaves = dict(_leaves(want)), dict(_leaves(got))
+    assert list(got_leaves) == list(want_leaves)
+    for path, t in want_leaves.items():
+        assert got_leaves[path].dtype == t.dtype, path
+        assert torch.equal(got_leaves[path], t), path
+    assert got["layers"][0]["norm1"]["scale"].dtype == torch.float32
+    if compute == "bfloat16":
+        assert got["embed"].dtype == torch.bfloat16
+
+
+def test_init_cast_holds_one_fp32_layer_at_a_time(monkeypatch):
+    """Each layer's fp32 weights are gone (no reference left) before the
+    next layer is drawn, and the embedding's and head's before the first
+    layer: watched through weak references to what ``_init_layer`` and the
+    cast return."""
+    import weakref
+    cfg = dataclasses.replace(get_config("internlm2-20b", reduced=True),
+                              compute_dtype="bfloat16", n_layers=4)
+    drawn, live_at_draw = [], []
+    init_layer = lm._init_layer
+
+    def watched(*args, **kwargs):
+        live_at_draw.append(sum(ref() is not None for ref in drawn))
+        lp = init_layer(*args, **kwargs)
+        drawn.extend(weakref.ref(t) for name, sub in lp.items()
+                     if not name.startswith("norm")
+                     for k, t in sub.items() if k not in lm._KEEP_FP)
+        return lp
+
+    monkeypatch.setattr(lm, "_init_layer", watched)
+    params = lm.init_cast(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert live_at_draw == [0, 0, 0, 0]
+    assert len(drawn) == 4 * 7 and all(ref() is None for ref in drawn)
+    # the fp32 embedding and head were dropped too: only bf16 tensors and
+    # fp32 norm gains are left
+    assert {t.dtype for _, t in _leaves(params)} == {torch.bfloat16,
+                                                     torch.float32}
+    assert all(t.dtype == torch.bfloat16 for path, t in _leaves(params)
+               if "norm" not in path)
+    # init keeps every fp32 layer, as it must
+    drawn.clear()
+    kept = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert sum(ref() is not None for ref in drawn) == 4 * 7
+    del kept
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "nemotron-4-15b",
+                                  "mamba2-2.7b"])
+def test_batch_server_drawn_from_a_seed_serves_the_tokens_of_init(arch):
+    """``BatchServer(cfg, seed=s)`` (drawn by ``init_cast``) and a server
+    given ``lm.init``'s parameters from the same seed serve the same
+    greedy tokens, in bf16 compute."""
+    from repro_torch.launch.serve import BatchServer, Request
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="bfloat16")
+    prompts = [_tokens(cfg, (n,), 9 + n).astype(np.int32) for n in (7, 3)]
+    outs = []
+    for params in (None, lm.init(cfg, torch.Generator().manual_seed(3),
+                                 "cpu")):
+        server = BatchServer(cfg, max_len=16, seed=3, device="cpu",
+                             params=params)
+        outs.append(server.serve([Request(i, p, 6)
+                                  for i, p in enumerate(prompts)])["outputs"])
+    assert outs[0] == outs[1]
+    assert all(len(t) == 6 for t in outs[0].values())

@@ -1,12 +1,14 @@
 """The launch plans of the port's redesigned kernels, on the CPU.
 
-``gemm_plan`` cuts K into split-K slabs for ``flex_gemm`` and
+``gemm_plan`` cuts K into split-K slabs for ``flex_gemm``,
 ``decode_plan`` cuts the KV rows into splits for ``flash_attention``'s
-decode path.  Both are pure functions of the shape and the card's SM
-count, so they are checked here: each covers K (or the KV rows) exactly
-once in whole tiles, and fills the card where the length allows.  The
-kernels that follow the plans are held against the plain versions on
-the card in test_torch_cuda.py.
+decode path, and ``rmsnorm_plan`` gives a row's 16-byte vectors to the
+threads of the one-pass rmsnorm kernel.  All are pure functions of the
+shape (and the card's SM count, or the operands' alignment), so they are
+checked here: each covers K, the KV rows or a row's vectors exactly
+once, and fills the card where the length allows.  The kernels
+that follow the plans are held against the plain versions on the card in
+test_torch_cuda.py.
 """
 
 import importlib
@@ -20,6 +22,7 @@ from repro_torch.core import CompileOptions, DoraCompiler, OpType
 # the modules, not the wrappers of the same name that the package exports
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 fg = importlib.import_module("repro_torch.kernels.flex_gemm")
+sfu = importlib.import_module("repro_torch.kernels.sfu")
 
 H100_SMS = 132
 # BERT-L's MMU_GEMM tiles (M, K, N) and their launches in one run, as the
@@ -145,3 +148,48 @@ def test_decode_rows_bound_the_decode_path():
     cfg = get_config("qwen3-4b")
     group = cfg.n_heads // cfg.n_kv_heads
     assert 1 * group <= fa.DECODE_ROWS < 37 * group
+
+
+# rmsnorm widths: the serving rows (qwen3-4b / mamba2 2560, mamba2's gated
+# norm 5120, internlm2-20b and nemotron-4-15b 6144), odd and ragged ones,
+# and rows too wide for the registers
+RMS_WIDTHS = [1032, 2048, 2560, 4100, 5120, 6144, 8192, 32768, 65536,
+              131072, 262144]
+
+
+@pytest.mark.parametrize("esize", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N", RMS_WIDTHS)
+def test_rmsnorm_plan_covers_each_vector_of_a_row_once(N, esize):
+    """The one-pass kernel's thread ``t`` of a row holds vectors ``t + k *
+    threads`` (k < ROW_VPT) below V: together every vector exactly once,
+    in whole warps with none empty, within one block's 1,024 threads;
+    rows it cannot cover take the scalar kernels."""
+    threads = sfu.rmsnorm_plan(N, esize, aligned=True)
+    V = N * esize // 16
+    if threads == 0:
+        assert N * esize % 16 or -(-V // sfu.ROW_VPT) > sfu.MAX_THREADS
+        return
+    assert threads % 32 == 0 and threads <= sfu.MAX_THREADS
+    held = Counter(t + k * threads for t in range(threads)
+                   for k in range(sfu.ROW_VPT) if t + k * threads < V)
+    assert sorted(held) == list(range(V)) and set(held.values()) == {1}
+    assert threads - 32 < -(-V // sfu.ROW_VPT)      # no empty warp
+
+
+def test_rmsnorm_plan_at_the_serving_widths():
+    """The one-pass kernel at every served width, in both dtypes: 5,120
+    bf16 is 640 vectors, 320 threads of 2; the q/k-norm rows (128) and
+    anything unaligned, ragged or wider than 2,048 vectors take the scalar
+    kernels."""
+    got = {(N, e): sfu.rmsnorm_plan(N, e, True)
+           for N in (2560, 5120, 6144) for e in (2, 4)}
+    assert got == {(2560, 2): 160, (2560, 4): 320, (5120, 2): 320,
+                   (5120, 4): 640, (6144, 2): 384, (6144, 4): 768}
+    assert sfu.rmsnorm_plan(128, 2, True) == 0
+    assert sfu.rmsnorm_plan(1024, 4, True) == 0
+    assert sfu.rmsnorm_plan(6144, 2, False) == 0
+    assert sfu.rmsnorm_plan(6143, 2, True) == 0
+    assert sfu.rmsnorm_plan(4100, 2, True) == 0
+    assert sfu.rmsnorm_plan(1032, 2, True) == 96
+    assert sfu.rmsnorm_plan(16384, 2, True) == 1024
+    assert sfu.rmsnorm_plan(16392, 2, True) == 0
