@@ -17,12 +17,13 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    (fp32) and the serving rows (bf16), with and without gamma;
    ``flash_attention`` over the reference's attention shapes x causal
    (fp32), its bf16 case, and qwen3-4b's prefill and decode shapes;
-   ``ssd`` over the reference's SSD sweep (fp32, chunks 32 and 64, from
-   zero and from an initial state, y and the final state), its tail case,
-   G > 1 with a tail, and mamba2-2.7b's prefill (bf16) and short-prompt
-   (fp32) shapes; ``rmsnorm_rows`` over mamba2-2.7b's gated-norm rows
-   and internlm2-20b's 6144-wide rows, ``layernorm_rows`` over
-   nemotron-4-15b's; unaligned and ragged operands of ``rmsnorm_rows``
+   ``ssd`` over the reference's SSD sweep (fp32 and bf16, chunks 32 and
+   64, from zero and from an initial state, y and the final state), its
+   tail case, G > 1 with a tail, a 2,048-token prompt and two state groups
+   at mamba2-2.7b's widths, and mamba2-2.7b's prefill (bf16) and
+   short-prompt (fp32) shapes; ``rmsnorm_rows`` over mamba2-2.7b's
+   gated-norm rows and internlm2-20b's 6144-wide rows, ``layernorm_rows``
+   over nemotron-4-15b's; unaligned and ragged operands of ``rmsnorm_rows``
    and ``act_rows`` (their scalar kernels).
 4. DORA path: compiles paper workloads with ``DoraCompiler`` and runs
    each compiled binary through ``DoraCompiler.execute`` on the card from
@@ -68,7 +69,7 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    decode over 65, 540 and 1,024 cache rows, the gelu row kernel, the
    rmsnorm and layernorm rows of the served archs; the redesigned rmsnorm
    and activation kernels beside their scalar kernels (the kernels before
-   the redesign).
+   the redesign).  The serving profiles sum ``ssd``'s two kernels.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -136,6 +137,10 @@ SSD_SHAPES = [(2, 128, 4, 16, 2, 8, 32), (2, 128, 4, 16, 2, 8, 64),
               (1, 64, 2, 8, 1, 4, 32), (1, 64, 2, 8, 1, 4, 64),
               (2, 256, 8, 32, 2, 16, 32), (2, 256, 8, 32, 2, 16, 64),
               (1, 100, 2, 8, 1, 4, 64), (2, 77, 8, 32, 4, 16, 32)]
+# ssd at mamba2-2.7b's widths beyond its served shapes: a 2,048-token
+# prompt (16 chunks in series through the state kernel) and two state
+# groups.
+SSD_WIDE = [(1, 2048, 80, 64, 1, 128, 128), (1, 256, 16, 64, 2, 128, 128)]
 # mamba2-2.7b's rmsnorm rows beyond qwen3-4b's: the gated norm (5120 wide)
 # of 4 x 512 prefill tokens and of 4 decode tokens.
 RMS_SSM = [(2048, 5120), (4, 5120)]
@@ -155,8 +160,10 @@ ACT_ODD = [(512, 3072, 1), (7, 1001, 0), (1, 3, 0)]
 DENSE_ARCHS = ("internlm2-20b", "nemotron-4-15b", "qwen1.5-4b")
 # Kernels against plain versions on mamba2-2.7b, both bf16: each step's
 # logits by relative L2.  Far looser than SERVE_RTOL, and examined: the
-# SSD kernel and ssd_chunked sum in different fp32 orders, so their bf16
-# outputs differ by one ulp here and there (held element-wise in phase 3),
+# SSD kernels (bf16 products on the tensor cores, each fp32 operand split
+# into a bf16 high and low part, about fp32 sums) and ssd_chunked (fp32)
+# sum in different orders, so their bf16 outputs differ by one ulp here
+# and there (held element-wise in phase 3),
 # and 64 SSM layers of random bf16 weights carry such differences much
 # further than qwen3-4b's 36 attention layers do:
 # tests/test_torch_ssm.py::test_bf16_drift_grows_with_depth_and_fp32_holds
@@ -210,6 +217,8 @@ SOURCES = {
 }
 DORA_KERNELS = ("flex_gemm", "sfu_softmax", "sfu_layernorm", "sfu_act")
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "ssd")
+# the CUDA kernels of one ssd call (csrc/ssd.cu)
+SSD_PHASES = ("ssd_state_", "ssd_scan_")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -470,8 +479,10 @@ def main() -> None:
         algorithm when S is a multiple of the chunk and longer, else the
         recurrence).  y: fp32 to 1e-4 (reordered fp32 sums; the reference
         holds its kernel to 5e-5 at unit-scale inputs), bf16 to that plus
-        one bf16 ulp (both compute in fp32 and round once); the fp32
-        state to 1e-4."""
+        one bf16 ulp (the plain version computes in fp32 and rounds once;
+        the kernel's tensor-core products take each fp32 operand as a
+        bf16 high and low part, about fp32 sums, and round y once); the
+        fp32 state to 1e-4."""
         x, a, b, c = ssd_inputs(B, S, H, P, G, N, dt)
         rtol, atol = (1e-4, 1e-4) if dt == torch.float32 else (2 ** -7, 1e-4)
         worst = 0.0
@@ -497,10 +508,11 @@ def main() -> None:
               f"full {check_attention(*shape, False, torch.float32):.3g}")
     print(f"[check] flash_attention (1, 4, 2, 32, 64, 64) bf16 causal: max "
           f"err {check_attention(1, 4, 2, 32, 64, 64, True, torch.bfloat16):.3g}")
-    for *shape, chunk in SSD_SHAPES:
-        print(f"[check] ssd {tuple(shape)} chunk {chunk} fp32, from zero and "
-              f"from an initial state: max err (y, state) "
-              f"{check_ssd(*shape, chunk, torch.float32):.3g}")
+    for *shape, chunk in SSD_SHAPES + SSD_WIDE:
+        for dt in (torch.float32, torch.bfloat16):
+            print(f"[check] ssd {tuple(shape)} chunk {chunk} "
+                  f"{str(dt)[6:]}, from zero and from an initial state: max "
+                  f"err (y, state) {check_ssd(*shape, chunk, dt):.3g}")
 
     # every shape the main path gives each kernel, as its binaries give it
     # (fp32, the instruction's epilogue and accumulate flag); these errors
@@ -680,6 +692,15 @@ def main() -> None:
               f"{sum(n for _, n, _ in by_kernel)} device activities")
         for t, n, key in by_kernel[:8]:
             print(f"[profile]   {t / 1e3:.4f} ms in {n} launches: {key[:90]}")
+        ssd_ms = {k: sum(t for t, _, key in by_kernel if k in key) / 1e3
+                  for k in SSD_PHASES}
+        if any(ssd_ms.values()):
+            print(f"[profile]   ssd, its kernels summed: "
+                  f"{sum(ssd_ms.values()):.4f} ms in "
+                  f"{sum(n for _, n, key in by_kernel if 'ssd_' in key)} "
+                  f"launches (" + ", ".join(f"{k.strip('_')} {t:.4f}"
+                                            for k, t in ssd_ms.items())
+                  + " ms)")
         by_op = sorted(((e.self_cpu_time_total, e.count, e.key)
                         for e in events if e.device_type == DeviceType.CPU
                         and e.self_cpu_time_total > 0), reverse=True)
@@ -1062,7 +1083,8 @@ def main() -> None:
             lambda: ref.ssd_chunked(*ssd_in, chunk=128), None,
             *ssd_work(*ssm_prefill, 128, 2)),
     }
-    ops_peak = {"flash_attention": bf16_peak}   # else fp32_peak
+    # the bf16 tensor cores' peak where the kernel computes on them
+    ops_peak = {"flash_attention": bf16_peak, "ssd": bf16_peak}
 
     def report(name, shape, kernel, plain, library, flops, nbytes, peak):
         (ms, ms_b2b), (plain_ms, plain_b2b) = (
@@ -1106,6 +1128,14 @@ def main() -> None:
                2 * (2 * qd.numel()
                     + 2 * B * cfg.n_kv_heads * skv * cfg.head_dim),
                bf16_peak)
+    # ssd over one 2,048-token prompt at mamba2-2.7b's widths (bf16): 16
+    # chunks in series over 320 state blocks
+    long = (1, 2048, *ssm_prefill[2:])
+    xl = ssd_inputs(*long, torch.bfloat16)
+    report("ssd", f"{long} chunk 128 bf16 (one long prompt)",
+           lambda: ssd(*xl, chunk=128),
+           lambda: ref.ssd_chunked(*xl, chunk=128), None,
+           *ssd_work(*long, 128, 2), bf16_peak)
     # ssd at the 4-layer fp32 check's prefill and forward (S = 32, 48)
     for S in (32, 48):
         shape = (2, S, *ssm_prefill[2:])

@@ -2,26 +2,34 @@
 
 Replaces the Pallas TPU kernel ``_ssd_kernel`` (``src/repro/kernels/ssd.py``)
 and the layout work of the reference's ``ops.ssd`` around it with the
-hand-written CUDA kernel ``csrc/ssd.cu``: one block per (batch, head)
-loops over the chunks with the fp32 ``(P, N)`` state in registers, reads
-x ``(B, S, H, P)`` and b, c ``(B, S, G, N)`` where they lie (head ``h``
-reads group ``h // (H / G)``; batch and position strides are arguments,
-so a slice of a wider tensor needs no copy), masks the positions past
-the true length inside, starts from an initial state when one is given,
-and writes the state after the last position.  The reference's kernel
-returns no state (its ``ops.ssd`` gives ``(y, None)``); this one does,
-so prefill needs no second pass.
+hand-written CUDA kernels of ``csrc/ssd.cu``, laid out by ``ssd_plan``:
+one carries the state through the chunks in series, spread over blocks
+of 32 state columns, and writes the state entering each chunk; the
+other computes every chunk's output in parallel.  The kernels read x
+``(B, S, H, P)`` and b, c ``(B, S, G, N)`` where they lie
+(head ``h`` reads group ``h // (H / G)``; batch and position strides are
+arguments, so a slice of a wider tensor needs no copy), mask the
+positions past the true length inside, start from an initial state when
+one is given, and write the state after the last position.  bf16 inputs
+run every product on the tensor cores, with the three fp32 operands (the
+decayed B, the masked C Bᵀ, the carried state) split into a bf16 high and
+low part; fp32 inputs run on fp32 FMA.  The reference's kernel returns no
+state (its ``ops.ssd`` gives ``(y, None)``); this one does, so prefill
+needs no second pass.
 
-Bound on the card: fp32 FMA operations at mamba2-2.7b's prefill (see the
-source note).
+Bound on the card at mamba2-2.7b's prefill (4 x 512 x 80 heads of 64,
+state 128, chunk 128): 9.427 GFLOP over the causal pairs against 54.13
+MB; in bf16 on the tensor cores the bytes bound it (0.0162 ms), in fp32
+the operations at the FMA peak (0.1407 ms); see the source note.
 
 A tensor on the CPU goes to the plain version ``ref.ssd_plain``; a CUDA
-tensor goes to the kernel, or the call raises.
+tensor goes to the kernels, or the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -30,8 +38,35 @@ from . import _build, ref
 # what the kernel is built for: chunk length, head dim P, state dim N
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = (_P,) * 7 + (_I,) * 7 + (_LL,) * 8 + (_P,)
+_ARGS = (_P,) * 8 + (_I,) * 9 + (_LL,) * 8 + (_P,)
 _SIGNATURES = {"ssd_f32": _ARGS, "ssd_bf16": _ARGS}
+# state columns a block of the state kernel carries (csrc/ssd.cu's QN)
+STATE_COLS = 32
+
+
+@dataclass(frozen=True)
+class SsdPlan:
+    """How ``ssd`` lays out one call.  The scan runs one block per
+    (chunk, head, batch): ``grid`` (x, y, z); the state kernel one block
+    per ``STATE_COLS`` columns of a (head, batch)'s state: ``state_grid``.
+    ``scratch_bytes``: the fp32 state entering every (batch, chunk,
+    head), written by the state kernel and read by the scan."""
+    chunk: int
+    chunks: int
+    grid: tuple[int, int, int]
+    state_grid: tuple[int, int, int]
+    scratch_bytes: int
+
+
+def ssd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int) -> SsdPlan:
+    """The launch plan of ``ssd`` over x (B, S, H, P) with state N:
+    chunks of ``min(chunk, S)`` positions (the last one shorter when they
+    do not divide S), at least one position long."""
+    L = min(chunk, max(S, 1))
+    chunks = -(-S // L)
+    return SsdPlan(chunk=L, chunks=chunks, grid=(chunks, H, B),
+                   state_grid=(-(-N // STATE_COLS), H, B),
+                   scratch_bytes=4 * B * chunks * H * P * N)
 
 
 def _check(x, a, b, c, chunk, initial_state) -> None:
@@ -107,13 +142,17 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if final.numel() == 0:
         return y, final
+    plan = ssd_plan(B, S, H, P, N, chunk)
+    states = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                         device=x.device)
     lib = _build.load("ssd", _SIGNATURES)
     fn = lib.ssd_f32 if x.dtype == torch.float32 else lib.ssd_bf16
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                  initial_state.data_ptr() if initial_state is not None
                  else None, y.data_ptr(), final.data_ptr(),
-                 B, S, H, P, G, N, min(chunk, max(S, 1)),
+                 states.data_ptr(), B, S, H, P, G, N, plan.chunk,
+                 plan.chunks, plan.state_grid[0],
                  x.stride(0), x.stride(1), a.stride(0), a.stride(1),
                  b.stride(0), b.stride(1), c.stride(0), c.stride(1),
                  torch.cuda.current_stream(x.device).cuda_stream)

@@ -402,11 +402,14 @@ def test_cuda_flash_attention_empty_rows_give_zero_on_both_paths(cuda, shape,
 
 # (B, S, H, P, G, N): the reference's sweep (tests/test_kernels.py), its
 # tail case S = 100, G > 1 with a tail, then mamba2-2.7b's prefill and
-# two short prompts at its widths (80 heads of 64, state 128, one group)
+# two short prompts at its widths (80 heads of 64, state 128, one group),
+# a 2,048-token prompt at its widths (16 chunks in series)
+# and two state groups at model widths
 SSD_SHAPES = [(2, 128, 4, 16, 2, 8), (1, 64, 2, 8, 1, 4),
               (2, 256, 8, 32, 2, 16), (1, 100, 2, 8, 1, 4),
               (2, 77, 8, 32, 4, 16), (4, 512, 80, 64, 1, 128),
-              (2, 48, 80, 64, 1, 128), (2, 37, 80, 64, 1, 128)]
+              (2, 48, 80, 64, 1, 128), (2, 37, 80, 64, 1, 128),
+              (1, 2048, 80, 64, 1, 128), (1, 256, 16, 64, 2, 128)]
 
 
 def _ssd_inputs(shape, seed, cuda, tdt):
@@ -425,9 +428,12 @@ def _ssd_inputs(shape, seed, cuda, tdt):
 
 def _ssd_close(got, want, tdt):
     """y: fp32 to reordered fp32 sums (1e-4); bf16 to those sums plus one
-    bf16 ulp, since both compute in fp32 and round once (where terms of
-    order 1 cancel to 1e-4, the fp32 difference outweighs the ulp); the
-    state is fp32 either way."""
+    bf16 ulp: the plain version computes in fp32 and rounds once, the
+    kernel's tensor-core products take each fp32 operand as a bf16 high
+    and low part, about fp32 sums again, and round y once (where terms of
+    order 1 cancel to 1e-4, the fp32 difference outweighs the ulp;
+    tests/test_torch_ssd.py shows one rounding of an operand failing
+    this); the state is fp32 either way."""
     rtol, atol = (1e-4, 1e-4) if tdt == torch.float32 else (2 ** -7, 1e-4)
     assert got[0].dtype == tdt and got[1].dtype == torch.float32
     torch.testing.assert_close(got[0].float(), want[0].float(),

@@ -2,13 +2,14 @@
 
 ``gemm_plan`` cuts K into split-K slabs for ``flex_gemm``,
 ``decode_plan`` cuts the KV rows into splits for ``flash_attention``'s
-decode path, and ``rmsnorm_plan`` gives a row's 16-byte vectors to the
-threads of the one-pass rmsnorm kernel.  All are pure functions of the
-shape (and the card's SM count, or the operands' alignment), so they are
-checked here: each covers K, the KV rows or a row's vectors exactly
-once, and fills the card where the length allows.  The kernels
-that follow the plans are held against the plain versions on the card in
-test_torch_cuda.py.
+decode path, ``rmsnorm_plan`` gives a row's 16-byte vectors to the
+threads of the one-pass rmsnorm kernel, and ``ssd_plan`` lays out the
+SSD scan's chunks and the blocks that carry its state.  All are pure
+functions of the shape (and the card's SM count, or the operands'
+alignment), so they are checked here: each covers K, the KV rows, a
+row's vectors or the positions and state exactly once, and fills the
+card where the length allows.  The kernels that follow the plans are
+held against the plain versions on the card in test_torch_cuda.py.
 """
 
 import importlib
@@ -23,6 +24,7 @@ from repro_torch.core import CompileOptions, DoraCompiler, OpType
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 fg = importlib.import_module("repro_torch.kernels.flex_gemm")
 sfu = importlib.import_module("repro_torch.kernels.sfu")
+ssd = importlib.import_module("repro_torch.kernels.ssd")
 
 H100_SMS = 132
 # BERT-L's MMU_GEMM tiles (M, K, N) and their launches in one run, as the
@@ -193,3 +195,44 @@ def test_rmsnorm_plan_at_the_serving_widths():
     assert sfu.rmsnorm_plan(1032, 2, True) == 96
     assert sfu.rmsnorm_plan(16384, 2, True) == 1024
     assert sfu.rmsnorm_plan(16392, 2, True) == 0
+
+
+# (B, S, H, P, N, chunk): mamba2-2.7b's prefill, a 2,048-token prompt (16
+# chunks through the state pass), the SSM block's chunk min(128, max(16,
+# S)) at the card tests' short lengths, the reference's sweep at chunk 32,
+# a tail chunk, and an empty sequence
+SSD_PLANS = [(4, 512, 80, 64, 128, 128), (1, 2048, 80, 64, 128, 128),
+             (2, 37, 80, 64, 128, 37), (2, 77, 8, 32, 16, 77),
+             (1, 100, 2, 8, 4, 100), (2, 48, 80, 64, 128, 48),
+             (2, 256, 8, 32, 16, 32), (1, 100, 2, 8, 4, 64),
+             (1, 16, 4, 8, 4, 128), (2, 0, 4, 8, 4, 128)]
+
+
+@pytest.mark.parametrize("shape", SSD_PLANS)
+def test_ssd_plan_covers_every_position_and_state_element_once(shape):
+    B, S, H, P, N, chunk = shape
+    plan = ssd.ssd_plan(B, S, H, P, N, chunk)
+    assert 1 <= plan.chunk <= min(chunk, ssd.MAX_CHUNK) or S == 0
+    starts = [c * plan.chunk for c in range(plan.chunks)]
+    covered = [t for c0 in starts for t in range(c0, min(c0 + plan.chunk, S))]
+    assert covered == list(range(S))
+    assert all(c0 < S for c0 in starts)
+    assert plan.grid == (plan.chunks, H, B)
+    assert plan.scratch_bytes == 4 * B * plan.chunks * H * P * N
+    blocks = plan.state_grid[0]
+    assert plan.state_grid == (blocks, H, B)
+    assert (blocks - 1) * ssd.STATE_COLS < N <= blocks * ssd.STATE_COLS
+
+
+def test_ssd_plan_at_mamba2_prefill():
+    """4 chunks of 128 a row: 1,280 blocks of the scan and of the state
+    kernel (4 blocks of 32 state columns a row) against the 320 rows the
+    kernel before the redesign ran one block each, and 42 MB of fp32
+    states."""
+    plan = ssd.ssd_plan(4, 512, 80, 64, 128, 128)
+    assert plan == ssd.SsdPlan(chunk=128, chunks=4, grid=(4, 80, 4),
+                               state_grid=(4, 80, 4),
+                               scratch_bytes=41_943_040)
+    assert plan.chunks * 80 * 4 == 1280
+    assert ssd.ssd_plan(2, 37, 80, 64, 128, 37).chunk == 37
+    assert ssd.ssd_plan(1, 2048, 80, 64, 128, 128).chunks == 16

@@ -6,8 +6,10 @@ the reference chooses), which are held against ``ssd_pallas`` in
 interpret mode, the reference's ``ops.ssd`` under
 ``set_kernel_mode("pallas")`` and its jnp oracles, on the same seeded
 numpy inputs, with the tolerances of tests/test_kernels.py.  The CUDA
-kernel is held against the plain versions on the card in
-test_torch_cuda.py.
+kernels are held against the plain versions on the card in
+test_torch_cuda.py; their bf16 arithmetic (every fp32 operand of a
+tensor-core product split into a bf16 high and low part) is emulated in
+plain torch at the end of this file and held to the card's tolerances.
 """
 
 import jax.numpy as jnp
@@ -225,3 +227,134 @@ def test_ssd_bf16_on_the_cpu_computes_in_fp32_and_rounds_once():
         np.asarray(jnp.asarray(want_y).astype(jnp.bfloat16), np.float32),
         rtol=2 ** -7, atol=1e-6)
     _close(s, want_s, 5e-5)
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic of csrc/ssd.cu's bf16 path, emulated in plain torch on the
+# CPU: the three phases (each chunk's state, the pass carrying the state
+# across chunks, each chunk's output), with every fp32 operand that enters
+# a bf16 tensor-core product either split into a bf16 high and low part,
+# as the kernel does, or rounded once.
+
+# mamba2-2.7b's head and state widths at 16 heads: 4 chunks of 128
+SPLIT_SHAPE = (2, 512, 16, 64, 1, 128)
+
+
+def _mamba_inputs(shape, seed):
+    """x ~ N(0, 1), b and c ~ N(0, 0.3²) as bf16; a fp32 as mamba2 makes
+    it (tests/test_torch_cuda.py's ``_ssd_inputs``): -exp(A_log) dt with
+    A_log's 1..16 over the heads and dt in [0.005, 0.1]; an initial state
+    ~ N(0, 1)."""
+    B, S, H, P, G, N = shape
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.005, 0.1, size=(B, S, H))
+    a = (-np.linspace(1.0, 16.0, H)[None, None] * dt).astype(np.float32)
+    x = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    b = (rng.normal(size=(B, S, G, N)) * 0.3).astype(np.float32)
+    c = (rng.normal(size=(B, S, G, N)) * 0.3).astype(np.float32)
+    s0 = rng.normal(size=(B, H, P, N)).astype(np.float32)
+    x, b, c = (torch.from_numpy(v).bfloat16() for v in (x, b, c))
+    return x, torch.from_numpy(a), b, c, torch.from_numpy(s0)
+
+
+def _bf16_operand(v, split):
+    """The fp32 ``v`` as the kernel hands it to a bf16 product: (hi, lo)
+    with lo = bf16(v - hi), or one rounding (hi, 0)."""
+    hi = v.bfloat16().float()
+    return hi, ((v - hi).bfloat16().float() if split else torch.zeros_like(v))
+
+
+OPERANDS = ("bw", "r", "s")  # B o w, (C B^T) o L, the carried state
+
+
+def _emulate_ssd_kernel(x, a, b, c, *, chunk, initial_state=None,
+                        rounded_once=()):
+    """csrc/ssd.cu's bf16 path: (y in bf16, fp32 final state).  Products
+    of bf16 operands are exact in fp32, so each tensor-core product is an
+    fp32 einsum of the bf16 values; the fp32 operands named in
+    ``rounded_once`` (of ``OPERANDS``) are rounded to bf16 once instead of
+    split."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    xf, bf, cf = (v.float() for v in (x, b, c))
+    bf, cf = (v.repeat_interleave(H // G, dim=2) for v in (bf, cf))
+    L = min(chunk, S)
+    starts = range(0, S, L)
+    # A. each chunk's state: D = X^T (B o w), B o w as hi + lo
+    deltas, decays = [], []
+    for c0 in starts:
+        sl = slice(c0, c0 + L)
+        acs = torch.cumsum(a[:, sl], dim=1)                   # (B, l, H)
+        w = torch.exp(acs[:, -1:] - acs)
+        hi, lo = _bf16_operand(bf[:, sl] * w[..., None],
+                               "bw" not in rounded_once)
+        deltas.append(torch.einsum("bshp,bshn->bhpn", xf[:, sl], hi)
+                      + torch.einsum("bshp,bshn->bhpn", xf[:, sl], lo))
+        decays.append(torch.exp(acs[:, -1]))                  # (B, H)
+    # B. the state entering each chunk, and the last one
+    state = (initial_state.float() if initial_state is not None
+             else torch.zeros((B, H, P, N)))
+    entering = []
+    for delta, decay in zip(deltas, decays):
+        entering.append(state)
+        state = decay[..., None, None] * state + delta
+    # C. y = exp(acs) o (C S^T) + ((C B^T) o L) X, S and R as hi + lo
+    ys = []
+    for c0, s_in in zip(starts, entering):
+        sl = slice(c0, c0 + L)
+        l = xf[:, sl].shape[1]
+        acs = torch.cumsum(a[:, sl], dim=1)
+        sh, slo = _bf16_operand(s_in, "s" not in rounded_once)
+        y = (torch.einsum("bthn,bhpn->bthp", cf[:, sl], sh)
+             + torch.einsum("bthn,bhpn->bthp", cf[:, sl], slo))
+        y = y * torch.exp(acs)[..., None]
+        cb = torch.einsum("bthn,bshn->bhts", cf[:, sl], bf[:, sl])
+        acs_h = acs.transpose(1, 2)                           # (B, H, l)
+        seg = acs_h[..., :, None] - acs_h[..., None, :]
+        causal = torch.ones(l, l, dtype=torch.bool).tril()
+        r = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)) * cb,
+                        0.0)
+        rh, rl = _bf16_operand(r, "r" not in rounded_once)
+        y = y + torch.einsum("bhts,bshp->bthp", rh, xf[:, sl]) \
+            + torch.einsum("bhts,bshp->bthp", rl, xf[:, sl])
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def _meets_card_tolerance(got, want):
+    """tests/test_torch_cuda.py's ``_ssd_close`` for bf16: y within 2^-7
+    relative and 1e-4 absolute, the fp32 state within 1e-4."""
+    y_ok = torch.allclose(got[0].float(), want[0].float(), rtol=2 ** -7,
+                          atol=1e-4)
+    s_ok = torch.allclose(got[1], want[1], rtol=1e-4, atol=1e-4)
+    return y_ok, s_ok
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+def test_ssd_kernel_split_arithmetic_meets_the_card_tolerance(with_init):
+    """The kernel's bf16 arithmetic, emulated at mamba2-2.7b's head and
+    state widths over 4 chunks, meets the card tests' bf16 tolerances
+    against ``ref.ssd_plain``, from zero and from an initial state."""
+    x, a, b, c, s0 = _mamba_inputs(SPLIT_SHAPE, 60)
+    init = s0 if with_init else None
+    got = _emulate_ssd_kernel(x, a, b, c, chunk=128, initial_state=init)
+    want = ref.ssd_plain(x, a, b, c, chunk=128, initial_state=init)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert _meets_card_tolerance(got, want) == (True, True)
+
+
+@pytest.mark.parametrize("once", OPERANDS)
+def test_ssd_kernel_one_rounding_of_any_operand_fails_the_card_check(once):
+    """Why the kernel splits its fp32 operands: B o w (phase A's operand)
+    rounded to bf16 once, the others split, puts the state past the
+    card's 1e-4 by over 10x; R or the carried state rounded once puts y
+    past 2^-7.  Split, all three meet both (the test above)."""
+    x, a, b, c, _ = _mamba_inputs(SPLIT_SHAPE, 60)
+    got = _emulate_ssd_kernel(x, a, b, c, chunk=128, rounded_once=(once,))
+    want = ref.ssd_plain(x, a, b, c, chunk=128)
+    y_ok, s_ok = _meets_card_tolerance(got, want)
+    if once == "bw":
+        assert not s_ok
+        assert (got[1] - want[1]).abs().max().item() > 1e-3
+    else:
+        assert s_ok and not y_ok
