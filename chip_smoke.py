@@ -23,8 +23,10 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    at mamba2-2.7b's widths, and mamba2-2.7b's prefill (bf16) and
    short-prompt (fp32) shapes; ``rmsnorm_rows`` over mamba2-2.7b's
    gated-norm rows and internlm2-20b's 6144-wide rows, ``layernorm_rows``
-   over nemotron-4-15b's; unaligned and ragged operands of ``rmsnorm_rows``
-   and ``act_rows`` (their scalar kernels).
+   over nemotron-4-15b's, fp32 (its 4-layer check) and bf16 (as served);
+   unaligned and ragged operands of ``rmsnorm_rows``, ``layernorm_rows``,
+   ``softmax_rows`` and ``act_rows`` (their scalar loads or block
+   kernels).
 4. DORA path: compiles paper workloads with ``DoraCompiler`` and runs
    each compiled binary through ``DoraCompiler.execute`` on the card from
    ``random_inputs(0)``: BERT-L and DeiT-L at full width, MLP-L (the one
@@ -54,7 +56,8 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    more at fp32 compute and full depth, kernels against plain versions
    (see ``SSM_FP32_RTOL``).  Then, each server freed before the next,
    internlm2-20b (48 layers, d 6144), nemotron-4-15b (32 layers, d 6144,
-   layernorm, relu2 MLP; also the fp32 4-layer check) and qwen1.5-4b
+   layernorm on its bf16 rows, relu2 MLP; also the fp32 4-layer check)
+   and qwen1.5-4b
    (qkv bias) at full width and depth on the same traffic, within
    ``SERVE_RTOL``.  Every server is drawn by ``lm.init_cast``; the peak
    device memory of building it must stay under its bf16 parameters plus
@@ -67,9 +70,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    card's bound: ``flex_gemm`` at every distinct tile of each main-path
    model with the launch-weighted sum over a run, ``flash_attention``
    decode over 65, 540 and 1,024 cache rows, the gelu row kernel, the
-   rmsnorm and layernorm rows of the served archs; the redesigned rmsnorm
-   and activation kernels beside their scalar kernels (the kernels before
-   the redesign).  The serving profiles sum ``ssd``'s two kernels.
+   rmsnorm and layernorm rows of the served archs (nemotron-4-15b's norm
+   as served, bf16 in and out, beside its old path: a cast to fp32, the
+   fp32 kernel and a cast back); the redesigned rmsnorm, activation,
+   layernorm and softmax kernels beside the kernels before their redesign.
+   The serving profiles sum ``ssd``'s two kernels and print each step's
+   device activities.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -145,7 +151,8 @@ SSD_WIDE = [(1, 2048, 80, 64, 1, 128, 128), (1, 256, 16, 64, 2, 128, 128)]
 # of 4 x 512 prefill tokens and of 4 decode tokens.
 RMS_SSM = [(2048, 5120), (4, 5120)]
 # internlm2-20b's rmsnorm rows (d_model 6144), prefill and decode; the same
-# rows go through the fp32 layernorm kernel on nemotron-4-15b.
+# rows go through the layernorm kernel on nemotron-4-15b, in bf16 as
+# served and in fp32 in its 4-layer check.
 RMS_WIDE = [(2048, 6144), (4, 6144)]
 # Unaligned and ragged rows of the redesigned kernels, (rows, width,
 # offset): a view ``offset`` elements into its buffer is not 16-byte
@@ -153,9 +160,28 @@ RMS_WIDE = [(2048, 6144), (4, 6144)]
 # read in them; both take the scalar kernels of csrc/sfu.cu.
 RMS_ODD = [(2048, 6144, 1), (64, 2561, 0), (8, 6143, 1), (16, 4100, 0)]
 ACT_ODD = [(512, 3072, 1), (7, 1001, 0), (1, 3, 0)]
+# the same for layernorm (scalar loads of the warp kernel up to 1,024
+# wide, else the block kernel) and softmax (the warp kernel's scalar
+# loads, the block kernel past 1,024)
+LN_ODD = RMS_ODD + [(197, 768, 1), (33, 1025, 0)]
+SM_ODD = [(512, 512, 1), (197, 197, 0), (5, 1000, 1), (3, 1025, 0),
+          (3, 1025, 1)]
+# the layernorm and softmax rows timed beside the kernels before their
+# redesign: (kernel, rows, width, dtype), nemotron-4-15b's and the DORA
+# path's
+REDESIGNED_ROWS = [("sfu_layernorm", 2048, 6144, "bfloat16"),
+                   ("sfu_layernorm", 4, 6144, "bfloat16"),
+                   ("sfu_layernorm", 2048, 6144, "float32"),
+                   ("sfu_layernorm", 4, 6144, "float32"),
+                   ("sfu_layernorm", 512, 768, "float32"),
+                   ("sfu_layernorm", 197, 768, "float32"),
+                   ("sfu_layernorm", 197, 384, "float32"),
+                   ("sfu_softmax", 512, 512, "float32"),
+                   ("sfu_softmax", 197, 197, "float32"),
+                   ("sfu_softmax", 32, 32, "float32")]
 # The dense archs served after qwen3-4b and mamba2-2.7b, in this order, on
 # qwen3-4b's traffic: internlm2-20b (the widest, 6144), nemotron-4-15b
-# (layernorm through the fp32 row kernel, relu2 MLP, vocab 256,000) and
+# (layernorm on bf16 rows, relu2 MLP, vocab 256,000) and
 # qwen1.5-4b (qkv bias).
 DENSE_ARCHS = ("internlm2-20b", "nemotron-4-15b", "qwen1.5-4b")
 # Kernels against plain versions on mamba2-2.7b, both bf16: each step's
@@ -406,27 +432,44 @@ def main() -> None:
         return randn(R * N + offset, dtype=dtype, scale=scale)[offset:].view(
             R, N)
 
-    def check_rmsnorm(R, N, dt, offset=0) -> float:
-        """Max |kernel - plain| with and without gamma, x and gamma
-        ``offset`` elements into their buffers; fp32 at
+    def check_norm(kernel, R, N, dt, offset=0) -> float:
+        """Max |kernel - plain| of ``rmsnorm`` (with and without gamma) or
+        ``sfu_layernorm`` (with and without gamma and beta), x, gamma and
+        beta ``offset`` elements into their buffers; fp32 at
         tests/test_kernels.py's tolerance, bf16 within one bf16 ulp (both
         compute in fp32 and may round to neighbouring values); a repeated
         call gives the same bits."""
         x = offset_view(R, N, offset, dt, scale=2.0)
-        g = offset_view(1, N, offset)[0]
+        g, bt = (offset_view(1, N, offset)[0] for _ in range(2))
+        if kernel == "rmsnorm":
+            fn, plain, forms = rmsnorm_rows, ref.rmsnorm_rows, [(), (g,)]
+        else:
+            fn, plain = layernorm_rows, ref.layernorm_rows
+            forms = [(None, None), (g, None), (None, bt), (g, bt)]
         rtol, atol = (1e-4, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-6)
         worst = 0.0
-        for gamma in (None, g):
-            got, want = rmsnorm_rows(x, gamma), ref.rmsnorm_rows(x, gamma)
-            again = rmsnorm_rows(x, gamma)
+        for form in forms:
+            got, want, again = fn(x, *form), plain(x, *form), fn(x, *form)
             torch.cuda.synchronize()
             require(got.dtype == dt and close(got, want, rtol, atol)
                     and torch.equal(got, again),
-                    f"rmsnorm {R}x{N} {dt} offset {offset}: max err "
+                    f"{kernel} {R}x{N} {dt} offset {offset}: max err "
                     f"{max_err(got, want)}, repeat equal "
                     f"{torch.equal(got, again)}")
             worst = max(worst, max_err(got, want))
         return worst
+
+    def check_softmax_odd(R, N, offset) -> float:
+        """Max |kernel - plain| of softmax on a view ``offset`` elements
+        into its buffer (rtol 1e-5, atol 1e-6, as check_sfu)."""
+        x = offset_view(R, N, offset, scale=3.0)
+        got, want, again = softmax_rows(x), ref.softmax_rows(x), \
+            softmax_rows(x)
+        torch.cuda.synchronize()
+        require(close(got, want, 1e-5, 1e-6) and torch.equal(got, again),
+                f"sfu_softmax {R}x{N} offset {offset}: max err "
+                f"{max_err(got, want)}")
+        return max_err(got, want)
 
     def check_act_odd(R, N, offset) -> float:
         """Max |kernel - plain| of every activation on a view ``offset``
@@ -501,7 +544,7 @@ def main() -> None:
 
     for R, N in SFU_SHAPES:
         print(f"[check] rmsnorm {R}x{N} fp32: max err "
-              f"{check_rmsnorm(R, N, torch.float32):.3g}")
+              f"{check_norm("rmsnorm", R, N, torch.float32):.3g}")
     for shape in ATTN_SHAPES:
         print(f"[check] flash_attention {shape} fp32: max err causal "
               f"{check_attention(*shape, True, torch.float32):.3g}, "
@@ -544,20 +587,30 @@ def main() -> None:
     # mamba2-2.7b's prefill was checked above
     for R, N in RMS_SERVING + RMS_SSM + RMS_WIDE:
         errs["rmsnorm"] = max(errs["rmsnorm"],
-                              check_rmsnorm(R, N, torch.bfloat16))
+                              check_norm("rmsnorm", R, N, torch.bfloat16))
         print(f"[check] serving rmsnorm {R}x{N} bf16: max err so far "
               f"{errs['rmsnorm']:.3g}")
     for R, N in RMS_WIDE:
         e = check_sfu("sfu_layernorm", R, N, (randn(N), randn(N)))
         errs["sfu_layernorm"] = max(errs["sfu_layernorm"], e)
         print(f"[check] serving layernorm {R}x{N} fp32 +gamma +beta "
-              f"(nemotron-4-15b): max err {e:.3g}")
-    for R, N, offset in RMS_ODD:
-        for dt in (torch.float32, torch.bfloat16):
-            e = check_rmsnorm(R, N, dt, offset)
-            errs["rmsnorm"] = max(errs["rmsnorm"], e)
-            print(f"[check] rmsnorm {R}x{N} {str(dt)[6:]} offset {offset} "
-                  f"(scalar kernel): max err {e:.3g}")
+              f"(nemotron-4-15b's 4-layer fp32 check): max err {e:.3g}")
+        e = check_norm("sfu_layernorm", R, N, torch.bfloat16)
+        errs["sfu_layernorm"] = max(errs["sfu_layernorm"], e)
+        print(f"[check] serving layernorm {R}x{N} bf16, +-gamma +-beta "
+              f"(nemotron-4-15b as served): max err {e:.3g}")
+    for kernel, odd in (("rmsnorm", RMS_ODD), ("sfu_layernorm", LN_ODD)):
+        for R, N, offset in odd:
+            for dt in (torch.float32, torch.bfloat16):
+                e = check_norm(kernel, R, N, dt, offset)
+                errs[kernel] = max(errs[kernel], e)
+                print(f"[check] {kernel} {R}x{N} {str(dt)[6:]} offset "
+                      f"{offset}: max err {e:.3g}")
+    for R, N, offset in SM_ODD:
+        e = check_softmax_odd(R, N, offset)
+        errs["sfu_softmax"] = max(errs["sfu_softmax"], e)
+        print(f"[check] sfu_softmax {R}x{N} offset {offset} (scalar loads "
+              f"or the block kernel): max err {e:.3g}")
     for R, N, offset in ACT_ODD:
         e = check_act_odd(R, N, offset)
         errs["sfu_act"] = max(errs["sfu_act"], e)
@@ -743,8 +796,9 @@ def main() -> None:
     def dense_steps(cfg) -> tuple[dict, str]:
         """Kernel launches per prefill or decode step of a dense arch, and
         their derivation: norm1, norm2 a layer and the final norm on the
-        rmsnorm kernel (or the fp32 layernorm kernel), q- and k-norm a
-        layer on rmsnorm where the arch has them, one attention a layer."""
+        rmsnorm kernel (or the layernorm kernel, on the bf16 rows), q- and
+        k-norm a layer on rmsnorm where the arch has them, one attention a
+        layer."""
         L = cfg.n_layers
         norm = "sfu_layernorm" if cfg.norm_kind == "layernorm" else "rmsnorm"
         steps = Counter({norm: 2 * L + 1, "flash_attention": L})
@@ -1148,10 +1202,39 @@ def main() -> None:
            lambda: ref.gelu_rows(xg),
            lambda: F.gelu(xg, approximate="tanh"),
            GELU_FLOPS * xg.numel(), 8 * xg.numel(), fp32_peak)
-    # nemotron-4-15b's norms: the fp32 layernorm kernel, gamma and beta
+    # nemotron-4-15b's norms as served: bf16 rows, fp32 gamma and beta,
+    # beside the path before (a cast to fp32, the fp32 kernel from before
+    # the redesign, a cast back); then fp32 rows (its 4-layer check)
     for R, N in RMS_WIDE:
-        x, g, bt = randn(R, N), randn(N), randn(N)
-        report("sfu_layernorm", f"{R}x{N} fp32 +gamma +beta (nemotron-4-15b)",
+        xb, g, bt = randn(R, N, dtype=torch.bfloat16), randn(N), randn(N)
+        try:
+            F.layer_norm(xb, (N,), g, bt, 1e-5)
+            lib_gb, lib_note = (g, bt), "fp32 gamma and beta"
+        except RuntimeError as refused:
+            lib_gb = (g.to(torch.bfloat16), bt.to(torch.bfloat16))
+            lib_note = (f"bf16 gamma and beta: PyTorch refused fp32 ones "
+                        f"beside bf16 rows ({str(refused)[:60]})")
+        print(f"[time] F.layer_norm on bf16 rows takes {lib_note}")
+        report("sfu_layernorm",
+               f"{R}x{N} bf16 +gamma +beta (nemotron-4-15b as served)",
+               lambda: layernorm_rows(xb, g, bt),
+               lambda: ref.layernorm_rows(xb, g, bt),
+               lambda: F.layer_norm(xb, (N,), *lib_gb, 1e-5),
+               7 * xb.numel(), 4 * xb.numel() + 8 * N, fp32_peak)
+
+        def old_path():
+            xf = xb.float()
+            out = torch.empty_like(xf)
+            sfu_k._launch_layernorm(xf, g, bt, 1e-5, out, 0, 0, False)
+            return out.to(torch.bfloat16)
+        ms, ms_b2b = cuda_ms(torch, old_path)
+        print(f"[time] sfu_layernorm {R}x{N} bf16 +gamma +beta, the path "
+              f"before (.float(), the fp32 block kernel, .to(bf16): 3 "
+              f"launches): device ms {ms:.4f}, back-to-back {ms_b2b:.4f} "
+              f"on {smi}")
+        x = xb.float()
+        report("sfu_layernorm", f"{R}x{N} fp32 +gamma +beta (nemotron-4-15b "
+               f"4-layer fp32 check)",
                lambda: layernorm_rows(x, g, bt),
                lambda: ref.layernorm_rows(x, g, bt),
                lambda: F.layer_norm(x, (N,), g, bt, 1e-5),
@@ -1161,7 +1244,7 @@ def main() -> None:
     for R, N in ((2048, 2560), (2048, 5120), (2048, 6144), (4, 6144)):
         x, g = randn(R, N, dtype=torch.bfloat16), randn(N)
         out = torch.empty_like(x)
-        for threads in (0, sfu_k.rmsnorm_plan(N, 2, True)):
+        for threads in (0, sfu_k.norm_plan(N, 2, True)):
             ms, _ = cuda_ms(torch, lambda: sfu_k._launch_rmsnorm(
                 x, g, 1e-6, out, threads))
             path = (f"one-pass kernel, {threads} threads of "
@@ -1177,6 +1260,33 @@ def main() -> None:
             print(f"[time] sfu_act {R}x{N} {act} fp32, "
                   f"{'float4 kernel' if vector else 'scalar kernel'}: device "
                   f"ms {ms:.4f} on {smi}")
+    for kernel, R, N, dtype in REDESIGNED_ROWS:
+        dt = getattr(torch, dtype)
+        x = randn(R, N, dtype=dt, scale=3.0)
+        out = torch.empty_like(x)
+        g, bt = randn(N), randn(N)
+        esize = x.element_size()
+        slots, vector = sfu_k.warp_plan(N, esize, True)
+        if kernel == "sfu_softmax":
+            plans = {"block kernel (before the redesign)": (0, False),
+                     f"warp kernel, {slots} {'float4' if vector else 'scalar'}"
+                     f" slots a lane": (slots, vector)}
+            launch = lambda p: sfu_k._launch_softmax(x, out, *p)  # noqa: E731
+        else:
+            threads = sfu_k.norm_plan(N, esize, True)
+            new = (f"one-pass kernel, {threads} threads of "
+                   f"{sfu_k.ROW_VPT} vectors" if threads else
+                   f"warp kernel, {slots} {'16-byte' if vector else 'scalar'}"
+                   f" slots a lane")
+            plans = {"block kernel (before the redesign)": (0, 0, False),
+                     new: (threads, slots, vector)}
+            launch = lambda p: sfu_k._launch_layernorm(  # noqa: E731
+                x, g, bt, 1e-5, out, *p)
+        for path, plan in plans.items():
+            ms, _ = cuda_ms(torch, lambda: launch(plan))
+            print(f"[time] {kernel} {R}x{N} {dtype}"
+                  f"{' +gamma +beta' if kernel == 'sfu_layernorm' else ''}, "
+                  f"{path}: device ms {ms:.4f} on {smi}")
     # flex_gemm at every distinct tile (shape, accumulator, epilogue) of
     # each main-path binary beside torch.addmm / torch.matmul (which leave
     # the epilogue out), weighted by the tile's launches in one run

@@ -3,7 +3,10 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/sfu.py:
 //   softmax_rows   <- `_softmax_kernel`   (max-subtracted, fp32)
 //   layernorm_rows <- `_layernorm_kernel` (population variance, optional
-//                                           gamma and/or beta)
+//                                           gamma and/or beta; fp32 or
+//                                           bf16 rows, fp32 gamma and
+//                                           beta, fp32 arithmetic, output
+//                                           in x's type)
 //   act_rows       <- `_gelu_kernel`, and the element-wise SFU_RELU /
 //                     SFU_RELU2 / SFU_SILU ops of the runtime
 //   rmsnorm_rows   <- `_rmsnorm_kernel` (src/repro/kernels/sfu.py:56;
@@ -11,30 +14,39 @@
 //                     rows, fp32 gamma, fp32 arithmetic, output in x's
 //                     type)
 //
-// Bound on the H100: device-memory bytes (a few FLOP per element).  The
-// TPU kernels hold `block_rows` whole rows in VMEM and mask the lanes past
-// the true width; here one 256-thread block owns one row, strides over its
-// true width N (nothing to mask: no thread reads past N), and reduces with
-// warp shuffles and one shared-memory exchange.  A row is read three times
-// (max/sum/write or mean/var/write); rows of the paper workloads are at
-// most a few KB, so the re-reads hit L1/L2 and device memory sees about
-// one read and one write per element.
+// Bound on the H100: device-memory bytes (a few FLOP per element), one
+// read and one write of the row.  The TPU kernels hold `block_rows` whole
+// rows in VMEM and mask the lanes past the true width; here a row lives in
+// the registers of one warp or one block, and nothing reads past N.
 //
-// rmsnorm serves the decoder's norms: rows of d_model (2560 for qwen3-4b
-// and mamba2-2.7b, 6144 for internlm2-20b), mamba2's gated-norm rows (5120)
-// and the q/k-norm rows of head_dim (128), 40 of them per token and layer.
-// Bound: bytes, one read and one write of the row.  Rows up to
-// WARP_ROW_MAX wide get one warp each (8 rows per block, shuffles only).
-// Wider rows whose x, y and gamma are 16-byte aligned, with a row of a
-// whole number of 16-byte vectors, take the one-pass kernel: a block a
-// row, each thread loads its ROW_VPT vectors of the row (uint4: 8 bf16 or
-// 4 fp32) into registers, the row's sum of squares is reduced in a fixed
-// order (warp shuffles, then the row's warps in order, so a repeated call
-// gives the same bits), and the thread scales its registers by gamma
-// (float4 loads) and writes 16-byte stores: x is read from memory once.
-// Two vectors a thread cover every served width (2560 to 6144, bf16 or
-// fp32) with at most 768 threads; rows wider than ROW_VPT * 1,024 vectors,
-// unaligned or ragged rows take the scalar two-pass block kernel.
+// Softmax and layernorm rows of at most WARP_ROW_MAX (the DORA path's
+// 512- to 1024-wide rows, DeiT's 197) get one warp each, ROW_WARPS rows a
+// block: lane l holds slots l + 32 s (s < SLOTS) of the row in registers,
+// a slot being one 16-byte vector where the row is a whole number of them
+// with aligned operands, else one element (scalar loads, DeiT's 788-byte
+// rows).  SLOTS is a template argument, a power of two chosen by the
+// wrapper's plan (`warp_plan`): at most 32 fp32 values a lane, and loops
+// the compiler unrolls, where a run-time count became predicated code.
+// The reductions are warp shuffles only; x is read from memory once.
+// Softmax keeps expf (the accurate one: no --use_fast_math) and divides
+// once a row.
+//
+// Both norms' rows wider than WARP_ROW_MAX whose x, y, gamma and beta are
+// 16-byte aligned, with a row of a whole number of 16-byte vectors, take
+// the one-pass kernel `norm_vec_kernel`: a block a row, each thread loads
+// its ROW_VPT vectors of the row (uint4: 8 bf16 or 4 fp32) into registers;
+// layernorm reduces the row's sum, then sum((x - mean)^2) over the
+// registers (the reference's two-pass population variance, not E[x^2] -
+// mean^2), rmsnorm sum(x^2); each reduction in a fixed order (warp
+// shuffles, then the row's warps' partials by the same shuffles, so a
+// repeated call gives the same bits); then each thread scales its
+// registers, applies gamma and beta (float4 loads) and writes 16-byte
+// stores: x is read from memory once.  Two vectors a thread cover every
+// served width (2560 to 6144, bf16 or fp32) with at most 768 threads.
+// Wider, unaligned or ragged rows take the block kernels (a block a row,
+// two or three reads of the row, which hit L1/L2): the kernels before the
+// redesign.  rmsnorm's rows of at most WARP_ROW_MAX (the q/k-norm rows of
+// head_dim) keep a warp-a-row kernel of strided scalar loads.
 //
 // The activation kernel is element-wise over fp32: one 16-byte float4 load
 // and store a thread (four times fewer blocks than one element a thread;
@@ -46,6 +58,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "act.cuh"
 
@@ -54,7 +69,10 @@ namespace {
 constexpr int ROW_THREADS = 256;
 constexpr int ACT_THREADS = 256;
 constexpr int WARP_ROW_MAX = 1024;
-constexpr int WARP_ROWS = 8;   // rows (warps) per block of the warp kernel
+constexpr int WARP_ROWS = 8;   // rows (warps) per block, rmsnorm's warp kernel
+constexpr int ROW_WARPS = 4;   // rows (warps) per block, the softmax and
+                               // layernorm warp kernels
+constexpr int LANE_MAX = 32;   // fp32 values a lane of those holds at most
 constexpr int MAX_THREADS = 1024;
 constexpr int ROW_VPT = 2;     // 16-byte vectors a thread, one-pass kernel
 
@@ -67,6 +85,10 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 template <bool IS_MAX>
 __device__ __forceinline__ float warp_reduce(float v) {
 #pragma unroll
@@ -77,7 +99,7 @@ __device__ __forceinline__ float warp_reduce(float v) {
   return v;
 }
 
-// Reduce over the block; every thread gets the result.
+// Reduce over the block of ROW_THREADS; every thread gets the result.
 template <bool IS_MAX>
 __device__ float block_reduce(float v) {
   __shared__ float part[ROW_THREADS / 32];
@@ -95,6 +117,229 @@ __device__ float block_reduce(float v) {
   return result;
 }
 
+// The sum over a block of blockDim.x threads (whole warps), every thread
+// gets it, in a fixed order: warp shuffles, then the warps' partials by
+// the same shuffles in every warp, so a repeated call gives the same
+// bits.  `part` holds one float a warp; a second call needs another
+// `part` (or a barrier between).
+__device__ __forceinline__ float row_sum(float v, float* part) {
+  v = warp_reduce<false>(v);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  return warp_reduce<false>(lane < (int)(blockDim.x >> 5) ? part[lane] : 0.0f);
+}
+
+// 16 bytes of T as E fp32 values, and back (round to nearest even).
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int E = 4;
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int E = 8;
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return u;
+  }
+};
+
+// p[j, j + U) into v (fp32 gamma or beta), float4 loads where U is a
+// whole number of them (j is then a multiple of 4 and p 16-byte aligned).
+template <int U>
+__device__ __forceinline__ void load_cols(const float* __restrict__ p, int j,
+                                          float* v) {
+  if constexpr (U % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < U / 4; ++q) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + j) + q);
+      v[4 * q] = t.x;
+      v[4 * q + 1] = t.y;
+      v[4 * q + 2] = t.z;
+      v[4 * q + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = __ldg(p + j + u);
+  }
+}
+
+// The normalised row's U values: (f - mu) * r, times gamma and plus beta
+// where given (g and b hold them, from load_cols).
+template <int U>
+__device__ __forceinline__ void normalise(float* f, float mu, float r,
+                                          const float* g, const float* b,
+                                          bool has_g, bool has_b) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float v = (f[u] - mu) * r;
+    if (has_g) v *= g[u];
+    if (has_b) v += b[u];
+    f[u] = v;
+  }
+}
+
+// ------------------------------------------------ warp-a-row row kernels
+// A lane's share of a row of N elements: SLOTS slots of U elements (U = 1,
+// or a 16-byte vector of Vec16<T>::E with VEC), slot s at column
+// (lane + 32 s) * U.  With VEC, N is a whole number of vectors, so a slot
+// is wholly inside the row or wholly past it.
+template <typename T, bool VEC>
+struct Slot {
+  static constexpr int U = VEC ? Vec16<T>::E : 1;
+  static __device__ __forceinline__ int col(int lane, int s) {
+    return (lane + 32 * s) * U;
+  }
+};
+
+template <typename T, int SLOTS, bool VEC>
+__device__ __forceinline__ void load_lane(const T* __restrict__ xr, int N,
+                                          int lane, float* f) {
+  using S = Slot<T, VEC>;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int j = S::col(lane, s);
+    if (j < N) {
+      if constexpr (VEC) {
+        Vec16<T>::unpack(__ldg(reinterpret_cast<const uint4*>(xr + j)),
+                         f + s * S::U);
+      } else {
+        f[s] = to_f32(xr[j]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < S::U; ++u) f[s * S::U + u] = 0.0f;
+    }
+  }
+}
+
+template <typename T, int SLOTS, bool VEC>
+__device__ __forceinline__ void store_lane(T* __restrict__ yr, int N,
+                                           int lane, const float* f) {
+  using S = Slot<T, VEC>;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int j = S::col(lane, s);
+    if (j < N) {
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(yr + j) = Vec16<T>::pack(f + s * S::U);
+      } else {
+        store(yr + j, f[s]);
+      }
+    }
+  }
+}
+
+template <int SLOTS, bool VEC>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+softmax_warp_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    int R, int N) {
+  using S = Slot<float, VEC>;
+  const int row = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= R) return;   // whole warps leave together: no shuffle is cut
+  float f[SLOTS * S::U];
+  load_lane<float, SLOTS, VEC>(x + (size_t)row * N, N, lane, f);
+  float m = -INFINITY;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s)
+    if (S::col(lane, s) < N)
+#pragma unroll
+      for (int u = 0; u < S::U; ++u) m = fmaxf(m, f[s * S::U + u]);
+  m = warp_reduce<true>(m);
+  float sum = 0.0f;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s)
+    if (S::col(lane, s) < N)
+#pragma unroll
+      for (int u = 0; u < S::U; ++u) {
+        f[s * S::U + u] = expf(f[s * S::U + u] - m);
+        sum += f[s * S::U + u];
+      }
+  // one division a row, then products, within an ulp of dividing each
+  // value (a division a value measured slower on the H100)
+  const float inv = 1.0f / warp_reduce<false>(sum);
+#pragma unroll
+  for (int i = 0; i < SLOTS * S::U; ++i) f[i] *= inv;
+  store_lane<float, SLOTS, VEC>(y + (size_t)row * N, N, lane, f);
+}
+
+template <typename T, int SLOTS, bool VEC>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+layernorm_warp_kernel(const T* __restrict__ x,
+                      const float* __restrict__ gamma,
+                      const float* __restrict__ beta, T* __restrict__ y,
+                      int R, int N, float eps) {
+  using S = Slot<T, VEC>;
+  const int row = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= R) return;   // whole warps leave together: no shuffle is cut
+  // gamma and beta are loaded with the row, before the reductions, so
+  // their latency hides behind the row's (loaded after them, the warp
+  // kernel ran slower than the block kernel at 512 x 768, PERF.md)
+  float f[SLOTS * S::U], g[SLOTS * S::U], b[SLOTS * S::U];
+  load_lane<T, SLOTS, VEC>(x + (size_t)row * N, N, lane, f);
+  const bool has_g = gamma != nullptr, has_b = beta != nullptr;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int j = S::col(lane, s);
+    if (j < N) {
+      if (has_g) load_cols<S::U>(gamma, j, g + s * S::U);
+      if (has_b) load_cols<S::U>(beta, j, b + s * S::U);
+    }
+  }
+  const float n = static_cast<float>(N);
+  float sum = 0.0f;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s)
+    if (S::col(lane, s) < N)
+#pragma unroll
+      for (int u = 0; u < S::U; ++u) sum += f[s * S::U + u];
+  const float mu = warp_reduce<false>(sum) / n;
+  float ss = 0.0f;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s)
+    if (S::col(lane, s) < N)
+#pragma unroll
+      for (int u = 0; u < S::U; ++u) {
+        const float d = f[s * S::U + u] - mu;
+        ss += d * d;
+      }
+  const float r = rsqrtf(warp_reduce<false>(ss) / n + eps);
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s)
+    if (S::col(lane, s) < N)
+      normalise<S::U>(f + s * S::U, mu, r, g + s * S::U, b + s * S::U,
+                      has_g, has_b);
+  store_lane<T, SLOTS, VEC>(y + (size_t)row * N, N, lane, f);
+}
+
+// --------------------------------------------------- block-a-row kernels
+// The kernels before the redesign: a block of ROW_THREADS a row, strided
+// over its true width, two or three reads of the row.  Softmax rows wider
+// than WARP_ROW_MAX; layernorm rows wider than WARP_ROW_MAX that the
+// one-pass kernel does not take.
 __global__ void __launch_bounds__(ROW_THREADS)
 softmax_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
                     int N) {
@@ -110,28 +355,29 @@ softmax_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
     yr[j] = expf(xr[j] - m) / s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(ROW_THREADS)
-layernorm_rows_kernel(const float* __restrict__ x,
+layernorm_rows_kernel(const T* __restrict__ x,
                       const float* __restrict__ gamma,
-                      const float* __restrict__ beta, float* __restrict__ y,
+                      const float* __restrict__ beta, T* __restrict__ y,
                       int N, float eps) {
-  const float* xr = x + (size_t)blockIdx.x * N;
-  float* yr = y + (size_t)blockIdx.x * N;
+  const T* xr = x + (size_t)blockIdx.x * N;
+  T* yr = y + (size_t)blockIdx.x * N;
   const float n = static_cast<float>(N);
   float s = 0.0f;
-  for (int j = threadIdx.x; j < N; j += ROW_THREADS) s += xr[j];
+  for (int j = threadIdx.x; j < N; j += ROW_THREADS) s += to_f32(xr[j]);
   const float mu = block_reduce<false>(s) / n;
   float ss = 0.0f;
   for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
-    const float d = xr[j] - mu;
+    const float d = to_f32(xr[j]) - mu;
     ss += d * d;
   }
   const float rstd = rsqrtf(block_reduce<false>(ss) / n + eps);
   for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
-    float v = (xr[j] - mu) * rstd;
+    float v = (to_f32(xr[j]) - mu) * rstd;
     if (gamma != nullptr) v *= gamma[j];
     if (beta != nullptr) v += beta[j];
-    yr[j] = v;
+    store(yr + j, v);
   }
 }
 
@@ -212,77 +458,61 @@ rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-// 16 bytes of T as E fp32 values, and back (round to nearest even).
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int E = 4;
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int E = 8;
-  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    return u;
-  }
-};
-
+// ------------------------------------------------------ one-pass kernel
 // One pass over rows of V 16-byte vectors, a block a row of blockDim.x
 // threads (whole warps); thread t holds the row's vectors t and
-// t + blockDim.x in registers between the reduction and the write.
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS)
-rmsnorm_vec_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                   T* __restrict__ y, int V, float eps) {
+// t + blockDim.x in registers, packed (8 bf16 or 4 fp32 in a uint4,
+// unpacked at each use), between the reductions and the write; gamma and
+// beta are loaded at the write, a float4 of each at a time, which keeps
+// the kernel at 30-35 registers (more, loading them before the
+// reductions, cost blocks an SM and ran slower at 2048 x 6144).  The
+// launch bound names one block an SM: with the bound alone ptxas held bf16
+// layernorm to 32 registers and spilled.  CENTER: layernorm (mean, then
+// the population variance over the registers, gamma and beta); else
+// rmsnorm (the mean square, gamma; beta is null).
+template <typename T, bool CENTER>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+norm_vec_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                const float* __restrict__ beta, T* __restrict__ y, int V,
+                float eps) {
   using P = Vec16<T>;
-  __shared__ float part[MAX_THREADS / 32];   // one sum per warp of the row
+  __shared__ float part[2][MAX_THREADS / 32];   // one sum per warp of the row
   const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)blockIdx.x * V;
   uint4 u[ROW_VPT];
-  float ss = 0.0f;
 #pragma unroll
   for (int k = 0; k < ROW_VPT; ++k) {
     const int j = threadIdx.x + k * blockDim.x;
     if (j < V) u[k] = __ldg(xr + j);
   }
+  const float n = static_cast<float>(V * P::E);
+  float mu = 0.0f;
+  if constexpr (CENTER) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < ROW_VPT; ++k) {
+      if (threadIdx.x + k * blockDim.x < V) {
+        float f[P::E];
+        P::unpack(u[k], f);
+#pragma unroll
+        for (int e = 0; e < P::E; ++e) s += f[e];
+      }
+    }
+    mu = row_sum(s, part[0]) / n;
+  }
+  float ss = 0.0f;
 #pragma unroll
   for (int k = 0; k < ROW_VPT; ++k) {
-    const int j = threadIdx.x + k * blockDim.x;
-    if (j < V) {
+    if (threadIdx.x + k * blockDim.x < V) {
       float f[P::E];
       P::unpack(u[k], f);
 #pragma unroll
-      for (int e = 0; e < P::E; ++e) ss += f[e] * f[e];
+      for (int e = 0; e < P::E; ++e) {
+        const float d = f[e] - mu;
+        ss += d * d;
+      }
     }
   }
-  // the row's warps sum their partials in warp order: the same bits on
-  // every call
-  ss = warp_reduce<false>(ss);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  float total = 0.0f;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += part[w];
-  const float r = rsqrtf(total / static_cast<float>(V * P::E) + eps);
-  const float4* g4 = reinterpret_cast<const float4*>(gamma);
+  const float r = rsqrtf(row_sum(ss, part[1]) / n + eps);
   uint4* yr = reinterpret_cast<uint4*>(y) + (size_t)blockIdx.x * V;
 #pragma unroll
   for (int k = 0; k < ROW_VPT; ++k) {
@@ -291,20 +521,103 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       float f[P::E];
       P::unpack(u[k], f);
 #pragma unroll
-      for (int e = 0; e < P::E; ++e) f[e] *= r;
-      if (gamma != nullptr) {
-#pragma unroll
-        for (int q = 0; q < P::E / 4; ++q) {
-          const float4 g = __ldg(g4 + j * (P::E / 4) + q);
-          f[4 * q] *= g.x;
-          f[4 * q + 1] *= g.y;
-          f[4 * q + 2] *= g.z;
-          f[4 * q + 3] *= g.w;
-        }
+      for (int q = 0; q < P::E; q += 4) {   // a float4 of gamma and beta
+        float g[4], b[4];
+        if (gamma != nullptr) load_cols<4>(gamma, j * P::E + q, g);
+        if (beta != nullptr) load_cols<4>(beta, j * P::E + q, b);
+        normalise<4>(f + q, mu, r, g, b, gamma != nullptr, beta != nullptr);
       }
       yr[j] = P::pack(f);
     }
   }
+}
+
+// --------------------------------------------------------------- launch
+// Checks the one-pass plan: `threads` threads of ROW_VPT vectors cover a
+// row of N elements of T, whole 16-byte vectors, every operand aligned.
+template <typename T>
+bool vec_plan_ok(int N, int threads, const void* x, const void* gamma,
+                 const void* beta, const void* y) {
+  const long long V = (long long)N * sizeof(T) / 16;
+  return (N * sizeof(T)) % 16 == 0 && threads % 32 == 0 &&
+         threads <= MAX_THREADS && (long long)threads * ROW_VPT >= V &&
+         aligned16(x) && aligned16(y) && aligned16(gamma) && aligned16(beta);
+}
+
+// Checks a warp plan: `slots` slots a lane cover a row of N <=
+// WARP_ROW_MAX, whole 16-byte vectors with aligned operands if `vec`.
+template <typename T>
+bool warp_plan_ok(int N, int slots, bool vec, const void* x,
+                  const void* gamma, const void* beta, const void* y) {
+  const int unit = vec ? 16 / static_cast<int>(sizeof(T)) : 1;
+  return N <= WARP_ROW_MAX && 32LL * slots * unit >= N &&
+         (!vec || ((N * sizeof(T)) % 16 == 0 && aligned16(x) &&
+                   aligned16(y) && aligned16(gamma) && aligned16(beta)));
+}
+
+// Calls launch(slots, vec) with both as compile-time constants
+// (std::integral_constant) for slots a power of two up to 32 whose lane
+// holds at most LANE_MAX values of T; returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for any other plan.
+template <typename T, typename Launch>
+int with_slots(int slots, bool vec, Launch&& launch) {
+  bool launched = false;
+  auto go = [&](auto s, auto v) {
+    constexpr int S = decltype(s)::value;
+    constexpr bool VEC = decltype(v)::value;
+    if constexpr (S * Slot<T, VEC>::U <= LANE_MAX) {
+      launch(s, v);
+      launched = true;
+    }
+  };
+  auto pick = [&](auto s) {
+    if (vec) go(s, std::true_type{}); else go(s, std::false_type{});
+  };
+  switch (slots) {
+    case 1: pick(std::integral_constant<int, 1>{}); break;
+    case 2: pick(std::integral_constant<int, 2>{}); break;
+    case 4: pick(std::integral_constant<int, 4>{}); break;
+    case 8: pick(std::integral_constant<int, 8>{}); break;
+    case 16: pick(std::integral_constant<int, 16>{}); break;
+    case 32: pick(std::integral_constant<int, 32>{}); break;
+    default: break;
+  }
+  return launched ? static_cast<int>(cudaGetLastError())
+                  : static_cast<int>(cudaErrorInvalidValue);
+}
+
+unsigned warp_blocks(int R) { return (R + ROW_WARPS - 1) / ROW_WARPS; }
+
+// threads > 0: the one-pass kernel with `threads` threads a row; else
+// slots > 0: the warp kernel with `slots` slots a lane (16-byte vectors
+// if vec); else the block kernel (see norm_plan / warp_plan).
+template <typename T>
+int launch_layernorm(const void* x, const void* gamma, const void* beta,
+                     void* y, int R, int N, float eps, int threads,
+                     int slots, int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  T* yt = static_cast<T*>(y);
+  if (threads > 0) {
+    if (!vec_plan_ok<T>(N, threads, x, gamma, beta, y))
+      return static_cast<int>(cudaErrorInvalidValue);
+    norm_vec_kernel<T, true><<<R, threads, 0, st>>>(
+        xt, g, b, yt, static_cast<int>(N * sizeof(T) / 16), eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (slots > 0) {
+    if (!warp_plan_ok<T>(N, slots, vec, x, gamma, beta, y))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return with_slots<T>(slots, vec, [&](auto s, auto v) {
+      layernorm_warp_kernel<T, decltype(s)::value, decltype(v)::value>
+          <<<warp_blocks(R), ROW_WARPS * 32, 0, st>>>(xt, g, b, yt, R, N,
+                                                       eps);
+    });
+  }
+  layernorm_rows_kernel<T><<<R, ROW_THREADS, 0, st>>>(xt, g, b, yt, N, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // threads 0: the scalar kernels (a warp a row up to WARP_ROW_MAX wide, else
@@ -326,34 +639,54 @@ int launch_rmsnorm(const void* x, const void* gamma, void* y, int R, int N,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const int V = static_cast<int>(N * sizeof(T) / 16);
-  if ((N * sizeof(T)) % 16 != 0 || threads % 32 != 0 ||
-      threads > MAX_THREADS || (long long)threads * ROW_VPT < V) {
+  if (!vec_plan_ok<T>(N, threads, x, gamma, nullptr, y))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  rmsnorm_vec_kernel<T><<<R, threads, 0, s>>>(xt, g, yt, V, eps);
+  norm_vec_kernel<T, false><<<R, threads, 0, s>>>(
+      xt, g, nullptr, yt, static_cast<int>(N * sizeof(T) / 16), eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes, all fp32 and contiguous.  Each returns
-// cudaGetLastError() after the launch (0 = launched).
+// Plain C entry points for ctypes, on contiguous operands.  Each returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a plan the kernels do not take.
+
+// slots > 0: the warp kernel (see warp_plan); 0: the block kernel.
 extern "C" int sfu_softmax_f32(const void* x, void* y, int R, int N,
-                               void* stream) {
-  softmax_rows_kernel<<<R, ROW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), N);
+                               int slots, int vec, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* yf = static_cast<float*>(y);
+  if (slots > 0) {
+    if (!warp_plan_ok<float>(N, slots, vec, x, nullptr, nullptr, y))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return with_slots<float>(slots, vec, [&](auto s, auto v) {
+      softmax_warp_kernel<decltype(s)::value, decltype(v)::value>
+          <<<warp_blocks(R), ROW_WARPS * 32, 0, st>>>(xf, yf, R, N);
+    });
+  }
+  softmax_rows_kernel<<<R, ROW_THREADS, 0, st>>>(xf, yf, N);
   return static_cast<int>(cudaGetLastError());
 }
 
+// gamma and beta may be null; x and y are fp32 (f32) or bf16 (bf16),
+// gamma and beta fp32.  threads, slots, vec: the wrapper's plan (see
+// launch_layernorm).
 extern "C" int sfu_layernorm_f32(const void* x, const void* gamma,
                                  const void* beta, void* y, int R, int N,
-                                 float eps, void* stream) {
-  layernorm_rows_kernel<<<R, ROW_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<float*>(y), N, eps);
-  return static_cast<int>(cudaGetLastError());
+                                 float eps, int threads, int slots, int vec,
+                                 void* stream) {
+  return launch_layernorm<float>(x, gamma, beta, y, R, N, eps, threads,
+                                 slots, vec, stream);
+}
+
+extern "C" int sfu_layernorm_bf16(const void* x, const void* gamma,
+                                  const void* beta, void* y, int R, int N,
+                                  float eps, int threads, int slots, int vec,
+                                  void* stream) {
+  return launch_layernorm<__nv_bfloat16>(x, gamma, beta, y, R, N, eps,
+                                         threads, slots, vec, stream);
 }
 
 // vector 0: one element a thread (x or y not 16-byte aligned); else the

@@ -1,8 +1,8 @@
 """The model code's kernel entry points.
 
 Counterpart of the serving half of ``repro.kernels.ops``: ``rmsnorm``
-flattens the leading dims into rows for the row kernel
-(``src/repro/kernels/ops.py:95-103``), ``attention`` takes the
+and ``layernorm`` flatten the leading dims into rows for the row kernels
+in x's own dtype (``src/repro/kernels/ops.py:95-103``), ``attention`` takes the
 ``(B, H, S, D)`` layout of the attention kernel, ``ssd`` the
 ``(B, S, H, P)`` layout of the SSM block, and ``ssd_decode_step`` is
 the plain one-token update (no kernel in either package).  A CUDA tensor
@@ -19,7 +19,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention
-from .sfu import rmsnorm_rows
+from .sfu import layernorm_rows, rmsnorm_rows
 from .ssd import ssd as ssd_kernel
 
 
@@ -29,6 +29,17 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None = None,
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     out = ref.rmsnorm_rows(x2, gamma, eps) if plain \
         else rmsnorm_rows(x2, gamma, eps)
+    return out.reshape(x.shape)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor | None = None,
+              beta: torch.Tensor | None = None, eps: float = 1e-5, *,
+              plain: bool = False) -> torch.Tensor:
+    """layernorm over the last dim; fp32 or bf16 x, fp32 gamma and beta,
+    fp32 arithmetic, output in x's dtype (one rounding, at the store)."""
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out = ref.layernorm_rows(x2, gamma, beta, eps) if plain \
+        else layernorm_rows(x2, gamma, beta, eps)
     return out.reshape(x.shape)
 
 

@@ -22,8 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops, ref
-from ..kernels.sfu import layernorm_rows
+from ..kernels import ops
 
 
 def _init(gen: torch.Generator, shape: tuple[int, ...], device: torch.device,
@@ -45,11 +44,10 @@ def init_norm(cfg, device: torch.device, d: int | None = None) -> dict:
 def apply_norm(cfg, p: dict, x: torch.Tensor, *, plain: bool = False
                ) -> torch.Tensor:
     if cfg.norm_kind == "layernorm":
-        # the fp32 row kernel: rows cast to fp32 and back, which is what
-        # the reference's layernorm_rows computes in any dtype
-        x2 = x.reshape(-1, x.shape[-1]).float().contiguous()
-        fn = ref.layernorm_rows if plain else layernorm_rows
-        return fn(x2, p["scale"], p["bias"]).to(x.dtype).reshape(x.shape)
+        # rows in x's own dtype (bf16 when served): the kernel, like the
+        # reference's layernorm_rows, computes in fp32 and rounds to x's
+        # dtype once, at its store, so no cast runs before or after it
+        return ops.layernorm(x, p["scale"], p["bias"], plain=plain)
     return ops.rmsnorm(x, p["scale"], plain=plain)
 
 

@@ -187,7 +187,7 @@ def test_cuda_rmsnorm_unaligned_and_ragged_rows(cuda, shape, offset, tdt):
     x = _offset_view(shape, 26, tdt, offset, cuda, scale=2.0)
     g = _offset_view((N,), 27, torch.float32, offset, cuda)
     vector = offset == 0 and N * x.element_size() % 16 == 0
-    assert (sfu.rmsnorm_plan(N, x.element_size(), sfu._aligned(x, g))
+    assert (sfu.norm_plan(N, x.element_size(), sfu._aligned(x, g))
             > 0) == vector
     rtol, atol = (1e-4, 1e-5) if tdt == torch.float32 else _bf16_tol()
     for gamma in (None, g):
@@ -209,7 +209,7 @@ def test_cuda_rmsnorm_one_pass_and_scalar_kernels(cuda, N, tdt):
     row count, both within the plain version's tolerance."""
     x = torch.from_numpy(_np((37, N), 28, scale=2.0)).to(cuda, tdt)
     g = torch.from_numpy(_np((N,), 29)).to(cuda)
-    threads = sfu.rmsnorm_plan(N, x.element_size(), True)
+    threads = sfu.norm_plan(N, x.element_size(), True)
     assert (threads > 0) == (N * x.element_size() // 16
                              <= sfu.ROW_VPT * sfu.MAX_THREADS)
     rtol, atol = (1e-4, 1e-5) if tdt == torch.float32 else _bf16_tol()
@@ -220,6 +220,125 @@ def test_cuda_rmsnorm_one_pass_and_scalar_kernels(cuda, N, tdt):
         torch.testing.assert_close(out.float(),
                                    ref.rmsnorm_rows(x, g).float(),
                                    rtol=rtol, atol=atol)
+
+
+# layernorm rows: the DORA path's (BERT-L 512 x 768, DeiT-L 197 x 768,
+# DeiT-S 197 x 384, BERT-S 32 x 256) and nemotron-4-15b's prefill and
+# decode rows (d_model 6144)
+LN_ROWS = [(512, 768), (197, 768), (197, 384), (32, 256), (2048, 6144),
+           (4, 6144)]
+# softmax rows: the DORA path's (BERT-L, DeiT, BERT-S) and a row past the
+# warp kernel's 1,024
+SM_ROWS = [(512, 512), (197, 197), (32, 32), (3, 1025)]
+# unaligned and ragged rows, each at offsets 0 and 1
+LN_ODD = [(2048, 6144), (64, 2561), (8, 6143), (197, 768), (33, 1025)]
+
+
+def _ln_forms(N, seed, dev, offset=0):
+    g = _offset_view((N,), seed, torch.float32, offset, dev)
+    b = _offset_view((N,), seed + 1, torch.float32, offset, dev)
+    return [(None, None), (g, None), (None, b), (g, b)]
+
+
+def _ln_tol(tdt):
+    return (1e-4, 1e-5) if tdt == torch.float32 else _bf16_tol()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SFU_SHAPES + LN_ROWS)
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_layernorm_matches_plain(cuda, shape, tdt):
+    """fp32 and bf16 rows, with and without gamma and beta (fp32): one
+    launch a call, x's dtype out, within the plain version's tolerance
+    (bf16: one ulp) and the same bits on a repeated call."""
+    x = torch.from_numpy(_np(shape, 31, scale=2.0)).to(cuda, tdt)
+    rtol, atol = _ln_tol(tdt)
+    for gamma, beta in _ln_forms(shape[1], 32, cuda):
+        before = layernorm_rows.launches
+        got, again = layernorm_rows(x, gamma, beta), layernorm_rows(x, gamma,
+                                                                    beta)
+        torch.cuda.synchronize()
+        assert layernorm_rows.launches == before + 2 and got.dtype == tdt
+        assert torch.equal(got, again)
+        torch.testing.assert_close(
+            got.float(), ref.layernorm_rows(x, gamma, beta).float(),
+            rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LN_ODD)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_layernorm_unaligned_and_ragged_rows(cuda, shape, offset, tdt):
+    """x, gamma and beta one element into their buffers, or rows of no
+    whole number of 16-byte vectors, take scalar loads (the warp kernel's
+    up to 1,024 wide, else the block kernel); aligned whole rows 16-byte
+    loads; all within the plain version's tolerance."""
+    R, N = shape
+    x = _offset_view(shape, 33, tdt, offset, cuda, scale=2.0)
+    forms = _ln_forms(N, 34, cuda, offset)
+    whole = offset == 0 and N * x.element_size() % 16 == 0
+    aligned = sfu._aligned(x, *forms[-1])
+    assert (sfu.norm_plan(N, x.element_size(), aligned) > 0) == (
+        whole and N > sfu.WARP_ROW_MAX)
+    assert sfu.warp_plan(N, x.element_size(), aligned)[1] == (
+        whole and N <= sfu.WARP_ROW_MAX)
+    rtol, atol = _ln_tol(tdt)
+    for gamma, beta in forms:
+        got = layernorm_rows(x, gamma, beta)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            got.float(), ref.layernorm_rows(x, gamma, beta).float(),
+            rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LN_ROWS + [(37, 1032), (5, 1000)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_layernorm_one_pass_and_block_kernels(cuda, shape, tdt):
+    """The kernel of the plan (one-pass or warp) and the block kernel from
+    before the redesign on the same rows, gamma and beta, both within the
+    plain version's tolerance."""
+    R, N = shape
+    x = torch.from_numpy(_np(shape, 35, scale=2.0)).to(cuda, tdt)
+    g, b = _ln_forms(N, 36, cuda)[-1]
+    esize = x.element_size()
+    plans = {(sfu.norm_plan(N, esize, True), *sfu.warp_plan(N, esize, True)),
+             (0, 0, False)}
+    assert len(plans) == 2
+    rtol, atol = _ln_tol(tdt)
+    want = ref.layernorm_rows(x, g, b).float()
+    for plan in plans:
+        out = torch.empty_like(x)
+        sfu._launch_layernorm(x, g, b, 1e-5, out, *plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SFU_SHAPES + SM_ROWS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_softmax_warp_and_block_kernels(cuda, shape, offset):
+    """The softmax of the plan (the warp kernel up to 1,024 wide, float4
+    slots for aligned whole vectors, scalar ones for a view one element
+    into its buffer or a ragged row; the block kernel past it) and the
+    block kernel from before the redesign, within rtol 1e-5 / atol 1e-6 of
+    the plain version; a repeated call gives the same bits."""
+    x = _offset_view(shape, 37, torch.float32, offset, cuda, scale=3.0)
+    slots, vector = sfu.warp_plan(shape[1], 4, sfu._aligned(x))
+    assert vector == (offset == 0 and shape[1] % 4 == 0 and slots > 0)
+    want = ref.softmax_rows(x)
+    before = softmax_rows.launches
+    got, again = softmax_rows(x), softmax_rows(x)
+    out = torch.empty_like(x)
+    sfu._launch_softmax(x, out, 0, False)
+    torch.cuda.synchronize()
+    assert softmax_rows.launches == before + 2 and torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

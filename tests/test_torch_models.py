@@ -268,6 +268,51 @@ def test_every_norm_and_attention_goes_through_the_kernel_wrappers(monkeypatch):
                          "attention": steps * cfg.n_layers}
 
 
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_nemotron_norms_hand_layernorm_rows_their_own_dtype(monkeypatch,
+                                                            compute):
+    """nemotron-4-15b's 2 norms a layer and its final norm reach the
+    layernorm row kernel's wrapper in x's own dtype (bf16 when served: no
+    cast to fp32 before it, none back after), as many times a step as
+    chip_smoke.py counts; on the CPU ``apply_norm`` equals
+    ``ref.layernorm_rows`` of the rows bit for bit, and ``plain=True``
+    never calls the wrapper."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    cfg = dataclasses.replace(get_config("nemotron-4-15b", reduced=True),
+                              compute_dtype=compute)
+    dtypes = []
+
+    def recorded(x, *args, **kwargs):
+        dtypes.append(x.dtype)
+        return ref.layernorm_rows(x, *args, **kwargs)
+
+    monkeypatch.setattr(ops, "layernorm_rows", recorded)
+    p = lm.init_cast(cfg, torch.Generator().manual_seed(2), "cpu")
+    tok = torch.from_numpy(_tokens(cfg, (2, 9), 10))
+    for plain in (True, False):
+        dtypes.clear()
+        _, cache = lm.prefill(cfg, p, tok[:, :6], max_len=9, plain=plain)
+        for t in range(6, 9):
+            lm.decode_step(cfg, p, cache, tok[:, t:t + 1], t, plain=plain)
+        steps = 0 if plain else 4
+        assert dtypes == [getattr(torch, compute)] * (
+            steps * (2 * cfg.n_layers + 1))
+    monkeypatch.undo()
+    x = torch.from_numpy(_np_rows((2, 5, cfg.d_model), 11)).to(
+        getattr(torch, compute))
+    norm = {"scale": torch.from_numpy(_np_rows((cfg.d_model,), 12)),
+            "bias": torch.from_numpy(_np_rows((cfg.d_model,), 13))}
+    got = layers.apply_norm(cfg, norm, x)
+    want = ref.layernorm_rows(x.reshape(-1, cfg.d_model), norm["scale"],
+                              norm["bias"]).reshape(x.shape)
+    assert got.dtype == x.dtype and torch.equal(got, want)
+
+
+def _np_rows(shape, seed):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
 # every arch the port serves, by its reduced config
 SERVED = ["qwen3-4b", "qwen1.5-4b", "internlm2-20b", "nemotron-4-15b",
           "mamba2-2.7b"]

@@ -2,13 +2,15 @@
 
 ``gemm_plan`` cuts K into split-K slabs for ``flex_gemm``,
 ``decode_plan`` cuts the KV rows into splits for ``flash_attention``'s
-decode path, ``rmsnorm_plan`` gives a row's 16-byte vectors to the
-threads of the one-pass rmsnorm kernel, and ``ssd_plan`` lays out the
-SSD scan's chunks and the blocks that carry its state.  All are pure
-functions of the shape (and the card's SM count, or the operands'
-alignment), so they are checked here: each covers K, the KV rows, a
-row's vectors or the positions and state exactly once, and fills the
-card where the length allows.  The kernels that follow the plans are
+decode path, ``norm_plan`` gives a row's 16-byte vectors to the
+threads of the one-pass norm kernel (rmsnorm and layernorm),
+``warp_plan`` a row of at most 1,024 to the lanes of the layernorm and
+softmax warp kernels, and ``ssd_plan`` lays out the SSD scan's chunks and
+the blocks that carry its state.  All are pure functions of the shape
+(and the card's SM count, or the operands' alignment), so they are
+checked here: each covers K, the KV rows, a row's vectors or elements or
+the positions and state exactly once, and fills the card where the
+length allows.  The kernels that follow the plans are
 held against the plain versions on the card in test_torch_cuda.py.
 """
 
@@ -166,7 +168,7 @@ def test_rmsnorm_plan_covers_each_vector_of_a_row_once(N, esize):
     threads`` (k < ROW_VPT) below V: together every vector exactly once,
     in whole warps with none empty, within one block's 1,024 threads;
     rows it cannot cover take the scalar kernels."""
-    threads = sfu.rmsnorm_plan(N, esize, aligned=True)
+    threads = sfu.norm_plan(N, esize, aligned=True)
     V = N * esize // 16
     if threads == 0:
         assert N * esize % 16 or -(-V // sfu.ROW_VPT) > sfu.MAX_THREADS
@@ -183,18 +185,114 @@ def test_rmsnorm_plan_at_the_serving_widths():
     bf16 is 640 vectors, 320 threads of 2; the q/k-norm rows (128) and
     anything unaligned, ragged or wider than 2,048 vectors take the scalar
     kernels."""
-    got = {(N, e): sfu.rmsnorm_plan(N, e, True)
+    got = {(N, e): sfu.norm_plan(N, e, True)
            for N in (2560, 5120, 6144) for e in (2, 4)}
     assert got == {(2560, 2): 160, (2560, 4): 320, (5120, 2): 320,
                    (5120, 4): 640, (6144, 2): 384, (6144, 4): 768}
-    assert sfu.rmsnorm_plan(128, 2, True) == 0
-    assert sfu.rmsnorm_plan(1024, 4, True) == 0
-    assert sfu.rmsnorm_plan(6144, 2, False) == 0
-    assert sfu.rmsnorm_plan(6143, 2, True) == 0
-    assert sfu.rmsnorm_plan(4100, 2, True) == 0
-    assert sfu.rmsnorm_plan(1032, 2, True) == 96
-    assert sfu.rmsnorm_plan(16384, 2, True) == 1024
-    assert sfu.rmsnorm_plan(16392, 2, True) == 0
+    assert sfu.norm_plan(128, 2, True) == 0
+    assert sfu.norm_plan(1024, 4, True) == 0
+    assert sfu.norm_plan(6144, 2, False) == 0
+    assert sfu.norm_plan(6143, 2, True) == 0
+    assert sfu.norm_plan(4100, 2, True) == 0
+    assert sfu.norm_plan(1032, 2, True) == 96
+    assert sfu.norm_plan(16384, 2, True) == 1024
+    assert sfu.norm_plan(16392, 2, True) == 0
+
+
+def _held_by_lanes(slots, units):
+    """Units (16-byte vectors or elements) of a row of ``units`` that the
+    warp kernels' lanes hold: lane l slots l + 32 s, s < slots."""
+    return Counter(lane + 32 * s for lane in range(32) for s in range(slots)
+                   if lane + 32 * s < units)
+
+
+def _layernorm_path(N, esize, aligned):
+    """The kernel ``layernorm_rows`` launches: ("one-pass", threads),
+    ("warp", slots, vector) or ("block",)."""
+    threads = sfu.norm_plan(N, esize, aligned)
+    if threads:
+        return ("one-pass", threads)
+    slots, vector = sfu.warp_plan(N, esize, aligned)
+    return ("warp", slots, vector) if slots else ("block",)
+
+
+# layernorm widths: the DORA path's rows (768, 384, 256; DeiT's
+# attention rows 197), nemotron-4-15b's 6144, the narrowest one-pass row
+# (1032), and ragged ones
+LN_WIDTHS = [768, 384, 256, 197, 1032, 6144, 17, 1000, 1024, 1025, 2561,
+             6143, 16384, 16392]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("esize", [4, 2], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N", LN_WIDTHS)
+def test_layernorm_plan_covers_each_vector_or_element_once(N, esize, aligned):
+    """Rows wider than 1,024 of whole aligned 16-byte vectors take the
+    one-pass kernel (each vector held once, as rmsnorm's); rows of at most
+    1,024 the warp kernel, holding each vector (aligned whole vectors) or
+    else each element exactly once, at most 32 fp32 values a lane, in the
+    fewest power-of-two slots that do; every other row the block kernel.
+    An unaligned or ragged row never takes 16-byte loads."""
+    path = _layernorm_path(N, esize, aligned)
+    whole = aligned and N * esize % 16 == 0
+    if N > sfu.WARP_ROW_MAX:
+        V = N * esize // 16
+        if whole and -(-V // sfu.ROW_VPT) <= sfu.MAX_THREADS:
+            threads = path[1]
+            assert path[0] == "one-pass" and threads % 32 == 0
+            held = Counter(t + k * threads for t in range(threads)
+                           for k in range(sfu.ROW_VPT) if t + k * threads < V)
+            assert sorted(held) == list(range(V))
+            assert set(held.values()) == {1}
+        else:
+            assert path == ("block",)
+        return
+    _, slots, vector = path
+    assert path[0] == "warp" and vector == whole
+    unit = 16 // esize if vector else 1
+    units = N // unit
+    held = _held_by_lanes(slots, units)
+    assert sorted(held) == list(range(units)) and set(held.values()) == {1}
+    assert slots & (slots - 1) == 0 and slots * unit <= sfu.LANE_MAX
+    assert slots == 1 or 32 * (slots // 2) < units      # the fewest slots
+
+
+def test_layernorm_plan_at_the_main_path_rows():
+    """BERT-L's 768-wide and DeiT-S's 384-wide fp32 rows take 16-byte
+    vectors, DeiT's 197-wide rows (788 bytes) scalar loads, nemotron-4-15b's
+    6144-wide bf16 and fp32 rows the one-pass kernel, as rmsnorm's do."""
+    assert _layernorm_path(768, 4, True) == ("warp", 8, True)
+    assert _layernorm_path(384, 4, True) == ("warp", 4, True)
+    assert _layernorm_path(256, 4, True) == ("warp", 2, True)
+    assert _layernorm_path(768, 2, True) == ("warp", 4, True)
+    assert _layernorm_path(197, 4, True) == ("warp", 8, False)
+    assert _layernorm_path(768, 4, False) == ("warp", 32, False)
+    assert _layernorm_path(6144, 2, True) == ("one-pass", 384)
+    assert _layernorm_path(6144, 4, True) == ("one-pass", 768)
+    assert _layernorm_path(6144, 2, False) == ("block",)
+    assert _layernorm_path(6143, 2, True) == ("block",)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("N,want", [
+    (17, (1, False)), (128, (1, True)), (197, (8, False)), (300, (4, True)),
+    (512, (4, True)), (1000, (8, True)), (1025, (0, False))])
+def test_softmax_warp_plan_template_choice(N, want, aligned):
+    """The softmax warp kernel's compile-time slots at widths from the
+    reference's sweep and the DORA path: float4 slots where the fp32 row is
+    a whole number of aligned 16-byte vectors, scalar ones otherwise (17,
+    DeiT's 197, any offset view), each element held once, at most 32 a
+    lane; rows past 1,024 take the block kernel."""
+    slots, vector = sfu.warp_plan(N, 4, aligned)
+    if aligned or N > sfu.WARP_ROW_MAX:
+        assert (slots, vector) == want
+    else:
+        assert not vector and slots == 1 << (-(-N // 32) - 1).bit_length()
+    if slots:
+        unit = 4 if vector else 1
+        held = _held_by_lanes(slots, N // unit)
+        assert sorted(held) == list(range(N // unit))
+        assert set(held.values()) == {1} and slots * unit <= sfu.LANE_MAX
 
 
 # (B, S, H, P, N, chunk): mamba2-2.7b's prefill, a 2,048-token prompt (16

@@ -64,6 +64,35 @@ def test_layernorm_rows(shape, affine):
         np.testing.assert_allclose(got, _f32(want), rtol=1e-4, atol=1e-5)
 
 
+# bf16 layernorm rows: the SFU sweep, the narrowest one-pass row, and
+# nemotron-4-15b's decode rows
+LN_BF16_SHAPES = SFU_SHAPES + [(2, 1032), (4, 6144)]
+
+
+@pytest.mark.parametrize("shape", LN_BF16_SHAPES)
+@pytest.mark.parametrize("affine", AFFINE, ids=["plain", "gamma", "beta",
+                                                "gamma_beta"])
+def test_layernorm_bf16_rows(shape, affine):
+    """bf16 rows with fp32 gamma and beta, as nemotron-4-15b serves them:
+    the output stays bf16 and is within one bf16 ulp (2^-7 relative) of
+    the Pallas kernel's and the oracle's on the same bf16 inputs; all
+    compute in fp32 and round once, so only the fp32 summation order
+    differs."""
+    xb = torch.from_numpy(_np(shape, 14, scale=4.0)).to(torch.bfloat16)
+    g = _np((shape[1],), 15) if affine[0] else None
+    bt = _np((shape[1],), 16) if affine[1] else None
+    t = (lambda v: None if v is None else torch.from_numpy(v))
+    j = (lambda v: None if v is None else jnp.asarray(v))
+    got = layernorm_rows(xb, t(g), t(bt))
+    assert got.dtype == torch.bfloat16
+    jx = jnp.asarray(xb.float().numpy(), jnp.bfloat16)
+    for want in (layernorm_rows_pallas(jx, j(g), j(bt), interpret=True),
+                 jref.layernorm_rows(jx, j(g), j(bt))):
+        assert want.dtype == jnp.bfloat16
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=2 ** -7,
+                                   atol=1e-6)
+
+
 @pytest.mark.parametrize("shape", SFU_SHAPES)
 @pytest.mark.parametrize("act", ACTIVATIONS)
 def test_act_rows(shape, act):
