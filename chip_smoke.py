@@ -26,7 +26,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    over nemotron-4-15b's, fp32 (its 4-layer check) and bf16 (as served);
    unaligned and ragged operands of ``rmsnorm_rows``, ``layernorm_rows``,
    ``softmax_rows`` and ``act_rows`` (their scalar loads or block
-   kernels).
+   kernels); ``flash_attention`` at qwen2-vl-2b's and whisper-medium's
+   shapes (non-causal over 1,500 encoder frames: the encoder, the cross
+   prefill and the cross decode), ``rmsnorm_rows`` at qwen2-vl-2b's
+   1536-wide rows and ``layernorm_rows`` at whisper-medium's 1024-wide
+   ones; every MMU tile and SFU row of the multi-tenant binaries below.
 4. DORA path: compiles paper workloads with ``DoraCompiler`` and runs
    each compiled binary through ``DoraCompiler.execute`` on the card from
    ``random_inputs(0)``: BERT-L and DeiT-L at full width, MLP-L (the one
@@ -36,7 +40,17 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    Every layer is held against ``reference_execute`` of that layer on
    the inputs the binary gave it (rtol 5e-4, atol 5e-4 scaled up only
    past |ref| = 100); the chained outputs against ``reference_execute``
-   of the whole graph by relative L2 error (see ``CHAIN_RTOL``).
+   of the whole graph by relative L2 error (see ``CHAIN_RTOL``).  Then
+   DORA's multi-tenant path, the scenarios of
+   ``benchmarks/bench_multi_tenant.py``: BERT-S + NCF-S (small_pair)
+   compiled jointly into one binary and run as encoded, then reordered
+   by ``interleave_stream`` ("rr" and "priority") and run again;
+   qwen3-4b + whisper-medium (llm_pair, ``from_arch`` at the configs'
+   widths, cut to 3 blocks a tenant as the benchmark cuts them) compiled
+   jointly and run; and BERT-S + NCF-S + MLP-S (small_trio) placed on a
+   two-PE ``DoraMesh`` by ``DoraMeshCompiler``, each PE's program run in
+   turn.  The same launch, per-layer and chained checks; compile seconds,
+   host ms and device-busy ms of each joint run.
 5. serving: ``repro_torch.launch.serve.BatchServer`` serves qwen3-4b at
    full width and depth (36 layers, d 2560, vocab 151,936, bf16 compute,
    random weights from seed 0) to 4 greedy requests of 512, 384, 200 and
@@ -59,7 +73,16 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    layernorm on its bf16 rows, relu2 MLP; also the fp32 4-layer check)
    and qwen1.5-4b
    (qkv bias) at full width and depth on the same traffic, within
-   ``SERVE_RTOL``.  Every server is drawn by ``lm.init_cast``; the peak
+   ``SERVE_RTOL``; then qwen2-vl-2b (M-RoPE, GQA 6, 28 layers, d 1536)
+   the same way, and ``lm.forward`` on one 512-token prompt with
+   distinct (t, h, w) position ids, kernels against plain versions.
+   whisper-medium (24 encoder and 24 decoder layers, d 1024; no server,
+   as in the reference) is driven through ``encdec.prefill`` and
+   ``encdec.decode_step``: 4 items of 1,500 stub frames and a 64-token
+   prompt, 32 greedy tokens, a 128-row self cache, with its launch counts
+   a prefill and a decode step, its logits against the plain versions
+   (``SERVE_RTOL``) and an fp32 4 + 4-layer decode-consistency check.
+   Every server is drawn by ``lm.init_cast``; the peak
    device memory of building it must stay under its bf16 parameters plus
    the largest fp32 item (the embedding, the head or a layer) plus 1 GiB,
    and under what holding one fp32 item at a time gives plus 1 GiB.
@@ -73,7 +96,10 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    rmsnorm and layernorm rows of the served archs (nemotron-4-15b's norm
    as served, bf16 in and out, beside its old path: a cast to fp32, the
    fp32 kernel and a cast back); the redesigned rmsnorm, activation,
-   layernorm and softmax kernels beside the kernels before their redesign.
+   layernorm and softmax kernels beside the kernels before their redesign;
+   ``flash_attention`` at whisper-medium's three attention shapes and
+   qwen2-vl-2b's prefill, ``sfu_layernorm`` at whisper-medium's rows and
+   ``rmsnorm`` at qwen2-vl-2b's.
    The serving profiles sum ``ssd``'s two kernels and print each step's
    device activities.
 
@@ -154,6 +180,8 @@ RMS_SSM = [(2048, 5120), (4, 5120)]
 # rows go through the layernorm kernel on nemotron-4-15b, in bf16 as
 # served and in fp32 in its 4-layer check.
 RMS_WIDE = [(2048, 6144), (4, 6144)]
+# qwen2-vl-2b's rmsnorm rows (d_model 1536), prefill and decode
+RMS_VL = [(2048, 1536), (4, 1536)]
 # Unaligned and ragged rows of the redesigned kernels, (rows, width,
 # offset): a view ``offset`` elements into its buffer is not 16-byte
 # aligned, and a width of no whole number of 16-byte vectors cannot be
@@ -181,9 +209,28 @@ REDESIGNED_ROWS = [("sfu_layernorm", 2048, 6144, "bfloat16"),
                    ("sfu_softmax", 32, 32, "float32")]
 # The dense archs served after qwen3-4b and mamba2-2.7b, in this order, on
 # qwen3-4b's traffic: internlm2-20b (the widest, 6144), nemotron-4-15b
-# (layernorm on bf16 rows, relu2 MLP, vocab 256,000) and
-# qwen1.5-4b (qkv bias).
-DENSE_ARCHS = ("internlm2-20b", "nemotron-4-15b", "qwen1.5-4b")
+# (layernorm on bf16 rows, relu2 MLP, vocab 256,000), qwen1.5-4b (qkv
+# bias) and qwen2-vl-2b (MROPE_ARCH: M-RoPE on text position streams, GQA
+# 6).  qwen2-vl-2b's position check then feeds one prompt an image-like
+# (t, h, w) grid of MROPE_GRID[0] x MROPE_GRID[1] patches.
+MROPE_ARCH, MROPE_GRID = "qwen2-vl-2b", (16, 32)
+DENSE_ARCHS = ("internlm2-20b", "nemotron-4-15b", "qwen1.5-4b", MROPE_ARCH)
+# whisper-medium: 4 items of 1,500 stub frames (its 30-second window), a
+# 64-token prompt each, 32 greedy tokens, a 128-row self cache
+WHISPER_ARCH = "whisper-medium"
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_MAX_LEN = \
+    4, 1500, 64, 128
+# DORA's multi-tenant scenarios (benchmarks/bench_multi_tenant.py): tenant
+# -> None for a paper workload, or (seq, blocks) of ``from_arch``: the
+# benchmark cuts its LLM tenants to 3 blocks at their published widths
+MT_SCENARIOS = {
+    "small_pair": {"BERT-S": None, "NCF-S": None},
+    "llm_pair": {"qwen3-4b": (128, 3), "whisper-medium": (192, 3)},
+    "small_trio": {"BERT-S": None, "NCF-S": None, "MLP-S": None},
+}
+MT_JOINT = ("small_pair", "llm_pair")
+# the "priority" interleave's weights by tenant index (tests/test_interleave.py)
+MT_PRIORITIES = {0: 1.0, 1: 8.0}
 # Kernels against plain versions on mamba2-2.7b, both bf16: each step's
 # logits by relative L2.  Far looser than SERVE_RTOL, and examined: the
 # SSD kernels (bf16 products on the tensor cores, each fp32 operand split
@@ -333,8 +380,10 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config, paper_models
-    from repro_torch.core import (CompileOptions, DoraCompiler, Epilogue,
-                              OpType, UnitKind)
+    from repro_torch.core import (CompileOptions, DoraCompiler, DoraMesh,
+                                  DoraMeshCompiler, Epilogue,
+                                  MultiTenantWorkload, OpType, UnitKind,
+                                  interleave_stream)
     from repro_torch.core.graph import LayerKind, WorkloadGraph
     from repro_torch.core.runtime import EPILOGUE_NAME, SFU_ACT
     from repro_torch.kernels import _build, ref
@@ -346,7 +395,7 @@ def main() -> None:
                                          rmsnorm_rows, softmax_rows)
     from repro_torch.kernels.ssd import ssd
     from repro_torch.launch.serve import BatchServer, Request
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
 
     # fp32 products in full fp32 for the plain versions and yardsticks
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -563,7 +612,60 @@ def main() -> None:
     programs = {name: DoraCompiler().compile(paper_models.get(name),
                                              CompileOptions(engine="list"))
                 for name in MAIN_MODELS}
-    instrs = [i for res in programs.values()
+
+    def workload(scenario):
+        mt = MultiTenantWorkload(scenario)
+        for name, cut in MT_SCENARIOS[scenario].items():
+            mt.add_tenant(name, paper_models.get(name) if cut is None else
+                          paper_models.from_arch(name, seq=cut[0],
+                                                 blocks=cut[1]))
+        return mt
+
+    def tenants(label, res) -> str:
+        """The run's tenants, each with its layers and, for a ``from_arch``
+        tenant, its cut beside the config's full depth and widths."""
+        cuts = MT_SCENARIOS[label.split("/")[0]]
+        out = []
+        for t in res.workload.tenants:
+            note = f"{len(t.graph.layers)} layers"
+            if cuts[t.name] is not None:
+                tcfg = get_config(t.name)
+                note += (f"; from_arch seq {cuts[t.name][0]}, cut to "
+                         f"{cuts[t.name][1]} of "
+                         f"{tcfg.n_layers + tcfg.encoder_layers} blocks at "
+                         f"d {tcfg.d_model}, d_ff {tcfg.d_ff}")
+            out.append(f"{t.name} ({note})")
+        return ", ".join(out)
+
+    # the multi-tenant runs: label -> (CompileResult, compile seconds); the
+    # interleaved streams are the joint small_pair result with its codegen
+    # reordered, each mesh PE's result is that PE's own compile
+    mt_runs = {}
+    for scenario in MT_JOINT:
+        t0 = time.perf_counter()
+        mt_runs[scenario] = (DoraCompiler().compile(
+            workload(scenario), CompileOptions(engine="list")),
+            time.perf_counter() - t0)
+    joint, _ = mt_runs["small_pair"]
+    for policy in ("rr", "priority"):
+        t0 = time.perf_counter()
+        cg = interleave_stream(joint.codegen, policy=policy,
+                               priorities=MT_PRIORITIES)
+        require(cg is not joint.codegen, f"{policy}: interleave left the "
+                f"stream as it was")
+        mt_runs[f"small_pair/{policy}"] = (
+            dataclasses.replace(joint, codegen=cg),
+            time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    mesh = DoraMeshCompiler(DoraMesh.homogeneous(2)).compile(
+        workload("small_trio"), CompileOptions(engine="list"))
+    mesh_s = time.perf_counter() - t0
+    require(sorted(mesh.pe_results) == [0, 1], f"small_trio placed on PEs "
+            f"{sorted(mesh.pe_results)}, not on both")
+    for pe, res in sorted(mesh.pe_results.items()):
+        mt_runs[f"small_trio/pe{pe}"] = (res, mesh_s)
+    instrs = [i for res in (*programs.values(),
+                            *(r for r, _ in mt_runs.values()))
               for i in res.codegen.program.instructions]
     errs = {k: 0.0 for k in REPLACES}
     for M, K, N, acc, epi in sorted(
@@ -585,7 +687,7 @@ def main() -> None:
         print(f"[check] main-path {op.name} {R}x{N}: max err {e:.3g}")
     # every shape the serving paths give the serving kernels (bf16); ssd at
     # mamba2-2.7b's prefill was checked above
-    for R, N in RMS_SERVING + RMS_SSM + RMS_WIDE:
+    for R, N in RMS_SERVING + RMS_SSM + RMS_WIDE + RMS_VL:
         errs["rmsnorm"] = max(errs["rmsnorm"],
                               check_norm("rmsnorm", R, N, torch.bfloat16))
         print(f"[check] serving rmsnorm {R}x{N} bf16: max err so far "
@@ -616,18 +718,51 @@ def main() -> None:
         errs["sfu_act"] = max(errs["sfu_act"], e)
         print(f"[check] sfu_act {R}x{N} offset {offset}, 4 activations: max "
               f"err {e:.3g}")
+    # qwen3-4b's and qwen2-vl-2b's (12 query heads over 2 of 128)
     cfg, plen = get_config(SERVE_ARCH), max(SERVE_PROMPTS)
-    for Sq, Skv, causal, rows in (
-            (plen, plen, True, None),                          # prefill
-            *((1, plen + t, False, SERVE_MAX_LEN)              # decode
-              for t in (1, SERVE_NEW // 2, SERVE_NEW - 1))):
-        e = check_attention(len(SERVE_PROMPTS), cfg.n_heads, cfg.n_kv_heads,
-                            Sq, Skv, cfg.head_dim, causal, torch.bfloat16,
-                            rows)
+    vcfg = get_config(MROPE_ARCH)
+    for acfg in (cfg, vcfg):
+        for Sq, Skv, causal, rows in (
+                (plen, plen, True, None),                      # prefill
+                *((1, plen + t, False, SERVE_MAX_LEN)          # decode
+                  for t in (1, SERVE_NEW // 2, SERVE_NEW - 1))):
+            e = check_attention(len(SERVE_PROMPTS), acfg.n_heads,
+                                acfg.n_kv_heads, Sq, Skv, acfg.head_dim,
+                                causal, torch.bfloat16, rows)
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            print(f"[check] {acfg.name} flash_attention Sq={Sq} Skv={Skv} "
+                  f"{'causal' if causal else f'over a {rows}-row cache'} "
+                  f"bf16: max err {e:.3g}")
+    # whisper-medium's (bf16; 16 heads of 64, no GQA): non-causal over the
+    # 1,500 frames (the encoder; the cross-attention prefill of the prompt
+    # and its decode, which reads a cache whose stride is its length), the
+    # causal self-attention prefill, its decode over the 128-row cache; and
+    # its layernorm rows (1024 wide) of the encoder, the prompt and a step
+    wcfg = get_config(WHISPER_ARCH)
+    WB, WF, WP = WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT
+    for label, Sq, Skv, causal, rows in (
+            ("encoder", WF, WF, False, None),
+            ("cross prefill", WP, WF, False, None),
+            ("cross decode", 1, WF, False, None),
+            ("self prefill", WP, WP, True, None),
+            ("self decode", 1, WP + WHISPER_MAX_LEN // 4, False,
+             WHISPER_MAX_LEN)):
+        e = check_attention(WB, wcfg.n_heads, wcfg.n_kv_heads, Sq, Skv,
+                            wcfg.head_dim, causal, torch.bfloat16, rows)
         errs["flash_attention"] = max(errs["flash_attention"], e)
-        print(f"[check] serving flash_attention Sq={Sq} Skv={Skv} "
-              f"{'causal' if causal else f'over a {rows}-row cache'} bf16: "
-              f"max err {e:.3g}")
+        print(f"[check] {WHISPER_ARCH} flash_attention {label} Sq={Sq} "
+              f"Skv={Skv} {'causal' if causal else 'non-causal'} bf16: max "
+              f"err {e:.3g}")
+    e = check_attention(2, wcfg.n_heads, wcfg.n_kv_heads, WF, WF,
+                        wcfg.head_dim, False, torch.float32)
+    errs["flash_attention"] = max(errs["flash_attention"], e)
+    print(f"[check] {WHISPER_ARCH} flash_attention encoder of 2 items fp32 "
+          f"(its 4 + 4-layer fp32 check): max err {e:.3g}")
+    for R in (WB * WF, WB * WP, WB):
+        e = check_norm("sfu_layernorm", R, wcfg.d_model, torch.bfloat16)
+        errs["sfu_layernorm"] = max(errs["sfu_layernorm"], e)
+        print(f"[check] {WHISPER_ARCH} layernorm {R}x{wcfg.d_model} bf16, "
+              f"+-gamma +-beta: max err {e:.3g}")
     # mamba2-2.7b's shapes: the served prefill (bf16, the SSM block's
     # chunk min(128, max(16, S))), the 4-layer fp32 check's prefill and
     # forward, and a 37-token prompt
@@ -657,35 +792,40 @@ def main() -> None:
     sfu_ops = {"sfu_softmax": {OpType.SFU_SOFTMAX},
                "sfu_layernorm": {OpType.SFU_LAYERNORM},
                "sfu_act": set(SFU_ACT)}
-    inputs, outputs = {}, {}
-    zero_counts()
-    for name in MAIN_MODELS:
-        res = programs[name]
+
+    def binary_launches(res) -> dict:
+        """Launches a run of ``res``'s binary must make: its lead
+        ``MMU_GEMM`` and its ``SFU_*`` instructions; no serving kernel."""
         prog = res.codegen.program.instructions
         expected = {k: sum(1 for i in prog if i.op_type in ops)
                     for k, ops in sfu_ops.items()}
         expected["flex_gemm"] = sum(1 for i in prog
                                     if i.op_type == OpType.MMU_GEMM
                                     and i.body.ping_op == 1)
-        expected |= {k: 0 for k in SERVING_KERNELS}
-        before = {k: fn.launches for k, fn in counters.items()}
-        inputs[name] = res.graph.random_inputs(0)
-        outputs[name] = DoraCompiler().execute(res, inputs[name])
+        return expected | {k: 0 for k in SERVING_KERNELS}
+
+    def run_binary(name, res, inputs):
+        """Runs ``res`` on the card from ``inputs``; its launches, counted
+        from zero, must be the binary's.  Returns the outputs on the host
+        and the launches."""
+        zero_counts()
+        out = DoraCompiler().execute(res, inputs)
         torch.cuda.synchronize()
-        ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+        ran = {k: fn.launches for k, fn in counters.items()}
+        expected = binary_launches(res)
         print(f"[main] {name}: launches {ran}")
         require(ran == expected, f"{name}: launches {ran} differ from the "
                 f"binary's instruction counts {expected}")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"[main] launches over the DORA path: {launches}")
-    require(all(launches[k] > 0 for k in DORA_KERNELS),
-            "a kernel of the DORA path was never launched")
+        return {k: v.cpu().numpy() for k, v in out.items()}, ran
 
-    for name in MAIN_MODELS:
-        g = programs[name].graph
-        out = {k: v.cpu().numpy() for k, v in outputs[name].items()}
-        env = {**inputs[name], **out}
-        chained = g.reference_execute(inputs[name])
+    def check_layers(name, res, inputs, out):
+        """Every layer against ``reference_execute`` of that layer on the
+        inputs the binary gave it (LAYER_RTOL / LAYER_ATOL), and against
+        ``reference_execute`` of the whole graph by relative L2
+        (CHAIN_RTOL)."""
+        g = res.graph
+        env = {**inputs, **out}
+        chained = g.reference_execute(inputs)
         worst_layer, worst_chain = (0.0, ""), (0.0, "")
         for l in g.layers:
             got = out[l.name]
@@ -713,10 +853,34 @@ def main() -> None:
                     f"{name}.{l.name}: chained rel L2 error {rel}")
             worst_chain = max(worst_chain, (rel, l.name))
         print(f"[main] {name}: {len(g.layers)} layers, "
-              f"{len(programs[name].codegen.program)} instructions; per-layer "
+              f"{len(res.codegen.program)} instructions; per-layer "
               f"max abs err {worst_layer[0]:.3g} ({worst_layer[1]}); chained "
               f"rel L2 err {worst_chain[0]:.3g} ({worst_chain[1]})")
+
+    inputs, outputs = {}, {}
+    launches = dict.fromkeys(counters, 0)
+    for name in MAIN_MODELS:
+        inputs[name] = programs[name].graph.random_inputs(0)
+        outputs[name], ran = run_binary(name, programs[name], inputs[name])
+        for k, n in ran.items():
+            launches[k] += n
+    print(f"[main] launches over the DORA path: {launches}")
+    require(all(launches[k] > 0 for k in DORA_KERNELS),
+            "a kernel of the DORA path was never launched")
+    for name in MAIN_MODELS:
+        check_layers(name, programs[name], inputs[name], outputs[name])
     del outputs
+
+    # DORA's multi-tenant path: each joint, interleaved or per-PE binary run
+    # once, counted from zero, and checked layer by layer
+    mt_inputs = {}
+    for label, (res, _) in mt_runs.items():
+        mt_inputs[label] = res.graph.random_inputs(0)
+        out, ran = run_binary(label, res, mt_inputs[label])
+        for k, n in ran.items():
+            launches[k] += n
+        print(f"[main] {label}: tenants {tenants(label, res)}")
+        check_layers(label, res, mt_inputs[label], out)
 
     # -------------------------------------------------------- serving path
     def device_profile(label, fn, host_s):
@@ -1036,20 +1200,234 @@ def main() -> None:
     torch.cuda.empty_cache()
     fp32_decode_check(scfg)
 
+    def mrope_check(vcfg, params, tokens):
+        """qwen2-vl-2b's ``forward`` on the first served prompt with an
+        image-like (t, h, w) grid of ids, kernels against plain versions;
+        the ids must move the logits away from the text positions'."""
+        rows, cols = MROPE_GRID
+        S = rows * cols
+        tok = tokens[:1, -S:]
+        t_ids = torch.arange(S, dtype=torch.int32, device=dev)
+        ids = torch.stack([t_ids, t_ids // cols, t_ids % cols])[:, None]
+        k_logits = lm.forward(vcfg, params, tok, positions=ids)
+        p_logits = lm.forward(vcfg, params, tok, positions=ids, plain=True)
+        e_ids = rel_l2(k_logits, p_logits)
+        moved = rel_l2(lm.forward(vcfg, params, tok), k_logits)
+        print(f"[serve] {vcfg.name} forward on one {S}-token prompt with an "
+              f"image-like (t, h, w) grid of {rows} x {cols} ids: logits "
+              f"kernels vs plain rel L2 {e_ids:.4g} (limit {SERVE_RTOL}); "
+              f"the same prompt on text positions differs by rel L2 "
+              f"{moved:.4g}")
+        require(bool(torch.isfinite(k_logits).all())
+                and k_logits.shape == (1, S, vcfg.vocab_size)
+                and e_ids <= SERVE_RTOL,
+                f"{vcfg.name} with (t, h, w) ids: kernels differ from the "
+                f"plain versions: {e_ids}")
+        require(moved > 1e-3, f"{vcfg.name}: the (t, h, w) ids left the "
+                f"logits as the text positions give them ({moved})")
+
     # the other dense archs, each server freed before the next is drawn
     for arch in DENSE_ARCHS:
         dcfg = get_config(arch)
         steps, why = dense_steps(dcfg)
-        dserver, _, _ = serve_model(
+        dserver, dtokens, _ = serve_model(
             dcfg, steps, {}, why, SERVE_RTOL,
             f"heads {dcfg.n_heads}/{dcfg.n_kv_heads}, {dcfg.mlp_kind} d_ff "
             f"{dcfg.d_ff}, {dcfg.norm_kind}"
-            f"{', qkv bias' if dcfg.qkv_bias else ''}")
-        del dserver
+            f"{', qkv bias' if dcfg.qkv_bias else ''}"
+            f"{f', M-RoPE {dcfg.m_rope_sections}' if dcfg.m_rope else ''}")
+        if dcfg.m_rope:
+            mrope_check(dcfg, dserver.params, dtokens)
+        del dserver, dtokens
         torch.cuda.empty_cache()
         if dcfg.norm_kind == "layernorm":
             fp32_decode_check(dcfg)
             torch.cuda.empty_cache()
+
+    def whisper(cfg):
+        """whisper-medium at full width and depth: drawn from seed 0 one
+        item at a time (``encdec.init_cast``), 4 items of stub frames and a
+        prompt each, greedy decoding through ``encdec.prefill`` /
+        ``decode_step``; launch counts of the prefill and of the decode
+        steps, then the same tokens teacher-forced through the kernels and
+        through the plain versions.  Returns the parameters, frames,
+        prompt tokens and served tokens."""
+        Le, Ld = cfg.encoder_layers, cfg.n_layers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = encdec.init_cast(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        nbytes = sum(t.numel() * t.element_size() for _, t in leaves(params))
+        item = 4 * max(cfg.vocab_size * cfg.d_model, *(
+            sum(t.numel() for _, t in leaves(lp))
+            for lp in params["encoder"] + params["decoder"]))
+        print(f"[serve] {cfg.name}: {Le} encoder + {Ld} decoder layers, d "
+              f"{cfg.d_model}, heads {cfg.n_heads} of {cfg.head_dim}, "
+              f"{cfg.mlp_kind} d_ff {cfg.d_ff}, {cfg.norm_kind}, vocab "
+              f"{cfg.vocab_size}; {cfg.param_count() / 1e9:.3f} B parameters "
+              f"drawn on the card and cast to {cfg.compute_dtype} in "
+              f"{load_s:.2f} s; load peak {peak / 2**30:.3f} GiB, limit "
+              f"{nbytes / 2**30:.3f} GiB cast + {item / 2**30:.3f} GiB "
+              f"largest fp32 item + 1 GiB")
+        require(peak <= nbytes + item + 2**30,
+                f"{cfg.name}: load peak {peak} bytes over the limit")
+        B, new = WHISPER_BATCH, SERVE_NEW
+        frames = torch.randn((B, WHISPER_FRAMES, cfg.d_model),
+                             generator=torch.Generator(device=dev).manual_seed(0),
+                             device=dev).to(torch.bfloat16)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, WHISPER_PROMPT))).to(dev)
+        plen = WHISPER_PROMPT
+
+        def generate(n_new, counted=False):
+            zero_counts()
+            logits, cache = encdec.prefill(cfg, params, frames, tokens,
+                                           max_len=WHISPER_MAX_LEN)
+            torch.cuda.synchronize()
+            pre = {k: fn.launches for k, fn in counters.items()}
+            zero_counts()
+            out = [logits.argmax(-1)]
+            for t in range(1, n_new):
+                logits, cache = encdec.decode_step(
+                    cfg, params, cache, out[-1][:, None], plen + t - 1)
+                out.append(logits.argmax(-1))
+            torch.cuda.synchronize()
+            dec = {k: fn.launches for k, fn in counters.items()}
+            return torch.stack(out, 1), pre, dec
+
+        generate(2)              # warm-up: cuBLAS plans, allocator
+        t0 = time.perf_counter()
+        served, pre, dec = generate(new)
+        gen_s = time.perf_counter() - t0
+        want_pre = dict.fromkeys(counters, 0) | {
+            "sfu_layernorm": 2 * Le + 1 + 3 * Ld + 1,
+            "flash_attention": Le + 2 * Ld}
+        want_dec = dict.fromkeys(counters, 0) | {
+            "sfu_layernorm": (new - 1) * (3 * Ld + 1),
+            "flash_attention": (new - 1) * 2 * Ld}
+        print(f"[serve] {cfg.name} expected launches: prefill "
+              f"sfu_layernorm {want_pre['sfu_layernorm']} = 2 x {Le} encoder "
+              f"layers + 1 + 3 x {Ld} decoder layers + 1, flash_attention "
+              f"{want_pre['flash_attention']} = {Le} encoder + {Ld} self + "
+              f"{Ld} cross; {new - 1} decode steps x (sfu_layernorm "
+              f"{3 * Ld + 1}, flash_attention {2 * Ld} = {Ld} self + {Ld} "
+              f"cross); the other kernels 0")
+        print(f"[serve] launches over {cfg.name}'s prefill: {pre}; its "
+              f"decode steps: {dec}")
+        require(pre == want_pre and dec == want_dec,
+                f"{cfg.name}: launches differ from {want_pre} / {want_dec}")
+        for k in counters:
+            launches[k] += pre[k] + dec[k]
+        require(served.shape == (B, new) and bool(
+            ((served >= 0) & (served < cfg.vocab_size)).all()),
+            f"{cfg.name}: served tokens malformed")
+        print(f"[serve] {cfg.name}: {B} x {WHISPER_FRAMES} frames, prompts "
+              f"of {plen}, {new} greedy tokens in {gen_s:.4f} s (host clock "
+              f"around synchronize) on {smi}; first tokens "
+              + "; ".join(f"item {i}: {served[i, :8].tolist()}"
+                          for i in range(B)))
+
+        # the served tokens teacher-forced through the kernels and through
+        # the plain versions
+        k_logits, k_cache = encdec.prefill(cfg, params, frames, tokens,
+                                           max_len=WHISPER_MAX_LEN)
+        p_logits, p_cache = encdec.prefill(cfg, params, frames, tokens,
+                                           max_len=WHISPER_MAX_LEN, plain=True)
+        errs_l2, agree = [], []
+        for t in range(new):
+            require(bool(torch.isfinite(k_logits).all())
+                    and k_logits.shape == (B, cfg.vocab_size),
+                    f"step {t}: logits {tuple(k_logits.shape)} or non-finite")
+            require(torch.equal(k_logits.argmax(-1), served[:, t]),
+                    f"step {t}: the kernels' greedy tokens differ from the "
+                    f"served ones")
+            errs_l2.append(rel_l2(k_logits, p_logits))
+            agree.append(float((k_logits.argmax(-1) == p_logits.argmax(-1))
+                               .float().mean()))
+            if t + 1 < new:
+                step = served[:, t:t + 1]
+                k_logits, k_cache = encdec.decode_step(
+                    cfg, params, k_cache, step, plen + t)
+                p_logits, p_cache = encdec.decode_step(
+                    cfg, params, p_cache, step, plen + t, plain=True)
+        del k_cache, p_cache
+        print(f"[serve] {cfg.name} kernels vs plain versions, teacher-forced: "
+              f"logits rel L2 prefill {errs_l2[0]:.4g}, decode max "
+              f"{max(errs_l2[1:]):.4g} (step {int(np.argmax(errs_l2[1:])) + 1}"
+              f"), mean {float(np.mean(errs_l2[1:])):.4g}; greedy tokens agree "
+              f"on {float(np.mean(agree)):.1%} (limit rel L2 {SERVE_RTOL})")
+        require(max(errs_l2) <= SERVE_RTOL,
+                f"{cfg.name}: logits differ from the plain path: {errs_l2}")
+
+        # where its time goes: one prefill (the encoder included) and one
+        # decode step, each timed unprofiled after a warm-up call
+        _, cache = encdec.prefill(cfg, params, frames, tokens,
+                                  max_len=WHISPER_MAX_LEN)
+        prefill_fn = lambda: encdec.prefill(  # noqa: E731
+            cfg, params, frames, tokens, max_len=WHISPER_MAX_LEN)
+        decode_fn = lambda: encdec.decode_step(  # noqa: E731
+            cfg, params, cache, served[:, :1], plen)
+        prefill_s, decode_s = host_s(prefill_fn), host_s(decode_fn)
+        print(f"[time] {cfg.name} on {smi}: prefill ({B} x {WHISPER_FRAMES} "
+              f"frames, {B} x {plen} tokens) {prefill_s} s, one decode step "
+              f"{decode_s * 1e3:.4f} ms ({B / decode_s:.1f} tok/s)")
+        device_profile(f"{cfg.name} prefill", prefill_fn, prefill_s)
+        device_profile(f"{cfg.name} decode step at pos {plen}", decode_fn,
+                       decode_s)
+        del cache
+        return params, frames, tokens, served
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                for path, t in leaves(v):
+                    yield f"{k}/{path}", t
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                for path, t in leaves(v):
+                    yield f"{i}/{path}", t
+        else:
+            yield "", tree
+
+    wparams, wframes, wtokens, wserved = whisper(wcfg)
+
+    # fp32 compute at full width, 4 encoder + 4 decoder layers: prefill of
+    # 32 tokens + 16 decode steps == forward of 48, over 1,500 frames, and
+    # forward through the kernels == through the plain versions
+    wcfg32 = dataclasses.replace(wcfg, n_layers=4, encoder_layers=4,
+                                 compute_dtype="float32")
+    gen1 = torch.Generator(device=dev).manual_seed(1)
+    wp32 = encdec.init(wcfg32, gen1, dev)
+    fr32 = torch.randn((2, WHISPER_FRAMES, wcfg.d_model), generator=gen1,
+                       device=dev)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, wcfg.vocab_size, (2, 48))).to(dev)
+    full = encdec.forward(wcfg32, wp32, fr32, tok)
+    plain_full = encdec.forward(wcfg32, wp32, fr32, tok, plain=True)
+    pre, cache = encdec.prefill(wcfg32, wp32, fr32, tok[:, :32], max_len=48)
+    errs32 = [float((pre - full[:, 31]).abs().max())]
+    for t in range(32, 48):
+        step, cache = encdec.decode_step(wcfg32, wp32, cache,
+                                         tok[:, t:t + 1], t)
+        errs32.append(float((step - full[:, t]).abs().max()))
+    scale = float(full.abs().max())
+    print(f"[serve] fp32 {WHISPER_ARCH} at full width, 4 + 4 layers, "
+          f"{WHISPER_FRAMES} frames: prefill + 16 decode steps vs forward: "
+          f"max |err| {max(errs32):.4g} (limit {FP32_DECODE_TOL} x "
+          f"max|logit| {scale:.4g} = {FP32_DECODE_TOL * scale:.4g}); forward "
+          f"kernels vs plain rel L2 {rel_l2(full, plain_full):.3g}")
+    require(max(errs32) <= FP32_DECODE_TOL * scale,
+            f"fp32 {WHISPER_ARCH} decode differs from forward: {errs32}")
+    require(rel_l2(full, plain_full) <= 1e-4,
+            f"fp32 {WHISPER_ARCH} forward: kernels differ from the plain "
+            f"versions")
+    del wp32, fr32, full, plain_full, cache
+    torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")
@@ -1070,6 +1448,20 @@ def main() -> None:
     device_profile("BERT-L execute",
                    lambda: DoraCompiler().execute(res, inputs["BERT-L"]),
                    execute_s)
+    # the multi-tenant runs: compile seconds, host time of an execute (the
+    # least of three after a warm-up) and its device time
+    for label, (mres, mcompile_s) in mt_runs.items():
+        run = lambda: DoraCompiler().execute(  # noqa: E731
+            mres, mt_inputs[label])
+        mhost_s = host_s(run)
+        print(f"[time] {label} ({tenants(label, mres)}) on {smi}: compile "
+              f"{mcompile_s:.4f} s"
+              f"{' (the whole mesh)' if '/pe' in label else ''}"
+              f"{' (interleave_stream of the joint binary)' if label.endswith(('/rr', '/priority')) else ''}, "
+              f"execute {mhost_s * 1e3:.4f} ms (host), "
+              f"{len(mres.codegen.program)} instructions, "
+              f"{mres.graph.total_flops / 1e9:.4f} GFLOP")
+        device_profile(f"{label} execute", run, mhost_s)
 
     # flex_gemm at the BERT-L tile shape that carries the most FLOPs
     tile_flops = {}
@@ -1158,7 +1550,7 @@ def main() -> None:
         return ms, plain_ms, lib_ms, bound_ms, bound_by
 
     # the serving kernels' other shapes, printed only
-    for R, N in RMS_SERVING[1:] + RMS_SSM + RMS_WIDE:
+    for R, N in RMS_SERVING[1:] + RMS_SSM + RMS_WIDE + RMS_VL:
         x, g = randn(R, N, dtype=torch.bfloat16), randn(N)
         gl = g.to(torch.bfloat16)
         report("rmsnorm", f"{R}x{N} bf16 +gamma", lambda: rmsnorm_rows(x, g),
@@ -1197,6 +1589,42 @@ def main() -> None:
         report("ssd", f"{shape} chunk {S} fp32",
                lambda: ssd(*xs, chunk=S), lambda: ref.ssd_plain(*xs, chunk=S),
                None, *ssd_work(*shape, S, 4), fp32_peak)
+    # whisper-medium's attention (bf16, 16 heads of 64, over 1,500 frames,
+    # non-causal) and qwen2-vl-2b's prefill (causal, 12 query heads over 2)
+    for label, (Bq, Hq, Hkv, Sq, Skv, D, causal) in (
+            ("whisper-medium encoder", (WB, 16, 16, WF, WF, 64, False)),
+            ("whisper-medium cross prefill", (WB, 16, 16, WP, WF, 64, False)),
+            ("whisper-medium cross decode", (WB, 16, 16, 1, WF, 64, False)),
+            (f"{MROPE_ARCH} prefill", (B, vcfg.n_heads, vcfg.n_kv_heads, plen,
+                                       plen, vcfg.head_dim, True))):
+        qa = randn(Bq, Hq, Sq, D, dtype=torch.bfloat16)
+        ka, va = (randn(Bq, Hkv, Skv, D, dtype=torch.bfloat16)
+                  for _ in range(2))
+        pairs = causal_pairs(Sq, Skv) if causal else Sq * Skv
+        report("flash_attention",
+               f"{label} {tuple(qa.shape)} over {tuple(ka.shape)} "
+               f"{'causal' if causal else 'non-causal'} bf16",
+               lambda: flash_attention(qa, ka, va, causal=causal),
+               lambda: ref.mha_attention(qa, ka, va, causal=causal),
+               lambda: F.scaled_dot_product_attention(
+                   qa, ka, va, is_causal=causal, enable_gqa=Hq != Hkv),
+               4 * D * Bq * Hq * pairs,
+               2 * (2 * qa.numel() + 2 * ka.numel()), bf16_peak)
+    # whisper-medium's layernorm rows (bf16 rows, fp32 gamma and beta): the
+    # encoder's 4 x 1,500 frames and a decode step's 4 tokens
+    for R in (WB * WF, WB):
+        N = wcfg.d_model
+        xb, g, bt = randn(R, N, dtype=torch.bfloat16), randn(N), randn(N)
+        lib_gb = (g, bt)
+        try:
+            F.layer_norm(xb, (N,), g, bt, 1e-5)
+        except RuntimeError:
+            lib_gb = (g.to(torch.bfloat16), bt.to(torch.bfloat16))
+        report("sfu_layernorm", f"{R}x{N} bf16 +gamma +beta (whisper-medium)",
+               lambda: layernorm_rows(xb, g, bt),
+               lambda: ref.layernorm_rows(xb, g, bt),
+               lambda: F.layer_norm(xb, (N,), *lib_gb, 1e-5),
+               7 * xb.numel(), 4 * xb.numel() + 8 * N, fp32_peak)
     xg = randn(512, 3072)
     report("sfu_act", "512x3072 gelu fp32", lambda: act_rows(xg, "gelu"),
            lambda: ref.gelu_rows(xg),

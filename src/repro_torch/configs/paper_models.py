@@ -6,8 +6,8 @@ Layer dims follow the papers cited in §6.3; these graphs feed the
 two-stage DSE + scheduler + codegen pipeline and the baseline policy
 models (CHARM-a/b, RSN).
 
-Copy of ``repro.configs.paper_models`` with its import pointed at the
-port's ``core``; ``from_arch`` waits for the port's config registry.
+Copy of ``repro.configs.paper_models`` with its imports pointed at the
+port's ``core`` and config registry.
 """
 
 from __future__ import annotations
@@ -100,6 +100,34 @@ def ncf_l() -> WorkloadGraph:
 
 def ncf_s() -> WorkloadGraph:
     return _ncf("NCF-S", 1024, 128)
+
+
+def from_arch(arch: str, seq: int = 256,
+              blocks: int | None = None) -> WorkloadGraph:
+    """One of the repo's model configs (configs/__init__.py registry) as
+    a DORA workload DAG: each transformer block becomes the MM/NL layer
+    group of ``transformer_block_graph``.  ``blocks`` caps the block
+    count (None = the config's full depth; whisper-style enc-dec counts
+    encoder + decoder blocks).  Only attention+FFN architectures map;
+    SSM/conv-dominated configs are rejected up front."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import transformer_block_graph
+
+    cfg = get_config(arch)
+    if cfg.d_ff <= 0 or cfg.n_heads <= 0:
+        raise ValueError(
+            f"{arch}: from_arch only maps attention+FFN blocks "
+            f"(needs d_ff > 0 and n_heads > 0, got d_ff={cfg.d_ff}, "
+            f"n_heads={cfg.n_heads})")
+    n_blocks = cfg.n_layers + cfg.encoder_layers
+    if blocks is not None:
+        n_blocks = min(n_blocks, blocks)
+    g = WorkloadGraph(f"{cfg.name}-w{seq}")
+    x = g.add_input("x", seq, cfg.d_model)
+    for b in range(n_blocks):
+        x = transformer_block_graph(g, f"b{b}", x, seq, cfg.d_model,
+                                    cfg.n_heads, cfg.d_ff)
+    return g
 
 
 ALL = {

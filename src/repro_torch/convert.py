@@ -5,7 +5,8 @@ same numbers: ``WorkloadGraph.random_inputs(seed)`` (numpy, seeded) makes
 the inputs and weights, and ``inputs_to_torch`` checks each against the
 compiled memory map and puts it on the device.  ``params_from_jax``
 carries a language model's parameters, made by ``repro.models.lm.init``
-and handed over as numpy arrays, into the port's per-layer layout.
+and handed over as numpy arrays, into the port's per-layer layout;
+``encdec_params_from_jax`` does the same for ``repro.models.encdec.init``.
 ``resolve_device`` is the port's one rule for where an entry point runs:
 the CUDA card unless the caller names another device, and an error where
 there is no card.
@@ -84,25 +85,55 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping,
     kept.
     """
     dev = resolve_device(device)
+    stacked = [_unstack(cfg, tree["blocks"][f"pos{pi}"], cfg.n_blocks)
+               for pi in range(cfg.pattern_len)]
+    layers = [_tree_map(lambda a, b=b: _leaf_to_torch(a[b], dev), stacked[pi])
+              for b in range(cfg.n_blocks) for pi in range(cfg.pattern_len)]
+    return {**_ends(cfg, tree, ("final_norm",), dev), "layers": layers}
+
+
+def encdec_params_from_jax(cfg: ArchConfig, tree: Mapping,
+                           device: str | torch.device | None = None) -> dict:
+    """The port's encoder-decoder parameters from the reference's tree.
+
+    ``tree`` is ``repro.models.encdec.init(cfg, key)[0]`` with numpy
+    leaves: ``embed``, ``lm_head``, ``enc_norm``, ``final_norm``, and
+    ``encoder`` / ``decoder`` stacked over ``cfg.encoder_layers`` /
+    ``cfg.n_layers``.  Returns the same keys on ``device`` with
+    ``encoder`` and ``decoder`` as lists of one dict per layer; layouts
+    and dtypes are kept."""
+    dev = resolve_device(device)
+    out = _ends(cfg, tree, ("enc_norm", "final_norm"), dev)
+    for key, n in (("encoder", cfg.encoder_layers), ("decoder", cfg.n_layers)):
+        stacked = _unstack(cfg, tree[key], n)
+        out[key] = [_tree_map(lambda a, i=i: _leaf_to_torch(a[i], dev),
+                              stacked) for i in range(n)]
+    return out
+
+
+def _ends(cfg: ArchConfig, tree: Mapping, norms: tuple[str, ...],
+          dev: torch.device) -> dict:
+    """``embed``, ``lm_head`` and the named norms on ``dev``, the first two
+    checked against the config."""
     V, D = cfg.vocab_size, cfg.d_model
     embed, head = np.asarray(tree["embed"]), np.asarray(tree["lm_head"])
     if embed.shape != (V, D) or head.shape != (D, V):
         raise ValueError(f"{cfg.name}: embed {embed.shape} / lm_head "
                          f"{head.shape} do not match vocab {V}, d_model {D}")
-    stacked = {}
-    for pi in range(cfg.pattern_len):
-        stacked[pi] = _tree_map(np.asarray, tree["blocks"][f"pos{pi}"])
-        _tree_map(lambda a: _check_stacked(cfg, a), stacked[pi])
-    layers = [_tree_map(lambda a, b=b: _leaf_to_torch(a[b], dev), stacked[pi])
-              for b in range(cfg.n_blocks) for pi in range(cfg.pattern_len)]
     return {"embed": _leaf_to_torch(embed, dev),
             "lm_head": _leaf_to_torch(head, dev),
-            "final_norm": _tree_map(lambda a: _leaf_to_torch(a, dev),
-                                    tree["final_norm"]),
-            "layers": layers}
+            **{n: _tree_map(lambda a: _leaf_to_torch(a, dev), tree[n])
+               for n in norms}}
 
 
-def _check_stacked(cfg: ArchConfig, arr: np.ndarray) -> None:
-    if arr.ndim == 0 or arr.shape[0] != cfg.n_blocks:
-        raise ValueError(f"{cfg.name}: a block leaf of shape {arr.shape} is "
-                         f"not stacked over {cfg.n_blocks} blocks")
+def _unstack(cfg: ArchConfig, tree: Mapping, n: int) -> dict:
+    """``tree``'s leaves as numpy arrays, each checked to be stacked over
+    ``n`` layers."""
+    stacked = _tree_map(np.asarray, tree)
+
+    def check(arr):
+        if arr.ndim == 0 or arr.shape[0] != n:
+            raise ValueError(f"{cfg.name}: a layer leaf of shape {arr.shape} "
+                             f"is not stacked over {n} layers")
+    _tree_map(check, stacked)
+    return stacked

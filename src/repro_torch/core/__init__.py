@@ -1,7 +1,10 @@
 """DORA core on PyTorch: ISA, two-stage DSE compiler, schedulers, codegen,
-simulator (numpy copies of ``repro.core``) and the functional runtime,
-which runs the binary on the card's kernels."""
+simulator, architecture search, multi-PE mesh, serving simulator and
+tuning (numpy copies of ``repro.core``) and the functional runtime, which
+runs the binary on the card's kernels."""
 
+from .arch_gen import (ArchTemplate, generate_platform,
+                       search_mesh_templates, search_template)
 from .codegen import CodegenResult, MemoryMap, generate
 from .compiler import CompileOptions, CompileResult, DoraCompiler
 from .ga import GAConfig, GAResult, GAScheduler
@@ -10,6 +13,9 @@ from .interleave import (apply_permutation, interleave_stream,
                          plan_interleave, validate_stream)
 from .isa import (Epilogue, Instruction, LMUBody, LmuRole, MIUBody, MMUBody,
                   OpType, Program, SFUBody, UnitKind, disassemble, mk)
+from .mesh import (EXHAUSTIVE_LIMIT, DoraMesh, DoraMeshCompiler,
+                   MeshCompileResult, MeshSimReport, PESpec, Placement,
+                   solve_placement)
 from .milp import MilpScheduler, SolveResult
 from .multi_tenant import (PLACEMENT_STRATEGIES, QOS_POLICIES,
                            MergedWorkload, MultiTenantWorkload, TenantSpec)
@@ -29,7 +35,16 @@ from .schedule import (InterleaveBound, OversubscriptionBound, Schedule,
                        interleave_aware_bound, list_schedule,
                        makespan_lower_bound, oversubscription_aware_bound,
                        sequential_schedule)
+from .serving import (ADMISSION_POLICIES, DISPATCH_MODES, DispatchEvent,
+                      DispatchRound, DynamicDispatcher, Request,
+                      RequestRecord, RequestStream, ServingConfig,
+                      ServingResult, ServingSimulator, ServingStats,
+                      TenantStream, serve)
 from .simulator import (IncrementalSimulator, SimReport, TenantSimStats,
-                        TenantTelemetry, nearest_rank, simulate)
+                        TenantTelemetry, nearest_rank, simulate,
+                        simulate_mesh)
+from .tuning import (TUNE_OBJECTIVES, AdaptiveSharePolicy, KnobConfig,
+                     KnobSpace, ShareDecision, TuneResult, TuneTrial,
+                     autotune, step_trace)
 
 __all__ = [n for n in dir() if not n.startswith("_")]

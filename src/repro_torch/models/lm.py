@@ -1,6 +1,6 @@
 """Decoder-only language model over a repeating block pattern: the dense
-archs (qwen3, qwen1.5, internlm2, nemotron), the pure-SSM mamba2 and
-hybrids of the two.
+archs (qwen3, qwen1.5, internlm2, nemotron, and qwen2-vl with M-RoPE),
+the pure-SSM mamba2 and hybrids of the two.
 
 Port of ``repro.models.lm`` for the layer patterns whose mixer is ``attn``
 or ``ssm`` and whose FFN is ``dense`` or ``none``.  The reference scans
@@ -20,16 +20,17 @@ Entry points:
   cast_params(cfg, params)                     -> params for compute
   init_cast(cfg, gen, device=None)             -> cast_params(init(...)),
                                                   one fp32 item at a time
-  forward(cfg, params, tokens)                 -> logits (B, S, V) fp32
+  forward(cfg, params, tokens, positions=None) -> logits (B, S, V) fp32
   init_cache(cfg, batch, max_len, device=...)  -> cache
   prefill(cfg, params, tokens, max_len)        -> (logits (B, V), cache)
   decode_step(cfg, params, cache, tokens, pos) -> (logits (B, V), cache)
 
 ``device=None`` means the CUDA card and raises without one.  ``plain``
 runs the norms, attention and the SSD scan on their plain versions
-instead of the kernels.  MoE, encoder-decoder and M-RoPE archs, and
-``kv_cache_repeat > 1``, raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+instead of the kernels.  MoE archs and ``kv_cache_repeat > 1`` raise
+``NotImplementedError`` naming the ROADMAP item that ports them; an
+encoder-decoder arch (whisper) raises ``ValueError``: it runs through
+``models.encdec``.
 """
 
 from __future__ import annotations
@@ -45,16 +46,15 @@ from .config import ArchConfig
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not serve."""
+    """Raise for what this module does not run: an encoder-decoder
+    (``ValueError``: ``models.encdec`` runs it) and what the port does not
+    serve yet (``NotImplementedError``)."""
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  f"not ported yet: ROADMAP A.4")
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: run it "
+                         f"through repro_torch.models.encdec")
     if any(p.ffn == "moe" for p in cfg.pattern):
         raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported "
                                   f"yet: ROADMAP A.4")
-    if cfg.m_rope:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet: "
-                                  f"ROADMAP A.4")
     if cfg.kv_cache_repeat > 1:
         raise NotImplementedError(f"{cfg.name}: kv_cache_repeat > 1 serves "
                                   f"the sharded cache of the multi-device "
@@ -171,10 +171,14 @@ def _ffn(cfg, pat, lp, x, plain):
                          L.apply_norm(cfg, lp["norm2"], x, plain=plain))
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
+def _positions(cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Positions ``0 .. S-1`` of every row: (B, S), or (3, B, S) for
+    M-RoPE, whose three streams are equal for text (a vision frontend
+    would give real (t, h, w) ids)."""
     B, S = tokens.shape
     pos = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    return pos[None, :].expand(B, S)
+    pos = pos[None, :].expand(B, S)
+    return pos[None].expand(3, B, S) if cfg.m_rope else pos
 
 
 def _embed(cfg, params, tokens):
@@ -187,12 +191,16 @@ def _logits(cfg, params, h, plain):
     return (h @ params["lm_head"].to(h.dtype)).float()
 
 
-def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            positions: torch.Tensor | None = None, *,
             plain: bool = False) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) in fp32 (no loss)."""
+    """tokens: (B, S) -> logits (B, S, V) in fp32 (no loss).
+    ``positions``: (B, S), or (3, B, S) ids for M-RoPE; default
+    ``0 .. S-1``."""
     check_supported(cfg)
     h = _embed(cfg, params, tokens)
-    positions = _positions(tokens)
+    if positions is None:
+        positions = _positions(cfg, tokens)
     for i, lp in enumerate(params["layers"]):
         pat = _pattern(cfg, i)
         hn = L.apply_norm(cfg, lp["norm1"], h, plain=plain)
@@ -249,7 +257,7 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     B, Sp = tokens.shape
     max_len = max_len or Sp
     h = _embed(cfg, params, tokens)
-    positions = _positions(tokens)
+    positions = _positions(cfg, tokens)
     cache = init_cache(cfg, B, max_len, device=tokens.device)
     for i, lp in enumerate(params["layers"]):
         pat = _pattern(cfg, i)

@@ -111,7 +111,8 @@ def test_simulator_gives_the_same_timing():
 
 
 COPIES = ("graph", "isa", "perf_model", "schedule", "partition", "milp",
-          "ga", "codegen", "interleave", "multi_tenant", "simulator")
+          "ga", "codegen", "interleave", "multi_tenant", "simulator",
+          "arch_gen", "mesh", "serving", "tuning")
 
 
 def _code(path):
@@ -161,3 +162,23 @@ def test_config_modules_are_code_identical_copies(module):
     port = _code_without_imports(SRC / "repro_torch" / f"{module}.py")
     assert port == _code_without_imports(SRC / "repro" / f"{module}.py")
     assert "ArchConfig" in (SRC / "repro_torch" / f"{module}.py").read_text()
+
+
+def test_paper_models_are_code_identical_copies():
+    """``configs/paper_models.py``, ``from_arch`` included, carries the
+    reference's code; only its imports differ, at module level and inside
+    ``_vit`` and ``from_arch`` (the port's ``core`` and config registry)."""
+    def code(path):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if isinstance(body, list):
+                node.body = [n for n in body if not isinstance(
+                    n, (ast.Import, ast.ImportFrom))]
+        return _code_tree(tree)
+
+    module = "configs/paper_models.py"
+    assert code(SRC / "repro_torch" / module) == code(SRC / "repro" / module)
+    text = (SRC / "repro_torch" / module).read_text()
+    assert "def from_arch(" in text and "from repro_torch.configs import" \
+        in text

@@ -608,3 +608,72 @@ def test_cuda_ssd_reads_strided_views_and_nothing_past_s(cuda, tdt):
     torch.cuda.synchronize()
     assert torch.isfinite(got[0].float()).all() and torch.isfinite(got[1]).all()
     _ssd_close(got, ref.ssd_plain(x, a, b, c, chunk=64), tdt)
+
+
+# whisper-medium (16 heads of 64, no GQA) over 1,500 encoder frames, batch
+# 4: the encoder's self-attention, the decoder's cross-attention prefill
+# of a 64-token prompt and its cross decode; then a ragged non-causal
+# shape whose Skv is no multiple of the 64-key tile
+WHISPER_ATTN = [(4, 16, 16, 1500, 1500, 64), (4, 16, 16, 64, 1500, 64),
+                (4, 16, 16, 1, 1500, 64), (2, 6, 2, 77, 1001, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WHISPER_ATTN,
+                         ids=["encoder", "cross_prefill", "cross_decode",
+                              "ragged"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_non_causal_at_whisper(cuda, shape, tdt):
+    """Non-causal attention walks every KV tile, so the last, partial one
+    (1,500 = 23 x 64 + 28 keys) decides each row's softmax; with Sq < Skv
+    the causal offset must not cut the keys.  The caches hold NaN past
+    Skv, which the kernels must never read; decode reads a cache whose
+    stride is its kv_len."""
+    q, k, v = _qkv(shape, 75, cuda, tdt, cache=shape[4] + 5)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False, kv_len=shape[4])
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _attn_close(got, q, k, v, False, shape[4], tdt)
+    q, k, v = _qkv(shape, 78, cuda, tdt)
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _attn_close(got, q, k, v, False, shape[4], tdt)
+
+
+# qwen2-vl-2b's rmsnorm rows (d_model 1536): prefill of 4 x 512 tokens and
+# decode of 4; whisper-medium's layernorm rows (d_model 1024): the
+# encoder's 4 x 1,500 frames, the decoder's 4 x 64 prompt and 4 tokens
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 1536), (4, 1536)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_rmsnorm_at_qwen2_vl(cuda, shape, tdt):
+    x = torch.from_numpy(_np(shape, 81, scale=2.0)).to(cuda, tdt)
+    g = torch.from_numpy(_np((shape[1],), 82)).to(cuda)
+    rtol, atol = (1e-4, 1e-5) if tdt == torch.float32 else _bf16_tol()
+    for gamma in (None, g):
+        got = rmsnorm_rows(x, gamma)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt
+        torch.testing.assert_close(got.float(),
+                                   ref.rmsnorm_rows(x, gamma).float(),
+                                   rtol=rtol, atol=atol)
+        assert torch.equal(got, rmsnorm_rows(x, gamma))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6000, 1024), (256, 1024), (4, 1024)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_layernorm_at_whisper(cuda, shape, tdt):
+    x = torch.from_numpy(_np(shape, 83, scale=2.0)).to(cuda, tdt)
+    rtol, atol = _ln_tol(tdt)
+    for gamma, beta in _ln_forms(shape[1], 84, cuda):
+        got = layernorm_rows(x, gamma, beta)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt
+        torch.testing.assert_close(
+            got.float(), ref.layernorm_rows(x, gamma, beta).float(),
+            rtol=rtol, atol=atol)

@@ -26,8 +26,7 @@ from repro_torch.models import lm
 DENSE = ["qwen3-4b", "qwen1.5-4b", "internlm2-20b", "nemotron-4-15b",
          "qwen3-4b-gqa"]
 UNSUPPORTED = ["jamba-1.5-large-398b",
-               "llama4-maverick-400b-a17b", "dbrx-132b", "whisper-medium",
-               "qwen2-vl-2b"]
+               "llama4-maverick-400b-a17b", "dbrx-132b"]
 
 
 def _configs(arch):
@@ -237,6 +236,20 @@ def test_unported_archs_raise(arch):
         lm.init(cfg, torch.Generator(), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         lm.forward(cfg, {}, torch.zeros(1, 2, dtype=torch.long))
+
+
+def test_encoder_decoder_archs_are_sent_to_encdec():
+    """whisper runs through ``models.encdec``; ``lm`` names it, and
+    ``encdec`` refuses a decoder-only arch the same way."""
+    from repro_torch.models import encdec
+    cfg = get_config("whisper-medium", reduced=True)
+    with pytest.raises(ValueError, match="models.encdec"):
+        lm.init(cfg, torch.Generator(), "cpu")
+    with pytest.raises(ValueError, match="models.encdec"):
+        lm.forward(cfg, {}, torch.zeros(1, 2, dtype=torch.long))
+    with pytest.raises(ValueError, match="models.lm"):
+        encdec.init(get_config("qwen2-vl-2b", reduced=True),
+                    torch.Generator(), "cpu")
 
 
 def test_every_norm_and_attention_goes_through_the_kernel_wrappers(monkeypatch):

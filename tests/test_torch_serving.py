@@ -40,9 +40,9 @@ def test_greedy_tokens_equal_the_reference_servers():
 
 
 def test_batch_server_greedy_deterministic():
-    """Port of tests/test_system.py::test_batch_server_greedy_deterministic
-    (on qwen3-4b: M-RoPE, which qwen2-vl needs, is not ported yet)."""
-    cfg = get_config("qwen3-4b", reduced=True)
+    """Port of tests/test_system.py::test_batch_server_greedy_deterministic,
+    on qwen2-vl-2b (M-RoPE) as there."""
+    cfg = get_config("qwen2-vl-2b", reduced=True)
     server = BatchServer(cfg, max_len=64, device="cpu")
     prompts = _prompts(cfg.vocab_size, (8, 8))
     r1 = server.serve([Request(0, prompts[0], 8), Request(1, prompts[1], 8)])
