@@ -30,7 +30,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    shapes (non-causal over 1,500 encoder frames: the encoder, the cross
    prefill and the cross decode), ``rmsnorm_rows`` at qwen2-vl-2b's
    1536-wide rows and ``layernorm_rows`` at whisper-medium's 1024-wide
-   ones; every MMU tile and SFU row of the multi-tenant binaries below.
+   ones; every MMU tile and SFU row of the multi-tenant binaries below;
+   the MoE archs' shapes: ``rmsnorm_rows`` at llama4-maverick's and
+   jamba-1.5-large's rows (5120, 8192, and jamba's gated norm over
+   16,384; bf16 as served, fp32 as jamba's fp32 check), ``flash_attention``
+   at dbrx's GQA 6, llama4's GQA 5 and jamba's GQA 8 (prefill and decode),
+   ``ssd`` at jamba's 256 heads of 64 (bf16 and fp32).
 4. DORA path: compiles paper workloads with ``DoraCompiler`` and runs
    each compiled binary through ``DoraCompiler.execute`` on the card from
    ``random_inputs(0)``: BERT-L and DeiT-L at full width, MLP-L (the one
@@ -82,10 +87,26 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    prompt, 32 greedy tokens, a 128-row self cache, with its launch counts
    a prefill and a decode step, its logits against the plain versions
    (``SERVE_RTOL``) and an fp32 4 + 4-layer decode-consistency check.
+   Then the MoE archs at full width, cut in depth (``MOE_CUTS``, printed
+   beside every number): dbrx-132b (8 of 40 layers, 16 experts top-4,
+   layernorm), llama4-maverick-400b-a17b (one block of 24: a dense and a
+   MoE layer of 128 experts top-1) and jamba-1.5-large-398b (one 8-layer
+   block of 9, 12 of its 16 experts top-2, 7 SSM layers), each served the
+   same way; the teacher-forced check also records every MoE layer's
+   routing on both paths and prints the decisions that differ, layer by
+   layer, in the prefill and every step; it holds the logits of a third
+   run, the kernels with each route pinned to the plain path's, within
+   ``SERVE_RTOL``, and each decision the kernels would have made
+   otherwise within ``ROUTE_MARGIN`` of a tie.  Their fp32 checks at full
+   width: dbrx's first 2 layers and jamba's first two pattern positions,
+   prefill kernels against plain versions (``FP32_DECODE_TOL``,
+   ``FP32_ROUTE_MARGIN``); llama4's MoE layer alone (60 GiB in fp32),
+   ``moe_fwd`` by index against its one-hot form.
    Every server is drawn by ``lm.init_cast``; the peak
    device memory of building it must stay under its bf16 parameters plus
    the largest fp32 item (the embedding, the head or a layer) plus 1 GiB,
-   and under what holding one fp32 item at a time gives plus 1 GiB.
+   and under what holding one fp32 item at a time gives plus 1 GiB (a MoE
+   layer's items: its mixer, norms and router, then each expert matrix).
 6. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
@@ -97,9 +118,10 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    as served, bf16 in and out, beside its old path: a cast to fp32, the
    fp32 kernel and a cast back); the redesigned rmsnorm, activation,
    layernorm and softmax kernels beside the kernels before their redesign;
-   ``flash_attention`` at whisper-medium's three attention shapes and
-   qwen2-vl-2b's prefill, ``sfu_layernorm`` at whisper-medium's rows and
-   ``rmsnorm`` at qwen2-vl-2b's.
+   ``flash_attention`` at whisper-medium's three attention shapes,
+   qwen2-vl-2b's prefill and the MoE archs' prefill and decode,
+   ``sfu_layernorm`` at whisper-medium's rows, ``rmsnorm`` at qwen2-vl-2b's
+   and the MoE archs', ``ssd`` at jamba's prefill.
    The serving profiles sum ``ssd``'s two kernels and print each step's
    device activities.
 
@@ -109,6 +131,7 @@ The last two lines are the kernels' JSON record and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -182,6 +205,48 @@ RMS_SSM = [(2048, 5120), (4, 5120)]
 RMS_WIDE = [(2048, 6144), (4, 6144)]
 # qwen2-vl-2b's rmsnorm rows (d_model 1536), prefill and decode
 RMS_VL = [(2048, 1536), (4, 1536)]
+# The MoE archs, each served at full width and cut in depth to fit one
+# card: ``dataclasses.replace(get_config(arch), **cut)``.  Sizes are bf16
+# parameters by ``ArchConfig.param_count``: dbrx-132b to 8 of its 40
+# layers (50.86 GiB; 245 whole); llama4-maverick to one block of its 24, a
+# dense and a MoE layer (34.32 GiB; its MoE layer alone is 30 GiB);
+# jamba-1.5-large to one 8-layer block of its 9 with 12 of its 16 experts
+# (66.09 GiB; one block with 16 is 84.09, over the card, and 14 experts,
+# 75.09, leave no room for the prefill)
+MOE_CUTS = {"dbrx-132b": {"n_layers": 8},
+            "llama4-maverick-400b-a17b": {"n_layers": 2},
+            "jamba-1.5-large-398b": {"n_layers": 8, "n_experts": 12}}
+# their rmsnorm rows beyond the dense archs': llama4 (d 5120, as mamba2's
+# gated norm), jamba (d 8192, and its gated norm over 16,384), prefill and
+# decode; dbrx's layernorm rows are nemotron-4-15b's (d 6144, bf16)
+RMS_MOE = [(2048, 8192), (4, 8192), (2048, 16384), (4, 16384)]
+# Routing of the kernels against the plain versions (bf16): the norms and
+# attention before the router differ by a bf16 ulp here and there, so a
+# token near a top-k tie may take another expert, and then its whole FFN
+# output differs.  With random weights that is no small change: the
+# reference's expert scale, 1/sqrt(E) for w_gate and w_up, makes each MoE
+# output dominate the residual, and through attention a swapped expert
+# reaches every later token of its row, whose routes then differ too, far
+# from any tie.  So the logits are held on the kernels with each MoE call
+# dispatched by the plain path's choices (``moe_calls(pin=)``), and the
+# unpinned run's differing decisions are printed.  Even pinned, each MoE
+# layer adds its own bf16 rounding at the scale of the whole residual, so
+# the MoE inputs of the two paths drift apart linearly in the MoE depth
+# (3 % at dbrx's eighth, see PERF.md): the served weights cut to their
+# first MOE_SHALLOW_LAYERS layers are held within SERVE_RTOL, every
+# decision the kernels' own router would have made otherwise within
+# ROUTE_MARGIN of a tie in the plain path's router probabilities (the gap
+# to its nearer top-k neighbour); the full cut within MOE_RTOL, which a
+# wrong expert, gate or slot (tens of percent) exceeds.  At fp32 compute
+# the paths differ by fp32 reorderings (about 1e-6): a differing decision
+# must lie within FP32_ROUTE_MARGIN of a tie.
+ROUTE_MARGIN, FP32_ROUTE_MARGIN = 1e-2, 1e-5
+MOE_SHALLOW_LAYERS, MOE_RTOL = 2, 0.1
+# The MoE archs' fp32 checks at full width: dbrx's first 2 layers and
+# jamba's first two pattern positions (attn + dense, ssm + moe; 12
+# experts), kernels against plain versions; llama4's fp32 MoE layer alone
+# is 60 GiB, so it runs its moe_fwd alone (moe_layer_fp32_check)
+MOE_FP32_LAYERS = {"dbrx-132b": 2, "jamba-1.5-large-398b": 2}
 # Unaligned and ragged rows of the redesigned kernels, (rows, width,
 # offset): a view ``offset`` elements into its buffer is not 16-byte
 # aligned, and a width of no whole number of 16-byte vectors cannot be
@@ -395,7 +460,7 @@ def main() -> None:
                                          rmsnorm_rows, softmax_rows)
     from repro_torch.kernels.ssd import ssd
     from repro_torch.launch.serve import BatchServer, Request
-    from repro_torch.models import encdec, lm
+    from repro_torch.models import encdec, layers, lm
 
     # fp32 products in full fp32 for the plain versions and yardsticks
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -687,11 +752,18 @@ def main() -> None:
         print(f"[check] main-path {op.name} {R}x{N}: max err {e:.3g}")
     # every shape the serving paths give the serving kernels (bf16); ssd at
     # mamba2-2.7b's prefill was checked above
-    for R, N in RMS_SERVING + RMS_SSM + RMS_WIDE + RMS_VL:
+    for R, N in RMS_SERVING + RMS_SSM + RMS_WIDE + RMS_VL + RMS_MOE:
         errs["rmsnorm"] = max(errs["rmsnorm"],
                               check_norm("rmsnorm", R, N, torch.bfloat16))
         print(f"[check] serving rmsnorm {R}x{N} bf16: max err so far "
               f"{errs['rmsnorm']:.3g}")
+    # jamba's fp32 check (2 layers): its gated norm over 16,384 fp32 rows
+    # (the block kernel) and its norms at 8192
+    for R, N in RMS_MOE:
+        e = check_norm("rmsnorm", R, N, torch.float32)
+        errs["rmsnorm"] = max(errs["rmsnorm"], e)
+        print(f"[check] rmsnorm {R}x{N} fp32 (jamba's fp32 check): max err "
+              f"{e:.3g}")
     for R, N in RMS_WIDE:
         e = check_sfu("sfu_layernorm", R, N, (randn(N), randn(N)))
         errs["sfu_layernorm"] = max(errs["sfu_layernorm"], e)
@@ -718,10 +790,13 @@ def main() -> None:
         errs["sfu_act"] = max(errs["sfu_act"], e)
         print(f"[check] sfu_act {R}x{N} offset {offset}, 4 activations: max "
               f"err {e:.3g}")
-    # qwen3-4b's and qwen2-vl-2b's (12 query heads over 2 of 128)
+    # qwen3-4b's, qwen2-vl-2b's (12 query heads over 2 of 128) and the MoE
+    # archs' (dbrx 48 over 8, llama4 40 over 8, jamba 64 over 8)
     cfg, plen = get_config(SERVE_ARCH), max(SERVE_PROMPTS)
     vcfg = get_config(MROPE_ARCH)
-    for acfg in (cfg, vcfg):
+    moe_cfgs = [dataclasses.replace(get_config(a), **cut)
+                for a, cut in MOE_CUTS.items()]
+    for acfg in (cfg, vcfg, *moe_cfgs):
         for Sq, Skv, causal, rows in (
                 (plen, plen, True, None),                      # prefill
                 *((1, plen + t, False, SERVE_MAX_LEN)          # decode
@@ -777,6 +852,17 @@ def main() -> None:
     for S in (32, 48, 37):
         print(f"[check] ssd {(2, S, *heads)} chunk {S} fp32: max err "
               f"{check_ssd(2, S, *heads, S, torch.float32):.3g}")
+    # jamba's prefill (256 SSD heads of 64, state 128), bf16 as served and
+    # fp32 as its 2-layer check runs it
+    jcfg = moe_cfgs[-1]
+    jamba_prefill = (len(SERVE_PROMPTS), plen, jcfg.ssm_heads,
+                     jcfg.ssm_head_dim, jcfg.ssm_groups, jcfg.ssm_state)
+    for dt in (torch.bfloat16, torch.float32):
+        e = check_ssd(*jamba_prefill, min(128, plen), dt)
+        errs["ssd"] = max(errs["ssd"], e)
+        print(f"[check] {jcfg.name} ssd {jamba_prefill} chunk "
+              f"{min(128, plen)} {str(dt)[6:]}, from zero and from an "
+              f"initial state: max err (y, state) {e:.3g}")
 
     # ----------------------------------------------------------- DORA path
     counters = {"flex_gemm": flex_gemm, "sfu_softmax": softmax_rows,
@@ -945,43 +1031,229 @@ def main() -> None:
     def load_bytes(cfg) -> tuple[int, int, int]:
         """From the config: bytes of the parameters in the compute dtype;
         of the largest fp32 item ``lm.init_cast`` holds (the embedding or
-        head, V x d, or one layer); and of the most it holds at once if it
-        holds one fp32 item: the cast embedding and head beside the head
-        in fp32, or every cast parameter beside the last layer in fp32.  A
-        layer is the blocks' parameters over the layers (the served archs
-        repeat one layer)."""
+        head, V x d, one layer, or in a MoE layer its mixer, norms and
+        router, or one expert matrix, d x d_ff); and of the most it holds
+        at once if it holds one fp32 item: everything cast so far beside
+        the fp32 item being drawn (a MoE leaf counts whole from its first
+        expert on: it is allocated whole, then filled)."""
         esize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
                             ).element_size()
-        total, vd = cfg.param_count(), cfg.vocab_size * cfg.d_model
-        layer = (total - 2 * vd - cfg.d_model) // cfg.n_layers
-        return (esize * total, 4 * max(vd, layer),
-                max((2 * esize + 4) * vd, esize * total + 4 * layer))
+        d, vd = cfg.d_model, cfg.vocab_size * cfg.d_model
+        matrices = 3 if cfg.mlp_kind == "swiglu" else 2
+        cast, held, item = 0, 0, 0
 
-    def dense_steps(cfg) -> tuple[dict, str]:
-        """Kernel launches per prefill or decode step of a dense arch, and
-        their derivation: norm1, norm2 a layer and the final norm on the
-        rmsnorm kernel (or the layernorm kernel, on the bf16 rows), q- and
-        k-norm a layer on rmsnorm where the arch has them, one attention a
-        layer."""
-        L = cfg.n_layers
+        def draw(fp32, leaf):
+            nonlocal cast, held, item
+            cast += leaf
+            held, item = max(held, esize * cast + 4 * fp32), max(item, fp32)
+
+        draw(vd, vd)                                   # embed
+        draw(vd, vd)                                   # lm_head
+        draw(d, d)                                     # final norm
+        for i in range(cfg.n_layers):
+            pat = cfg.pattern[i % cfg.pattern_len]
+            layer = dataclasses.replace(cfg, pattern=(pat,), n_layers=1
+                                        ).param_count() - 2 * vd - d
+            if pat.ffn != "moe":
+                draw(layer, layer)
+                continue
+            expert = cfg.n_experts * cfg.d_model * cfg.d_ff
+            draw(layer - matrices * expert, layer - matrices * expert)
+            for _ in range(matrices):
+                draw(cfg.d_model * cfg.d_ff, expert)
+        return esize * cfg.param_count(), 4 * item, held
+
+    def path_launches(cfg) -> tuple[dict, dict, str]:
+        """Kernel launches per prefill or decode step, and in the prefill
+        only, of a decoder, with their derivation from its layer pattern:
+        norm1 a layer, norm2 a layer with an FFN (dense or MoE) and the
+        final norm on the rmsnorm kernel (or the layernorm kernel, on the
+        bf16 rows); the gated norm of an SSM layer, and q- and k-norm an
+        attention layer on rmsnorm where the arch has them; one attention
+        an attention layer; one ``ssd`` an SSM layer, in the prefill only
+        (decode updates the state in plain PyTorch, as the reference
+        does).  The MoE FFN launches none of the kernels."""
+        layers_ = [cfg.pattern[i % cfg.pattern_len]
+                   for i in range(cfg.n_layers)]
+        attn = sum(p.mixer == "attn" for p in layers_)
+        ssm = len(layers_) - attn
+        ffn = sum(p.ffn != "none" for p in layers_)
+        L = len(layers_)
         norm = "sfu_layernorm" if cfg.norm_kind == "layernorm" else "rmsnorm"
-        steps = Counter({norm: 2 * L + 1, "flash_attention": L})
-        why = [f"{norm} {2 * L + 1} = 2 x {L} layers + 1 final"]
-        if cfg.qk_norm:
-            steps["rmsnorm"] += 2 * L
-            why.append(f"rmsnorm q/k-norm 2 x {L} layers")
-        why.append(f"flash_attention {L} = 1 x {L} layers")
-        return dict(steps), "x (" + "; ".join(why) + ")"
+        steps = Counter({norm: L + ffn + 1})
+        why = [f"{norm} {L + ffn + 1} = {L} norm1 + {ffn} norm2 + 1 final"]
+        if ssm:
+            steps["rmsnorm"] += ssm
+            why.append(f"rmsnorm {ssm} gated norms of the SSM layers")
+        if cfg.qk_norm and attn:
+            steps["rmsnorm"] += 2 * attn
+            why.append(f"rmsnorm q/k-norm 2 x {attn} attention layers")
+        if attn:
+            steps["flash_attention"] = attn
+            why.append(f"flash_attention {attn} = 1 x {attn} attention "
+                       f"layers")
+        prefill = {"ssd": ssm} if ssm else {}
+        if ssm:
+            why.append(f"ssd 1 x {ssm} SSM layers in the prefill only")
+        return dict(steps), prefill, "x (" + "; ".join(why) + ")"
 
-    def serve_model(cfg, per_step, per_prefill, derivation, rtol, shape):
-        """Serves ``cfg`` at full width and depth on the card: builds the
-        server, checks the counted serve's launches against ``per_step``
-        (kernel -> launches per prefill or decode step) and
-        ``per_prefill`` (kernel -> launches in the prefill only), printed
-        with ``derivation``, the teacher-forced logits of the kernels against
-        the plain versions (relative L2 <= ``rtol``), and times a prefill
-        and a decode step.  Returns the server, the padded prompts and the
-        served tokens."""
+    @contextlib.contextmanager
+    def moe_calls(pin=None):
+        """Every ``moe_fwd`` call while open, in call order: its route
+        (``layers.moe_route`` on the same input).  With
+        ``pin``, the plain path's routes of the same pass, each call
+        dispatches its tokens by the pinned call's choices instead of its
+        own, gated by its own router probabilities at them (renormalised
+        as ``moe_route`` does), on the index path: what differs from the
+        plain path is then the kernels' rounding alone, with no expert
+        swapped."""
+        calls, fwd = [], layers.moe_fwd
+
+        def wrapped(mcfg, p, x, *args, **kwargs):
+            r = layers.moe_route(mcfg, p, x, *args)
+            calls.append(r)
+            if pin is None:
+                return fwd(mcfg, p, x, *args, **kwargs)
+            fixed = pin[len(calls) - 1]
+            gate = r.probs.gather(-1, fixed.idx)
+            gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            y, _, _ = layers._moe_index(mcfg, p, r._replace(
+                idx=fixed.idx, gate=gate, pos=fixed.pos))
+            return y.reshape(x.shape), None
+
+        layers.moe_fwd = wrapped
+        try:
+            yield calls
+        finally:
+            layers.moe_fwd = fwd
+
+    def route_diffs(kcalls, pcalls):
+        """One pass's routing, MoE layer by layer, on a kernels' path
+        (``kcalls``) against the plain path (``pcalls``): the decisions
+        (expert or kept) that differ at each layer, the decisions a layer,
+        the margin of each differing choice (the plain path's gap between
+        that choice's router probability and its nearer top-k neighbour),
+        the largest margin and the relative L2 difference of the MoE
+        input at each layer, and the rows (B,) with any difference."""
+        require(len(kcalls) == len(pcalls), f"{len(kcalls)} MoE calls on "
+                f"the kernels' path, {len(pcalls)} on the plain one")
+        d = {"per_layer": [], "margins": [], "layer_margin": [], "drift": [],
+             "n": 0, "rows": None}
+        for kr, pr in zip(kcalls, pcalls):
+            B, K = kr.probs.shape[0], kr.idx.shape[-1]
+            top = pr.probs.sort(-1, descending=True).values[..., :K + 1]
+            gap = top[..., :-1] - top[..., 1:]
+            near = torch.minimum(gap, torch.cat([gap[..., :1], gap[..., :-1]],
+                                                -1))
+            choice = kr.idx != pr.idx
+            diff = choice | ((kr.pos < kr.cap) != (pr.pos < pr.cap))
+            margins = near[choice].tolist()
+            d["margins"] += margins
+            d["layer_margin"].append(max(margins, default=0.0))
+            d["per_layer"].append(int(diff.sum()))
+            d["drift"].append(rel_l2(kr.xg, pr.xg))
+            d["n"] = diff.numel()
+            rows = diff.reshape(B, -1).any(1)
+            d["rows"] = rows if d["rows"] is None else d["rows"] | rows
+        return d
+
+    def route_report(label, passes) -> list[float]:
+        """Prints one run's differing decisions: the prefill's by MoE layer
+        (with their largest margins and the MoE inputs' drift), the decode
+        steps' that have any, the largest margin and the rows whose routes
+        all agree; returns every differing choice's margin."""
+        pre = passes[0]
+        margins = [m for d in passes for m in d["margins"]]
+        rows = pre["rows"]
+        for d in passes[1:]:
+            rows = rows | d["rows"]
+        moved = {t: d["per_layer"] for t, d in enumerate(passes)
+                 if t and any(d["per_layer"])}
+        steps = (f"; decode steps 1-{len(passes) - 1} (of {passes[-1]['n']} "
+                 f"a layer): {moved or 'none'}"
+                 f"{', every other step none' if moved else ''}"
+                 if len(passes) > 1 else "")
+        print(f"[routes] {label}: prefill, differing decisions by MoE layer "
+              f"{pre['per_layer']} of {pre['n']} each (largest margins "
+              f"{[float(f'{m:.3g}') for m in pre['layer_margin']]}, MoE "
+              f"input rel L2 {[float(f'{x:.3g}') for x in pre['drift']]})"
+              f"{steps}; {len(margins)} differing choices, largest margin "
+              f"{max(margins, default=0):.4g}; rows whose routes all agree: "
+              f"{int((~rows).sum())} of {rows.numel()}")
+        return margins
+
+    def teacher_forced(cfg, params, tokens, served, paths):
+        """Tokens teacher-forced through the plain versions and through
+        each of ``paths``: the prefill of ``tokens``, then one decode step
+        for each column of ``served`` but the last, fed that column's
+        tokens.  A path is "kernels", or "pinned": the kernels with each
+        MoE call dispatched by the plain path's choices of the same call
+        (``moe_calls(pin=)``).  Returns, per path, each pass's logits
+        relative L2 and max |err| against the plain path's, max|logit| of
+        the plain path's, its greedy tokens, the share of them the plain
+        path's agree with, and its ``route_diffs`` (none without MoE)."""
+        plen = tokens.shape[1]
+        caches = {}
+        out = {path: {"rel": [], "err": [], "scale": [], "argmax": [],
+                      "agree": [], "routes": []} for path in paths}
+        for t in range(served.shape[1]):
+            logits, calls = {}, {}
+            for path in ("plain", *paths):
+                with moe_calls(calls["plain"] if path == "pinned" else None
+                               ) as calls[path]:
+                    if t == 0:
+                        logits[path], caches[path] = lm.prefill(
+                            cfg, params, tokens, max_len=SERVE_MAX_LEN,
+                            plain=path == "plain")
+                    else:
+                        logits[path], _ = lm.decode_step(
+                            cfg, params, caches[path], served[:, t - 1:t],
+                            plen + t - 1, plain=path == "plain")
+                require(bool(torch.isfinite(logits[path]).all())
+                        and logits[path].shape == (tokens.shape[0],
+                                                   cfg.vocab_size),
+                        f"{path} step {t}: logits "
+                        f"{tuple(logits[path].shape)} or non-finite")
+            want = logits["plain"]
+            for path in paths:
+                o = out[path]
+                o["rel"].append(rel_l2(logits[path], want))
+                o["err"].append(max_err(logits[path], want))
+                o["scale"].append(float(want.abs().max()))
+                o["argmax"].append(logits[path].argmax(-1))
+                o["agree"].append(float((o["argmax"][-1] == want.argmax(-1))
+                                        .float().mean()))
+                if calls["plain"]:
+                    o["routes"].append(route_diffs(calls[path],
+                                                   calls["plain"]))
+        caches.clear()
+        return out
+
+    def logits_report(label, o, rtol):
+        """Prints and holds a teacher-forced path's logits: relative L2 to
+        the plain path's <= ``rtol`` at every pass."""
+        rel = o["rel"]
+        steps = (f", decode max {max(rel[1:]):.4g} (step "
+                 f"{int(np.argmax(rel[1:])) + 1}), mean "
+                 f"{float(np.mean(rel[1:])):.4g}" if len(rel) > 1 else "")
+        print(f"[serve] {label} vs plain versions, teacher-forced: logits rel "
+              f"L2 prefill {rel[0]:.4g}{steps}; greedy tokens agree on "
+              f"{float(np.mean(o['agree'])):.1%} (limit rel L2 {rtol})")
+        require(max(rel) <= rtol, f"{label}: logits differ from the plain "
+                f"path: {rel}")
+
+    def serve_model(cfg, rtol, shape, cut=""):
+        """Serves ``cfg`` at full width on the card (cut in depth where
+        ``cut`` says so): builds the server, checks the counted serve's
+        launches against ``path_launches`` (kernel -> launches per prefill
+        or decode step, and in the prefill only), the teacher-forced
+        logits of the kernels against the plain versions (relative L2 <=
+        ``rtol``; for a MoE arch with the kernels' routes pinned to the
+        plain path's, each decision they would have made otherwise within
+        ``ROUTE_MARGIN`` of a tie), and times a prefill and a decode step.
+        Returns the server, the padded prompts and the served tokens."""
+        per_step, per_prefill, derivation = path_launches(cfg)
+        cut = f" [{cut}]" if cut else ""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -991,25 +1263,26 @@ def main() -> None:
         load_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - before
         cast_bytes, item_bytes, held_bytes = load_bytes(cfg)
-        print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-              f"{shape}, vocab {cfg.vocab_size}, "
+        print(f"[serve] {cfg.name}{cut}: {cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {shape}, vocab {cfg.vocab_size}, "
               f"{cfg.param_count() / 1e9:.3f} B parameters drawn on the card "
               f"and cast to {cfg.compute_dtype} in {load_s:.2f} s; "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        print(f"[serve] {cfg.name} load peak (max_memory_allocated over the "
-              f"build, less the {before / 2**30:.3f} GiB allocated before): "
-              f"{peak / 2**30:.3f} GiB; limit {cast_bytes / 2**30:.3f} GiB "
-              f"cast parameters + {item_bytes / 2**30:.3f} GiB largest fp32 "
-              f"item + 1 GiB = {(cast_bytes + item_bytes) / 2**30 + 1:.3f} "
-              f"GiB (drawn whole in fp32, then cast: "
+        print(f"[serve] {cfg.name}{cut} load peak (max_memory_allocated over "
+              f"the build, less the {before / 2**30:.3f} GiB allocated "
+              f"before): {peak / 2**30:.3f} GiB; limit "
+              f"{cast_bytes / 2**30:.3f} GiB cast parameters + "
+              f"{item_bytes / 2**30:.3f} GiB largest fp32 item + 1 GiB = "
+              f"{(cast_bytes + item_bytes) / 2**30 + 1:.3f} GiB (drawn whole "
+              f"in fp32, then cast: "
               f"{(4 * cfg.param_count() + cast_bytes) / 2**30:.3f} GiB)")
         require(peak <= cast_bytes + item_bytes + 2**30,
                 f"{cfg.name}: load peak {peak} bytes over the limit")
         # tighter: a second fp32 layer held beside the first (1.45 GiB at
         # d 6144) would pass the limit above where the embedding is the
         # largest item, but not this one
-        print(f"[serve] {cfg.name} load peak against one fp32 item held at "
-              f"a time: at most {held_bytes / 2**30:.3f} GiB + 1 GiB")
+        print(f"[serve] {cfg.name}{cut} load peak against one fp32 item held "
+              f"at a time: at most {held_bytes / 2**30:.3f} GiB + 1 GiB")
         require(peak <= held_bytes + 2**30,
                 f"{cfg.name}: load peak {peak} bytes over one fp32 item "
                 f"held at a time ({held_bytes} + 1 GiB)")
@@ -1046,51 +1319,68 @@ def main() -> None:
                                                     for x in t)
                         for t in outs.values()),
                 f"served outputs malformed: {outs}")
-        print(f"[serve] {cfg.name}: prefill {stats['prefill_s']} s, decode "
-              f"{stats['decode_s']} s = {stats['decode_tok_per_s']} tok/s "
-              f"({len(prompts)} x {SERVE_NEW - 1} tokens, host clock around "
-              f"synchronize) on {smi}")
+        print(f"[serve] {cfg.name}{cut}: prefill {stats['prefill_s']} s, "
+              f"decode {stats['decode_s']} s = {stats['decode_tok_per_s']} "
+              f"tok/s ({len(prompts)} x {SERVE_NEW - 1} tokens, host clock "
+              f"around synchronize) on {smi}")
         print(f"[serve] first tokens: " + "; ".join(
             f"req {i}: {t[:8]}" for i, t in outs.items()))
 
         # the same weights, teacher-forced on the served tokens, through the
-        # kernels and through the plain versions
+        # kernels and the plain versions, every MoE layer's routing recorded
+        # on both; for a MoE arch also through the kernels with each route
+        # pinned to the plain path's, and, cut to its first
+        # MOE_SHALLOW_LAYERS layers, the same
         B, plen = len(prompts), max(SERVE_PROMPTS)
         padded = np.zeros((B, plen), np.int64)
         for i, p in enumerate(prompts):
             padded[i, plen - len(p):] = p
         served = torch.tensor([outs[i] for i in range(B)], device=dev)
         tokens = torch.from_numpy(padded).to(dev)
-        k_logits, k_cache = lm.prefill(cfg, server.params, tokens,
-                                       max_len=SERVE_MAX_LEN)
-        p_logits, p_cache = lm.prefill(cfg, server.params, tokens,
-                                       max_len=SERVE_MAX_LEN, plain=True)
-        errs_l2, agree = [], []
-        for t in range(SERVE_NEW):
-            require(bool(torch.isfinite(k_logits).all())
-                    and k_logits.shape == (B, cfg.vocab_size),
-                    f"step {t}: logits {tuple(k_logits.shape)} or non-finite")
-            require(torch.equal(k_logits.argmax(-1), served[:, t]),
-                    f"step {t}: the kernels' greedy tokens differ from the "
-                    f"served ones")
-            errs_l2.append(rel_l2(k_logits, p_logits))
-            agree.append(float((k_logits.argmax(-1) == p_logits.argmax(-1))
-                               .float().mean()))
-            if t + 1 < SERVE_NEW:
-                step = served[:, t:t + 1]
-                k_logits, k_cache = lm.decode_step(cfg, server.params,
-                                                   k_cache, step, plen + t)
-                p_logits, p_cache = lm.decode_step(cfg, server.params,
-                                                   p_cache, step, plen + t,
-                                                   plain=True)
-        del k_cache, p_cache
-        print(f"[serve] {cfg.name} kernels vs plain versions, teacher-forced: "
-              f"logits rel L2 prefill {errs_l2[0]:.4g}, decode max "
-              f"{max(errs_l2[1:]):.4g} (step {int(np.argmax(errs_l2[1:])) + 1}"
-              f"), mean {float(np.mean(errs_l2[1:])):.4g}; greedy tokens agree "
-              f"on {float(np.mean(agree)):.1%} (limit rel L2 {rtol})")
-        require(max(errs_l2) <= rtol,
-                f"serving logits differ from the plain path: {errs_l2}")
+        moe = any(p.ffn == "moe" for p in cfg.pattern)
+        forced = teacher_forced(cfg, server.params, tokens, served,
+                                ("kernels", "pinned") if moe else ("kernels",))
+        for t, got in enumerate(forced["kernels"]["argmax"]):
+            require(torch.equal(got, served[:, t]), f"step {t}: the kernels' "
+                    f"greedy tokens differ from the served ones")
+        if not moe:
+            logits_report(f"{cfg.name}{cut} kernels", forced["kernels"], rtol)
+        else:
+            free = forced["kernels"]
+            route_report(f"{cfg.name}{cut} kernels vs plain versions",
+                         free["routes"])
+            rel, agree = free["rel"], float(np.mean(free["agree"]))
+            print(f"[serve] {cfg.name}{cut} kernels vs plain versions, "
+                  f"teacher-forced, routes free: logits rel L2 prefill "
+                  f"{rel[0]:.4g}, decode max {max(rel[1:]):.4g}; greedy "
+                  f"tokens agree on {agree:.1%} (held on the pinned runs "
+                  f"below)")
+            shallow = cfg.n_layers <= MOE_SHALLOW_LAYERS
+            runs = [(cfg, server.params, SERVE_RTOL if shallow else MOE_RTOL,
+                     forced["pinned"], "")]
+            if not shallow:
+                n = MOE_SHALLOW_LAYERS
+                cfg_s = dataclasses.replace(cfg, n_layers=n,
+                                            pattern=cfg.pattern[:n])
+                p_s = {**server.params, "layers": server.params["layers"][:n]}
+                runs.append((cfg_s, p_s, SERVE_RTOL, teacher_forced(
+                    cfg_s, p_s, tokens, served, ("pinned",))["pinned"],
+                    f", cut to its first {n} layers"))
+            for rcfg, _, limit, o, note in runs:
+                label = (f"{cfg.name}{cut}{note} kernels with each route "
+                         f"pinned to the plain path's")
+                margins = route_report(f"{label} (their own decisions) vs "
+                                       f"plain versions", o["routes"])
+                logits_report(label, o, limit)
+                if limit == SERVE_RTOL:
+                    require(all(m < ROUTE_MARGIN for m in margins),
+                            f"{label}: a route differs "
+                            f"{max(margins, default=0)} from a tie (limit "
+                            f"{ROUTE_MARGIN})")
+                    print(f"[routes] {label}: every differing decision within "
+                          f"{ROUTE_MARGIN} of a tie over {rcfg.n_layers} "
+                          f"layers")
+            del runs
 
         # where serving's time goes: one prefill and one decode step of the
         # served batch, each timed unprofiled after a warm-up call
@@ -1105,11 +1395,25 @@ def main() -> None:
                            (server.params["lm_head"],
                             *(w for lp in server.params["layers"]
                               for sub in lp.values() for w in sub.values())))
-        print(f"[time] {cfg.name} serving on {smi}: prefill {B}x{plen} "
+        print(f"[time] {cfg.name}{cut} serving on {smi}: prefill {B}x{plen} "
               f"{prefill_s} s, one decode step {decode_s * 1e3:.4f} ms "
               f"({B / decode_s:.1f} tok/s); the step reads at least "
               f"{weight_bytes / 1e9:.3f} GB of bf16 weights, "
               f"{1e3 * weight_bytes / bw_peak:.4f} ms at the memory rate")
+        if cfg.n_experts:
+            # every expert runs on its capacity slots, chosen or not; a step
+            # that ran only the experts its B x K choices name would read
+            idle = sum(t.numel() * t.element_size() *
+                       (1 - min(cfg.n_experts, B * cfg.top_k)
+                        / cfg.n_experts)
+                       for lp in server.params["layers"] if "moe" in lp
+                       for k, t in lp["moe"].items() if k != "router")
+            print(f"[time] {cfg.name}{cut} decode: the MoE layers read every "
+                  f"expert's weights each step; running only the at most "
+                  f"{B} x {cfg.top_k} chosen experts of a layer would read "
+                  f"{(weight_bytes - idle) / 1e9:.3f} GB, "
+                  f"{1e3 * (weight_bytes - idle) / bw_peak:.4f} ms at the "
+                  f"memory rate")
         device_profile(f"{cfg.name} prefill {B}x{plen}", prefill_fn,
                        prefill_s)
         device_profile(f"{cfg.name} decode step at pos {plen}", decode_fn,
@@ -1146,9 +1450,8 @@ def main() -> None:
 
     # qwen3-4b: rmsnorm for norm1, norm2, and q-/k-norm, per layer, plus
     # the final norm; attention: one per layer; per prefill and decode step
-    steps, why = dense_steps(cfg)
     server, tokens, served = serve_model(
-        cfg, steps, {}, why, SERVE_RTOL,
+        cfg, SERVE_RTOL,
         f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}")
     fp32_decode_check(cfg)
     B = len(SERVE_PROMPTS)
@@ -1159,10 +1462,7 @@ def main() -> None:
     # final norm, per step; ssd once per layer in prefill only (decode
     # updates the state in plain PyTorch, as the reference does)
     sserver, stokens, _ = serve_model(
-        scfg, {"rmsnorm": 2 * scfg.n_layers + 1}, {"ssd": scfg.n_layers},
-        f"x (rmsnorm {2 * scfg.n_layers + 1} = 2 x {scfg.n_layers} layers + "
-        f"1 final); ssd 1 x {scfg.n_layers} layers in the prefill only",
-        SSM_RTOL,
+        scfg, SSM_RTOL,
         f"{scfg.ssm_heads} SSD heads of {scfg.ssm_head_dim}, state "
         f"{scfg.ssm_state}, groups {scfg.ssm_groups}, no FFN")
     # the served weights cut to their first layers: less depth to carry
@@ -1229,9 +1529,8 @@ def main() -> None:
     # the other dense archs, each server freed before the next is drawn
     for arch in DENSE_ARCHS:
         dcfg = get_config(arch)
-        steps, why = dense_steps(dcfg)
         dserver, dtokens, _ = serve_model(
-            dcfg, steps, {}, why, SERVE_RTOL,
+            dcfg, SERVE_RTOL,
             f"heads {dcfg.n_heads}/{dcfg.n_kv_heads}, {dcfg.mlp_kind} d_ff "
             f"{dcfg.d_ff}, {dcfg.norm_kind}"
             f"{', qkv bias' if dcfg.qkv_bias else ''}"
@@ -1429,6 +1728,97 @@ def main() -> None:
     del wp32, fr32, full, plain_full, cache
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ MoE archs
+    def moe_fp32_check(cfg32, tokens, cut):
+        """fp32 compute at full width and cut depth: the served prompts'
+        prefill through the kernels, and through the kernels with each
+        route pinned to the plain path's, against the plain versions (the
+        MoE in its one-hot form): the decisions that differ (each of the
+        pinned run's within FP32_ROUTE_MARGIN of a tie), and the pinned
+        run's logits within FP32_DECODE_TOL x max|logit|."""
+        p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(1), dev)
+        forced = teacher_forced(cfg32, p32, tokens, tokens[:, :1],
+                                ("kernels", "pinned"))
+        del p32
+        label = f"fp32 {cfg32.name} [{cut}]"
+        route_report(f"{label} kernels vs plain versions",
+                     forced["kernels"]["routes"])
+        margins = route_report(f"{label} kernels with each route pinned to "
+                               f"the plain path's (their own decisions) vs "
+                               f"plain versions", forced["pinned"]["routes"])
+        o = forced["pinned"]
+        err, scale = o["err"][0], o["scale"][0]
+        print(f"[serve] {label} at full width: prefill {tuple(tokens.shape)}, "
+              f"kernels with the routes pinned vs plain versions max |err| "
+              f"{err:.4g} (limit {FP32_DECODE_TOL} x max|logit| {scale:.4g} = "
+              f"{FP32_DECODE_TOL * scale:.4g}), rel L2 {o['rel'][0]:.3g}; "
+              f"routes free: max |err| {forced['kernels']['err'][0]:.4g}")
+        require(all(m < FP32_ROUTE_MARGIN for m in margins),
+                f"{label}: a route differs {max(margins, default=0)} from a "
+                f"tie (limit {FP32_ROUTE_MARGIN})")
+        require(err <= FP32_DECODE_TOL * scale,
+                f"{label}: kernels differ from the plain versions")
+
+    def moe_layer_fp32_check(cfg, cut):
+        """One MoE layer at full width in fp32, drawn one expert at a time
+        (llama4's is 60 GiB, so its fp32 check runs the layer alone):
+        ``moe_fwd`` by index against its one-hot plain version on N(0, 1)
+        rows of the served prefill's shape and a decode step's; y within
+        FP32_DECODE_TOL x max|y|, the aux loss equal."""
+        gen1 = torch.Generator(device=dev).manual_seed(1)
+        p = layers.init_moe(cfg, gen1, dev)
+        gib = sum(t.numel() for t in p.values()) * 4 / 2**30
+        for S in (max(SERVE_PROMPTS), 1):
+            x = torch.randn((len(SERVE_PROMPTS), S, cfg.d_model),
+                            generator=gen1, device=dev)
+            r = layers.moe_route(cfg, p, x)
+            (y, aux), (yp, auxp) = (layers.moe_fwd(cfg, p, x, plain=plain)
+                                    for plain in (False, True))
+            err, scale = max_err(y, yp), float(yp.abs().max())
+            print(f"[serve] fp32 {cfg.name} [{cut}] MoE layer alone at full "
+                  f"width ({cfg.n_experts} experts of {cfg.d_model} x "
+                  f"{cfg.d_ff}, top-{cfg.top_k}, "
+                  f"{gib:.2f} GiB): "
+                  f"{tuple(x.shape)}, cap {r.cap}, "
+                  f"{float((r.pos < r.cap).float().mean()):.1%} of choices "
+                  f"kept; by index vs one-hot max |err| {err:.4g} (limit "
+                  f"{FP32_DECODE_TOL} x max|y| {scale:.4g}), aux {float(aux)} "
+                  f"vs {float(auxp)}")
+            require(bool(torch.isfinite(y).all())
+                    and err <= FP32_DECODE_TOL * scale
+                    and abs(float(aux) - float(auxp)) <= 1e-6 * float(auxp),
+                    f"fp32 {cfg.name} MoE layer: index and one-hot differ")
+        del p
+
+    for arch, cut in MOE_CUTS.items():
+        full_cfg = get_config(arch)
+        mcfg = dataclasses.replace(full_cfg, **cut)
+        why = "cut: " + ", ".join(f"{k} {v} of {getattr(full_cfg, k)}"
+                                  for k, v in cut.items())
+        kinds = Counter((p.mixer, p.ffn) for p in mcfg.pattern)
+        mserver, mtokens, _ = serve_model(
+            mcfg, SERVE_RTOL,
+            f"heads {mcfg.n_heads}/{mcfg.n_kv_heads}, {mcfg.n_experts} "
+            f"experts top-{mcfg.top_k} of {mcfg.mlp_kind} d_ff {mcfg.d_ff}, "
+            f"{mcfg.norm_kind}, layers "
+            + ", ".join(f"{n} x {m}+{f}" for (m, f), n in kinds.items())
+            + (f", {mcfg.ssm_heads} SSD heads of {mcfg.ssm_head_dim}"
+               if mcfg.ssm_state else ""), cut=why)
+        del mserver
+        torch.cuda.empty_cache()
+        if arch in MOE_FP32_LAYERS:
+            n = MOE_FP32_LAYERS[arch]
+            cfg32 = dataclasses.replace(
+                mcfg, n_layers=n, pattern=mcfg.pattern[:n]
+                if n < mcfg.pattern_len else mcfg.pattern,
+                compute_dtype="float32")
+            moe_fp32_check(cfg32, mtokens, f"{why}; fp32 check: the first "
+                           f"{n} layers")
+        else:
+            moe_layer_fp32_check(mcfg, why)
+        del mtokens
+        torch.cuda.empty_cache()
+
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")
     t0 = time.perf_counter()
@@ -1550,7 +1940,7 @@ def main() -> None:
         return ms, plain_ms, lib_ms, bound_ms, bound_by
 
     # the serving kernels' other shapes, printed only
-    for R, N in RMS_SERVING[1:] + RMS_SSM + RMS_WIDE + RMS_VL:
+    for R, N in RMS_SERVING[1:] + RMS_SSM + RMS_WIDE + RMS_VL + RMS_MOE:
         x, g = randn(R, N, dtype=torch.bfloat16), randn(N)
         gl = g.to(torch.bfloat16)
         report("rmsnorm", f"{R}x{N} bf16 +gamma", lambda: rmsnorm_rows(x, g),
@@ -1589,14 +1979,29 @@ def main() -> None:
         report("ssd", f"{shape} chunk {S} fp32",
                lambda: ssd(*xs, chunk=S), lambda: ref.ssd_plain(*xs, chunk=S),
                None, *ssd_work(*shape, S, 4), fp32_peak)
+    # jamba's prefill (256 SSD heads of 64, bf16, chunk 128)
+    xj = ssd_inputs(*jamba_prefill, torch.bfloat16)
+    report("ssd", f"{jamba_prefill} chunk 128 bf16 (jamba-1.5-large prefill)",
+           lambda: ssd(*xj, chunk=128),
+           lambda: ref.ssd_chunked(*xj, chunk=128), None,
+           *ssd_work(*jamba_prefill, 128, 2), bf16_peak)
+    del xj
     # whisper-medium's attention (bf16, 16 heads of 64, over 1,500 frames,
-    # non-causal) and qwen2-vl-2b's prefill (causal, 12 query heads over 2)
+    # non-causal), qwen2-vl-2b's prefill (causal, 12 query heads over 2),
+    # and the MoE archs' prefill and decode over the served cache (head
+    # 128; dbrx 48 over 8, llama4 40 over 8, jamba 64 over 8)
+    moe_attn = [(f"{m.name} {label}", (B, m.n_heads, m.n_kv_heads, sq, skv,
+                                       m.head_dim, sq > 1))
+                for m in moe_cfgs
+                for label, sq, skv in (("prefill", plen, plen),
+                                       ("decode", 1, plen + SERVE_NEW - 1))]
     for label, (Bq, Hq, Hkv, Sq, Skv, D, causal) in (
             ("whisper-medium encoder", (WB, 16, 16, WF, WF, 64, False)),
             ("whisper-medium cross prefill", (WB, 16, 16, WP, WF, 64, False)),
             ("whisper-medium cross decode", (WB, 16, 16, 1, WF, 64, False)),
             (f"{MROPE_ARCH} prefill", (B, vcfg.n_heads, vcfg.n_kv_heads, plen,
-                                       plen, vcfg.head_dim, True))):
+                                       plen, vcfg.head_dim, True)),
+            *moe_attn):
         qa = randn(Bq, Hq, Sq, D, dtype=torch.bfloat16)
         ka, va = (randn(Bq, Hkv, Skv, D, dtype=torch.bfloat16)
                   for _ in range(2))

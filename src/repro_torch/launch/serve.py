@@ -10,12 +10,17 @@ greedy (``argmax``, the first maximum) or by temperature, drawn from a
 reproduce ``jax.random.categorical``'s bits).  One model replica on one
 device; there is no mesh (the multi-device layer is ROADMAP A.6).  It
 serves the dense archs (qwen3-4b, qwen1.5-4b, internlm2-20b,
-nemotron-4-15b, and qwen2-vl-2b on text position streams) and
-mamba2-2.7b, whose cache is a conv window and an SSD state per layer;
-MoE archs raise.  An encoder-decoder (whisper) has no server here, as
-in the reference: drive ``models.encdec.prefill`` / ``decode_step``.
-The serving phase of ``chip_smoke.py`` runs each of the six at full
-width and depth on one H100 (80 GB), with random weights drawn by
+nemotron-4-15b, and qwen2-vl-2b on text position streams), mamba2-2.7b,
+whose cache is a conv window and an SSD state per layer, and the MoE
+archs (dbrx-132b, llama4-maverick-400b-a17b, and the attention + SSM
+hybrid jamba-1.5-large-398b).  ``cfg`` is any ``ArchConfig``, so a config
+cut with ``dataclasses.replace`` is served as it is.  An encoder-decoder
+(whisper) has no server here, as in the reference: drive
+``models.encdec.prefill`` / ``decode_step``.  The serving phase of
+``chip_smoke.py`` runs the six dense and SSM archs at full width and
+depth on one H100 (80 GB), and the three MoE archs at full width cut in
+depth (dbrx to 8 of 40 layers; llama4 to one block of 24; jamba to one
+block of 9 with 12 of its 16 experts), with random weights drawn by
 ``lm.init_cast``; its times and load peaks are in PERF.md.
 
 Run on the card:

@@ -1,22 +1,23 @@
 """Model building blocks: norms, RoPE and M-RoPE, GQA self- and
-cross-attention and the dense MLP.
+cross-attention, the dense MLP and the MoE FFN.
 
-Port of the dense parts of ``repro.models.layers``.  Parameters are plain
+Port of ``repro.models.layers``.  Parameters are plain
 dicts of tensors with the reference's names and layouts: a weight is
 ``(in, out)`` and applied as ``x @ w``, cast to the activations' dtype
 at use (``w.to(x.dtype)``, a no-op once ``lm.cast_params`` has cast it
 at load).  Norm gains stay fp32, as in the reference.  The norms and
 attention run on the port's kernels through ``kernels.ops``; ``plain``
 selects their plain versions.  The matrix products stay ``torch.matmul``
-as the reference leaves them to XLA.  Sharding specs wait for the
-multi-device layer (ROADMAP A.6); MoE (``init_moe`` / ``moe_fwd``)
-waits for A.4.
+as the reference leaves them to XLA, and so do the MoE's expert
+products (``torch.bmm``).  Sharding specs wait for the multi-device layer
+(ROADMAP A.6).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -248,3 +249,172 @@ def mlp_fwd(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:  # gelu, the tanh form (jax.nn.gelu's default)
         h = F.gelu(x @ p["w_up"].to(x.dtype), approximate="tanh")
     return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------- moe
+
+def init_moe(cfg, gen: torch.Generator, device: torch.device,
+             dtype: torch.dtype | None = None) -> dict:
+    """The reference's MoE leaves: ``router`` (d, E), kept fp32, and the
+    experts' ``w_gate`` / ``w_up`` (E, d, f) and ``w_down`` (E, f, d)
+    (no ``w_gate`` unless swiglu), at the reference's scales: its default
+    1/sqrt(shape[0]) is 1/sqrt(E) for the (E, d, f) leaves; ``w_down``
+    takes 1/sqrt(f).
+
+    Each expert leaf is allocated in ``dtype`` (None: fp32) and filled
+    one expert at a time from an fp32 (d, f) or (f, d) draw, cast as it is
+    copied in: at most one fp32 expert matrix is live beside the leaves
+    (one fp32 MoE layer of llama4-maverick is 60 GiB)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": _init(gen, (d, E), device, scale=0.02)}
+    leaves = {"w_gate": ((d, f), 1.0 / math.sqrt(E)),
+              "w_up": ((d, f), 1.0 / math.sqrt(E)),
+              "w_down": ((f, d), 1.0 / math.sqrt(f))}
+    if cfg.mlp_kind != "swiglu":
+        del leaves["w_gate"]
+    for name, (shape, scale) in leaves.items():
+        leaf = torch.empty((E, *shape), dtype=dtype or torch.float32,
+                           device=device)
+        for e in range(E):
+            leaf[e].copy_(_init(gen, shape, device, scale))
+        p[name] = leaf
+    return p
+
+
+class MoeRoute(NamedTuple):
+    """One MoE call's routing, shared by both dispatch paths.  ``xg``:
+    the tokens in groups (G, Sg, D); ``probs``: the router's fp32 softmax
+    (G, Sg, E); ``gate``: the top-k probabilities, renormalised, and
+    ``idx``: their experts (G, Sg, K), the largest first; ``pos``: each
+    choice's place in its expert's queue (G, Sg, K), kept where it is
+    under ``cap``, the slots an expert has in a group."""
+    xg: torch.Tensor
+    probs: torch.Tensor
+    gate: torch.Tensor
+    idx: torch.Tensor
+    pos: torch.Tensor
+    cap: int
+
+
+def moe_route(cfg, p: dict, x: torch.Tensor, group_size: int = 1024
+              ) -> MoeRoute:
+    """Route x (B, S, D) in groups of ``min(group_size, S)`` tokens: the
+    router on fp32 (``x.float() @ router``; PyTorch's fp32 products run
+    on fp32 FMA unless ``allow_tf32`` is set), softmax, top-k (a stable
+    sort: equal probabilities keep the lower expert first, as
+    ``jax.lax.top_k``), the gates renormalised, and the queue positions
+    in GShard's order: slot-major, then token order, so that every
+    token's first choice queues before any token's second (a cumsum over
+    the (K·Sg, E) flattening)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    Sg = min(group_size, S)
+    if S % Sg:
+        raise ValueError(f"{S} tokens do not split into groups of {Sg}")
+    G = B * (S // Sg)
+    xg = x.reshape(G, Sg, D)
+    probs = torch.softmax(xg.float() @ p["router"].float(), dim=-1)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = top[..., :K], order[..., :K]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    # counted along the innermost dim of (G, E, K·Sg): CUDA scans an outer
+    # dim one thread a column, 0.41 ms a call at dbrx's prefill on the H100
+    oh = F.one_hot(idx.transpose(1, 2).reshape(G, K * Sg), E)
+    oh = oh.transpose(1, 2).contiguous()
+    pos = ((oh.cumsum(-1) - oh) * oh).sum(1)
+    cap = max(1, int(math.ceil(Sg * K / E * cfg.capacity_factor)))
+    return MoeRoute(xg, probs, gate, idx,
+                    pos.view(G, K, Sg).transpose(1, 2), cap)
+
+
+def _experts(cfg, p: dict, xe: torch.Tensor) -> torch.Tensor:
+    """Every expert's FFN on its capacity slots: xe (E, N, d) -> (E, N, d)
+    (SiLU gate for swiglu, the tanh GELU otherwise, as the reference)."""
+    cd = xe.dtype
+    if cfg.mlp_kind == "swiglu":
+        h = F.silu(torch.bmm(xe, p["w_gate"].to(cd))) \
+            * torch.bmm(xe, p["w_up"].to(cd))
+    else:
+        h = F.gelu(torch.bmm(xe, p["w_up"].to(cd)), approximate="tanh")
+    return torch.bmm(h, p["w_down"].to(cd))
+
+
+def _one_hot(i: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.nn.one_hot`` in fp32: an all-zero row where ``i`` is outside
+    [0, n), as for a choice past the capacity (``F.one_hot`` raises)."""
+    return (i[..., None] == torch.arange(n, device=i.device)).float()
+
+
+def _moe_onehot(cfg, p: dict, r: MoeRoute):
+    """The plain version: the reference's GShard einsums over one-hot
+    (G, Sg, E, C) dispatch and combine tensors, with the queue positions
+    taken again from an fp32 cumsum.  Returns (y (G, Sg, D), the share of
+    tokens each expert kept (E,), the dispatched slots xe (E, G·C, D))."""
+    G, Sg, D = r.xg.shape
+    E, K, cap, cd = cfg.n_experts, cfg.top_k, r.cap, r.xg.dtype
+    onehot = _one_hot(r.idx, E)                               # (G, Sg, K, E)
+    oh_flat = onehot.transpose(1, 2).reshape(G, K * Sg, E)
+    pos = torch.cumsum(oh_flat, 1) - oh_flat
+    keep = (pos < cap) * oh_flat
+    pos_idx = torch.einsum("gte,gte->gt", pos, oh_flat).int()
+    disp_flat = keep[..., None] * _one_hot(pos_idx, cap)[:, :, None, :]
+    dispatch = disp_flat.view(G, K, Sg, E, cap).sum(1)        # (G, Sg, E, C)
+    combine = torch.einsum("gsec,gsk,gske->gsec", dispatch, r.gate, onehot)
+    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), r.xg)
+    xe = xe.reshape(E, G * cap, D)
+    ye = _experts(cfg, p, xe).view(E, G, cap, D)
+    y = torch.einsum("gsec,egcd->gsd", combine.to(cd), ye)
+    return y, dispatch.sum(-1).mean((0, 1)), xe
+
+
+def _moe_index(cfg, p: dict, r: MoeRoute):
+    """The main path: the same slots filled by index.  Each kept choice
+    goes to slot (expert, group, pos) of a flat (E·G·C) layout, a choice
+    past the capacity to a spare slot past its end that no expert reads;
+    each slot gathers its token's row (empty slots a zero row), bit for
+    bit the one-hot einsum's xe.  The combine gathers each choice's
+    expert output back, with its gate cast to the compute dtype first
+    (the reference's ``combine.astype(cd)``), sums the K products in fp32
+    and rounds once, as the reference's bf16 einsum does.  No host sync.
+    Returns what ``_moe_onehot`` returns."""
+    G, Sg, D = r.xg.shape
+    E, K, cap, cd = cfg.n_experts, cfg.top_k, r.cap, r.xg.dtype
+    dev = r.xg.device
+    keep = r.pos < cap
+    spare = E * G * cap
+    group = torch.arange(G, device=dev)[:, None, None]
+    slot = torch.where(keep, (r.idx * G + group) * cap + r.pos, spare)
+    token = torch.arange(G * Sg, device=dev).view(G, Sg, 1).expand(G, Sg, K)
+    # the token in each slot; G·Sg names the zero row (the spare slot,
+    # written by every dropped choice, is cut off)
+    filled = torch.full((spare + 1,), G * Sg, dtype=torch.long, device=dev)
+    filled.scatter_(0, slot.reshape(-1), token.reshape(-1))
+    rows = torch.cat([r.xg.reshape(G * Sg, D), r.xg.new_zeros(1, D)])
+    xe = rows[filled[:spare]].view(E, G * cap, D)
+    ye = _experts(cfg, p, xe)
+    out = torch.cat([ye.reshape(spare, D), ye.new_zeros(1, D)])[slot]
+    w = torch.where(keep, r.gate, 0.0).to(cd).float()
+    y = out[:, :, 0].float() * w[..., :1]
+    for k in range(1, K):
+        y = y + out[:, :, k].float() * w[..., k:k + 1]
+    kept = torch.zeros(E, device=dev).index_add_(0, r.idx.reshape(-1),
+                                                  keep.reshape(-1).float())
+    return y.to(cd), kept / (G * Sg), xe
+
+
+def moe_fwd(cfg, p: dict, x: torch.Tensor, group_size: int = 1024, *,
+            plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bounded top-k MoE FFN with deterministic in-group
+    dispatch (``moe_route``): x (B, S, D) -> (y, aux).  Each expert takes
+    at most ``cap`` tokens of a group; a choice past that is dropped (it
+    adds nothing to its token's output).  The experts run on their
+    (E, G·C, D) slots as three batched products.  ``plain`` runs the
+    reference's one-hot einsum form, else the slots are filled and read
+    back by index (``_moe_index``).  ``aux`` is the Switch load-balance
+    loss, E · Σ(share of tokens kept · mean router probability) ·
+    ``router_aux_weight``."""
+    r = moe_route(cfg, p, x, group_size)
+    y, density, _ = (_moe_onehot if plain else _moe_index)(cfg, p, r)
+    aux = cfg.n_experts * (density * r.probs.mean((0, 1))).sum() \
+        * cfg.router_aux_weight
+    return y.reshape(x.shape), aux

@@ -1,9 +1,10 @@
 """Decoder-only language model over a repeating block pattern: the dense
 archs (qwen3, qwen1.5, internlm2, nemotron, and qwen2-vl with M-RoPE),
-the pure-SSM mamba2 and hybrids of the two.
+the MoE archs (llama4-maverick, dbrx), the pure-SSM mamba2 and the
+hybrid jamba.
 
-Port of ``repro.models.lm`` for the layer patterns whose mixer is ``attn``
-or ``ssm`` and whose FFN is ``dense`` or ``none``.  The reference scans
+Port of ``repro.models.lm``: every layer pattern, a mixer ``attn`` or
+``ssm`` and an FFN ``dense``, ``moe`` or ``none``.  The reference scans
 over the stacked ``blocks/pos{i}`` leaves; the port keeps one dict per
 layer in ``params["layers"]`` (layer ``i`` is block ``i // pattern_len``,
 pattern position ``i % pattern_len``) and loops over them in Python.  The
@@ -27,10 +28,15 @@ Entry points:
 
 ``device=None`` means the CUDA card and raises without one.  ``plain``
 runs the norms, attention and the SSD scan on their plain versions
-instead of the kernels.  MoE archs and ``kv_cache_repeat > 1`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them; an
-encoder-decoder arch (whisper) raises ``ValueError``: it runs through
-``models.encdec``.
+instead of the kernels, and the MoE FFN in the reference's one-hot
+einsum form.  ``forward``, ``prefill`` and ``decode_step`` drop the MoE
+aux loss, which the training loss takes (ROADMAP A.5).  A prefill
+routes its S tokens as one group and may drop choices past an expert's
+capacity; a decode step routes groups of one token, which never drop:
+so prefill + decode equals ``forward`` only where nothing dropped.
+``kv_cache_repeat > 1`` raises ``NotImplementedError`` naming the
+ROADMAP item that ports it; an encoder-decoder arch (whisper) raises
+``ValueError``: it runs through ``models.encdec``.
 """
 
 from __future__ import annotations
@@ -52,9 +58,6 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.is_encdec:
         raise ValueError(f"{cfg.name} is an encoder-decoder model: run it "
                          f"through repro_torch.models.encdec")
-    if any(p.ffn == "moe" for p in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported "
-                                  f"yet: ROADMAP A.4")
     if cfg.kv_cache_repeat > 1:
         raise NotImplementedError(f"{cfg.name}: kv_cache_repeat > 1 serves "
                                   f"the sharded cache of the multi-device "
@@ -72,7 +75,10 @@ def _pattern(cfg: ArchConfig, i: int):
 
 
 def _init_layer(cfg: ArchConfig, pat, gen: torch.Generator,
-                device: torch.device) -> dict:
+                device: torch.device, cd: torch.dtype | None = None) -> dict:
+    """One layer's fp32 parameters, but for a MoE layer: its mixer is cast
+    to ``cd`` (None: kept fp32) before the experts are drawn, and the
+    experts are drawn into ``cd`` one at a time (``L.init_moe``)."""
     p = {"norm1": L.init_norm(cfg, device)}
     if pat.mixer == "attn":
         p["attn"] = L.init_attention(cfg, gen, device)
@@ -81,6 +87,10 @@ def _init_layer(cfg: ArchConfig, pat, gen: torch.Generator,
     if pat.ffn == "dense":
         p["norm2"] = L.init_norm(cfg, device)
         p["mlp"] = L.init_mlp(cfg, gen, device)
+    elif pat.ffn == "moe":
+        p = _cast_layer(p, cd)
+        p["norm2"] = L.init_norm(cfg, device)
+        p["moe"] = L.init_moe(cfg, gen, device, cd)
     # pat.ffn == "none": a mixer-only layer (mamba2)
     return p
 
@@ -89,7 +99,8 @@ def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
     """``init``'s draws in ``init``'s order (embed, lm_head, final_norm,
     then each layer), each item cast to ``cd`` by ``cast_params``'s rule
     as soon as it is drawn (``cd=None`` keeps fp32), so that at most one
-    fp32 item (the embedding, the head or one layer) is held at a time."""
+    fp32 item (the embedding, the head, one layer, or in a MoE layer its
+    mixer or one expert matrix) is held at a time."""
     check_supported(cfg)
     if cfg.param_dtype != "float32":
         raise NotImplementedError(f"{cfg.name}: param_dtype "
@@ -110,8 +121,9 @@ def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
         "embed": embed,
         "lm_head": lm_head,
         "final_norm": L.init_norm(cfg, dev),
-        "layers": [_cast_layer(_init_layer(cfg, _pattern(cfg, i), gen, dev),
-                               cd) for i in range(cfg.n_layers)],
+        "layers": [_cast_layer(_init_layer(cfg, _pattern(cfg, i), gen, dev,
+                                           cd), cd)
+                   for i in range(cfg.n_layers)],
     }
 
 
@@ -133,10 +145,11 @@ def init_cast(cfg: ArchConfig, gen: torch.Generator,
     return _draw(cfg, gen, device, _dtype(cfg.compute_dtype))
 
 
-# leaves of "attn" / "ssm" that the model code uses in fp32: the q/k-norm
-# gains, the SSM's A_log (-exp(A_log) in fp32), dt_bias (added to the fp32
-# dt_raw) and the gated norm's gain
-_KEEP_FP = ("q_norm", "k_norm", "A_log", "dt_bias", "norm")
+# leaves of "attn" / "ssm" / "moe" that the model code uses in fp32: the
+# q/k-norm gains, the SSM's A_log (-exp(A_log) in fp32), dt_bias (added to
+# the fp32 dt_raw), the gated norm's gain, and the MoE router (the
+# reference routes on fp32 logits: a bf16 router would route otherwise)
+_KEEP_FP = ("q_norm", "k_norm", "A_log", "dt_bias", "norm", "router")
 
 
 def _cast_layer(lp: dict, cd: torch.dtype | None) -> dict:
@@ -167,8 +180,10 @@ def cast_params(cfg: ArchConfig, params: dict) -> dict:
 def _ffn(cfg, pat, lp, x, plain):
     if pat.ffn == "none":
         return x
-    return x + L.mlp_fwd(cfg, lp["mlp"],
-                         L.apply_norm(cfg, lp["norm2"], x, plain=plain))
+    h = L.apply_norm(cfg, lp["norm2"], x, plain=plain)
+    if pat.ffn == "moe":
+        return x + L.moe_fwd(cfg, lp["moe"], h, plain=plain)[0]
+    return x + L.mlp_fwd(cfg, lp["mlp"], h)
 
 
 def _positions(cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,7 @@ CUDA device; the file imports no JAX, so it runs wherever the port does:
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -13,7 +14,9 @@ import torch
 
 from repro_torch.kernels import (_build, act_rows, flash_attention, flex_gemm, layernorm_rows,
                                  ref, rmsnorm_rows, softmax_rows, ssd)
+from repro_torch.configs import get_config
 from repro_torch.kernels.ref import ACTIVATIONS, EPILOGUES
+from repro_torch.models import layers
 
 # the modules, not the wrappers of the same name that the package exports
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -677,3 +680,101 @@ def test_cuda_layernorm_at_whisper(cuda, shape, tdt):
         torch.testing.assert_close(
             got.float(), ref.layernorm_rows(x, gamma, beta).float(),
             rtol=rtol, atol=atol)
+
+
+# The MoE archs' shapes as chip_smoke.py serves them (4 requests of up to
+# 512 tokens): rmsnorm rows of llama4-maverick (d 5120) and jamba (d 8192,
+# and its gated norm over 16,384: ``norm_plan`` gives exactly MAX_THREADS
+# there in bf16), layernorm rows of dbrx (d 6144), prefill and decode
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, shape", [
+    ("rmsnorm", (2048, 5120)), ("rmsnorm", (4, 5120)),
+    ("rmsnorm", (2048, 8192)), ("rmsnorm", (4, 8192)),
+    ("rmsnorm", (2048, 16384)), ("rmsnorm", (4, 16384)),
+    ("layernorm", (2048, 6144)), ("layernorm", (4, 6144))])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_norms_at_the_moe_archs(cuda, kernel, shape, tdt):
+    if kernel == "rmsnorm":
+        assert sfu.norm_plan(16384, 2, True) == sfu.MAX_THREADS
+    x = torch.from_numpy(_np(shape, 91, scale=2.0)).to(cuda, tdt)
+    g = torch.from_numpy(_np((shape[1],), 92)).to(cuda)
+    b = torch.from_numpy(_np((shape[1],), 93)).to(cuda)
+    rtol, atol = _ln_tol(tdt)
+    forms = ([(None,), (g,)] if kernel == "rmsnorm"
+             else [(None, None), (g, b)])
+    fn, plain = ((rmsnorm_rows, ref.rmsnorm_rows) if kernel == "rmsnorm"
+                 else (layernorm_rows, ref.layernorm_rows))
+    for form in forms:
+        got = fn(x, *form)
+        torch.cuda.synchronize()
+        assert got.dtype == tdt
+        torch.testing.assert_close(got.float(), plain(x, *form).float(),
+                                   rtol=rtol, atol=atol)
+        assert torch.equal(got, fn(x, *form))
+
+
+# GQA 5 (llama4-maverick: 40 query heads over 8) and GQA 8 (jamba: 64 over
+# 8), head 128: the causal prefill of 4 x 512 tokens and decode over the
+# served cache (543 of 1,024 rows)
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(40, 8), (64, 8)], ids=["gqa5", "gqa8"])
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_cuda_flash_attention_at_the_moe_archs(cuda, heads, phase):
+    Hq, Hkv = heads
+    if phase == "prefill":
+        shape, cache, causal = (4, Hq, Hkv, 512, 512, 128), None, True
+    else:
+        shape, cache, causal = (4, Hq, Hkv, 1, 543, 128), 1024, False
+    q, k, v = _qkv(shape, 94, cuda, torch.bfloat16, cache=cache)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, kv_len=shape[4])
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _attn_close(got, q, k, v, causal, shape[4], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_ssd_at_jamba(cuda, tdt):
+    """jamba-1.5-large's prefill: 256 SSD heads of 64 (mamba2 has 80),
+    state 128, one group, 4 x 512 tokens, chunk 128."""
+    shape = (4, 512, 256, 64, 1, 128)
+    x, a, b, c = _ssd_inputs(shape, 95, cuda, tdt)
+    got = ssd(x, a, b, c, chunk=128)
+    torch.cuda.synchronize()
+    _ssd_close(got, ref.ssd_plain(x, a, b, c, chunk=128), tdt)
+
+
+# moe_fwd on the card: dbrx's published widths (d 6144, d_ff 10752, 16
+# experts top-4) and a top-1 of 128 experts at narrow widths, prefill (4 x
+# 512 tokens, one group a row) and decode (4 x 1)
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe", ["dbrx", "top1of128"])
+@pytest.mark.parametrize("S", [512, 1], ids=["prefill", "decode"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_moe_index_path_gives_the_one_hot_numbers(cuda, moe, S, tdt):
+    """The index dispatch against the one-hot einsums on one route: the
+    dispatched slots bit for bit, the kept shares equal, y within one
+    rounding of max|y| (bf16: two ulps; fp32: 1e-5 relative, as cuBLAS
+    sums the combine's K products in another order)."""
+    cfg = get_config("dbrx-132b")
+    if moe == "top1of128":
+        cfg = dataclasses.replace(cfg, d_model=512, d_ff=1024,
+                                  n_experts=128, top_k=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = layers.init_moe(cfg, gen, cuda, tdt)
+    x = torch.from_numpy(_np((4, S, cfg.d_model), 96)).to(cuda, tdt)
+    r = layers.moe_route(cfg, p, x)
+    yi, di, xi = layers._moe_index(cfg, p, r)
+    yo, do, xo = layers._moe_onehot(cfg, p, r)
+    torch.cuda.synchronize()
+    assert torch.equal(xi, xo) and torch.equal(di, do)
+    scale = float(yo.float().abs().max())
+    tol = (2 * 2.0 ** (np.floor(np.log2(scale)) - 7) if tdt == torch.bfloat16
+           else 1e-5 * scale)
+    assert float((yi.float() - yo.float()).abs().max()) <= tol
+    assert r.cap == (1 if S == 1 else
+                     int(np.ceil(S * cfg.top_k / cfg.n_experts * 1.25)))

@@ -25,6 +25,8 @@ from repro_torch.models import lm
 
 DENSE = ["qwen3-4b", "qwen1.5-4b", "internlm2-20b", "nemotron-4-15b",
          "qwen3-4b-gqa"]
+# the MoE archs, unported before MoE was; what they still do not run
+# (a cache repeated over the KV heads) raises
 UNSUPPORTED = ["jamba-1.5-large-398b",
                "llama4-maverick-400b-a17b", "dbrx-132b"]
 
@@ -231,11 +233,25 @@ def test_qwen3_4b_is_served_at_its_published_width():
 
 @pytest.mark.parametrize("arch", UNSUPPORTED)
 def test_unported_archs_raise(arch):
+    """A MoE arch inits, forwards and serves on the CPU; with
+    ``kv_cache_repeat=2`` (the sharded cache, not ported) it raises
+    naming ROADMAP A.6."""
     cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        lm.init(cfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        lm.forward(cfg, {}, torch.zeros(1, 2, dtype=torch.long))
+    lm.check_supported(cfg)
+    p = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.from_numpy(_tokens(cfg, (2, 5), 14))
+    logits = lm.forward(cfg, p, tok)
+    assert logits.shape == (2, 5, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    from repro_torch.launch.serve import BatchServer, Request
+    out = BatchServer(cfg, max_len=12, device="cpu", params=p).serve(
+        [Request(0, tok[0].numpy(), 4)])["outputs"]
+    assert len(out[0]) == 4
+    sharded = dataclasses.replace(cfg, kv_cache_repeat=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        lm.init(sharded, torch.Generator(), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+        lm.forward(sharded, {}, torch.zeros(1, 2, dtype=torch.long))
 
 
 def test_encoder_decoder_archs_are_sent_to_encdec():
@@ -328,7 +344,8 @@ def _np_rows(shape, seed):
 
 # every arch the port serves, by its reduced config
 SERVED = ["qwen3-4b", "qwen1.5-4b", "internlm2-20b", "nemotron-4-15b",
-          "mamba2-2.7b"]
+          "mamba2-2.7b", "dbrx-132b", "llama4-maverick-400b-a17b",
+          "jamba-1.5-large-398b"]
 
 
 def _leaves(tree, path=""):
@@ -364,7 +381,8 @@ def test_init_cast_holds_one_fp32_layer_at_a_time(monkeypatch):
     """Each layer's fp32 weights are gone (no reference left) before the
     next layer is drawn, and the embedding's and head's before the first
     layer: watched through weak references to what ``_init_layer`` and the
-    cast return."""
+    cast return.  In a MoE layer, at most one fp32 expert matrix is live
+    (``_moe_draws_hold_one_fp32_expert``)."""
     import weakref
     cfg = dataclasses.replace(get_config("internlm2-20b", reduced=True),
                               compute_dtype="bfloat16", n_layers=4)
@@ -394,6 +412,53 @@ def test_init_cast_holds_one_fp32_layer_at_a_time(monkeypatch):
     kept = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
     assert sum(ref() is not None for ref in drawn) == 4 * 7
     del kept
+    monkeypatch.undo()
+    _moe_draws_hold_one_fp32_expert(monkeypatch)
+
+
+def _moe_draws_hold_one_fp32_expert(monkeypatch):
+    """llama4's pattern (a dense and a MoE layer), 4 experts, bf16: every
+    fp32 draw of ``layers._init`` is watched; when an expert matrix is
+    drawn, no earlier fp32 draw is live but those the parameters keep
+    (the fp32 router), so the mixer was cast before the experts and each
+    expert matrix dropped once copied into its bf16 leaf."""
+    import weakref
+    from repro_torch.models import layers
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b",
+                                         reduced=True),
+                              compute_dtype="bfloat16")
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    draws, live_at, in_moe = [], [], []
+    init, init_moe = layers._init, layers.init_moe
+
+    def watched(gen, shape, *args, **kwargs):
+        if in_moe:
+            live_at.append((tuple(shape),
+                            [r for r in draws if r() is not None]))
+        t = init(gen, shape, *args, **kwargs)
+        draws.append(weakref.ref(t))
+        return t
+
+    def moe(*args, **kwargs):
+        in_moe.append(True)
+        try:
+            return init_moe(*args, **kwargs)
+        finally:
+            in_moe.clear()
+
+    monkeypatch.setattr(layers, "_init", watched)
+    monkeypatch.setattr(layers, "init_moe", moe)
+    params = lm.init_cast(cfg, torch.Generator().manual_seed(0), "cpu")
+    kept = {id(t) for _, t in _leaves(params)}
+    expert = [(shape, [r for r in live if id(r()) not in kept])
+              for shape, live in live_at if shape in ((d, f), (f, d))]
+    n_moe = sum(p.ffn == "moe" for p in cfg.pattern) * cfg.n_blocks
+    assert len(expert) == 3 * E * n_moe
+    assert all(not live for _, live in expert)
+    for lp in params["layers"]:
+        if "moe" in lp:
+            assert lp["moe"]["router"].dtype == torch.float32
+            assert lp["attn"]["wq"].dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "nemotron-4-15b",
