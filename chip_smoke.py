@@ -107,7 +107,27 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    the largest fp32 item (the embedding, the head or a layer) plus 1 GiB,
    and under what holding one fp32 item at a time gives plus 1 GiB (a MoE
    layer's items: its mixer, norms and router, then each expert matrix).
-6. timing: BERT-L's compile and execute seconds and its device time by
+6. training: the backward kernels (rmsnorm's and flash attention's, no
+   Pallas counterpart) against autograd of their plain versions on the
+   card: rmsnorm over the reference's SFU rows (fp32), qwen3-4b's training
+   rows (bf16 and fp32) and a ragged and an unaligned case; attention over
+   the reference's attention shapes, causal and not (fp32), and qwen3-4b's
+   training attention (bf16); every gradient within ``FP32_GRAD_TOL`` /
+   ``BF16_GRAD_RTOL`` / ``DGAMMA_RTOL``, and a second backward run equal
+   to the bit.  qwen3-4b's model gradients (``lm.loss_fn``), kernels
+   against plain versions on the same weights and ``SyntheticLM`` batch:
+   fp32 over 2 layers (``MODEL_FP32_TOL``), bf16 over the training cut
+   (``MODEL_BF16_RTOL``, each leaf printed).  Then ``launch.train.Trainer``
+   trains qwen3-4b at full width cut to ``TRAIN_LAYERS`` of 36 layers (fp32
+   parameters and moments, bf16 compute, remat) for ``TRAIN_STEPS`` steps
+   of 4 x 512 tokens: the mean loss of the last 3 steps must fall below
+   the first's, the launch counts, zeroed just before, must equal what the
+   call structure gives (printed with its derivation); step ms, tokens/s,
+   the predicted and measured peak memory and one profiled step.  Last, a
+   fault injected into reduced qwen3-4b's training on the card: the run
+   resumed from its checkpoint replays an uninterrupted run's losses
+   (``FAULT_RTOL``).
+7. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
    PyTorch library call where one computes the same function, and the
@@ -121,7 +141,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    ``flash_attention`` at whisper-medium's three attention shapes,
    qwen2-vl-2b's prefill and the MoE archs' prefill and decode,
    ``sfu_layernorm`` at whisper-medium's rows, ``rmsnorm`` at qwen2-vl-2b's
-   and the MoE archs', ``ssd`` at jamba's prefill.
+   and the MoE archs', ``ssd`` at jamba's prefill; the backward kernels at
+   qwen3-4b's training shapes, beside their plain versions and the
+   backward of ``F.rms_norm`` / ``F.scaled_dot_product_attention``.
    The serving profiles sum ``ssd``'s two kernels and print each step's
    device activities.
 
@@ -135,6 +157,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -326,6 +349,41 @@ SSM_FP32_RTOL = 1e-3
 # |err| <= FP32_DECODE_TOL * max|logit| (tests/test_models.py holds the
 # reduced configs to 2e-3 absolute; logits here are of order 1-10).
 FP32_DECODE_TOL = 2e-3
+# Training: qwen3-4b, the configuration of the training path that runs the
+# fewest kernels (rmsnorm and flash attention, each with its backward
+# kernel), at full width cut to TRAIN_LAYERS of its 36 layers; fp32
+# parameters and moments, bf16 compute, remat on (the config's own); a
+# batch of TRAIN_BATCH x TRAIN_SEQ tokens from SyntheticLM seed 0,
+# TRAIN_STEPS AdamW steps warmed up over TRAIN_WARMUP to TRAIN_PEAK_LR, no
+# checkpoint.  The peak is examples/train_lm.py's 1e-3: at AdamW's default
+# 3e-4 the loss does not leave the batch-to-batch spread (about 0.03)
+# within 10 steps over 151,936 uniformly used tokens (the phase prints
+# that run beside the checked one; see PERF.md).
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "qwen3-4b", 8, 4, 512
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_PEAK_LR = 10, 2, 1e-3
+# Backward kernels against autograd of their plain versions on the card:
+# fp32 gradients within FP32_GRAD_TOL x max|ref| (reordered fp32 sums, as
+# the reference's kernel tests hold fp32); bf16 dx, dq, dk, dv by relative
+# L2 within BF16_GRAD_RTOL (each rounded to bf16 once, and attention's
+# backward reads the forward's bf16 output); dgamma, fp32 sums of the same
+# products in another order, within DGAMMA_RTOL.
+FP32_GRAD_TOL, BF16_GRAD_RTOL, DGAMMA_RTOL = 1e-4, 2e-2, 1e-3
+# rmsnorm's backward rows (rows, width, offset), besides the reference's
+# SFU rows: qwen3-4b's training rows (norm1 / norm2 / the final norm over 4
+# x 512 tokens, the q-norm's 65,536 rows of 128 and the k-norm's 16,384),
+# a ragged width (the block kernel) and an unaligned view (scalar loads)
+RMS_BWD_ROWS = [(2048, 2560, 0), (65536, 128, 0), (16384, 128, 0),
+                (64, 2561, 0), (2048, 2560, 1)]
+# Model gradients, kernels against plain versions, same weights and batch:
+# at fp32 compute over MODEL_FP32_LAYERS layers every leaf within
+# MODEL_FP32_TOL x max|g| (as FP32_DECODE_TOL holds logits); at bf16 over
+# the TRAIN_LAYERS cut the whole flattened gradient by relative L2 within
+# MODEL_BF16_RTOL (each leaf's printed)
+MODEL_FP32_LAYERS, MODEL_FP32_TOL, MODEL_BF16_RTOL = 2, 2e-3, 5e-2
+# Fault and resume on the card: reduced qwen3-4b (fp32), FAULT_STEPS steps
+# of 8 x 64 tokens, a checkpoint every 5, a fault injected at FAULT_AT; the
+# resumed run's losses within FAULT_RTOL of an uninterrupted run's
+FAULT_STEPS, FAULT_AT, FAULT_RTOL = 12, 7, 1e-6
 # Operations of one tanh-GELU (x³, times 0.044715, plus x, times
 # sqrt(2/pi), tanh, plus 1, times x / 2)
 GELU_FLOPS = 9
@@ -343,6 +401,10 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/sfu.py:56",
     "flash_attention": "src/repro/kernels/flash_attention.py:28",
     "ssd": "src/repro/kernels/ssd.py:31",
+    # no Pallas kernel has a backward: the reference differentiates its jnp
+    # rmsnorm and attention (src/repro/models/layers.py)
+    "rmsnorm_bwd": "src/repro/models/layers.py:40",
+    "flash_attention_bwd": "src/repro/models/layers.py:158",
 }
 SOURCES = {
     "flex_gemm": "src/repro_torch/kernels/csrc/flex_gemm.cu",
@@ -352,9 +414,12 @@ SOURCES = {
     "rmsnorm": "src/repro_torch/kernels/csrc/sfu.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd.cu",
+    "rmsnorm_bwd": "src/repro_torch/kernels/csrc/sfu.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 DORA_KERNELS = ("flex_gemm", "sfu_softmax", "sfu_layernorm", "sfu_act")
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "ssd")
+TRAINING_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd")
 # the CUDA kernels of one ssd call (csrc/ssd.cu)
 SSD_PHASES = ("ssd_state_", "ssd_scan_")
 
@@ -453,13 +518,20 @@ def main() -> None:
     from repro_torch.core.runtime import EPILOGUE_NAME, SFU_ACT
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import sfu as sfu_k
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch import tree as T
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import for_arch
+    from repro_torch.kernels.flash_attention import (attention_lse,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.flex_gemm import flex_gemm, gemm_plan
     from repro_torch.kernels.ref import EPILOGUES
     from repro_torch.kernels.sfu import (act_rows, layernorm_rows,
                                          rmsnorm_rows, softmax_rows)
     from repro_torch.kernels.ssd import ssd
     from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.launch.train import TrainOptions, Trainer
+    from repro_torch.optim import OptConfig
     from repro_torch.models import encdec, layers, lm
 
     # fp32 products in full fp32 for the plain versions and yardsticks
@@ -868,7 +940,8 @@ def main() -> None:
     counters = {"flex_gemm": flex_gemm, "sfu_softmax": softmax_rows,
                 "sfu_layernorm": layernorm_rows, "sfu_act": act_rows,
                 "rmsnorm": rmsnorm_rows, "flash_attention": flash_attention,
-                "ssd": ssd}
+                "ssd": ssd, "rmsnorm_bwd": sfu_k.rmsnorm_bwd,
+                "flash_attention_bwd": flash_attention_bwd}
     whole = dict.fromkeys(counters, 0)     # launches over the whole script
 
     def zero_counts():
@@ -888,7 +961,7 @@ def main() -> None:
         expected["flex_gemm"] = sum(1 for i in prog
                                     if i.op_type == OpType.MMU_GEMM
                                     and i.body.ping_op == 1)
-        return expected | {k: 0 for k in SERVING_KERNELS}
+        return expected | {k: 0 for k in SERVING_KERNELS + TRAINING_KERNELS}
 
     def run_binary(name, res, inputs):
         """Runs ``res`` on the card from ``inputs``; its launches, counted
@@ -1430,8 +1503,8 @@ def main() -> None:
         tok = torch.from_numpy(np.random.default_rng(1).integers(
             0, cfg.vocab_size, (2, 48))).to(dev)
         Sp = 32
-        full = lm.forward(cfg32, p32, tok)
-        plain_full = lm.forward(cfg32, p32, tok, plain=True)
+        full, _ = lm.forward(cfg32, p32, tok)
+        plain_full, _ = lm.forward(cfg32, p32, tok, plain=True)
         pre, cache = lm.prefill(cfg32, p32, tok[:, :Sp], max_len=48)
         errs32 = [float((pre - full[:, Sp - 1]).abs().max())]
         for t in range(Sp, 48):
@@ -1509,10 +1582,11 @@ def main() -> None:
         tok = tokens[:1, -S:]
         t_ids = torch.arange(S, dtype=torch.int32, device=dev)
         ids = torch.stack([t_ids, t_ids // cols, t_ids % cols])[:, None]
-        k_logits = lm.forward(vcfg, params, tok, positions=ids)
-        p_logits = lm.forward(vcfg, params, tok, positions=ids, plain=True)
+        k_logits, _ = lm.forward(vcfg, params, tok, positions=ids)
+        p_logits, _ = lm.forward(vcfg, params, tok, positions=ids,
+                                 plain=True)
         e_ids = rel_l2(k_logits, p_logits)
-        moved = rel_l2(lm.forward(vcfg, params, tok), k_logits)
+        moved = rel_l2(lm.forward(vcfg, params, tok)[0], k_logits)
         print(f"[serve] {vcfg.name} forward on one {S}-token prompt with an "
               f"image-like (t, h, w) grid of {rows} x {cols} ids: logits "
               f"kernels vs plain rel L2 {e_ids:.4g} (limit {SERVE_RTOL}); "
@@ -1819,6 +1893,270 @@ def main() -> None:
         del mtokens
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------- training
+    # (a) each backward kernel against autograd of its plain version
+    def grad_close(what, got, want, dt, rel_tol=BF16_GRAD_RTOL) -> float:
+        """fp32: max |err| within FP32_GRAD_TOL x max|ref|; bf16: relative
+        L2 within ``rel_tol``.  Returns the max |err|."""
+        err = max_err(got, want)
+        if dt == torch.float32:
+            scale = float(want.float().abs().max())
+            require(err <= FP32_GRAD_TOL * scale,
+                    f"{what}: max err {err} (limit {FP32_GRAD_TOL} x {scale})")
+        else:
+            rel = rel_l2(got, want)
+            require(got.dtype == want.dtype and rel <= rel_tol,
+                    f"{what}: rel L2 {rel} (limit {rel_tol}), {got.dtype}")
+        return err
+
+    def check_rmsnorm_bwd(R, N, dt, offset=0) -> float:
+        """rmsnorm's forward (with rstd) and backward kernels through
+        autograd, with and without gamma, against autograd of the plain
+        version; a second backward gives the same bits."""
+        x = offset_view(R, N, offset, dt, scale=2.0)
+        dy = offset_view(R, N, offset, dt)
+        g = 1.0 + offset_view(1, N, offset, scale=0.2)[0]
+        worst = 0.0
+        for gamma in (g, None):
+            runs = []
+            for fn in (ref.rmsnorm_rows, rmsnorm_rows, rmsnorm_rows):
+                xr = x.detach().requires_grad_()
+                gr = None if gamma is None else \
+                    gamma.detach().requires_grad_()
+                fn(xr, gr).backward(dy)
+                runs.append((xr.grad, None if gr is None else gr.grad))
+            torch.cuda.synchronize()
+            (dxw, dgw), (dx, dg), (dx2, dg2) = runs
+            what = (f"rmsnorm backward {R}x{N} {str(dt)[6:]} offset "
+                    f"{offset}{' +gamma' if gamma is not None else ''}")
+            require(torch.equal(dx, dx2) and (dg is None or torch.equal(dg, dg2)),
+                    f"{what}: two backward runs differ")
+            worst = max(worst, grad_close(f"{what} dx", dx, dxw, dt))
+            if gamma is not None:
+                worst = max(worst, grad_close(f"{what} dgamma", dg, dgw, dt,
+                                              DGAMMA_RTOL))
+        return worst
+
+    def check_attention_bwd(B, Hq, Hkv, Sq, Skv, D, causal, dt) -> float:
+        """The prefill kernel with its log-sum-exp, then the backward
+        kernels (any shape: the decode-shaped ones too), against autograd of
+        ``ref.mha_attention``; a second backward gives the same bits."""
+        q = randn(B, Hq, Sq, D, dtype=dt)
+        k, v = randn(B, Hkv, Skv, D, dtype=dt), randn(B, Hkv, Skv, D, dtype=dt)
+        do = randn(B, Hq, Sq, D, dtype=dt)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref.mha_attention(*leaves, causal=causal).backward(do)
+        out, lse = attention_lse(q, k, v, causal=causal)
+        grads = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        what = (f"flash_attention backward {(B, Hq, Hkv, Sq, Skv, D)} "
+                f"{'causal' if causal else 'full'} {str(dt)[6:]}")
+        require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                f"{what}: two backward runs differ")
+        return max(grad_close(f"{what} d{n}", g, leaf.grad, dt)
+                   for n, g, leaf in zip("qkv", grads, leaves))
+
+    for R, N in SFU_SHAPES:
+        errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], check_rmsnorm_bwd(
+            R, N, torch.float32))
+    for R, N, offset in RMS_BWD_ROWS:
+        for dt in (torch.float32, torch.bfloat16):
+            e = check_rmsnorm_bwd(R, N, dt, offset)
+            errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], e)
+            print(f"[train] rmsnorm backward {R}x{N} {str(dt)[6:]} offset "
+                  f"{offset}, +-gamma, deterministic: max err {e:.3g}")
+    print(f"[train] rmsnorm backward over the reference's SFU rows (fp32) "
+          f"and the rows above: max err {errs['rmsnorm_bwd']:.3g} (fp32 "
+          f"limit {FP32_GRAD_TOL} x max|ref|; bf16 dx rel L2 "
+          f"{BF16_GRAD_RTOL}, dgamma {DGAMMA_RTOL})")
+    for shape in ATTN_SHAPES:
+        for causal in (True, False):
+            e = check_attention_bwd(*shape, causal, torch.float32)
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
+            print(f"[train] flash_attention backward {shape} "
+                  f"{'causal' if causal else 'full'} fp32, deterministic: "
+                  f"max err {e:.3g}")
+    train_cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                    n_layers=TRAIN_LAYERS)
+    train_shape = (TRAIN_BATCH, train_cfg.n_heads, train_cfg.n_kv_heads,
+                   TRAIN_SEQ, TRAIN_SEQ, train_cfg.head_dim)
+    e = check_attention_bwd(*train_shape, True, torch.bfloat16)
+    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
+    print(f"[train] flash_attention backward {train_shape} causal bf16 "
+          f"({TRAIN_ARCH}'s training attention), deterministic: max err "
+          f"{e:.3g} (dq, dk, dv rel L2 limit {BF16_GRAD_RTOL})")
+
+    # (b) model gradients, kernels against plain versions, same weights and
+    # batch: fp32 over the first layers, bf16 over the training cut
+    cut_note = (f"cut: {TRAIN_LAYERS} of {get_config(TRAIN_ARCH).n_layers} "
+                f"layers, full width")
+    train_batch = for_arch(train_cfg, TRAIN_SEQ, TRAIN_BATCH,
+                           seed=0).device_batch(0, dev)
+
+    def model_grads(mcfg, params):
+        """(loss, [gradient of each leaf]) of the kernels and of the plain
+        versions."""
+        leaves = T.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        out = []
+        for plain in (False, True):
+            loss = lm.loss_fn(mcfg, params, train_batch["tokens"],
+                              train_batch["labels"], plain=plain)
+            out.append((float(loss.detach()),
+                        torch.autograd.grad(loss, leaves)))
+        torch.cuda.synchronize()
+        return out
+
+    cfg32 = dataclasses.replace(train_cfg, n_layers=MODEL_FP32_LAYERS,
+                                compute_dtype="float32")
+    p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    (lk, gk), (lp, gp) = model_grads(cfg32, p32)
+    worst = max(((max_err(a, b) / max(float(b.abs().max()), 1e-30), path)
+                 for (path, _), a, b in zip(T.leaves_with_paths(p32), gk, gp)),
+                key=lambda t: t[0])
+    print(f"[train] fp32 {TRAIN_ARCH} [{MODEL_FP32_LAYERS} layers, full "
+          f"width] gradients of loss_fn on {TRAIN_BATCH}x{TRAIN_SEQ} "
+          f"tokens, kernels vs plain versions: loss {lk:.6f} vs {lp:.6f}; "
+          f"worst leaf {worst[1]} max |err| {worst[0]:.3g} x max|g| (limit "
+          f"{MODEL_FP32_TOL}) over {len(gk)} leaves")
+    require(worst[0] <= MODEL_FP32_TOL,
+            f"fp32 model gradients: {worst[1]} differs {worst[0]} x max|g|")
+    del p32, gk, gp
+    p8 = lm.init(train_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    (lk, gk), (lp, gp) = model_grads(train_cfg, p8)
+    paths = [path for path, _ in T.leaves_with_paths(p8)]
+    diff = sum(float((a.float() - b.float()).square().sum())
+               for a, b in zip(gk, gp))
+    norm = sum(float(b.float().square().sum()) for b in gp)
+    total = (diff / norm) ** 0.5
+    per_leaf = {path: rel_l2(a, b) for path, a, b in zip(paths, gk, gp)}
+    for i in range(TRAIN_LAYERS):
+        pre = f"layers/{i}/"
+        print(f"[train] bf16 gradient rel L2, layer {i}: " + ", ".join(
+            f"{path[len(pre):]} {e:.3g}" for path, e in per_leaf.items()
+            if path.startswith(pre)))
+    print(f"[train] bf16 gradient rel L2, ends: " + ", ".join(
+        f"{path} {e:.3g}" for path, e in per_leaf.items()
+        if not path.startswith("layers/")))
+    print(f"[train] bf16 {TRAIN_ARCH} [{cut_note}] gradients of loss_fn, "
+          f"kernels vs plain versions: loss {lk:.6f} vs {lp:.6f}; the whole "
+          f"flattened gradient rel L2 {total:.4g} (limit {MODEL_BF16_RTOL})")
+    require(total <= MODEL_BF16_RTOL,
+            f"bf16 model gradients differ by {total}")
+    del p8, gk, gp
+    torch.cuda.empty_cache()
+
+    # (c) train with Trainer: the main path of this phase, counted from 0
+    L = TRAIN_LAYERS
+    per_step = {"rmsnorm": (4 * L + 1) + 4 * L, "rmsnorm_bwd": 4 * L + 1,
+                "flash_attention": 2 * L, "flash_attention_bwd": L}
+    expected = dict.fromkeys(counters, 0) | {
+        k: TRAIN_STEPS * n for k, n in per_step.items()}
+    print(f"[train] expected launches a step: rmsnorm {per_step['rmsnorm']} "
+          f"= (4 x {L} layers (norm1, q-norm, k-norm, norm2) + the final "
+          f"norm) in the forward + 4 x {L} in the remat recompute; "
+          f"rmsnorm_bwd {per_step['rmsnorm_bwd']} = 4 x {L} + 1; "
+          f"flash_attention {per_step['flash_attention']} = {L} + {L} "
+          f"recomputed; flash_attention_bwd {L}; x {TRAIN_STEPS} steps; the "
+          f"other kernels 0")
+    param_gb = train_cfg.param_count() * 16 / 1e9
+    logits_gb = 2 * TRAIN_BATCH * TRAIN_SEQ * train_cfg.vocab_size * 4 / 1e9
+    print(f"[train] predicted peak: {train_cfg.param_count() / 1e9:.4f} B "
+          f"parameters x 16 bytes (fp32 parameter, gradient and two "
+          f"moments) = {param_gb:.2f} GB, + {logits_gb:.2f} GB of fp32 "
+          f"logits and their gradient, + AdamW's temporaries for the "
+          f"largest leaf and the bf16 copies of the weights at use: "
+          f"{param_gb + logits_gb:.2f}-{param_gb + logits_gb + 8:.2f} GB")
+    trainer = Trainer(
+        train_cfg, ShapeSpec("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        opt=OptConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP,
+                      total_steps=TRAIN_STEPS),
+        options=TrainOptions(steps=TRAIN_STEPS, ckpt_every=0, log_every=1),
+        seed=0, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    params, opt_state = trainer.run(resume=False)
+    torch.cuda.synchronize()
+    ran = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] launches over {TRAIN_STEPS} steps: {ran}")
+    require(ran == expected, f"training launches {ran} differ from {expected}")
+    for k, n in ran.items():
+        launches[k] += n
+    losses = [m["loss"] for m in trainer.metrics_log]
+    require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+            and np.mean(losses[-3:]) < losses[0],
+            f"training loss did not fall: {losses}")
+    dts = sorted(m["dt"] for m in trainer.metrics_log[1:])
+    step_ms = 1e3 * dts[len(dts) // 2]
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {TRAIN_ARCH} [{cut_note}; fp32 parameters and moments, "
+          f"bf16 compute, remat] {TRAIN_STEPS} steps of {TRAIN_BATCH}x"
+          f"{TRAIN_SEQ}, AdamW peak lr {TRAIN_PEAK_LR} after {TRAIN_WARMUP} "
+          f"warm-up steps: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; mean of the last 3 {np.mean(losses[-3:]):.4f} < first "
+          f"{losses[0]:.4f}")
+    print(f"[train] step host ms (host clock around the step's loss read, "
+          f"steps 1-{TRAIN_STEPS - 1}): median {step_ms:.2f}, least "
+          f"{1e3 * dts[0]:.2f}, most {1e3 * dts[-1]:.2f}; "
+          f"{tok / (step_ms / 1e3):,.0f} tokens/s at the median [{cut_note}] "
+          f"on {smi}")
+    print(f"[train] device memory: {base / 2**30:.2f} GiB before, peak "
+          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) over the run, "
+          f"max_memory_allocated")
+    batch10 = trainer.data.device_batch(TRAIN_STEPS, dev)
+    step_s = host_s(lambda: trainer.step_fn(params, opt_state, batch10))
+    device_profile(f"{TRAIN_ARCH} [{cut_note}] train step "
+                   f"{TRAIN_BATCH}x{TRAIN_SEQ} on {smi}",
+                   lambda: trainer.step_fn(params, opt_state, batch10),
+                   step_s)
+    del trainer, params, opt_state, batch10
+    torch.cuda.empty_cache()
+    # the same run at AdamW's default peak lr, printed beside the checked
+    # run and not checked: the reason for TRAIN_PEAK_LR
+    slow = Trainer(
+        train_cfg, ShapeSpec("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        opt=OptConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS),
+        options=TrainOptions(steps=TRAIN_STEPS, ckpt_every=0,
+                             log_every=TRAIN_STEPS), seed=0, device=dev)
+    slow.run(resume=False)
+    slow_losses = [m["loss"] for m in slow.metrics_log]
+    print(f"[train] the same run at AdamW's default peak lr "
+          f"{OptConfig().peak_lr} (printed, not checked): losses "
+          + ", ".join(f"{x:.4f}" for x in slow_losses)
+          + f"; mean of the last 3 {np.mean(slow_losses[-3:]):.4f}, first "
+          f"{slow_losses[0]:.4f}")
+    del slow
+    torch.cuda.empty_cache()
+
+    # (d) fault and resume on the card: reduced qwen3-4b
+    fcfg = get_config(TRAIN_ARCH, reduced=True)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for fail in (-1, FAULT_AT):
+            ftr = Trainer(fcfg, ShapeSpec("fault", 64, 8, "train"), device=dev,
+                          options=TrainOptions(
+                              steps=FAULT_STEPS, ckpt_every=5,
+                              ckpt_dir=f"{tmp}/run{fail}", fail_at_step=fail,
+                              log_every=1000))
+            ftr.run()
+            runs.append((ftr.failures,
+                         {m["step"]: m["loss"] for m in ftr.metrics_log}))
+    (f0, clean), (f1, resumed) = runs
+    worst = max(abs(resumed[s] - clean[s]) / abs(clean[s]) for s in clean)
+    print(f"[train] fault and resume, {fcfg.name} on the card: a fault at "
+          f"step {FAULT_AT}, resumed from step 5's checkpoint; losses of "
+          f"steps 0-{FAULT_STEPS - 1} vs an uninterrupted run: worst rel "
+          f"diff {worst:.3g} (limit {FAULT_RTOL}); failures {f1}")
+    require(f0 == 0 and f1 == 1 and clean.keys() == resumed.keys()
+            == set(range(FAULT_STEPS)) and worst <= FAULT_RTOL,
+            f"fault and resume: failures {f0}/{f1}, losses {clean} vs "
+            f"{resumed}")
+
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")
     t0 = time.perf_counter()
@@ -1873,6 +2211,18 @@ def main() -> None:
     qp = randn(B, cfg.n_heads, plen, cfg.head_dim, dtype=torch.bfloat16)
     kp, vp = (randn(B, cfg.n_kv_heads, plen, cfg.head_dim,
                     dtype=torch.bfloat16) for _ in range(2))
+    # the backward kernels at qwen3-4b's training shapes (bf16): those rows
+    # and that attention with an upstream gradient; each library backward
+    # reuses its forward's saved tensors (autograd.grad, retain_graph)
+    dy_rms = randn(*x_rms.shape, dtype=torch.bfloat16)
+    rstd_rms = ref.rmsnorm_rstd(x_rms)
+    x_lib, g_lib_req = (t.detach().requires_grad_() for t in (x_rms, g_lib))
+    y_lib = F.rms_norm(x_lib, (cfg.d_model,), g_lib_req, 1e-6)
+    do_p = randn(*qp.shape, dtype=torch.bfloat16)
+    o_p, lse_p = attention_lse(qp, kp, vp, causal=True)
+    qkv_lib = [t.detach().requires_grad_() for t in (qp, kp, vp)]
+    o_lib = F.scaled_dot_product_attention(*qkv_lib, is_causal=True,
+                                           enable_gqa=True)
     # ssd at mamba2-2.7b's prefill (bf16, chunk 128)
     ssd_in = ssd_inputs(*ssm_prefill, torch.bfloat16)
     # name: (shape, kernel, plain version, one library call or None, FLOPs,
@@ -1912,6 +2262,29 @@ def main() -> None:
                                                    enable_gqa=True),
             4 * cfg.head_dim * B * cfg.n_heads * causal_pairs(plen, plen),
             2 * (2 * qp.numel() + 2 * kp.numel())),
+        # the backward kernels (no Pallas counterpart): rmsnorm's dx and
+        # dgamma, about 9 operations an element; attention's five causal
+        # products (s, dp, dv, dk, dq) at the bf16 tensor cores' peak
+        "rmsnorm_bwd": (
+            f"{x_rms.shape[0]}x{x_rms.shape[1]} bf16 +gamma (norm1's "
+            f"backward, {TRAIN_ARCH} training)",
+            lambda: sfu_k.rmsnorm_bwd(x_rms, g_rms, rstd_rms, dy_rms),
+            lambda: ref.rmsnorm_bwd(x_rms, g_rms, rstd_rms, dy_rms),
+            lambda: torch.autograd.grad(y_lib, (x_lib, g_lib_req), dy_rms,
+                                        retain_graph=True),
+            9 * x_rms.numel(),
+            6 * x_rms.numel() + 4 * x_rms.shape[0] + 8 * cfg.d_model),
+        "flash_attention_bwd": (
+            f"{tuple(qp.shape)} over {tuple(kp.shape)} causal bf16 "
+            f"({TRAIN_ARCH} training)",
+            lambda: flash_attention_bwd(qp, kp, vp, o_p, lse_p, do_p,
+                                        causal=True),
+            lambda: ref.mha_attention_bwd(qp, kp, vp, o_p, lse_p, do_p,
+                                          causal=True),
+            lambda: torch.autograd.grad(o_lib, qkv_lib, do_p,
+                                        retain_graph=True),
+            10 * cfg.head_dim * B * cfg.n_heads * causal_pairs(plen, plen),
+            2 * (4 * qp.numel() + 4 * kp.numel()) + 4 * lse_p.numel()),
         # no single PyTorch call computes the SSD scan: library_ms is null
         "ssd": (
             f"{ssm_prefill} chunk 128 bf16 (mamba2-2.7b prefill)",
@@ -1920,7 +2293,8 @@ def main() -> None:
             *ssd_work(*ssm_prefill, 128, 2)),
     }
     # the bf16 tensor cores' peak where the kernel computes on them
-    ops_peak = {"flash_attention": bf16_peak, "ssd": bf16_peak}
+    ops_peak = {"flash_attention": bf16_peak, "ssd": bf16_peak,
+                "flash_attention_bwd": bf16_peak}
 
     def report(name, shape, kernel, plain, library, flops, nbytes, peak):
         (ms, ms_b2b), (plain_ms, plain_b2b) = (
@@ -1947,6 +2321,21 @@ def main() -> None:
                lambda: ref.rmsnorm_rows(x, g),
                lambda: F.rms_norm(x, (N,), gl, 1e-6),
                4 * x.numel(), 4 * x.numel() + 4 * N, fp32_peak)
+    # rmsnorm's backward at the q-norm's and k-norm's training rows (bf16,
+    # head_dim 128: the warp kernel)
+    for R in (TRAIN_BATCH * TRAIN_SEQ * cfg.n_heads,
+              TRAIN_BATCH * TRAIN_SEQ * cfg.n_kv_heads):
+        N = cfg.head_dim
+        x, dy, g = randn(R, N, dtype=torch.bfloat16), \
+            randn(R, N, dtype=torch.bfloat16), randn(N)
+        rs = ref.rmsnorm_rstd(x)
+        xl, gl = x.detach().requires_grad_(), \
+            g.to(torch.bfloat16).requires_grad_()
+        yl = F.rms_norm(xl, (N,), gl, 1e-6)
+        report("rmsnorm_bwd", f"{R}x{N} bf16 +gamma", lambda: sfu_k.rmsnorm_bwd(
+            x, g, rs, dy), lambda: ref.rmsnorm_bwd(x, g, rs, dy),
+            lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True),
+            9 * x.numel(), 6 * x.numel() + 4 * R + 8 * N, fp32_peak)
     qd = randn(B, cfg.n_heads, 1, cfg.head_dim, dtype=torch.bfloat16)
     kd, vd = (randn(B, cfg.n_kv_heads, SERVE_MAX_LEN, cfg.head_dim,
                     dtype=torch.bfloat16) for _ in range(2))

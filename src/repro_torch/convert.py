@@ -19,6 +19,8 @@ from typing import TYPE_CHECKING, Any, Mapping
 import numpy as np
 import torch
 
+from .tree import tree_map
+
 if TYPE_CHECKING:
     from .core.codegen import MemoryMap
     from .models.config import ArchConfig
@@ -65,12 +67,6 @@ def _leaf_to_torch(arr: Any, device: torch.device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, Mapping):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(cfg: ArchConfig, tree: Mapping,
                     device: str | torch.device | None = None) -> dict:
     """The port's parameters from the reference's tree.
@@ -82,12 +78,14 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping,
     "final_norm", "layers": [one dict per layer]}`` on ``device``, layer
     ``b * pattern_len + i`` from ``blocks/pos{i}[b]``.  Weights keep the
     reference's ``(in, out)`` layout, applied as ``x @ w``; dtypes are
-    kept.
+    kept.  Any tree of the parameters' structure crosses the same way:
+    the reference's gradients (``jax.grad`` of its loss) or AdamW moments
+    land leaf for leaf on the port's parameters.
     """
     dev = resolve_device(device)
     stacked = [_unstack(cfg, tree["blocks"][f"pos{pi}"], cfg.n_blocks)
                for pi in range(cfg.pattern_len)]
-    layers = [_tree_map(lambda a, b=b: _leaf_to_torch(a[b], dev), stacked[pi])
+    layers = [tree_map(lambda a, b=b: _leaf_to_torch(a[b], dev), stacked[pi])
               for b in range(cfg.n_blocks) for pi in range(cfg.pattern_len)]
     return {**_ends(cfg, tree, ("final_norm",), dev), "layers": layers}
 
@@ -106,7 +104,7 @@ def encdec_params_from_jax(cfg: ArchConfig, tree: Mapping,
     out = _ends(cfg, tree, ("enc_norm", "final_norm"), dev)
     for key, n in (("encoder", cfg.encoder_layers), ("decoder", cfg.n_layers)):
         stacked = _unstack(cfg, tree[key], n)
-        out[key] = [_tree_map(lambda a, i=i: _leaf_to_torch(a[i], dev),
+        out[key] = [tree_map(lambda a, i=i: _leaf_to_torch(a[i], dev),
                               stacked) for i in range(n)]
     return out
 
@@ -122,18 +120,18 @@ def _ends(cfg: ArchConfig, tree: Mapping, norms: tuple[str, ...],
                          f"{head.shape} do not match vocab {V}, d_model {D}")
     return {"embed": _leaf_to_torch(embed, dev),
             "lm_head": _leaf_to_torch(head, dev),
-            **{n: _tree_map(lambda a: _leaf_to_torch(a, dev), tree[n])
+            **{n: tree_map(lambda a: _leaf_to_torch(a, dev), tree[n])
                for n in norms}}
 
 
 def _unstack(cfg: ArchConfig, tree: Mapping, n: int) -> dict:
     """``tree``'s leaves as numpy arrays, each checked to be stacked over
     ``n`` layers."""
-    stacked = _tree_map(np.asarray, tree)
+    stacked = tree_map(np.asarray, tree)
 
     def check(arr):
         if arr.ndim == 0 or arr.shape[0] != n:
             raise ValueError(f"{cfg.name}: a layer leaf of shape {arr.shape} "
                              f"is not stacked over {n} layers")
-    _tree_map(check, stacked)
+    tree_map(check, stacked)
     return stacked

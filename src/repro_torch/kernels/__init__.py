@@ -2,8 +2,9 @@
 
 flex_gemm        — dynamic-loop-bound GEMM (the paper's MMU, §3.3)
 sfu              — row softmax / layernorm / rmsnorm and element-wise
-                   activations (§3.5)
-flash_attention  — GQA attention with an online softmax (serving)
+                   activations (§3.5); rmsnorm's backward
+flash_attention  — GQA attention with an online softmax (serving), and
+                   its backward (training)
 ssd              — the Mamba-2 chunked SSD scan (SSM prefill)
 ops              — the model code's entry points (leading dims flattened)
 
@@ -12,6 +13,7 @@ Sources live in ``csrc/`` and are built by ``_build`` at first use.
 
 from . import ref
 from .flex_gemm import flex_gemm
-from .flash_attention import flash_attention
-from .sfu import act_rows, layernorm_rows, rmsnorm_rows, softmax_rows
+from .flash_attention import flash_attention, flash_attention_bwd
+from .sfu import (act_rows, layernorm_rows, rmsnorm_bwd, rmsnorm_rows,
+                  softmax_rows)
 from .ssd import ssd

@@ -100,6 +100,24 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode is on and
+    one of them (None skipped) requires grad."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a call to a kernel that has no
+    backward yet: its output would carry no gradient to its inputs."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: its CUDA kernel has no backward yet (ROADMAP A.5b), "
+            f"so autograd would get no gradient through it; call it under "
+            f"torch.no_grad() or on tensors that do not require grad")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error "

@@ -79,6 +79,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
@@ -146,8 +147,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ o,
-                           int Hq, int Hkv, int Sq, int Skv, int kv_stride,
-                           int causal, float scale_log2) {
+                           float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                           int Skv, int kv_stride, int causal,
+                           float scale_log2) {
   constexpr int LD = D + 8;         // padded smem row, in bf16
   constexpr int KD = D / 16;        // k-steps of Q K^T
   constexpr int NS = MMA_BK / 8;    // 8-key n-tiles of S
@@ -305,6 +307,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     const int qi = row0 + r * 8;
     const float sum = quad_sum(l[r]);
     if (qi >= Sq) continue;
+    if (lse != nullptr && t == 0)  // natural log-sum-exp of the scaled scores
+      lse[((size_t)b * Hq + h) * Sq + qi] =
+          sum > 0.0f ? (m[r] * scale_log2 + log2f(sum)) * LN2 : NEG_INF;
     const float inv = 1.0f / (sum == 0.0f ? 1.0f : sum);  // empty row -> 0
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
@@ -317,9 +322,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
-               float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+               int kv_stride, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   auto kernel = flash_attention_mma_kernel<D>;
   const cudaError_t e = allow_smem(kernel, smem);
@@ -327,8 +332,9 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(Hq, B, (Sq + MMA_BQ - 1) / MMA_BQ);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Sq, Skv,
-      kv_stride, causal, scale * LOG2E);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), Hq, Hkv, Sq, Skv, kv_stride, causal,
+      scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,8 +411,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int Hq, int Hkv, int Sq, int Skv, int kv_stride,
-                       int causal, float scale) {
+                       float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                       int Skv, int kv_stride, int causal, float scale) {
   constexpr int RPT = BQ / 16;  // query rows per thread
   constexpr int CPT = BK / 16;  // key columns per thread
   constexpr int DPT = D / 16;   // output columns per thread
@@ -518,6 +524,9 @@ flash_attention_kernel(const float* __restrict__ q,
   for (int i = 0; i < RPT; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= Sq) continue;
+    if (lse != nullptr && tx == 0)  // m and l are of the scaled scores
+      lse[((size_t)b * Hq + h) * Sq + qpos] =
+          l[i] > 0.0f ? m[i] + logf(l[i]) : NEG_INF;
     const float denom = l[i] == 0.0f ? 1.0f : l[i];  // empty row -> 0
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd)
@@ -526,9 +535,9 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 template <int D, int BQ, int BK>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
-               float scale, cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+               int kv_stride, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, BQ, BK>();
   auto kernel = flash_attention_kernel<D, BQ, BK>;
   const cudaError_t e = allow_smem(kernel, smem);
@@ -536,8 +545,8 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv,
-      kv_stride, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Hq, Hkv, Sq, Skv, kv_stride, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -546,20 +555,20 @@ template <typename T, int D>
 struct Prefill;
 template <int D>
 struct Prefill<bf16, D> {
-  static int run(const void* q, const void* k, const void* v, void* o, int B,
-                 int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
-                 float scale, cudaStream_t s) {
-    return launch_mma<D>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride, causal,
-                         scale, s);
+  static int run(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                 int kv_stride, int causal, float scale, cudaStream_t s) {
+    return launch_mma<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, kv_stride,
+                         causal, scale, s);
   }
 };
 template <int D>
 struct Prefill<float, D> {
-  static int run(const void* q, const void* k, const void* v, void* o, int B,
-                 int Hq, int Hkv, int Sq, int Skv, int kv_stride, int causal,
-                 float scale, cudaStream_t s) {
-    return launch_fma<D, 64, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
-                                 causal, scale, s);
+  static int run(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                 int kv_stride, int causal, float scale, cudaStream_t s) {
+    return launch_fma<D, 64, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                 kv_stride, causal, scale, s);
   }
 };
 
@@ -845,25 +854,383 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// --------------------------------------- 4. backward, fp32 FMA (prefill)
+// FlashAttention-2's backward for the prefill kernels above, from the
+// forward's output o and its log-sum-exp (lse).  With s = q k^T * scale
+// and p = exp(s - lse) over the visible keys (0 elsewhere, never exp of a
+// masked score, so a row with no visible key gets no gradient):
+//   delta_i = dO_i . O_i               (flash_bwd_delta_kernel)
+//   dp_ij = dO_i . V_j,  ds_ij = p_ij (dp_ij - delta_i)
+//   dV_j = sum_i p_ij dO_i,  dK_j = scale sum_i ds_ij Q_i   (flash_bwd_kv)
+//   dQ_i = scale sum_j ds_ij K_j                           (flash_bwd_q)
+// No Pallas kernel differentiates (the reference differentiates its jnp
+// attention).  dK/dV: a block per (KV head, batch, 64-key tile) loops over
+// every query head of its GQA group and the 64-row query tiles that see
+// its keys, with dK and dV in registers; dQ: a block per (query head,
+// batch, 64-row tile) loops over the key tiles its rows see.  Each output
+// element is one thread's sum in a fixed order: no atomics, the same bits
+// every run.  Tiles wholly above the causal diagonal are skipped.  Both
+// types compute in fp32 on the CUDA cores (FMA; no TF32); operands are
+// staged in shared memory as fp32 rows of D + 1 floats (no bank
+// conflicts), 256 threads as 16 x 16, each thread 4 x 4 scores of a tile
+// and 4 x D/16 outputs.  Bound on the H100: at qwen3-4b's training shape
+// the five causal products on the tensor cores (0.0217 ms at 989 TFLOP/s)
+// or the bytes (about 0.025 ms); this kernel reads every tile from shared
+// memory at two FMAs a load, slower than both: tensor cores are later
+// work.
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_BQ = 64;   // query rows a tile
+constexpr int BWD_BK = 64;   // keys a tile
+constexpr int BWD_LP = BWD_BK + 1;
+
+template <int D>
+constexpr size_t bwd_kv_smem() {   // K, V, Q, dO tiles, then p and ds
+  return sizeof(float) * ((2 * BWD_BK + 2 * BWD_BQ) * (D + 1) +
+                          2 * BWD_BQ * BWD_LP);
+}
+template <int D>
+constexpr size_t bwd_q_smem() {    // Q, dO, K, V tiles, then ds
+  return sizeof(float) * ((2 * BWD_BK + 2 * BWD_BQ) * (D + 1) +
+                          BWD_BQ * BWD_LP);
+}
+
+// Rows [r0, r0 + ROWS) of src (rows of D elements of T) into dst as fp32
+// rows of D + 1; rows at or past `limit` are zero.  16-byte loads.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void stage_f32(float* dst, const T* src, int r0,
+                                          int limit) {
+  constexpr int E = 16 / sizeof(T), PER_ROW = D / E, N = ROWS * PER_ROW;
+  for (int i = threadIdx.x; i < N; i += BWD_THREADS) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * E;
+    float v[E];
+    if (r0 + r < limit) {
+      widen16(src + (size_t)(r0 + r) * D + c, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) v[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) dst[r * (D + 1) + c + e] = v[e];
+  }
+}
+
+// delta = rowsum(dO * O) over rows of D, a warp a row, 8 rows a block.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int rows) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float s = 0.0f;
+  for (int d = lane; d < D; d += 32)
+    s += to_f32(o[(size_t)row * D + d]) * to_f32(dout[(size_t)row * D + d]);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+  if (lane == 0) delta[row] = s;
+}
+
+// s (scores) and dp of one tile pair from the staged rows: thread (ty, tx)
+// takes query rows ty + 16 i and keys tx + 16 j.
+template <int D>
+__device__ __forceinline__ void bwd_scores(const float* Qs, const float* Ds,
+                                           const float* Ks, const float* Vs,
+                                           int ty, int tx, float (&s)[4][4],
+                                           float (&dp)[4][4]) {
+  constexpr int LD = D + 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qv[4], dov[4], kv[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qv[i] = Qs[(ty + 16 * i) * LD + d];
+      dov[i] = Ds[(ty + 16 * i) * LD + d];
+      kv[i] = Ks[(tx + 16 * i) * LD + d];
+      vv[i] = Vs[(tx + 16 * i) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      }
+  }
+}
+
+// Whether query row qi sees key kj (rows past Sq see nothing).
+__device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Skv,
+                                        int causal, int offset) {
+  return qi < Sq && kj < Skv && (!causal || kj <= qi + offset);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
+                    int causal, float scale) {
+  constexpr int LD = D + 1, DPT = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;                  // BWD_BK x LD
+  float* Vs = Ks + BWD_BK * LD;      // BWD_BK x LD
+  float* Qs = Vs + BWD_BK * LD;      // BWD_BQ x LD
+  float* Ds = Qs + BWD_BQ * LD;      // BWD_BQ x LD, dO
+  float* Ps = Ds + BWD_BQ * LD;      // BWD_BQ x BWD_LP, p
+  float* Ss = Ps + BWD_BQ * BWD_LP;  // BWD_BQ x BWD_LP, ds
+  __shared__ float lse_s[BWD_BQ], delta_s[BWD_BQ];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BWD_BK;
+  const int group = Hq / Hkv, offset = Skv - Sq;
+  const size_t kv_base = ((size_t)b * Hkv + hk) * Skv * D;
+  stage_f32<T, D, BWD_BK>(Ks, k + kv_base, k0, Skv);
+  stage_f32<T, D, BWD_BK>(Vs, v + kv_base, k0, Skv);
+
+  float dk_acc[4][DPT], dv_acc[4][DPT];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.0f;
+  // the first query row that sees a key of this tile: qi + offset >= k0
+  const int t_first = causal ? max(0, k0 - offset) / BWD_BQ : 0;
+  const int n_qt = (Sq + BWD_BQ - 1) / BWD_BQ;
+  for (int hi = 0; hi < group; ++hi) {
+    const int h = hk * group + hi;
+    const size_t q_base = ((size_t)b * Hq + h) * Sq;
+    for (int qt = t_first; qt < n_qt; ++qt) {
+      const int q0 = qt * BWD_BQ;
+      __syncthreads();   // the last tile's Qs, Ds, Ps, Ss are read
+      stage_f32<T, D, BWD_BQ>(Qs, q + q_base * D, q0, Sq);
+      stage_f32<T, D, BWD_BQ>(Ds, dout + q_base * D, q0, Sq);
+      if (tid < BWD_BQ) {
+        const bool in = q0 + tid < Sq;
+        lse_s[tid] = in ? lse[q_base + q0 + tid] : 0.0f;
+        delta_s[tid] = in ? delta[q_base + q0 + tid] : 0.0f;
+      }
+      __syncthreads();
+      float s[4][4], dp[4][4];
+      bwd_scores<D>(Qs, Ds, Ks, Vs, ty, tx, s, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          const float p = visible(q0 + r, k0 + c, Sq, Skv, causal, offset)
+                              ? expf(s[i][j] * scale - lse_s[r])
+                              : 0.0f;
+          Ps[r * BWD_LP + c] = p;
+          Ss[r * BWD_LP + c] = p * (dp[i][j] - delta_s[r]);
+        }
+      }
+      __syncthreads();
+      // dV += p^T dO and dK += ds^T Q: keys ty + 16 a, columns tx + 16 c
+#pragma unroll 4
+      for (int i = 0; i < BWD_BQ; ++i) {
+        float pv[4], sv[4], dov[DPT], qv[DPT];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pv[a] = Ps[i * BWD_LP + ty + 16 * a];
+          sv[a] = Ss[i * BWD_LP + ty + 16 * a];
+        }
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) {
+          dov[c] = Ds[i * LD + tx + 16 * c];
+          qv[c] = Qs[i * LD + tx + 16 * c];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < DPT; ++c) {
+            dv_acc[a][c] = fmaf(pv[a], dov[c], dv_acc[a][c]);
+            dk_acc[a][c] = fmaf(sv[a], qv[c], dk_acc[a][c]);
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int kj = k0 + ty + 16 * a;
+    if (kj >= Skv) continue;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) {
+      const size_t at = kv_base + (size_t)kj * D + tx + 16 * c;
+      store(dk + at, dk_acc[a][c] * scale);
+      store(dv + at, dv_acc[a][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq,
+                   int Hq, int Hkv, int Sq, int Skv, int causal,
+                   float scale) {
+  constexpr int LD = D + 1, DPT = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;                  // BWD_BQ x LD
+  float* Ds = Qs + BWD_BQ * LD;      // BWD_BQ x LD, dO
+  float* Ks = Ds + BWD_BQ * LD;      // BWD_BK x LD
+  float* Vs = Ks + BWD_BK * LD;      // BWD_BK x LD
+  float* Ss = Vs + BWD_BK * LD;      // BWD_BQ x BWD_LP, ds
+  __shared__ float lse_s[BWD_BQ], delta_s[BWD_BQ];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // the query tile is the slowest grid axis, reversed: the heaviest causal
+  // tiles of every head start first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BWD_BQ;
+  const int hk = h / (Hq / Hkv), offset = Skv - Sq;
+  const size_t q_base = ((size_t)b * Hq + h) * Sq;
+  const size_t kv_base = ((size_t)b * Hkv + hk) * Skv * D;
+  stage_f32<T, D, BWD_BQ>(Qs, q + q_base * D, q0, Sq);
+  stage_f32<T, D, BWD_BQ>(Ds, dout + q_base * D, q0, Sq);
+  if (tid < BWD_BQ) {
+    const bool in = q0 + tid < Sq;
+    lse_s[tid] = in ? lse[q_base + q0 + tid] : 0.0f;
+    delta_s[tid] = in ? delta[q_base + q0 + tid] : 0.0f;
+  }
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, min(q0 + BWD_BQ, Sq) + offset);
+
+  float dq_acc[4][DPT];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) dq_acc[a][c] = 0.0f;
+  for (int k0 = 0; k0 < kv_end; k0 += BWD_BK) {
+    __syncthreads();   // the last tile's Ks, Vs, Ss are read
+    stage_f32<T, D, BWD_BK>(Ks, k + kv_base, k0, Skv);
+    stage_f32<T, D, BWD_BK>(Vs, v + kv_base, k0, Skv);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    bwd_scores<D>(Qs, Ds, Ks, Vs, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float p = visible(q0 + r, k0 + c, Sq, Skv, causal, offset)
+                            ? expf(s[i][j] * scale - lse_s[r])
+                            : 0.0f;
+        Ss[r * BWD_LP + c] = p * (dp[i][j] - delta_s[r]);
+      }
+    }
+    __syncthreads();
+    // dQ += ds K: rows ty + 16 a, columns tx + 16 c
+#pragma unroll 4
+    for (int j = 0; j < BWD_BK; ++j) {
+      float sv[4], kv[DPT];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) sv[a] = Ss[(ty + 16 * a) * BWD_LP + j];
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) kv[c] = Ks[j * LD + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < DPT; ++c)
+          dq_acc[a][c] = fmaf(sv[a], kv[c], dq_acc[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int qi = q0 + ty + 16 * a;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c)
+      store(dq + (q_base + qi) * D + tx + 16 * c, dq_acc[a][c] * scale);
+  }
+}
+
+template <typename T, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* delta, void* dq,
+               void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+               int causal, float scale, cudaStream_t s) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const float* ls = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  const int rows = B * Hq * Sq;
+  flash_bwd_delta_kernel<T, D><<<(rows + 7) / 8, 256, 0, s>>>(
+      static_cast<const T*>(o), dot, dl, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto kv_kernel = flash_bwd_kv_kernel<T, D>;
+  e = allow_smem(kv_kernel, bwd_kv_smem<D>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kv_kernel<<<dim3(Hkv, B, (Skv + BWD_BK - 1) / BWD_BK), BWD_THREADS,
+              bwd_kv_smem<D>(), s>>>(qt, kt, vt, dot, ls, dl,
+                                     static_cast<T*>(dk), static_cast<T*>(dv),
+                                     Hq, Hkv, Sq, Skv, causal, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto q_kernel = flash_bwd_q_kernel<T, D>;
+  e = allow_smem(q_kernel, bwd_q_smem<D>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  q_kernel<<<dim3(Hq, B, (Sq + BWD_BQ - 1) / BWD_BQ), BWD_THREADS,
+             bwd_q_smem<D>(), s>>>(qt, kt, vt, dot, ls, dl,
+                                   static_cast<T*>(dq), Hq, Hkv, Sq, Skv,
+                                   causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const void* lse, void* delta, void* dq,
+                 void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+                 int D, int causal, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch_bwd<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               Hq, Hkv, Sq, Skv, causal, scale, s);
+    case 32:
+      return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               Hq, Hkv, Sq, Skv, causal, scale, s);
+    case 64:
+      return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               Hq, Hkv, Sq, Skv, causal, scale, s);
+    case 128:
+      return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                Hq, Hkv, Sq, Skv, causal, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // ------------------------------------------------------------- dispatch
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Hq, int Hkv, int Sq, int Skv, int kv_stride, int D,
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int Hq, int Hkv, int Sq, int Skv, int kv_stride, int D,
              int causal, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return Prefill<T, 16>::run(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
-                                 causal, scale, s);
+      return Prefill<T, 16>::run(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                 kv_stride, causal, scale, s);
     case 32:
-      return Prefill<T, 32>::run(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
-                                 causal, scale, s);
+      return Prefill<T, 32>::run(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                 kv_stride, causal, scale, s);
     case 64:
-      return Prefill<T, 64>::run(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride,
-                                 causal, scale, s);
+      return Prefill<T, 64>::run(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                 kv_stride, causal, scale, s);
     case 128:
-      return Prefill<T, 128>::run(q, k, v, o, B, Hq, Hkv, Sq, Skv,
+      return Prefill<T, 128>::run(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
                                   kv_stride, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -904,21 +1271,24 @@ int dispatch_decode(const void* q, const void* k, const void* v, void* o,
 // k, v: (B, Hkv, kv_stride, D) contiguous, of which rows [0, Skv) are
 // read; q, k and v 16-byte aligned.  D is one of 16, 32, 64, 128.  Each
 // returns cudaGetLastError() after its launches (0 = launched).
+// Prefill; lse, where not null, takes the fp32 natural log-sum-exp of
+// each query row's scaled scores, (B, Hq, Sq) (-1e30 for a row with no
+// visible key): the forward under autograd, for the backward.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Hq,
-                                   int Hkv, int Sq, int Skv, int kv_stride,
-                                   int D, int causal, float scale,
-                                   void* stream) {
-  return dispatch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride, D,
+                                   const void* v, void* o, void* lse, int B,
+                                   int Hq, int Hkv, int Sq, int Skv,
+                                   int kv_stride, int D, int causal,
+                                   float scale, void* stream) {
+  return dispatch<float>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, kv_stride, D,
                          causal, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int Hq,
-                                    int Hkv, int Sq, int Skv, int kv_stride,
-                                    int D, int causal, float scale,
-                                    void* stream) {
-  return dispatch<bf16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, kv_stride, D,
+                                    const void* v, void* o, void* lse, int B,
+                                    int Hq, int Hkv, int Sq, int Skv,
+                                    int kv_stride, int D, int causal,
+                                    float scale, void* stream) {
+  return dispatch<bf16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, kv_stride, D,
                         causal, scale, stream);
 }
 
@@ -944,4 +1314,30 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
   return dispatch_decode<bf16>(q, k, v, o, ws, B, Hq, Hkv, Sq, Skv,
                                kv_stride, D, causal, scale, rows_per_split,
                                splits, stream);
+}
+
+// Backward of the prefill kernels: q, dout, dq (B, Hq, Sq, D); k, v, dk, dv
+// (B, Hkv, Skv, D); o the forward's output; lse its (B, Hq, Sq) fp32
+// log-sum-exp; delta an fp32 workspace of B * Hq * Sq.  All contiguous and
+// 16-byte aligned; dq, dk, dv in the operands' type.
+extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
+                                       const void* v, const void* o,
+                                       const void* dout, const void* lse,
+                                       void* delta, void* dq, void* dk,
+                                       void* dv, int B, int Hq, int Hkv,
+                                       int Sq, int Skv, int D, int causal,
+                                       float scale, void* stream) {
+  return dispatch_bwd<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
+                             Hkv, Sq, Skv, D, causal, scale, stream);
+}
+
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k,
+                                        const void* v, const void* o,
+                                        const void* dout, const void* lse,
+                                        void* delta, void* dq, void* dk,
+                                        void* dv, int B, int Hq, int Hkv,
+                                        int Sq, int Skv, int D, int causal,
+                                        float scale, void* stream) {
+  return dispatch_bwd<bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
+                            Hkv, Sq, Skv, D, causal, scale, stream);
 }

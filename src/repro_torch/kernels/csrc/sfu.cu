@@ -416,7 +416,8 @@ act_vec_kernel(const float* __restrict__ x, float* __restrict__ y,
 template <typename T>
 __global__ void __launch_bounds__(WARP_ROWS * 32)
 rmsnorm_warp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                    T* __restrict__ y, int R, int N, float eps) {
+                    T* __restrict__ y, float* __restrict__ rstd, int R, int N,
+                    float eps) {
   const int row = blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= R) return;   // whole warps leave together: no shuffle is cut
@@ -428,6 +429,7 @@ rmsnorm_warp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     ss += v * v;
   }
   const float r = rsqrtf(warp_reduce<false>(ss) / static_cast<float>(N) + eps);
+  if (rstd != nullptr && lane == 0) rstd[row] = r;
   for (int j = lane; j < N; j += 32) {
     float v = to_f32(xr[j]) * r;
     if (gamma != nullptr) v *= gamma[j];
@@ -441,7 +443,8 @@ rmsnorm_warp_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 template <typename T>
 __global__ void __launch_bounds__(ROW_THREADS)
 rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                     T* __restrict__ y, int N, float eps) {
+                     T* __restrict__ y, float* __restrict__ rstd, int N,
+                     float eps) {
   const T* xr = x + (size_t)blockIdx.x * N;
   T* yr = y + (size_t)blockIdx.x * N;
   float ss = 0.0f;
@@ -451,6 +454,7 @@ rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
   const float r =
       rsqrtf(block_reduce<false>(ss) / static_cast<float>(N) + eps);
+  if (rstd != nullptr && threadIdx.x == 0) rstd[blockIdx.x] = r;
   for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
     float v = to_f32(xr[j]) * r;
     if (gamma != nullptr) v *= gamma[j];
@@ -469,12 +473,14 @@ rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 // launch bound names one block an SM: with the bound alone ptxas held bf16
 // layernorm to 32 registers and spilled.  CENTER: layernorm (mean, then
 // the population variance over the registers, gamma and beta); else
-// rmsnorm (the mean square, gamma; beta is null).
+// rmsnorm (the mean square, gamma; beta is null).  rstd, where not null,
+// takes each row's 1 / sqrt(mean square + eps) (rmsnorm's forward under
+// autograd, for its backward).
 template <typename T, bool CENTER>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 norm_vec_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ beta, T* __restrict__ y, int V,
-                float eps) {
+                const float* __restrict__ beta, T* __restrict__ y,
+                float* __restrict__ rstd, int V, float eps) {
   using P = Vec16<T>;
   __shared__ float part[2][MAX_THREADS / 32];   // one sum per warp of the row
   const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)blockIdx.x * V;
@@ -513,6 +519,7 @@ norm_vec_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
     }
   }
   const float r = rsqrtf(row_sum(ss, part[1]) / n + eps);
+  if (rstd != nullptr && threadIdx.x == 0) rstd[blockIdx.x] = r;
   uint4* yr = reinterpret_cast<uint4*>(y) + (size_t)blockIdx.x * V;
 #pragma unroll
   for (int k = 0; k < ROW_VPT; ++k) {
@@ -604,7 +611,7 @@ int launch_layernorm(const void* x, const void* gamma, const void* beta,
     if (!vec_plan_ok<T>(N, threads, x, gamma, beta, y))
       return static_cast<int>(cudaErrorInvalidValue);
     norm_vec_kernel<T, true><<<R, threads, 0, st>>>(
-        xt, g, b, yt, static_cast<int>(N * sizeof(T) / 16), eps);
+        xt, g, b, yt, nullptr, static_cast<int>(N * sizeof(T) / 16), eps);
     return static_cast<int>(cudaGetLastError());
   }
   if (slots > 0) {
@@ -622,27 +629,262 @@ int launch_layernorm(const void* x, const void* gamma, const void* beta,
 
 // threads 0: the scalar kernels (a warp a row up to WARP_ROW_MAX wide, else
 // a block a row); else the one-pass kernel with `threads` threads a row of
-// N * sizeof(T) / 16 vectors.
+// N * sizeof(T) / 16 vectors.  rstd (R floats) may be null.
 template <typename T>
-int launch_rmsnorm(const void* x, const void* gamma, void* y, int R, int N,
-                   float eps, int threads, void* stream) {
+int launch_rmsnorm(const void* x, const void* gamma, void* y, void* rstd,
+                   int R, int N, float eps, int threads, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const float* g = static_cast<const float*>(gamma);
   T* yt = static_cast<T*>(y);
+  float* rs = static_cast<float*>(rstd);
   if (threads == 0) {
     if (N <= WARP_ROW_MAX) {
       rmsnorm_warp_kernel<T><<<(R + WARP_ROWS - 1) / WARP_ROWS,
-                               WARP_ROWS * 32, 0, s>>>(xt, g, yt, R, N, eps);
+                               WARP_ROWS * 32, 0, s>>>(xt, g, yt, rs, R, N,
+                                                       eps);
     } else {
-      rmsnorm_block_kernel<T><<<R, ROW_THREADS, 0, s>>>(xt, g, yt, N, eps);
+      rmsnorm_block_kernel<T><<<R, ROW_THREADS, 0, s>>>(xt, g, yt, rs, N,
+                                                        eps);
     }
     return static_cast<int>(cudaGetLastError());
   }
   if (!vec_plan_ok<T>(N, threads, x, gamma, nullptr, y))
     return static_cast<int>(cudaErrorInvalidValue);
   norm_vec_kernel<T, false><<<R, threads, 0, s>>>(
-      xt, g, nullptr, yt, static_cast<int>(N * sizeof(T) / 16), eps);
+      xt, g, nullptr, yt, rs, static_cast<int>(N * sizeof(T) / 16), eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------- rmsnorm backward
+// y = x * r * gamma with r = 1 / sqrt(mean(x^2) + eps) gives, over a row of
+// N, with xh = x * r (r the forward's, saved as rstd):
+//   dx = r * (gamma * dy - xh * mean(gamma * dy * xh)),
+// and dgamma = sum over rows of dy * xh.  No Pallas kernel differentiates
+// (the reference differentiates its jnp rmsnorm).  Bound: device-memory
+// bytes (x and dy read, dx written once).  Each kernel takes the block
+// shape of its forward (a warp a row up to WARP_ROW_MAX, the one-pass
+// vector kernel, the block kernel) and walks rows cyclically over a fixed
+// grid of `blocks` (the wrapper's plan), so that dgamma's column sums run
+// over the block's rows in a fixed order, then over the blocks in a fixed
+// order (column_sum_kernel): no atomics, the same bits every run.
+
+// A warp a row of N <= WARP_ROW_MAX; warp w of block b takes rows
+// (b + k * gridDim.x) * WARP_ROWS + w.  With gamma each warp sums its rows'
+// dy * xh in its own shared row of N floats (lane l owns columns l + 32 i),
+// and the block writes the sum of its warps' rows, in warp order, to
+// part[blockIdx.x].
+template <typename T>
+__global__ void __launch_bounds__(WARP_ROWS * 32)
+rmsnorm_bwd_warp_kernel(const T* __restrict__ x,
+                        const float* __restrict__ gamma,
+                        const float* __restrict__ rstd,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ part, int R, int N) {
+  extern __shared__ float acc[];   // WARP_ROWS x N, with gamma
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* mine = acc + warp * N;
+  if (gamma != nullptr)
+    for (int j = lane; j < N; j += 32) mine[j] = 0.0f;
+  const float inv_n = 1.0f / static_cast<float>(N);
+  for (int row = blockIdx.x * WARP_ROWS + warp; row < R;
+       row += gridDim.x * WARP_ROWS) {   // whole warps: no shuffle is cut
+    const T* xr = x + (size_t)row * N;
+    const T* dr = dy + (size_t)row * N;
+    const float r = rstd[row];
+    float s = 0.0f;
+    for (int j = lane; j < N; j += 32) {
+      const float xh = to_f32(xr[j]) * r, d = to_f32(dr[j]);
+      s += (gamma != nullptr ? gamma[j] * d : d) * xh;
+      if (gamma != nullptr) mine[j] += d * xh;
+    }
+    const float c = warp_reduce<false>(s) * inv_n;
+    T* out = dx + (size_t)row * N;
+    for (int j = lane; j < N; j += 32) {
+      const float xh = to_f32(xr[j]) * r, d = to_f32(dr[j]);
+      store(out + j, r * ((gamma != nullptr ? gamma[j] * d : d) - xh * c));
+    }
+  }
+  if (gamma == nullptr) return;
+  __syncthreads();
+  for (int j = threadIdx.x; j < N; j += WARP_ROWS * 32) {
+    float t = 0.0f;
+    for (int w = 0; w < WARP_ROWS; ++w) t += acc[w * N + j];
+    part[(size_t)blockIdx.x * N + j] = t;
+  }
+}
+
+// The one-pass forward's rows (norm_plan): blockDim.x threads a row, thread
+// t holding the row's 16-byte vectors t and t + blockDim.x; block b takes
+// rows b + k * gridDim.x.  Each thread sums dy * xh of its own columns in
+// registers over its rows and writes them to part[blockIdx.x].
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ rstd,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ part, int R, int V) {
+  using P = Vec16<T>;
+  __shared__ float red[2][MAX_THREADS / 32];   // row_sum's, alternating
+  float acc[ROW_VPT][P::E];
+#pragma unroll
+  for (int k = 0; k < ROW_VPT; ++k)
+#pragma unroll
+    for (int e = 0; e < P::E; ++e) acc[k][e] = 0.0f;
+  const float inv_n = 1.0f / static_cast<float>(V * P::E);
+  int it = 0;
+  for (int row = blockIdx.x; row < R; row += gridDim.x, ++it) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)row * V;
+    const uint4* dr = reinterpret_cast<const uint4*>(dy) + (size_t)row * V;
+    const float r = rstd[row];
+    uint4 ux[ROW_VPT], ud[ROW_VPT];
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < ROW_VPT; ++k) {
+      const int j = threadIdx.x + k * blockDim.x;
+      if (j < V) {
+        ux[k] = __ldg(xr + j);
+        ud[k] = __ldg(dr + j);
+        float f[P::E], d[P::E];
+        P::unpack(ux[k], f);
+        P::unpack(ud[k], d);
+#pragma unroll
+        for (int q = 0; q < P::E; q += 4) {
+          float g[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+          if (gamma != nullptr) load_cols<4>(gamma, j * P::E + q, g);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float xh = f[q + e] * r;
+            s += g[e] * d[q + e] * xh;
+            acc[k][q + e] += d[q + e] * xh;
+          }
+        }
+      }
+    }
+    const float c = row_sum(s, red[it & 1]) * inv_n;
+    uint4* out = reinterpret_cast<uint4*>(dx) + (size_t)row * V;
+#pragma unroll
+    for (int k = 0; k < ROW_VPT; ++k) {
+      const int j = threadIdx.x + k * blockDim.x;
+      if (j < V) {
+        float f[P::E], d[P::E];
+        P::unpack(ux[k], f);
+        P::unpack(ud[k], d);
+#pragma unroll
+        for (int q = 0; q < P::E; q += 4) {
+          float g[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+          if (gamma != nullptr) load_cols<4>(gamma, j * P::E + q, g);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            f[q + e] = r * (g[e] * d[q + e] - f[q + e] * r * c);
+        }
+        out[j] = P::pack(f);
+      }
+    }
+  }
+  if (gamma == nullptr) return;
+  const int N = V * P::E;
+#pragma unroll
+  for (int k = 0; k < ROW_VPT; ++k) {
+    const int j = threadIdx.x + k * blockDim.x;
+    if (j < V) {
+#pragma unroll
+      for (int e = 0; e < P::E; ++e)
+        part[(size_t)blockIdx.x * N + j * P::E + e] = acc[k][e];
+    }
+  }
+}
+
+// Any other row (wider, unaligned or ragged): ROW_THREADS threads a row,
+// thread t on columns t + ROW_THREADS i; block b takes rows b + k *
+// gridDim.x.  With gamma, thread t adds its columns' dy * xh into
+// part[blockIdx.x] in device memory (each column is one thread's).
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+rmsnorm_bwd_block_kernel(const T* __restrict__ x,
+                         const float* __restrict__ gamma,
+                         const float* __restrict__ rstd,
+                         const T* __restrict__ dy, T* __restrict__ dx,
+                         float* __restrict__ part, int R, int N) {
+  float* mine = part + (size_t)blockIdx.x * N;
+  if (gamma != nullptr)
+    for (int j = threadIdx.x; j < N; j += ROW_THREADS) mine[j] = 0.0f;
+  const float inv_n = 1.0f / static_cast<float>(N);
+  for (int row = blockIdx.x; row < R; row += gridDim.x) {
+    const T* xr = x + (size_t)row * N;
+    const T* dr = dy + (size_t)row * N;
+    const float r = rstd[row];
+    float s = 0.0f;
+    for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
+      const float xh = to_f32(xr[j]) * r, d = to_f32(dr[j]);
+      s += (gamma != nullptr ? gamma[j] * d : d) * xh;
+      if (gamma != nullptr) mine[j] += d * xh;
+    }
+    const float c = block_reduce<false>(s) * inv_n;
+    T* out = dx + (size_t)row * N;
+    for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
+      const float xh = to_f32(xr[j]) * r, d = to_f32(dr[j]);
+      store(out + j, r * ((gamma != nullptr ? gamma[j] * d : d) - xh * c));
+    }
+  }
+}
+
+// out[j] = sum over b < blocks of part[b][j], in a fixed order: warp w of
+// a block of CS_WARPS sums rows w, w + CS_WARPS, ... for 32 columns, then
+// warp 0 adds the warps' sums in warp order.
+constexpr int CS_WARPS = 8;
+__global__ void __launch_bounds__(CS_WARPS * 32)
+column_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                  int blocks, int N) {
+  __shared__ float sums[CS_WARPS][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
+  float t = 0.0f;
+  if (j < N)
+    for (int b = warp; b < blocks; b += CS_WARPS) t += part[(size_t)b * N + j];
+  sums[warp][lane] = t;
+  __syncthreads();
+  if (warp == 0 && j < N) {
+    float u = 0.0f;
+    for (int w = 0; w < CS_WARPS; ++w) u += sums[w][lane];
+    out[j] = u;
+  }
+}
+
+// threads > 0: the vector kernel with `threads` threads a row (norm_plan's,
+// x, dy and dx 16-byte aligned); else a warp a row up to WARP_ROW_MAX wide,
+// else the block kernel; `blocks` blocks, then, with gamma, the column sum.
+template <typename T>
+int launch_rmsnorm_bwd(const void* x, const void* gamma, const void* rstd,
+                       const void* dy, void* dx, void* part, void* dgamma,
+                       int R, int N, int threads, int blocks, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  const float* g = static_cast<const float*>(gamma);
+  const float* rs = static_cast<const float*>(rstd);
+  T* dxt = static_cast<T*>(dx);
+  float* pt = static_cast<float*>(part);
+  if (blocks < 1 || (gamma != nullptr && (part == nullptr || dgamma == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (threads > 0) {
+    if (!vec_plan_ok<T>(N, threads, x, gamma, dy, dx))
+      return static_cast<int>(cudaErrorInvalidValue);
+    rmsnorm_bwd_vec_kernel<T><<<blocks, threads, 0, s>>>(
+        xt, g, rs, dyt, dxt, pt, R, static_cast<int>(N * sizeof(T) / 16));
+  } else if (N <= WARP_ROW_MAX) {
+    const size_t smem = gamma != nullptr ? sizeof(float) * WARP_ROWS * N : 0;
+    rmsnorm_bwd_warp_kernel<T><<<blocks, WARP_ROWS * 32, smem, s>>>(
+        xt, g, rs, dyt, dxt, pt, R, N);
+  } else {
+    rmsnorm_bwd_block_kernel<T><<<blocks, ROW_THREADS, 0, s>>>(
+        xt, g, rs, dyt, dxt, pt, R, N);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || gamma == nullptr) return static_cast<int>(e);
+  column_sum_kernel<<<(N + 31) / 32, CS_WARPS * 32, 0, s>>>(
+      pt, static_cast<float*>(dgamma), blocks, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -716,17 +958,43 @@ extern "C" int sfu_act_f32(const void* x, void* y, long long n, int act,
   return static_cast<int>(cudaGetLastError());
 }
 
-// gamma may be null; x and y are fp32 (f32) or bf16 (bf16), gamma fp32.
-// threads: the wrapper's plan (see launch_rmsnorm).
+// gamma and rstd may be null; x and y are fp32 (f32) or bf16 (bf16),
+// gamma fp32; rstd, where given, takes each row's 1 / sqrt(mean square +
+// eps) in fp32.  threads: the wrapper's plan (see launch_rmsnorm).
 extern "C" int sfu_rmsnorm_f32(const void* x, const void* gamma, void* y,
-                               int R, int N, float eps, int threads,
-                               void* stream) {
-  return launch_rmsnorm<float>(x, gamma, y, R, N, eps, threads, stream);
+                               void* rstd, int R, int N, float eps,
+                               int threads, void* stream) {
+  return launch_rmsnorm<float>(x, gamma, y, rstd, R, N, eps, threads,
+                               stream);
 }
 
 extern "C" int sfu_rmsnorm_bf16(const void* x, const void* gamma, void* y,
-                                int R, int N, float eps, int threads,
-                                void* stream) {
-  return launch_rmsnorm<__nv_bfloat16>(x, gamma, y, R, N, eps, threads,
-                                       stream);
+                                void* rstd, int R, int N, float eps,
+                                int threads, void* stream) {
+  return launch_rmsnorm<__nv_bfloat16>(x, gamma, y, rstd, R, N, eps,
+                                       threads, stream);
+}
+
+// rmsnorm's backward: dx (x's type) from x, gamma (may be null), the
+// forward's rstd and dy (x's type); with gamma, part (blocks x N fp32
+// scratch) takes each block's column sums of dy * x * rstd and dgamma (N
+// fp32) their sum over the blocks.  threads, blocks: the wrapper's plan
+// (see launch_rmsnorm_bwd).
+extern "C" int sfu_rmsnorm_bwd_f32(const void* x, const void* gamma,
+                                   const void* rstd, const void* dy,
+                                   void* dx, void* part, void* dgamma, int R,
+                                   int N, int threads, int blocks,
+                                   void* stream) {
+  return launch_rmsnorm_bwd<float>(x, gamma, rstd, dy, dx, part, dgamma, R,
+                                   N, threads, blocks, stream);
+}
+
+extern "C" int sfu_rmsnorm_bwd_bf16(const void* x, const void* gamma,
+                                    const void* rstd, const void* dy,
+                                    void* dx, void* part, void* dgamma,
+                                    int R, int N, int threads, int blocks,
+                                    void* stream) {
+  return launch_rmsnorm_bwd<__nv_bfloat16>(x, gamma, rstd, dy, dx, part,
+                                           dgamma, R, N, threads, blocks,
+                                           stream);
 }

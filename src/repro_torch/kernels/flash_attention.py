@@ -19,10 +19,21 @@ read those rows of the cache where they lie.
   row is read once; ``decode_plan`` chooses the splits, and a second
   kernel merges them when there are more than one.
 
-``flash_attention.launches`` counts wrapper calls, whatever number of
-device kernels a call launches.  A tensor on the CPU goes to the plain
-version ``ref.mha_attention``; a CUDA tensor goes to the kernels, or the
-call raises.
+- Backward (``flash_attention_bwd``, no Pallas counterpart): under
+  autograd the prefill runs as ``_FlashAttention``, whose forward also
+  writes each query row's fp32 log-sum-exp, and whose backward is
+  FlashAttention-2's: a kernel for ``delta = rowsum(dO·O)``, one for dK
+  and dV a (KV head, key tile) over its whole GQA group, one for dQ a
+  (query head, query tile); fp32 FMA for both dtypes, no atomics.  The
+  decode path (``kv_len`` given, or ``Sq * Hq / Hkv <= DECODE_ROWS``) has
+  no backward and raises under autograd (ROADMAP A.5b); training never
+  takes it.
+
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+wrapper calls, whatever number of device kernels a call launches.  A
+tensor on the CPU goes to the plain version (``ref.mha_attention``,
+differentiable; ``ref.mha_attention_bwd``); a CUDA tensor goes to the
+kernels, or the call raises.
 """
 
 from __future__ import annotations
@@ -37,11 +48,14 @@ from . import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # the head widths the kernel is built for
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = (_P,) * 4 + (_I,) * 8 + (ctypes.c_float, _P)
+_ARGS = (_P,) * 5 + (_I,) * 8 + (ctypes.c_float, _P)
 _DECODE_ARGS = (_P,) * 5 + (_I,) * 8 + (ctypes.c_float, _I, _I, _P)
+_BWD_ARGS = (_P,) * 10 + (_I,) * 7 + (ctypes.c_float, _P)
 _SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS,
                "flash_decode_f32": _DECODE_ARGS,
-               "flash_decode_bf16": _DECODE_ARGS}
+               "flash_decode_bf16": _DECODE_ARGS,
+               "flash_attention_bwd_f32": _BWD_ARGS,
+               "flash_attention_bwd_bf16": _BWD_ARGS}
 
 DECODE_ROWS = 16       # query rows (Sq * Hq / Hkv) a decode block holds
 DECODE_CHUNK = 32      # keys a decode block stages at a time
@@ -96,6 +110,32 @@ def _check(q, k, v, kv_len) -> int:
     return int(kv_len)
 
 
+def _on_card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """For checked operands: False on the CPU (the plain versions), True
+    on the card once the kernels' own limits hold; raises otherwise."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda (or cpu), not "
+                         f"{q.device}")
+    D = q.shape[3]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention's kernel is built for head_dim in "
+                         f"{HEAD_DIMS}, got {D}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention's kernel reads 16-byte vectors: "
+                         "q, k and v must be 16-byte aligned")
+    return True
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("flash_attention", _SIGNATURES)
+
+
+def _stream(q: torch.Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: int | None = None
                     ) -> torch.Tensor:
@@ -104,48 +144,137 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Hq, Sq, D); k, v: (B, Hkv, S, D); reads KV rows
     ``[0, kv_len)`` (default all S).  Causal: query i sees key j when
     ``j <= i + (kv_len - Sq)``.  A row with no visible key gives 0.
-    fp32 or bf16 operands, fp32 arithmetic, output in q's dtype.
+    fp32 or bf16 operands, fp32 arithmetic, output in q's dtype.  Under
+    autograd (a prefill: no ``kv_len``) the gradient comes from
+    ``flash_attention_bwd``.
     """
     skv = _check(q, k, v, kv_len)
-    if q.device.type == "cpu":
+    if not _on_card(q, k, v):
         return ref.mha_attention(q, k, v, causal=causal, kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda (or cpu), not "
-                         f"{q.device}")
     B, Hq, Sq, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention's kernel is built for head_dim in "
-                         f"{HEAD_DIMS}, got {D}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention's kernel reads 16-byte vectors: "
-                         "q, k and v must be 16-byte aligned")
+    Hkv = k.shape[1]
+    decode = Sq * (Hq // Hkv) <= DECODE_ROWS
+    if _build.needs_grad(q, k, v):
+        if kv_len is not None or decode:
+            _build.refuse_grad("flash_attention's decode path", q, k, v)
+        out = _FlashAttention.apply(q, k, v, causal)
+        flash_attention.launches += 1
+        return out
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.load("flash_attention", _SIGNATURES)
-    f32 = q.dtype == torch.float32
-    Hkv, stride = k.shape[1], k.shape[2]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if Sq * (Hq // Hkv) <= DECODE_ROWS:
+        if decode:
             plan = decode_plan(skv, B * Hkv, _build.sm_count(q.device))
             ws = (torch.empty(B * Hq * Sq * plan.splits * (D + 2),
                               dtype=torch.float32, device=q.device)
                   if plan.combine else None)
-            fn = lib.flash_decode_f32 if f32 else lib.flash_decode_bf16
+            fn = (_lib().flash_decode_f32 if q.dtype == torch.float32
+                  else _lib().flash_decode_bf16)
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), ws.data_ptr() if ws is not None else None,
-                     B, Hq, Hkv, Sq, skv, stride, D, int(causal),
+                     B, Hq, Hkv, Sq, skv, k.shape[2], D, int(causal),
                      1.0 / math.sqrt(D), plan.rows_per_split, plan.splits,
-                     stream)
+                     _stream(q))
+            _build.check(err, "flash_attention")
         else:
-            fn = lib.flash_attention_f32 if f32 else lib.flash_attention_bf16
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B, Hq, Hkv, Sq, skv, stride, D, int(causal),
-                     1.0 / math.sqrt(D), stream)
-    _build.check(err, "flash_attention")
+            _prefill(q, k, v, causal, skv, out)
     flash_attention.launches += 1
     return out
 
 
+def _prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             skv: int, out: torch.Tensor,
+             lse: torch.Tensor | None = None) -> None:
+    """Runs the prefill kernel (tensor cores for bf16, FMA for fp32) on
+    checked, non-empty CUDA operands over KV rows ``[0, skv)``; ``lse``
+    (B, Hq, Sq fp32), where given, takes each query row's log-sum-exp."""
+    B, Hq, Sq, D = q.shape
+    fn = (_lib().flash_attention_f32 if q.dtype == torch.float32
+          else _lib().flash_attention_bf16)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if lse is not None else None, B, Hq,
+                 k.shape[1], Sq, skv, k.shape[2], D, int(causal),
+                 1.0 / math.sqrt(D), _stream(q))
+    _build.check(err, "flash_attention")
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """The prefill kernel over every KV row, whatever the shape, with each
+    query row's fp32 log-sum-exp (B, Hq, Sq): what ``_FlashAttention``
+    saves for the backward (``ref.mha_attention_lse`` on the CPU)."""
+    skv = _check(q, k, v, None)
+    if not _on_card(q, k, v):
+        return ref.mha_attention_lse(q, k, v, causal=causal)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if out.numel():
+        _prefill(q, k, v, causal, skv, out, lse)
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The prefill kernel with its backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = attention_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The prefill's backward over every KV row: ``(dq, dk, dv)`` in the
+    operands' dtype from q (B, Hq, Sq, D), k, v (B, Hkv, Skv, D), the
+    forward's output ``out`` and fp32 log-sum-exp ``lse`` (B, Hq, Sq),
+    and ``dout`` (q's shape and dtype).  fp32 arithmetic, deterministic
+    (every output element one thread's sum in a fixed order)."""
+    _check(q, k, v, None)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"float32 {tuple(q.shape[:3])} on {q.device}")
+    if not _on_card(q, k, v):
+        return ref.mha_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    if any(t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("flash_attention_bwd reads 16-byte vectors: out "
+                         "and dout must be 16-byte aligned")
+    B, Hq, Sq, D = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    fn = (_lib().flash_attention_bwd_f32 if q.dtype == torch.float32
+          else _lib().flash_attention_bwd_bf16)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq,
+                 k.shape[1], Sq, k.shape[2], D, int(causal),
+                 1.0 / math.sqrt(D), _stream(q))
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

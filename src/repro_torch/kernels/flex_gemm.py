@@ -129,6 +129,7 @@ def flex_gemm(a: torch.Tensor, b: torch.Tensor,
         return ref.gemm(a, b, bias, epilogue, c)
     if a.device.type != "cuda":
         raise ValueError(f"flex_gemm runs on cuda (or cpu), not {a.device}")
+    _build.refuse_grad("flex_gemm", a, b, bias, c)
     M, K = a.shape
     N = b.shape[1]
     if M == 0 or N == 0:

@@ -111,6 +111,28 @@ def rmsnorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
     return y.to(x.dtype)
 
 
+def rmsnorm_rstd(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Each row's ``rsqrt(mean(x²) + eps)`` in fp32: what the forward
+    kernel keeps for the backward."""
+    x32 = x.float()
+    return torch.rsqrt((x32 * x32).mean(dim=-1) + eps)
+
+
+def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
+                rstd: torch.Tensor, dy: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The backward kernel's formula in fp32: with x̂ = x·rstd,
+    ``dx = rstd (γ dy - x̂ mean(γ dy x̂))`` (x's dtype) and
+    ``dγ = Σ_rows dy x̂`` (fp32; None without gamma)."""
+    x32, d = x.float(), dy.float()
+    r = rstd.float()[:, None]
+    xh = x32 * r
+    gd = d * gamma.float() if gamma is not None else d
+    dx = r * (gd - xh * (gd * xh).mean(dim=-1, keepdim=True))
+    dgamma = (d * xh).sum(0) if gamma is not None else None
+    return dx.to(x.dtype), dgamma
+
+
 # ----------------------------------------------------------- attention
 
 NEG_INF = -1e30     # the Pallas kernel's mask value (flash_attention.py:24)
@@ -153,6 +175,61 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True)
     out = (p @ vf) / torch.where(l == 0.0, 1.0, l)
     return out.to(q.dtype)
+
+
+def _scores(q, k, causal):
+    """fp32 scaled scores (B, Hq, Sq, Skv) over every KV row, k repeated
+    over its query heads, and the visibility mask (None if not causal)."""
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    kf = k.float().repeat_interleave(Hq // k.shape[1], dim=1)
+    s = (q.float() * (1.0 / math.sqrt(D))) @ kf.transpose(-1, -2)
+    if not causal:
+        return s, kf, None
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    return s, kf, torch.arange(Skv, device=q.device)[None, :] <= qi
+
+
+def mha_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mha_attention`` over every KV row, and the fp32 natural
+    log-sum-exp of each query row's scaled visible scores (B, Hq, Sq), -1e30
+    for a row with no visible key: the prefill kernels' output under
+    autograd."""
+    s, _, mask = _scores(q, k, causal)
+    if mask is not None:
+        s = torch.where(mask, s, -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    lse = torch.where(torch.isfinite(lse), lse, NEG_INF)
+    return mha_attention(q, k, v, causal=causal), lse
+
+
+def mha_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                      *, causal: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' formula (FlashAttention-2) in fp32:
+    ``p = exp(s - lse)`` over the visible keys, ``delta = rowsum(dO·O)``,
+    ``ds = p (dO Vᵀ - delta)``, ``dV = pᵀ dO``, ``dK = scale dsᵀ Q``,
+    ``dQ = scale ds K``, each summed over the query heads of a KV head's
+    group for dK and dV.  Returns (dq, dk, dv) in the operands' dtype."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    s, kf, mask = _scores(q, k, causal)
+    p = torch.exp(s - lse.float()[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    do = dout.float()
+    vf = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    ds = p * (do @ vf.transpose(-1, -2) - delta)
+    scale = 1.0 / math.sqrt(D)
+    dq = scale * ds @ kf
+    group = (B, Hkv, Hq // Hkv)
+    dk = (scale * ds.transpose(-1, -2) @ q.float()).view(*group, -1, D).sum(2)
+    dv = (p.transpose(-1, -2) @ do).view(*group, -1, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------- mamba2 ssd

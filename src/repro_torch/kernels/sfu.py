@@ -17,8 +17,14 @@ take fp32, as the runtime's LMU tiles are; layernorm and rmsnorm take
 fp32 or bf16 rows (the decoders' activations) with fp32 gamma and beta,
 compute in fp32 and return x's dtype.
 
-A tensor on the CPU goes to the plain version in ``ref``; a CUDA tensor
-goes to the kernel, or the call raises.
+rmsnorm has a backward kernel: under autograd (grad mode on, x or gamma
+requiring grad) ``rmsnorm_rows`` runs as ``_RmsNorm``, whose forward also
+writes each row's rstd and whose backward is ``rmsnorm_bwd``.  The other
+kernels have none yet and raise under autograd on the card (ROADMAP
+A.5b).
+
+A tensor on the CPU goes to the plain version in ``ref`` (differentiable
+by autograd); a CUDA tensor goes to the kernel, or the call raises.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from . import _build, ref
 from .ref import ACTIVATIONS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_NORM = (_P, _P, _P, _I, _I, ctypes.c_float, _I, _P)
+_NORM = (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P)
+_NORM_BWD = (_P,) * 7 + (_I,) * 4 + (_P,)
 _LAYERNORM = (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P)
 _SIGNATURES = {
     "sfu_softmax_f32": (_P, _P, _I, _I, _I, _I, _P),
@@ -39,12 +46,16 @@ _SIGNATURES = {
     "sfu_act_f32": (_P, _P, ctypes.c_longlong, _I, _I, _P),
     "sfu_rmsnorm_f32": _NORM,
     "sfu_rmsnorm_bf16": _NORM,
+    "sfu_rmsnorm_bwd_f32": _NORM_BWD,
+    "sfu_rmsnorm_bwd_bf16": _NORM_BWD,
 }
 
 WARP_ROW_MAX = 1024      # widest row of the warp-a-row kernels
 LANE_MAX = 32            # fp32 values a lane of the warp kernels holds
 ROW_VPT = 2              # 16-byte vectors a thread of the one-pass kernel
 MAX_THREADS = 1024
+WARP_ROWS = 8            # rows (warps) a block of rmsnorm's warp kernels
+BWD_BLOCKS_PER_SM = 4    # rmsnorm_bwd's grid: blocks an SM at most
 FLOAT_TYPES = (torch.float32,)
 NORM_TYPES = (torch.float32, torch.bfloat16)
 
@@ -86,6 +97,20 @@ def warp_plan(N: int, esize: int, aligned: bool) -> tuple[int, bool]:
     while 32 * slots < units:
         slots *= 2
     return slots, vector
+
+
+def norm_bwd_plan(R: int, N: int, esize: int, aligned: bool,
+                  sms: int) -> tuple[int, int]:
+    """``(threads, blocks)`` of rmsnorm's backward: the forward's block
+    shape (``norm_plan``'s threads for the vector kernel, else 0: a warp a
+    row up to ``WARP_ROW_MAX`` wide, ``WARP_ROWS`` rows a block, or the
+    block kernel) and a grid of at most ``BWD_BLOCKS_PER_SM`` blocks an SM
+    that walks the rows cyclically.  The grid is fixed by the shape and the
+    card, so dgamma's partial sums (one row of N a block) add up in the same
+    order every run."""
+    threads = norm_plan(N, esize, aligned)
+    units = _cdiv(R, WARP_ROWS) if threads == 0 and N <= WARP_ROW_MAX else R
+    return threads, max(1, min(units, BWD_BLOCKS_PER_SM * sms))
 
 
 def _on_card(x: torch.Tensor, what: str, *params: torch.Tensor | None,
@@ -133,6 +158,7 @@ def softmax_rows(x: torch.Tensor) -> torch.Tensor:
     """Row softmax, max-subtracted, fp32."""
     if not _on_card(x, "softmax_rows"):
         return ref.softmax_rows(x)
+    _build.refuse_grad("softmax_rows", x)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -160,6 +186,7 @@ def layernorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
     beta fp32 (each optional), fp32 arithmetic, output in x's dtype."""
     if not _on_card(x, "layernorm_rows", gamma, beta, dtypes=NORM_TYPES):
         return ref.layernorm_rows(x, gamma, beta, eps)
+    _build.refuse_grad("layernorm_rows", x, gamma, beta)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -194,6 +221,7 @@ def act_rows(x: torch.Tensor, act: str) -> torch.Tensor:
         raise ValueError(f"unknown activation {act!r}")
     if not _on_card(x, "act_rows"):
         return ref.ACT_FN[act](x)
+    _build.refuse_grad("act_rows", x)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -217,34 +245,106 @@ def _launch_act(x: torch.Tensor, out: torch.Tensor, act: str,
 def rmsnorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
                  eps: float = 1e-6) -> torch.Tensor:
     """Row rmsnorm, ``x * rsqrt(sum(x²)/N + eps) * gamma``: x fp32 or
-    bf16, gamma fp32 (optional), fp32 arithmetic, output in x's dtype."""
+    bf16, gamma fp32 (optional), fp32 arithmetic, output in x's dtype.
+    Under autograd the gradient comes from ``rmsnorm_bwd``."""
     if not _on_card(x, "rmsnorm_rows", gamma, dtypes=NORM_TYPES):
         return ref.rmsnorm_rows(x, gamma, eps)
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    _launch_rmsnorm(x, gamma, eps, out,
-                    norm_plan(x.shape[1], x.element_size(),
-                              _aligned(x, out, gamma)))
+    if _build.needs_grad(x, gamma):
+        out = _RmsNorm.apply(x, gamma, eps)
+    else:
+        out = torch.empty_like(x)
+        if out.numel() == 0:
+            return out
+        _launch_rmsnorm(x, gamma, eps, out, _plan(x, out, gamma))
     rmsnorm_rows.launches += 1
     return out
 
 
+def _plan(x: torch.Tensor, out: torch.Tensor,
+          gamma: torch.Tensor | None) -> int:
+    return norm_plan(x.shape[1], x.element_size(), _aligned(x, out, gamma))
+
+
 def _launch_rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None, eps: float,
-                    out: torch.Tensor, threads: int) -> None:
+                    out: torch.Tensor, threads: int,
+                    rstd: torch.Tensor | None = None) -> None:
     """Runs the rmsnorm kernel on checked, non-empty CUDA operands: the
     one-pass kernel with ``threads`` threads a row, or the scalar kernels
-    for 0 (see ``norm_plan``)."""
+    for 0 (see ``norm_plan``); ``rstd`` (R fp32), where given, takes each
+    row's ``rsqrt(sum(x²)/N + eps)``."""
     R, N = x.shape
     fn = (_lib().sfu_rmsnorm_f32 if x.dtype == torch.float32
           else _lib().sfu_rmsnorm_bf16)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), _ptr(gamma), out.data_ptr(), R, N, eps,
-                 threads, _stream(x))
+        err = fn(x.data_ptr(), _ptr(gamma), out.data_ptr(), _ptr(rstd), R, N,
+                 eps, threads, _stream(x))
     _build.check(err, "rmsnorm_rows")
+
+
+class _RmsNorm(torch.autograd.Function):
+    """rmsnorm on the card with its backward kernel: the forward keeps each
+    row's rstd (4 bytes a row) so that the backward need not recompute
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        out = torch.empty_like(x)
+        rstd = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+        if out.numel():
+            _launch_rmsnorm(x, gamma, eps, out, _plan(x, out, gamma), rstd)
+        ctx.save_for_backward(x, gamma, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, rstd = ctx.saved_tensors
+        dx, dgamma = rmsnorm_bwd(x, gamma, rstd, dy.contiguous())
+        return dx, (dgamma if ctx.needs_input_grad[1] else None), None
+
+
+def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
+                rstd: torch.Tensor, dy: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """rmsnorm's backward: ``(dx, dgamma)`` from x (R, N), gamma (fp32, or
+    None: dgamma None), the forward's rstd (R fp32) and dy (x's shape and
+    dtype).  ``dx = rstd (gamma dy - x̂ mean(gamma dy x̂))`` in x's dtype and
+    ``dgamma = Σ_rows dy x̂`` in fp32, x̂ = x rstd; deterministic (no
+    atomics: per-block partial sums, then a second kernel sums them in a
+    fixed order)."""
+    if not _on_card(x, "rmsnorm_bwd", gamma, dtypes=NORM_TYPES):
+        return ref.rmsnorm_bwd(x, gamma, rstd, dy)
+    R, N = x.shape
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"rmsnorm_bwd: dy must be a contiguous {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    if rstd.dtype != torch.float32 or tuple(rstd.shape) != (R,) \
+            or rstd.device != x.device or not rstd.is_contiguous():
+        raise ValueError(f"rmsnorm_bwd: rstd must be a contiguous float32 "
+                         f"({R},) on {x.device}")
+    dx = torch.empty_like(x)
+    dgamma = None if gamma is None else torch.zeros(
+        N, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return dx, dgamma
+    threads, blocks = norm_bwd_plan(R, N, x.element_size(),
+                                    _aligned(x, dy, dx, gamma),
+                                    _build.sm_count(x.device))
+    part = None if gamma is None else torch.empty(
+        (blocks, N), dtype=torch.float32, device=x.device)
+    fn = (_lib().sfu_rmsnorm_bwd_f32 if x.dtype == torch.float32
+          else _lib().sfu_rmsnorm_bwd_bf16)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), _ptr(gamma), rstd.data_ptr(), dy.data_ptr(),
+                 dx.data_ptr(), _ptr(part), _ptr(dgamma), R, N, threads,
+                 blocks, _stream(x))
+    _build.check(err, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
+    return dx, dgamma
 
 
 softmax_rows.launches = 0
 layernorm_rows.launches = 0
 act_rows.launches = 0
 rmsnorm_rows.launches = 0
+rmsnorm_bwd.launches = 0

@@ -132,6 +132,7 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                              initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on cuda (or cpu), not {x.device}")
+    _build.refuse_grad("ssd", x, a, b, c, initial_state)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:

@@ -1,1 +1,3 @@
-"""Drivers: ``serve`` (batched greedy / temperature decoding)."""
+"""Entry points: ``serve`` (batched greedy / temperature decoding),
+``steps`` (the one-device train step) and ``train`` (the fault-tolerant
+trainer)."""

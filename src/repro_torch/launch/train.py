@@ -1,0 +1,168 @@
+"""Fault-tolerant trainer: port of ``repro.launch.train`` on one
+device.
+
+  * init from a seed (``lm.init`` / ``encdec.init``, fp32) and the step
+    of ``launch.steps``;
+  * a checkpoint every ``ckpt_every`` steps (atomic, crc-manifested, off
+    thread) and resume from the latest on start;
+  * failure isolation: a step that raises (an injected fault, a lost
+    device) restores the latest checkpoint and replays, up to
+    ``max_failures``; the data pipeline gives the replayed steps the same
+    batches;
+  * stragglers: step wall times feed an EWMA; a step slower than
+    ``straggler_factor`` times it is logged and counted.
+
+Elastic rescale onto another mesh and ``--model-axis`` wait for the
+multi-device layer (ROADMAP A.6).  ``device=None`` means the CUDA card;
+there, every kernel of the model's path needs a backward (rmsnorm and
+flash attention have one: qwen3-4b trains; the layernorm, ``ssd`` and
+the MoE archs raise until ROADMAP A.5b).
+
+Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
+          --reduced --device cpu --steps 40 --batch 8 --seq 64
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+import traceback
+from dataclasses import dataclass
+
+import torch
+
+from .. import checkpoint as ckpt
+from ..configs import get_config
+from ..configs.shapes import ShapeSpec
+from ..convert import resolve_device
+from ..data import for_arch
+from ..models import encdec, lm
+from ..optim import adamw
+from .steps import make_train_step
+
+
+@dataclass
+class TrainOptions:
+    steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: str = "checkpoints"
+    max_failures: int = 3
+    straggler_factor: float = 3.0
+    log_every: int = 10
+    fail_at_step: int = -1        # fault injection (tests)
+
+
+class Trainer:
+    def __init__(self, cfg, shape: ShapeSpec,
+                 opt: adamw.OptConfig | None = None,
+                 options: TrainOptions | None = None, seed: int = 0,
+                 device: str | torch.device | None = None):
+        self.cfg = cfg
+        self.shape = shape
+        self.device = resolve_device(device)
+        self.options = options or TrainOptions()
+        self.opt_cfg = opt or adamw.OptConfig(
+            moment_dtype=cfg.moment_dtype, total_steps=self.options.steps)
+        self.step_fn = make_train_step(cfg, shape, self.opt_cfg, self.device)
+        self.data = for_arch(cfg, shape.seq_len, shape.global_batch, seed)
+        self.saver = ckpt.AsyncSaver()
+        self.metrics_log: list[dict] = []
+        self.straggler_steps: list[int] = []
+        self.fault_log: list[str] = []
+        self.failures = 0
+
+    # ------------------------------------------------------------ state
+    def init_state(self, seed: int = 0):
+        model = encdec if self.cfg.is_encdec else lm
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = model.init(self.cfg, gen, self.device)
+        return params, adamw.init_state(params, self.opt_cfg), 0
+
+    def try_resume(self, params, opt_state, start_step):
+        latest = ckpt.latest_step(self.options.ckpt_dir)
+        if latest is None:
+            return params, opt_state, start_step
+        restored, extra = ckpt.restore(self.options.ckpt_dir, latest,
+                                       {"params": params, "opt": opt_state})
+        print(f"[resume] restored step {latest}")
+        return restored["params"], restored["opt"], int(extra["next_step"])
+
+    # ------------------------------------------------------------- loop
+    def run(self, resume: bool = True):
+        params, opt_state, step = self.init_state()
+        if resume:
+            params, opt_state, step = self.try_resume(params, opt_state, step)
+        ewma = None
+        opts = self.options
+        while step < opts.steps:
+            t0 = time.perf_counter()
+            try:
+                if step == opts.fail_at_step and self.failures == 0:
+                    raise RuntimeError("injected fault (node failure)")
+                batch = self.data.device_batch(step, self.device)
+                params, opt_state, metrics = self.step_fn(
+                    params, opt_state, batch)
+                loss = float(metrics["loss"])
+            except Exception as e:   # noqa: BLE001 — the fault path
+                self.failures += 1
+                self.fault_log.append(traceback.format_exc())
+                print(f"[fault] step {step}: {e} "
+                      f"({self.failures}/{opts.max_failures})")
+                if self.failures > opts.max_failures:
+                    raise
+                self.saver.wait()
+                params, opt_state, step = self.init_state()
+                params, opt_state, step = self.try_resume(
+                    params, opt_state, step)
+                continue
+            dt = time.perf_counter() - t0
+            ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+            if dt > opts.straggler_factor * ewma and step > 3:
+                self.straggler_steps.append(step)
+                print(f"[straggler] step {step}: {dt:.3f}s "
+                      f"(ewma {ewma:.3f}s)")
+            toks = self.shape.global_batch * self.shape.seq_len
+            self.metrics_log.append(
+                {"step": step, "loss": loss, "dt": dt,
+                 "tokens_per_s": toks / dt})
+            if step % opts.log_every == 0:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"{toks / dt:,.0f} tok/s")
+            step += 1
+            if opts.ckpt_every and step % opts.ckpt_every == 0:
+                self.saver.save(opts.ckpt_dir, step,
+                                {"params": params, "opt": opt_state},
+                                extra={"next_step": step,
+                                       "arch": self.cfg.name})
+        self.saver.wait()
+        return params, opt_state
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default="checkpoints")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args()
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    shape = ShapeSpec("cli", args.seq, args.batch, "train")
+    trainer = Trainer(cfg, shape, device=args.device,
+                      options=TrainOptions(steps=args.steps,
+                                           ckpt_every=args.ckpt_every,
+                                           ckpt_dir=args.ckpt_dir))
+    trainer.run()
+    losses = [m["loss"] for m in trainer.metrics_log]
+    print(f"done: loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+          f"{len(trainer.straggler_steps)} straggler steps, "
+          f"{trainer.failures} failures recovered")
+
+
+if __name__ == "__main__":
+    main()

@@ -24,6 +24,7 @@ Entry points:
   cast_params(cfg, params)                           -> params for compute
   encode(cfg, params, frames)                        -> encoder states
   forward(cfg, params, frames, tokens)               -> logits (B, S, V)
+  loss_fn(cfg, params, frames, tokens, labels)       -> nll + z-loss
   init_cache(cfg, batch, max_len, enc_len, ...)      -> cache
   prefill(cfg, params, frames, tokens, max_len)      -> (logits (B, V), cache)
   decode_step(cfg, params, cache, tokens, pos)       -> (logits (B, V), cache)
@@ -31,9 +32,12 @@ Entry points:
 Every norm runs on the layernorm row kernel and every attention (the
 encoder's, the decoder's self- and cross-attention) on the
 ``flash_attention`` kernel, through ``kernels.ops``; ``plain`` selects
-their plain versions.  ``device=None`` means the CUDA card.  ``loss_fn``
-waits for the training substrate (ROADMAP A.5); ``abstract_init`` and
-``cache_specs`` for the multi-device layer (A.6).
+their plain versions.  ``device=None`` means the CUDA card.
+``cfg.remat`` recomputes each encoder and decoder layer in the backward
+(``lm.remat``).  On the card the layernorm kernel has no backward yet, so
+``loss_fn`` raises under autograd there (ROADMAP A.5b); on the CPU the
+plain versions differentiate.  ``abstract_init`` and ``cache_specs`` wait
+for the multi-device layer (A.6).
 """
 
 from __future__ import annotations
@@ -173,13 +177,17 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
     _, S, D = frames.shape
     h = frames.to(cd) + _device_sinusoidal(S, D, frames.device, cd)[None]
     for lp in params["encoder"]:
-        hn = L.apply_norm(cfg, lp["norm1"], h, plain=plain)
-        mix, _ = L.attention_fwd(cfg, lp["attn"], hn, None, causal=False,
-                                 plain=plain)
-        h = h + mix
-        hn = L.apply_norm(cfg, lp["norm2"], h, plain=plain)
-        h = h + L.mlp_fwd(cfg, lp["mlp"], hn)
+        h = lm.remat(cfg, _enc_layer, cfg, lp, h, plain)
     return L.apply_norm(cfg, params["enc_norm"], h, plain=plain)
+
+
+def _enc_layer(cfg, lp, h, plain):
+    hn = L.apply_norm(cfg, lp["norm1"], h, plain=plain)
+    mix, _ = L.attention_fwd(cfg, lp["attn"], hn, None, causal=False,
+                             plain=plain)
+    h = h + mix
+    hn = L.apply_norm(cfg, lp["norm2"], h, plain=plain)
+    return h + L.mlp_fwd(cfg, lp["mlp"], hn)
 
 
 # ------------------------------------------------------------------- decoder
@@ -213,9 +221,24 @@ def forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
     enc = encode(cfg, params, frames, plain=plain)
     h = _embed(cfg, params, tokens)
     for lp in params["decoder"]:
-        h, _ = _dec_layer(cfg, lp, h, L.encode_kv(cfg, lp["cross_attn"], enc),
-                          plain)
+        h = lm.remat(cfg, _dec_train_layer, cfg, lp, h, enc, plain)
     return lm._logits(cfg, params, h, plain)
+
+
+def _dec_train_layer(cfg, lp, h, enc, plain):
+    """A decoder layer of ``forward``, its cross k/v from ``enc`` inside
+    (recomputed with it under remat, as the reference's scanned body)."""
+    return _dec_layer(cfg, lp, h, L.encode_kv(cfg, lp["cross_attn"], enc),
+                      plain)[0]
+
+
+def loss_fn(cfg: ArchConfig, params: dict, frames: torch.Tensor,
+            tokens: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4,
+            *, plain: bool = False) -> torch.Tensor:
+    """The training loss (reference ``encdec.loss_fn``): nll + z-loss on
+    the fp32 logits' log-sum-exp."""
+    return lm.lm_loss(forward(cfg, params, frames, tokens, plain=plain),
+                      labels, z_loss)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,

@@ -21,7 +21,9 @@ Entry points:
   cast_params(cfg, params)                     -> params for compute
   init_cast(cfg, gen, device=None)             -> cast_params(init(...)),
                                                   one fp32 item at a time
-  forward(cfg, params, tokens, positions=None) -> logits (B, S, V) fp32
+  forward(cfg, params, tokens, positions=None) -> (logits (B, S, V) fp32,
+                                                  MoE aux loss)
+  loss_fn(cfg, params, tokens, labels)         -> nll + z-loss + aux
   init_cache(cfg, batch, max_len, device=...)  -> cache
   prefill(cfg, params, tokens, max_len)        -> (logits (B, V), cache)
   decode_step(cfg, params, cache, tokens, pos) -> (logits (B, V), cache)
@@ -29,8 +31,11 @@ Entry points:
 ``device=None`` means the CUDA card and raises without one.  ``plain``
 runs the norms, attention and the SSD scan on their plain versions
 instead of the kernels, and the MoE FFN in the reference's one-hot
-einsum form.  ``forward``, ``prefill`` and ``decode_step`` drop the MoE
-aux loss, which the training loss takes (ROADMAP A.5).  A prefill
+einsum form.  ``forward`` sums the MoE aux loss over the layers, as the
+reference does, and ``loss_fn`` adds it; ``prefill`` and ``decode_step``
+drop it.  ``cfg.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``remat_policy`` "nothing";
+its "dots" policies wait for ROADMAP A.5b).  A prefill
 routes its S tokens as one group and may drop choices past an expert's
 capacity; a decode step routes groups of one token, which never drop:
 so prefill + decode equals ``forward`` only where nothing dropped.
@@ -44,7 +49,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from .. import tree as T
 from ..convert import resolve_device
 from . import layers as L
 from . import ssm as SSM
@@ -178,12 +185,15 @@ def cast_params(cfg: ArchConfig, params: dict) -> dict:
 # ------------------------------------------------------------------- blocks
 
 def _ffn(cfg, pat, lp, x, plain):
+    """x plus the layer's FFN, and the MoE aux loss (None for a dense or
+    FFN-less layer)."""
     if pat.ffn == "none":
-        return x
+        return x, None
     h = L.apply_norm(cfg, lp["norm2"], x, plain=plain)
     if pat.ffn == "moe":
-        return x + L.moe_fwd(cfg, lp["moe"], h, plain=plain)[0]
-    return x + L.mlp_fwd(cfg, lp["mlp"], h)
+        y, aux = L.moe_fwd(cfg, lp["moe"], h, plain=plain)
+        return x + y, aux
+    return x + L.mlp_fwd(cfg, lp["mlp"], h), None
 
 
 def _positions(cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -206,26 +216,70 @@ def _logits(cfg, params, h, plain):
     return (h @ params["lm_head"].to(h.dtype)).float()
 
 
+def remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward where
+    ``cfg.remat`` asks and autograd records: grad mode on and a tensor of
+    ``args`` (or of a dict of them) requiring grad.  One layer at a time."""
+    tensors = [t for a in args
+               for t in (T.leaves(a) if isinstance(a, dict) else [a])
+               if isinstance(t, torch.Tensor)]
+    if not (cfg.remat and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors)):
+        return fn(*args)
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(f"{cfg.name}: remat_policy "
+                                  f"{cfg.remat_policy!r} saves the products' "
+                                  f"outputs: ROADMAP A.5b")
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _layer(cfg, pat, lp, h, positions, plain):
+    """One layer of ``forward``: (h, MoE aux or None)."""
+    hn = L.apply_norm(cfg, lp["norm1"], h, plain=plain)
+    if pat.mixer == "attn":
+        mix, _ = L.attention_fwd(cfg, lp["attn"], hn, positions,
+                                 causal=True, plain=plain)
+    else:
+        mix = SSM.ssm_fwd(cfg, lp["ssm"], hn, plain=plain)
+    return _ffn(cfg, pat, lp, h + mix, plain)
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             positions: torch.Tensor | None = None, *,
-            plain: bool = False) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) in fp32 (no loss).
+            plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (logits (B, S, V) in fp32, the MoE aux loss
+    summed over the layers, an fp32 0-d tensor: 0 without MoE).
     ``positions``: (B, S), or (3, B, S) ids for M-RoPE; default
     ``0 .. S-1``."""
     check_supported(cfg)
     h = _embed(cfg, params, tokens)
     if positions is None:
         positions = _positions(cfg, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(params["layers"]):
-        pat = _pattern(cfg, i)
-        hn = L.apply_norm(cfg, lp["norm1"], h, plain=plain)
-        if pat.mixer == "attn":
-            mix, _ = L.attention_fwd(cfg, lp["attn"], hn, positions,
-                                     causal=True, plain=plain)
-        else:
-            mix = SSM.ssm_fwd(cfg, lp["ssm"], hn, plain=plain)
-        h = _ffn(cfg, pat, lp, h + mix, plain)
-    return _logits(cfg, params, h, plain)
+        h, a = remat(cfg, _layer, cfg, _pattern(cfg, i), lp, h, positions,
+                     plain)
+        if a is not None:
+            aux = aux + a
+    return _logits(cfg, params, h, plain), aux
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token nll over fp32 logits (B, S, V) plus ``z_loss`` times
+    the mean squared log-partition."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean() + z_loss * lse.square().mean()
+
+
+def loss_fn(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            labels: torch.Tensor, z_loss: float = 1e-4, *,
+            plain: bool = False) -> torch.Tensor:
+    """The training loss (reference ``lm.loss_fn``): nll + z-loss on the
+    fp32 logits' log-sum-exp + the MoE aux loss."""
+    logits, aux = forward(cfg, params, tokens, plain=plain)
+    return lm_loss(logits, labels, z_loss) + aux
 
 
 # -------------------------------------------------------------------- decode
@@ -288,7 +342,7 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                                                       plain=plain)
             c["conv"].copy_(conv)
             c["state"].copy_(state)
-        h = _ffn(cfg, pat, lp, h + mix, plain)
+        h, _ = _ffn(cfg, pat, lp, h + mix, plain)
     return _logits(cfg, params, h[:, -1:], plain)[:, 0], cache
 
 
@@ -309,5 +363,5 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
         else:
             mix, _, _ = SSM.ssm_decode(cfg, lp["ssm"], hn, c["conv"],
                                        c["state"], plain=plain)
-        h = _ffn(cfg, pat, lp, h + mix, plain)
+        h, _ = _ffn(cfg, pat, lp, h + mix, plain)
     return _logits(cfg, params, h, plain)[:, 0], cache

@@ -1,0 +1,121 @@
+"""AdamW with warmup + cosine schedule, global-norm clipping, and
+optionally bf16 moments (``ArchConfig.moment_dtype``).
+
+Port of ``repro.optim.adamw``, on one device (``state_specs`` waits for
+the multi-device layer, ROADMAP A.6).  The state is ``{"m": tree, "v":
+tree, "step": int32 0-d tensor}`` with the parameters' structure.  The
+schedule and bias corrections are fp32 0-d tensors on the step's device,
+as the reference computes them in fp32, so a step reads nothing back to
+the host.  ``apply_updates`` updates the parameters and the moments in
+place (the reference returns new arrays): at full width a copy of every
+leaf would cost as much again as the parameters.
+
+Weight decay falls where the reference's leaf has two dims or more.  The
+reference stacks each layer's leaves over ``n_blocks``, so a layer's norm
+gain, ``A_log``, ``dt_bias`` and biases are 2-D there and decayed; the
+port keeps one dict per layer in a list, where the same leaves are 1-D.
+So the port decays every leaf under a list (``layers``, encdec's
+``encoder`` / ``decoder``) and the others (``embed``, ``lm_head``,
+``final_norm``, ``enc_norm``) by their own ndim (``decay_mask``).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from .. import tree as T
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    peak_lr: float = 3e-4
+    min_lr: float = 3e-5
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+
+
+def lr_at(cfg: OptConfig, step: torch.Tensor | int) -> torch.Tensor:
+    """Linear warmup to ``peak_lr``, then a cosine to ``min_lr`` at
+    ``total_steps``; fp32."""
+    step = torch.as_tensor(step).float()
+    warm = cfg.peak_lr * step / max(cfg.warmup_steps, 1)
+    decay_steps = max(cfg.total_steps - cfg.warmup_steps, 1)
+    frac = ((step - cfg.warmup_steps) / decay_steps).clamp(0.0, 1.0)
+    cos = cfg.min_lr + 0.5 * (cfg.peak_lr - cfg.min_lr) \
+        * (1.0 + torch.cos(math.pi * frac))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_state(params, cfg: OptConfig) -> dict:
+    mdt = getattr(torch, cfg.moment_dtype)
+    first = T.leaves(params)[0]
+    return {"m": T.tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
+            "v": T.tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
+            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+
+
+def decay_mask(params) -> dict:
+    """True for each leaf the reference decays: every leaf under a list
+    (stacked over the layers there), else a leaf of ndim >= 2."""
+    def mark(tree, stacked):
+        if isinstance(tree, dict):
+            return {k: mark(v, stacked) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(mark(t, True) for t in tree)
+        return stacked or tree.ndim >= 2
+    return mark(params, False)
+
+
+def _clip_scale(grads, max_norm: float):
+    """(the global L2 norm of ``grads``, the factor that clips it to
+    ``max_norm``), both fp32 0-d tensors."""
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in T.leaves(grads)))
+    return gnorm, torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global L2 norm of at most ``max_norm``, the norm
+    before scaling as an fp32 0-d tensor)."""
+    gnorm, scale = _clip_scale(grads, max_norm)
+    return T.tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
+
+
+@torch.no_grad()
+def apply_updates(params, grads, state: dict, cfg: OptConfig):
+    """One AdamW step: returns ``(params, state, {"lr", "grad_norm"})``,
+    the parameters and moments updated in place.  The gradients are
+    clipped leaf by leaf as they are used (``clip_by_global_norm``'s
+    numbers, without a clipped copy of every gradient)."""
+    gnorm, scale = _clip_scale(grads, cfg.grad_clip)
+    step = state["step"] + 1
+    lr = lr_at(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1.0 - b1 ** step.float()
+    bc2 = 1.0 - b2 ** step.float()
+    flat_p = T.leaves(params)
+    for p, g, m, v, decay in zip(flat_p, T.leaves(grads), T.leaves(state["m"]),
+                                 T.leaves(state["v"]),
+                                 T.leaves(decay_mask(params))):
+        g32 = (g.float() * scale).to(g.dtype).float()
+        m32 = m if m.dtype == torch.float32 else m.float()
+        v32 = v if v.dtype == torch.float32 else v.float()
+        m32.mul_(b1).add_((1 - b1) * g32)
+        v32.mul_(b2).add_((1 - b2) * g32 * g32)
+        delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
+        if decay:   # decoupled weight decay
+            delta.add_(cfg.weight_decay * p.float())
+        p.copy_(p.float() - lr * delta)
+        if m32 is not m:
+            m.copy_(m32)
+            v.copy_(v32)
+    new_state = {"m": state["m"], "v": state["v"], "step": step}
+    return params, new_state, {"lr": lr, "grad_norm": gnorm}

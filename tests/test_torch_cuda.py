@@ -778,3 +778,204 @@ def test_cuda_moe_index_path_gives_the_one_hot_numbers(cuda, moe, S, tdt):
     assert float((yi.float() - yo.float()).abs().max()) <= tol
     assert r.cap == (1 if S == 1 else
                      int(np.ceil(S * cfg.top_k / cfg.n_experts * 1.25)))
+
+
+# ------------------------------------------------------ training (backward)
+# Backward kernels against autograd of the plain versions (the reference's
+# models differentiate their jnp oracles; no Pallas kernel has a VJP):
+# fp32 within 1e-4 * max|ref| per gradient; bf16 dx / dq / dk / dv within
+# a relative L2 of 2e-2, dgamma (fp32 sums of bf16 products) within 1e-3.
+# (rows, width, offset): the reference's SFU rows, qwen3-4b's training rows
+# (norm1/norm2/final_norm 4 x 512 tokens of 2560, the q-norm 65,536 rows of
+# 128 and the k-norm 16,384), a ragged width and an unaligned view (the
+# block kernel's and the warp kernel's scalar loads)
+RMS_BWD_ROWS = [(R, N, 0) for R, N in SFU_SHAPES] + [
+    (2048, 2560, 0), (65536, 128, 0), (16384, 128, 0), (64, 2561, 0),
+    (2048, 2560, 1), (33, 1000, 1)]
+# the reference's attention sweep (causal and not, fp32), qwen3-4b's
+# training attention (bf16, causal)
+ATTN_BWD = [(s, c, torch.float32) for s in ATTN_SHAPES[:-1]
+            for c in (True, False)] + [(ATTN_SHAPES[-1], True, torch.bfloat16)]
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _grad_close(got, want, tdt, bf16_rel=2e-2):
+    if tdt == torch.float32:
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+    else:
+        assert got.dtype == want.dtype and _rel_l2(got, want) <= bf16_rel
+
+
+def _view(shape, offset, seed, cuda, tdt, scale=1.0):
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(_np((n + offset,), seed, scale)).to(cuda, tdt)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", RMS_BWD_ROWS, ids=str)
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("with_gamma", [True, False], ids=["gamma", "plain"])
+def test_cuda_rmsnorm_backward_matches_autograd_of_plain(cuda, rows, tdt,
+                                                         with_gamma):
+    R, N, offset = rows
+    x = _view((R, N), offset, 100, cuda, tdt, 2.0)
+    dy = _view((R, N), offset, 101, cuda, tdt)
+    g = (1.0 + _view((N,), offset, 102, cuda, torch.float32, 0.2)
+         if with_gamma else None)
+    xr = x.detach().clone().requires_grad_()
+    gr = g.detach().clone().requires_grad_() if with_gamma else None
+    ref.rmsnorm_rows(xr, gr).backward(dy)
+    xk = x.detach().requires_grad_()
+    gk = g.detach().requires_grad_() if with_gamma else None
+    before = (rmsnorm_rows.launches, sfu.rmsnorm_bwd.launches)
+    out = rmsnorm_rows(xk, gk)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (rmsnorm_rows.launches, sfu.rmsnorm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.grad_fn is not None and xk.grad.dtype == tdt
+    _grad_close(xk.grad, xr.grad, tdt)
+    if with_gamma:
+        if tdt == torch.float32:
+            _grad_close(gk.grad, gr.grad, tdt)
+        else:
+            assert _rel_l2(gk.grad, gr.grad) <= 1e-3
+    # a replay gives the same bits (no atomics)
+    rstd = ref.rmsnorm_rstd(x)
+    first = sfu.rmsnorm_bwd(x, g, rstd, dy.contiguous())
+    again = sfu.rmsnorm_bwd(x, g, rstd, dy.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0])
+    assert with_gamma == (first[1] is not None)
+    if with_gamma:
+        assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_BWD, ids=str)
+def test_cuda_attention_backward_matches_autograd_of_plain(cuda, case):
+    (B, Hq, Hkv, Sq, Skv, D), causal, tdt = case
+    q = torch.from_numpy(_np((B, Hq, Sq, D), 110)).to(cuda, tdt)
+    k = torch.from_numpy(_np((B, Hkv, Skv, D), 111)).to(cuda, tdt)
+    v = torch.from_numpy(_np((B, Hkv, Skv, D), 112)).to(cuda, tdt)
+    do = torch.from_numpy(_np((B, Hq, Sq, D), 113)).to(cuda, tdt)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.mha_attention(*leaves, causal=causal).backward(do)
+    # the kernels directly (the decode-shaped cases too: the backward kernel
+    # takes any shape; the autograd wrapper only the prefill's)
+    out, lse = fa.attention_lse(q, k, v, causal=causal)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for got, leaf, rep in zip(grads, leaves, again):
+        _grad_close(got, leaf.grad, tdt)
+        assert torch.equal(got, rep)
+    _, lse_plain = ref.mha_attention_lse(q, k, v, causal=causal)
+    assert float((lse - lse_plain).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_attention_autograd_runs_the_backward_kernel(cuda):
+    """qwen3-4b's training attention through the wrapper under autograd:
+    one forward (with lse) and one backward launch, the gradients equal to
+    the kernels called directly."""
+    B, Hq, Hkv, S, D = 4, 32, 8, 512, 128
+    q, k, v = (torch.from_numpy(_np(s, 120 + i)).to(cuda, torch.bfloat16)
+               for i, s in enumerate(((B, Hq, S, D), (B, Hkv, S, D),
+                                      (B, Hkv, S, D))))
+    do = torch.from_numpy(_np((B, Hq, S, D), 123)).to(cuda, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.launches, fa.flash_attention_bwd.launches)
+    out = flash_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, fa.flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    o2, lse = fa.attention_lse(q, k, v, causal=True)
+    want = fa.flash_attention_bwd(q, k, v, o2, lse, do, causal=True)
+    assert torch.equal(out.detach(), o2)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+def _c5_calls(cuda):
+    """Each kernel without a backward (C.5), called on CUDA tensors that
+    require grad: name -> a call."""
+    x = torch.from_numpy(_np((8, 256), 130)).to(cuda).requires_grad_()
+    g = torch.ones(256, device=cuda, requires_grad=True)
+    xb = torch.from_numpy(_np((2, 64, 4, 16), 131)).to(cuda).requires_grad_()
+    a = -torch.rand((2, 64, 4), device=cuda) * 0.1
+    bc = torch.from_numpy(_np((2, 64, 1, 16), 132)).to(cuda)
+    w = torch.from_numpy(_np((256, 64), 133)).to(cuda).requires_grad_()
+    q = torch.from_numpy(_np((1, 4, 1, 64), 134)).to(cuda).requires_grad_()
+    kv = torch.from_numpy(_np((1, 4, 32, 64), 135)).to(cuda)
+    q64 = torch.from_numpy(_np((1, 4, 64, 64), 136)).to(cuda).requires_grad_()
+    kv64 = torch.from_numpy(_np((1, 4, 64, 64), 137)).to(cuda)
+    return {
+        "softmax_rows": lambda: softmax_rows(x),
+        "layernorm_rows": lambda: layernorm_rows(x, g, None),
+        "act_rows": lambda: act_rows(x, "gelu"),
+        "ssd": lambda: ssd(xb, a, bc, bc, chunk=32),
+        "flex_gemm": lambda: flex_gemm(x, w),
+        "flash_attention decode shape": lambda: flash_attention(
+            q, kv, kv, causal=True),
+        "flash_attention kv_len": lambda: flash_attention(
+            q64, kv64, kv64, causal=False, kv_len=32),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["softmax_rows", "layernorm_rows",
+                                  "act_rows", "ssd", "flex_gemm",
+                                  "flash_attention decode shape",
+                                  "flash_attention kv_len"])
+def test_cuda_kernels_without_a_backward_raise_under_autograd(cuda, name):
+    call = _c5_calls(cuda)[name]
+    with pytest.raises(RuntimeError, match="A.5b"):
+        call()
+    with torch.no_grad():
+        out = call()
+    torch.cuda.synchronize()
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is None and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_trains_reduced_qwen3_and_replays_a_fault(cuda,
+                                                               tmp_path):
+    """``Trainer`` on the card at the reduced config (fp32): the loss falls
+    as on the CPU (tests/test_torch_train.py), every step goes through the
+    backward kernels (one call of each a forward call: no remat in the
+    reduced config), and a run with a fault injected and resumed from
+    its checkpoint replays the uninterrupted losses."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.train import TrainOptions, Trainer
+    cfg = get_config("qwen3-4b", reduced=True)
+    shape = ShapeSpec("t", 64, 8, "train")
+    counts = (rmsnorm_rows, sfu.rmsnorm_bwd, flash_attention,
+              fa.flash_attention_bwd)
+    before = [f.launches for f in counts]
+    tr = Trainer(cfg, shape, device=cuda, options=TrainOptions(
+        steps=40, ckpt_every=10, ckpt_dir=str(tmp_path / "a"),
+        log_every=1000))
+    tr.run()
+    losses = [m["loss"] for m in tr.metrics_log]
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.05
+    L = cfg.n_layers
+    assert [f.launches - b for f, b in zip(counts, before)] == \
+        [40 * (4 * L + 1), 40 * (4 * L + 1), 40 * L, 40 * L]
+    faulty = Trainer(cfg, shape, device=cuda, options=TrainOptions(
+        steps=40, ckpt_every=10, ckpt_dir=str(tmp_path / "b"),
+        fail_at_step=25, log_every=1000))
+    faulty.run()
+    assert faulty.failures == 1
+    replayed = {m["step"]: m["loss"] for m in faulty.metrics_log}
+    for m in tr.metrics_log:
+        assert replayed[m["step"]] == pytest.approx(m["loss"], rel=1e-6)

@@ -82,10 +82,29 @@ def _close(got, want, scale):
 def test_forward_logits_match_the_reference(arch):
     cfg, rcfg, _, jp, p = _params(arch)
     tok = _tokens(cfg, (2, 12), 5)
-    want, _ = ref_lm.forward(rcfg, jp, jnp.asarray(tok, jnp.int32))
-    got = lm.forward(cfg, p, torch.from_numpy(tok))
+    want, want_aux = ref_lm.forward(rcfg, jp, jnp.asarray(tok, jnp.int32))
+    got, aux = lm.forward(cfg, p, torch.from_numpy(tok))
     assert got.dtype == torch.float32
+    assert aux.dtype == torch.float32 and float(aux) == float(want_aux) == 0
     _close(got.numpy(), want, float(jnp.abs(want).max()))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_loss_fn_matches_the_reference(arch):
+    """``lm.loss_fn`` (nll + z-loss on the fp32 logits' log-sum-exp + the
+    aux, 0 here) against ``repro.models.lm.loss_fn`` on the same tokens
+    and labels; tests/test_torch_train.py holds the gradients."""
+    cfg, rcfg, _, jp, p = _params(arch)
+    tok = _tokens(cfg, (2, 13), 7)
+    want = ref_lm.loss_fn(rcfg, jp, jnp.asarray(tok[:, :-1], jnp.int32),
+                          jnp.asarray(tok[:, 1:], jnp.int32))
+    got = lm.loss_fn(cfg, p, torch.from_numpy(tok[:, :-1]),
+                     torch.from_numpy(tok[:, 1:]))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    plain = lm.loss_fn(cfg, p, torch.from_numpy(tok[:, :-1]),
+                       torch.from_numpy(tok[:, 1:]), z_loss=0.0)
+    assert float(plain) < float(got)      # the z-loss adds a positive term
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -118,7 +137,7 @@ def test_decode_consistency():
     B, S, Sp = 2, 12, 8
     tok = torch.from_numpy(_tokens(cfg, (B, S), 1))
     p = lm.init(cfg, torch.Generator().manual_seed(1), "cpu")
-    full = lm.forward(cfg, p, tok)
+    full, _ = lm.forward(cfg, p, tok)
     pre, cache = lm.prefill(cfg, p, tok[:, :Sp], max_len=S)
     errs = [float((pre - full[:, Sp - 1]).abs().max())]
     for t in range(Sp, S):
@@ -164,7 +183,8 @@ def test_casting_once_at_load_gives_the_numbers_of_casting_at_use():
             assert layer[sub][name].dtype == torch.float32, (arch, name)
         assert layer["norm1"]["scale"].dtype == torch.float32
         tok = torch.from_numpy(_tokens(cfg, (2, 6), 7))
-        assert torch.equal(lm.forward(cfg, p, tok), lm.forward(cfg, cast, tok))
+        assert torch.equal(lm.forward(cfg, p, tok)[0],
+                           lm.forward(cfg, cast, tok)[0])
         pre, c1 = lm.prefill(cfg, p, tok, max_len=8)
         pre_c, c2 = lm.prefill(cfg, cast, tok, max_len=8)
         assert torch.equal(pre, pre_c)
@@ -240,7 +260,7 @@ def test_unported_archs_raise(arch):
     lm.check_supported(cfg)
     p = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
     tok = torch.from_numpy(_tokens(cfg, (2, 5), 14))
-    logits = lm.forward(cfg, p, tok)
+    logits, _ = lm.forward(cfg, p, tok)
     assert logits.shape == (2, 5, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     from repro_torch.launch.serve import BatchServer, Request

@@ -315,10 +315,13 @@ def test_prefill_and_decode_match_the_reference(arch):
                                     torch.from_numpy(tok[:, t:t + 1]), t)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-4 * scale)
-    full, _ = ref_lm.forward(rcfg, jp, jnp.asarray(tok, jnp.int32))
-    got = lm.forward(cfg, p, torch.from_numpy(tok))
+    full, full_aux = ref_lm.forward(rcfg, jp, jnp.asarray(tok, jnp.int32))
+    got, aux = lm.forward(cfg, p, torch.from_numpy(tok))
     np.testing.assert_allclose(got.numpy(), np.asarray(full), rtol=0,
                                atol=1e-4 * float(jnp.abs(full).max()))
+    # the load-balance loss, summed over the MoE layers as the reference's
+    assert float(full_aux) > 0
+    np.testing.assert_allclose(float(aux), float(full_aux), rtol=1e-5)
 
 
 def test_decode_consistency_with_no_drops():
@@ -332,7 +335,7 @@ def test_decode_consistency_with_no_drops():
     tok = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S)))
     p = lm.init(cfg, torch.Generator().manual_seed(1), "cpu")
-    full = lm.forward(cfg, p, tok)
+    full, _ = lm.forward(cfg, p, tok)
     pre, cache = lm.prefill(cfg, p, tok[:, :Sp], max_len=S)
     errs = [float((pre - full[:, Sp - 1]).abs().max())]
     for t in range(Sp, S):
@@ -376,7 +379,8 @@ def test_router_stays_fp32():
                        p["layers"][1]["moe"]["router"])
     tok = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (2, 6)))
-    assert torch.equal(lm.forward(cfg, p, tok), lm.forward(cfg, cast, tok))
+    assert torch.equal(lm.forward(cfg, p, tok)[0],
+                       lm.forward(cfg, cast, tok)[0])
     pre, c1 = lm.prefill(cfg, p, tok, max_len=8)
     pre_c, c2 = lm.prefill(cfg, cast, tok, max_len=8)
     assert torch.equal(pre, pre_c)
@@ -426,7 +430,7 @@ def _pinned_moe_inputs(cfg, p, tok, eps, pin=None):
     layers.moe_fwd = moe
     ref.layernorm_rows = lambda x, g=None, b=None, e=1e-5: norm(x, g, b, eps)
     try:
-        return lm.forward(cfg, p, tok, plain=True), inputs, routes
+        return lm.forward(cfg, p, tok, plain=True)[0], inputs, routes
     finally:
         layers.moe_fwd, ref.layernorm_rows = fwd, norm
 

@@ -145,14 +145,14 @@ def test_forward_matches_the_reference(ids):
     tok = _tokens(cfg, (2, 12), 9)
     if ids == "text":
         want, _ = ref_lm.forward(rcfg, jp, jnp.asarray(tok, jnp.int32))
-        got = lm.forward(cfg, p, torch.from_numpy(tok))
+        got, _ = lm.forward(cfg, p, torch.from_numpy(tok))
     else:
         pos = _ids(2, 12, 10)
         want, _ = ref_lm.forward(rcfg, jp, jnp.asarray(tok, jnp.int32),
                                  positions=jnp.asarray(pos))
-        got = lm.forward(cfg, p, torch.from_numpy(tok),
-                         positions=torch.from_numpy(pos))
-        text = lm.forward(cfg, p, torch.from_numpy(tok))
+        got, _ = lm.forward(cfg, p, torch.from_numpy(tok),
+                            positions=torch.from_numpy(pos))
+        text, _ = lm.forward(cfg, p, torch.from_numpy(tok))
         assert float((got - text).abs().max()) > 1e-3
     _close(got.numpy(), want)
 
@@ -185,7 +185,7 @@ def test_decode_consistency():
     B, S, Sp = 2, 12, 8
     tok = torch.from_numpy(_tokens(cfg, (B, S), 1))
     p = lm.init(cfg, torch.Generator().manual_seed(1), "cpu")
-    full = lm.forward(cfg, p, tok)
+    full, _ = lm.forward(cfg, p, tok)
     pre, cache = lm.prefill(cfg, p, tok[:, :Sp], max_len=S)
     errs = [float((pre - full[:, Sp - 1]).abs().max())]
     for t in range(Sp, S):

@@ -106,7 +106,7 @@ def test_forward_logits_match_the_reference(arch):
     cfg, rcfg, _, jp, p = _params(arch)
     tok = _tokens(cfg, (2, 12), 5)
     want, _ = ref_lm.forward(rcfg, jp, jnp.asarray(tok, jnp.int32))
-    got = lm.forward(cfg, p, torch.from_numpy(tok))
+    got, _ = lm.forward(cfg, p, torch.from_numpy(tok))
     assert got.dtype == torch.float32
     _close(got.numpy(), want, float(jnp.abs(want).max()))
 
@@ -157,7 +157,7 @@ def test_decode_consistency(arch):
     cfg, _ = _configs(arch)
     tok = torch.from_numpy(_tokens(cfg, (2, 12), 1))
     p = lm.init(cfg, torch.Generator().manual_seed(1), "cpu")
-    full = lm.forward(cfg, p, tok)
+    full, _ = lm.forward(cfg, p, tok)
     for Sp in (8, 2):
         pre, cache = lm.prefill(cfg, p, tok[:, :Sp], max_len=12)
         errs = [float((pre - full[:, Sp - 1]).abs().max())]
@@ -274,11 +274,11 @@ def _drift(monkeypatch, n_layers, compute_dtype):
     p = lm.cast_params(cfg, lm.init(cfg, torch.Generator().manual_seed(0),
                                     "cpu"))
     tok = torch.from_numpy(_tokens(cfg, (2, 256), 0))
-    chunked = lm.forward(cfg, p, tok, plain=True)     # S = 256, chunk 128
+    chunked, _ = lm.forward(cfg, p, tok, plain=True)  # S = 256, chunk 128
     with monkeypatch.context() as m:
         m.setattr(ref, "ssd_plain", lambda x, a, b, c, *, chunk,
                   initial_state=None: ref.ssd_scan(x, a, b, c))
-        scan = lm.forward(cfg, p, tok, plain=True)
+        scan, _ = lm.forward(cfg, p, tok, plain=True)
     return float((chunked - scan).norm() / scan.norm())
 
 

@@ -1,0 +1,282 @@
+"""The port's training path against the JAX package's, on the CPU.
+
+``lm.loss_fn`` / ``encdec.loss_fn`` and their gradients against
+``jax.value_and_grad`` of the reference's losses on reduced configs (fp32
+compute), every leaf within 1e-4 · max|g| of that leaf; one
+``make_train_step`` step against the reference's jitted step on a
+one-device mesh, with one and two microbatches; remat on and off; the
+call structure a step gives the kernels (what ``chip_smoke.py`` counts on
+the card); and ports of tests/test_system.py's trainer tests (the loss
+falls and resumes, an injected fault is survived) plus a fault-resumed
+run that replays the uninterrupted losses.  Parameters come from the
+reference's ``init`` with the norm gains perturbed, and cross (with the
+gradient trees) through ``convert.params_from_jax``; batches from
+``SyntheticLM``, which gives both packages the same tokens.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs.shapes import ShapeSpec as RefShapeSpec
+from repro.launch.mesh import make_local_mesh
+from repro.launch.steps import make_train_step as ref_make_train_step
+from repro.models import encdec as ref_encdec
+from repro.models import lm as ref_lm
+from repro.optim import adamw as ref_adamw
+from repro_torch import tree as T
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.convert import encdec_params_from_jax, params_from_jax
+from repro_torch.data import for_arch
+from repro_torch.kernels import ref
+from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.train import TrainOptions, Trainer
+from repro_torch.models import encdec, lm
+from repro_torch.optim import OptConfig, init_state
+
+LOSS_ARCHS = ["qwen3-4b", "mamba2-2.7b", "nemotron-4-15b", "qwen2-vl-2b",
+              "dbrx-132b", "whisper-medium"]
+GRAD_TOL = 1e-4
+B, S = 2, 16
+
+
+def _perturb(tree, rng, path=""):
+    """Norm gains and biases off their ones and zeros, so that a wrong
+    gradient through them shows."""
+    if isinstance(tree, dict):
+        return {k: _perturb(v, rng, f"{path}/{k}") for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if "norm" in path or path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"):
+        arr = arr + rng.normal(scale=0.1, size=arr.shape).astype(arr.dtype)
+    return arr
+
+
+def _setup(arch):
+    cfg, rcfg = get_config(arch, reduced=True), ref_get_config(arch,
+                                                                reduced=True)
+    model = ref_encdec if rcfg.is_encdec else ref_lm
+    jp = _perturb(model.init(rcfg, jax.random.PRNGKey(1))[0],
+                  np.random.default_rng(2))
+    batch = for_arch(cfg, S, B, seed=3).batch(0)
+    return cfg, rcfg, jp, batch
+
+
+def _to_port(cfg, tree):
+    return (encdec_params_from_jax if cfg.is_encdec else params_from_jax)(
+        cfg, jax.tree.map(np.asarray, tree), "cpu")
+
+
+def _port_loss(cfg, p, batch):
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    if cfg.is_encdec:
+        return encdec.loss_fn(cfg, p, t["frames"], t["tokens"], t["labels"])
+    return lm.loss_fn(cfg, p, t["tokens"], t["labels"])
+
+
+def _ref_loss(rcfg, batch):
+    j = {k: jnp.asarray(v) for k, v in batch.items()}
+    if rcfg.is_encdec:
+        return lambda p: ref_encdec.loss_fn(rcfg, p, j["frames"], j["tokens"],
+                                            j["labels"])
+    return lambda p: ref_lm.loss_fn(rcfg, p, j["tokens"], j["labels"])
+
+
+def _leaves_close(got_tree, want_tree, tol=GRAD_TOL):
+    for (path, got), want in zip(T.leaves_with_paths(got_tree),
+                                 T.leaves(want_tree)):
+        got, want = got.detach().float(), want.detach().float()
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (path, err)
+
+
+@pytest.mark.parametrize("arch", LOSS_ARCHS)
+def test_loss_and_grads_match_jax_value_and_grad(arch):
+    cfg, rcfg, jp, batch = _setup(arch)
+    want, g_ref = jax.value_and_grad(_ref_loss(rcfg, batch))(
+        jax.tree.map(jnp.asarray, jp))
+    p = _to_port(cfg, jp)
+    leaves = T.leaves(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = _port_loss(cfg, p, batch)
+    grads = T.unflatten(p, list(torch.autograd.grad(loss, leaves)))
+    assert float(loss.detach()) == pytest.approx(float(want), rel=1e-5)
+    _leaves_close(grads, _to_port(cfg, g_ref))
+
+
+def test_loss_carries_the_moe_aux():
+    """dbrx's loss is nll + z-loss + the load-balance loss: the aux that
+    ``forward`` now returns, as the reference's."""
+    cfg, rcfg, jp, batch = _setup("dbrx-132b")
+    p = _to_port(cfg, jp)
+    logits, aux = lm.forward(cfg, p, torch.from_numpy(batch["tokens"]))
+    _, want_aux = ref_lm.forward(rcfg, jax.tree.map(jnp.asarray, jp),
+                                 jnp.asarray(batch["tokens"]))
+    assert float(aux) > 0
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
+    labels = torch.from_numpy(batch["labels"])
+    assert float(_port_loss(cfg, p, batch)) == pytest.approx(
+        float(lm.lm_loss(logits, labels) + aux), rel=1e-6)
+
+
+@pytest.mark.parametrize("mb", [1, 2])
+def test_train_step_matches_the_reference_step(mb):
+    """One step of both packages from the same parameters and batch.  The
+    optimizer's eps is 1e-3 here: with AdamW's default 1e-8 the first
+    step moves each parameter by lr · sign(g), which flips for gradients
+    within fp32 rounding of zero; at 1e-3 the update is smooth in g."""
+    cfg, rcfg, jp, _ = _setup("qwen3-4b")
+    cfg, rcfg = (dataclasses.replace(c, microbatch=mb) for c in (cfg, rcfg))
+    kw = dict(peak_lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-3)
+    shape = ShapeSpec("t", S, 4, "train")
+    bundle = ref_make_train_step(rcfg, make_local_mesh(),
+                                 RefShapeSpec("t", S, 4, "train"),
+                                 ref_adamw.OptConfig(**kw))
+    rparams = jax.tree.map(jnp.asarray, jp)
+    ropt = ref_adamw.init_state(rparams, ref_adamw.OptConfig(**kw))
+    batch = for_arch(cfg, S, 4, seed=5).batch(0)
+    rnew, _, rm = bundle.jit()(rparams, ropt,
+                               {k: jnp.asarray(v) for k, v in batch.items()})
+    opt = OptConfig(**kw)
+    step = make_train_step(cfg, shape, opt, "cpu")
+    p = _to_port(cfg, jp)
+    p, state, m = step(p, init_state(p, opt),
+                       {k: torch.from_numpy(v).long() for k, v in
+                        batch.items()})
+    assert float(m["loss"]) == pytest.approx(float(rm["loss"]), rel=1e-5)
+    assert float(m["grad_norm"]) == pytest.approx(float(rm["grad_norm"]),
+                                                  rel=1e-4)
+    assert float(m["lr"]) == pytest.approx(float(rm["lr"]), rel=1e-6)
+    assert int(state["step"]) == 1
+    _leaves_close(p, _to_port(cfg, rnew), tol=1e-5)
+
+
+def test_microbatches_give_the_whole_batch_step():
+    cfg, _, jp, _ = _setup("qwen3-4b")
+    opt = OptConfig(warmup_steps=1, eps=1e-3)
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in for_arch(cfg, S, 4, seed=6).batch(0).items()}
+    out = []
+    for mb in (1, 2):
+        c = dataclasses.replace(cfg, microbatch=mb)
+        p = _to_port(c, jp)
+        step = make_train_step(c, ShapeSpec("t", S, 4, "train"), opt, "cpu")
+        out.append(step(p, init_state(p, opt), batch))
+    assert float(out[1][2]["loss"]) == pytest.approx(float(out[0][2]["loss"]),
+                                                     rel=1e-5)
+    _leaves_close(out[1][0], out[0][0], tol=1e-5)
+    with pytest.raises(ValueError, match="microbatches"):
+        make_train_step(dataclasses.replace(cfg, microbatch=3),
+                        ShapeSpec("t", S, 4, "train"), opt, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "whisper-medium"])
+def test_remat_gives_the_same_gradients(arch):
+    cfg, _, jp, batch = _setup(arch)
+    grads = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        p = _to_port(c, jp)
+        leaves = T.leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        grads.append(torch.autograd.grad(_port_loss(c, p, batch), leaves))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="A.5b"):
+        c = dataclasses.replace(cfg, remat=True, remat_policy="dots")
+        p = _to_port(c, jp)
+        T.leaves(p)[0].requires_grad_(True)
+        _port_loss(c, p, batch)
+
+
+def test_step_call_structure_with_remat(monkeypatch):
+    """What a train step gives the rmsnorm and attention kernels (on the CPU
+    their plain versions; chip_smoke.py counts the kernels on the card):
+    the forward's 4 norms a layer (norm1, q-norm, k-norm, norm2) and the
+    final norm, the remat recompute's 4 a layer, and one attention a layer
+    in each; the backward kernels run once per forward call outside the
+    recompute, which autograd differentiates."""
+    cfg = dataclasses.replace(get_config("qwen3-4b", reduced=True),
+                              n_layers=3, remat=True)
+    calls = {"rmsnorm": 0, "attention": 0}
+
+    def counted(name, fn):
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return run
+
+    monkeypatch.setattr(ref, "rmsnorm_rows",
+                        counted("rmsnorm", ref.rmsnorm_rows))
+    monkeypatch.setattr(ref, "mha_attention",
+                        counted("attention", ref.mha_attention))
+    p = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = OptConfig()
+    step = make_train_step(cfg, ShapeSpec("t", 32, 2, "train"), opt, "cpu")
+    step(p, init_state(p, opt),
+         for_arch(cfg, 32, 2).device_batch(0, "cpu"))
+    L = cfg.n_layers
+    assert calls == {"rmsnorm": (4 * L + 1) + 4 * L, "attention": 2 * L}
+
+
+def test_trainer_loss_decreases_and_resumes(tmp_path):
+    cfg = get_config("qwen3-4b", reduced=True)
+    shape = ShapeSpec("t", 64, 8, "train")
+    tr = Trainer(cfg, shape, device="cpu", options=TrainOptions(
+        steps=40, ckpt_every=10, ckpt_dir=str(tmp_path), log_every=1000))
+    tr.run()
+    losses = [m["loss"] for m in tr.metrics_log]
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.05
+    # resume continues from the checkpoint, not from scratch
+    tr2 = Trainer(cfg, shape, device="cpu", options=TrainOptions(
+        steps=45, ckpt_every=10, ckpt_dir=str(tmp_path), log_every=1000))
+    tr2.run()
+    assert min(m["step"] for m in tr2.metrics_log) == 40
+
+
+def test_trainer_survives_injected_fault(tmp_path):
+    cfg = get_config("mamba2-2.7b", reduced=True)
+    tr = Trainer(cfg, ShapeSpec("t", 32, 4, "train"), device="cpu",
+                 options=TrainOptions(steps=16, ckpt_every=5,
+                                      ckpt_dir=str(tmp_path),
+                                      fail_at_step=8, log_every=1000))
+    tr.run()
+    assert tr.failures == 1
+    assert "injected fault" in tr.fault_log[0]
+    assert max(m["step"] for m in tr.metrics_log) == 15
+
+
+def test_fault_resume_replays_the_uninterrupted_losses(tmp_path):
+    cfg = get_config("qwen3-4b", reduced=True)
+    shape = ShapeSpec("t", 32, 4, "train")
+    runs = []
+    for fail in (-1, 7):
+        tr = Trainer(cfg, shape, device="cpu", options=TrainOptions(
+            steps=12, ckpt_every=5, ckpt_dir=str(tmp_path / str(fail)),
+            fail_at_step=fail, log_every=1000))
+        tr.run()
+        runs.append({m["step"]: m["loss"] for m in tr.metrics_log})
+    assert runs[1].keys() == runs[0].keys() == set(range(12))
+    for s in range(12):
+        assert runs[1][s] == pytest.approx(runs[0][s], rel=1e-6)
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch):
+    """``device=None`` means the CUDA card, and raises where there is
+    none: the trainer, the step and the data's device batch."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-4b", reduced=True)
+    shape = ShapeSpec("t", 16, 2, "train")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, shape)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg, shape)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        for_arch(cfg, 16, 2).device_batch(0)
