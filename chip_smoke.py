@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 1. device: a CUDA device must be present; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build: compiles every kernel source of ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` each, in parallel) and prints the seconds.
+   (one ``nvcc`` each, in parallel) and prints the seconds, and the
+   registers and spills ``ptxas -v`` reports for the backward kernels.
 3. kernels: holds each kernel against its plain PyTorch version on the
    card: ``flex_gemm`` over the reference's GEMM shapes, every epilogue,
    with and without the accumulator, fp32 and bf16, plus every MMU tile
@@ -111,8 +112,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    Pallas counterpart) against autograd of their plain versions on the
    card: rmsnorm over the reference's SFU rows (fp32), qwen3-4b's training
    rows (bf16 and fp32) and a ragged and an unaligned case; attention over
-   the reference's attention shapes, causal and not (fp32), and qwen3-4b's
-   training attention (bf16); every gradient within ``FP32_GRAD_TOL`` /
+   the reference's attention shapes, causal and not (fp32, and bf16 on the
+   tensor-core kernels), a causal case whose first rows see no key (their
+   gradient must be 0), a ragged head-128 GQA-4 case with Sq != Skv (bf16)
+   and qwen3-4b's training attention (bf16); every gradient within
+   ``FP32_GRAD_TOL`` /
    ``BF16_GRAD_RTOL`` / ``DGAMMA_RTOL``, and a second backward run equal
    to the bit.  qwen3-4b's model gradients (``lm.loss_fn``), kernels
    against plain versions on the same weights and ``SyntheticLM`` batch:
@@ -142,10 +146,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    qwen2-vl-2b's prefill and the MoE archs' prefill and decode,
    ``sfu_layernorm`` at whisper-medium's rows, ``rmsnorm`` at qwen2-vl-2b's
    and the MoE archs', ``ssd`` at jamba's prefill; the backward kernels at
-   qwen3-4b's training shapes, beside their plain versions and the
-   backward of ``F.rms_norm`` / ``F.scaled_dot_product_attention``.
-   The serving profiles sum ``ssd``'s two kernels and print each step's
-   device activities.
+   qwen3-4b's training shapes, beside their plain versions, the backward
+   of ``F.rms_norm`` / ``F.scaled_dot_product_attention``, and in brackets
+   their times before the redesign (``MS_BEFORE_REDESIGN``, as recorded in
+   ``PERF.md``).
+   The profiles sum ``ssd``'s two kernels and each backward's kernels, and
+   print each step's device activities.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -155,6 +161,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -374,6 +381,32 @@ FP32_GRAD_TOL, BF16_GRAD_RTOL, DGAMMA_RTOL = 1e-4, 2e-2, 1e-3
 # a ragged width (the block kernel) and an unaligned view (scalar loads)
 RMS_BWD_ROWS = [(2048, 2560, 0), (65536, 128, 0), (16384, 128, 0),
                 (64, 2561, 0), (2048, 2560, 1)]
+# attention's backward besides the reference's sweep (fp32 and bf16) and
+# the training shape: a causal case whose first 40 query rows see no key
+# (Sq > Skv) and a ragged head-128 GQA-4 case with Sq != Skv, whose lengths
+# are no multiple of the kernels' tiles
+ATTN_EMPTY_ROWS = (1, 4, 2, 80, 40, 64)
+ATTN_RAGGED_128 = (1, 8, 2, 100, 130, 128)
+# device ms of the backward kernels before their redesign (fp32 FMA
+# attention kernels; rmsnorm's one-row blocks, a partial row of dgamma
+# each, a zero fill), by kernel and operand shape, as PERF.md records them
+# (NVIDIA H100 80GB HBM3, 700.00 W): printed in brackets beside this run's
+MS_BEFORE_REDESIGN = {("rmsnorm_bwd", (2048, 2560)): 0.0240,
+                      ("rmsnorm_bwd", (65536, 128)): 0.0438,
+                      ("rmsnorm_bwd", (16384, 128)): 0.0126,
+                      ("flash_attention_bwd", (4, 32, 512, 128)): 1.5186}
+# the backward kernels whose ptxas registers and spills the build prints,
+# by library
+PTXAS_KERNELS = {
+    "flash_attention": ("flash_bwd_delta_kernel", "flash_bwd_kv_mma_kernel",
+                        "flash_bwd_q_mma_kernel"),
+    "sfu": ("rmsnorm_bwd_vec_kernel", "rmsnorm_bwd_warp_kernel",
+            "rmsnorm_bwd_block_kernel", "column_sum_kernel"),
+}
+# the kernels of one backward call, which the profiles sum (csrc/*.cu)
+BWD_PHASES = {"flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_kv",
+                                      "flash_bwd_q"),
+              "rmsnorm_bwd": ("rmsnorm_bwd_", "column_sum")}
 # Model gradients, kernels against plain versions, same weights and batch:
 # at fp32 compute over MODEL_FP32_LAYERS layers every leaf within
 # MODEL_FP32_TOL x max|g| (as FP32_DECODE_TOL holds logits); at bf16 over
@@ -457,6 +490,13 @@ def ssd_work(B, S, H, P, G, N, chunk, esize) -> tuple[int, int]:
     nbytes = esize * (2 * B * S * H * P + 2 * B * S * G * N) \
         + 4 * B * S * H + 4 * B * H * P * N
     return 2 * macs, nbytes
+
+
+def kernel_label(mangled: str, name: str) -> str:
+    """``name<template arguments>`` from a kernel's mangled name."""
+    args = mangled.split(name + "I", 1)[-1].split("Ev", 1)[0]
+    found = re.findall(r"Li(\d+)|__nv_(bfloat16)|^(f)E", args)
+    return f"{name}<{', '.join(n or b or 'float' for n, b, _ in found)}>"
 
 
 def rel_l2(got, want) -> float:
@@ -552,6 +592,16 @@ def main() -> None:
     _build.build()
     print(f"[build] {len(_build.SOURCES)} libraries in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for lib, names in PTXAS_KERNELS.items():
+        usage = _build.ptxas_usage(_build.build_log(lib))
+        for name in names:
+            found = sorted((fn, u) for fn, u in usage.items()
+                           if name + "I" in fn)
+            require(found, f"no ptxas -v line for {name} in {lib}'s build "
+                    f"log")
+            for fn, (regs, st, ld) in found:
+                print(f"[build] ptxas {kernel_label(fn, name)}: {regs} "
+                      f"registers, spill stores {st} B, spill loads {ld} B")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1077,6 +1127,17 @@ def main() -> None:
                   f"launches (" + ", ".join(f"{k.strip('_')} {t:.4f}"
                                             for k, t in ssd_ms.items())
                   + " ms)")
+        for name, phases in BWD_PHASES.items():
+            parts = {k: [(t, n) for t, n, key in by_kernel if k in key]
+                     for k in phases}
+            if any(parts.values()):
+                ms = {k: sum(t for t, _ in v) / 1e3 for k, v in parts.items()}
+                print(f"[profile]   {name}, its kernels summed: "
+                      f"{sum(ms.values()):.4f} ms in "
+                      f"{sum(n for v in parts.values() for _, n in v)} "
+                      f"launches (" + ", ".join(f"{k.strip('_')} {t:.4f}"
+                                                for k, t in ms.items())
+                      + " ms)")
         by_op = sorted(((e.self_cpu_time_total, e.count, e.key)
                         for e in events if e.device_type == DeviceType.CPU
                         and e.self_cpu_time_total > 0), reverse=True)
@@ -1954,8 +2015,11 @@ def main() -> None:
                 f"{'causal' if causal else 'full'} {str(dt)[6:]}")
         require(all(torch.equal(a, b) for a, b in zip(grads, again)),
                 f"{what}: two backward runs differ")
-        return max(grad_close(f"{what} d{n}", g, leaf.grad, dt)
-                   for n, g, leaf in zip("qkv", grads, leaves))
+        require(not causal or Sq <= Skv or not grads[0][:, :, :Sq - Skv].any(),
+                f"{what}: a row that sees no key has a gradient")
+        err = max(grad_close(f"{what} d{n}", g, leaf.grad, dt)
+                  for n, g, leaf in zip("qkv", grads, leaves))
+        return err, max(rel_l2(g, leaf.grad) for g, leaf in zip(grads, leaves))
 
     for R, N in SFU_SHAPES:
         errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], check_rmsnorm_bwd(
@@ -1970,22 +2034,27 @@ def main() -> None:
           f"and the rows above: max err {errs['rmsnorm_bwd']:.3g} (fp32 "
           f"limit {FP32_GRAD_TOL} x max|ref|; bf16 dx rel L2 "
           f"{BF16_GRAD_RTOL}, dgamma {DGAMMA_RTOL})")
-    for shape in ATTN_SHAPES:
-        for causal in (True, False):
-            e = check_attention_bwd(*shape, causal, torch.float32)
-            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
-            print(f"[train] flash_attention backward {shape} "
-                  f"{'causal' if causal else 'full'} fp32, deterministic: "
-                  f"max err {e:.3g}")
+    attn_cases = [(s, c, dt) for s in ATTN_SHAPES for c in (True, False)
+                  for dt in (torch.float32, torch.bfloat16)] + [
+        (ATTN_EMPTY_ROWS, True, torch.float32)] + [
+        (s, c, torch.bfloat16) for s in (ATTN_EMPTY_ROWS, ATTN_RAGGED_128)
+        for c in (True, False)]
+    for shape, causal, dt in attn_cases:
+        e, rel = check_attention_bwd(*shape, causal, dt)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
+        print(f"[train] flash_attention backward {shape} "
+              f"{'causal' if causal else 'full'} {str(dt)[6:]}, "
+              f"deterministic: max err {e:.3g}, worst rel L2 {rel:.3g}")
     train_cfg = dataclasses.replace(get_config(TRAIN_ARCH),
                                     n_layers=TRAIN_LAYERS)
     train_shape = (TRAIN_BATCH, train_cfg.n_heads, train_cfg.n_kv_heads,
                    TRAIN_SEQ, TRAIN_SEQ, train_cfg.head_dim)
-    e = check_attention_bwd(*train_shape, True, torch.bfloat16)
+    e, rel = check_attention_bwd(*train_shape, True, torch.bfloat16)
     errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
     print(f"[train] flash_attention backward {train_shape} causal bf16 "
           f"({TRAIN_ARCH}'s training attention), deterministic: max err "
-          f"{e:.3g} (dq, dk, dv rel L2 limit {BF16_GRAD_RTOL})")
+          f"{e:.3g}, worst rel L2 {rel:.3g} (dq, dk, dv rel L2 limit "
+          f"{BF16_GRAD_RTOL})")
 
     # (b) model gradients, kernels against plain versions, same weights and
     # batch: fp32 over the first layers, bf16 over the training cut
@@ -2296,7 +2365,8 @@ def main() -> None:
     ops_peak = {"flash_attention": bf16_peak, "ssd": bf16_peak,
                 "flash_attention_bwd": bf16_peak}
 
-    def report(name, shape, kernel, plain, library, flops, nbytes, peak):
+    def report(name, shape, kernel, plain, library, flops, nbytes, peak,
+               before=None):
         (ms, ms_b2b), (plain_ms, plain_b2b) = (
             cuda_ms(torch, fn) for fn in (kernel, plain))
         lib_ms, lib_b2b = cuda_ms(torch, library) if library else (None, None)
@@ -2306,7 +2376,9 @@ def main() -> None:
         lib = ("library none" if library is None else
                f"library {lib_ms:.4f}")
         lib_b = "" if library is None else f", library {lib_b2b:.4f}"
-        print(f"[time] {name} {shape}: device ms: kernel {ms:.4f}, plain "
+        was = ("" if before is None else
+               f" [before the redesign, recorded in PERF.md: {before:.4f}]")
+        print(f"[time] {name} {shape}: device ms: kernel {ms:.4f}{was}, plain "
               f"{plain_ms:.4f}, {lib}, bound {bound_ms:.4f} ({bound_by}, "
               f"{flops / 1e9:.4g} GFLOP, {nbytes / 1e6:.4g} MB); "
               f"back-to-back ms: kernel {ms_b2b:.4f}, plain {plain_b2b:.4f}"
@@ -2335,7 +2407,8 @@ def main() -> None:
         report("rmsnorm_bwd", f"{R}x{N} bf16 +gamma", lambda: sfu_k.rmsnorm_bwd(
             x, g, rs, dy), lambda: ref.rmsnorm_bwd(x, g, rs, dy),
             lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True),
-            9 * x.numel(), 6 * x.numel() + 4 * R + 8 * N, fp32_peak)
+            9 * x.numel(), 6 * x.numel() + 4 * R + 8 * N, fp32_peak,
+            MS_BEFORE_REDESIGN["rmsnorm_bwd", (R, N)])
     qd = randn(B, cfg.n_heads, 1, cfg.head_dim, dtype=torch.bfloat16)
     kd, vd = (randn(B, cfg.n_kv_heads, SERVE_MAX_LEN, cfg.head_dim,
                     dtype=torch.bfloat16) for _ in range(2))
@@ -2544,9 +2617,12 @@ def main() -> None:
               f"{weighted[2]:.4f}; on {smi}")
 
     kernels = []
+    shapes = {"rmsnorm_bwd": tuple(x_rms.shape),
+              "flash_attention_bwd": tuple(qp.shape)}
     for name, row in rows.items():
         ms, plain_ms, lib_ms, bound_ms, bound_by = report(
-            name, *row, ops_peak.get(name, fp32_peak))
+            name, *row, ops_peak.get(name, fp32_peak),
+            MS_BEFORE_REDESIGN.get((name, shapes.get(name))))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

@@ -7,7 +7,9 @@ build takes seconds; the wrappers pass pointers and the stream as
 ``c_void_p`` and raise when an entry point returns a CUDA error.  The
 digest covers the sources and the flags, so an edited source is rebuilt
 and a stale library is never loaded.  ``build`` starts one ``nvcc`` per
-source, all at once.
+source, all at once, and keeps each log beside its library: ``ptxas -v``
+prints every kernel's registers and spills there (``ptxas_usage`` reads
+them from ``build_log``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +26,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 SOURCES = ("flex_gemm", "sfu", "flash_attention", "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # activation codes of csrc/act.cuh
 ACT_CODE = {"none": 0, "gelu": 1, "relu": 2, "relu2": 3, "silu": 4}
 
@@ -72,10 +75,37 @@ def build(names: tuple[str, ...] = SOURCES) -> list[Path]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
         else:
-            os.replace(tmp, out)     # atomic: readers never see half a file
+            tmp.with_suffix(".log").write_text(log)
+            # atomic: readers never see half a file, nor a library without
+            # its log
+            os.replace(tmp.with_suffix(".log"), out.with_suffix(".log"))
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return outs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the built library of ``csrc/<name>.cu`` ("" where
+    it is not built)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
+    """``{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)}`` from the ``ptxas -v`` lines of an nvcc log."""
+    usage, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            usage[name] = (int(m.group(1)), *spills)
+            name = None
+    return usage
 
 
 def load(name: str, signatures: dict[str, tuple]) -> ctypes.CDLL:

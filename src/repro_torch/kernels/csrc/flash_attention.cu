@@ -869,15 +869,12 @@ int launch_decode(const void* q, const void* k, const void* v, void* o,
 // its keys, with dK and dV in registers; dQ: a block per (query head,
 // batch, 64-row tile) loops over the key tiles its rows see.  Each output
 // element is one thread's sum in a fixed order: no atomics, the same bits
-// every run.  Tiles wholly above the causal diagonal are skipped.  Both
-// types compute in fp32 on the CUDA cores (FMA; no TF32); operands are
-// staged in shared memory as fp32 rows of D + 1 floats (no bank
-// conflicts), 256 threads as 16 x 16, each thread 4 x 4 scores of a tile
-// and 4 x D/16 outputs.  Bound on the H100: at qwen3-4b's training shape
-// the five causal products on the tensor cores (0.0217 ms at 989 TFLOP/s)
-// or the bytes (about 0.025 ms); this kernel reads every tile from shared
-// memory at two FMAs a load, slower than both: tensor cores are later
-// work.
+// every run.  Tiles wholly above the causal diagonal are skipped.  fp32
+// operands compute in fp32 on the CUDA cores (FMA; no TF32; bf16 ones run
+// on the tensor cores, section 5): staged in shared memory as fp32 rows
+// of D + 1 floats (no bank conflicts), 256 threads as 16 x 16, each thread
+// 4 x 4 scores of a tile and 4 x D/16 outputs, two FMAs a shared-memory
+// load.
 
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_BQ = 64;   // query rows a tile
@@ -1188,6 +1185,451 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------- 5. backward, bf16 on the tensor cores
+// The formulas of section 4 for bf16 operands, on the tensor cores
+// (mma.sync.m16n8k16 bf16, fp32 accumulators).  Bound at qwen3-4b's
+// training shape (4 x 32 x 512 over 4 x 8 x 512, causal, D 128): the
+// bytes (0.0251 ms at 3.35 TB/s) before the five causal products (0.0218
+// ms at 989 TFLOP/s); these kernels compute seven (S and dP in both), 0.0305
+// ms.  Section 4's FMA kernels took 1.52 ms there, bound by fp32 FMA from
+// shared memory.  Two kernels, 4 warps each:
+//
+// - dQ (flash_bwd_q_mma_kernel), first: a block per (query head, batch,
+//   64-row query tile), each warp owning 16 rows.  It stages its Q and dO
+//   rows once, forms delta = rowsum(dO o O) from the staged dO (and writes
+//   it for the dK/dV kernel: no delta pass over dO and O of its own), then
+//   streams the 32-key K/V tiles its rows see through a two-stage cp.async
+//   ring, tile j + 1 in flight while tile j computes: S = Q K^T, dP = dO
+//   V^T, dS in registers, repacked as A fragments, dQ += dS K with K as B
+//   by ldmatrix.trans.  The query tile is the grid's slowest axis,
+//   reversed, so the heaviest causal tiles start first.
+// - dK/dV (flash_bwd_kv_mma_kernel): a block per (KV head, batch, 64-key
+//   tile), each warp owning 16 keys, walks its GQA group's query heads and
+//   the 32-row query tiles that see its keys, so dK and dV (16 keys x D a
+//   warp, fp32) stay in registers and no block adds into another's rows.
+//   With the keys as the M dimension, S^T = K Q^T and dP^T = V dO^T leave
+//   P^T and dS^T = P^T o (dP^T - delta) in accumulator fragments that are
+//   already the A fragments of dV += P^T dO and dK += dS^T Q (two adjacent
+//   8-column n-tiles make one 16-wide k-step); dO and Q come in as B
+//   fragments by ldmatrix.trans, as V does in the forward, so P and dS
+//   never touch shared memory.  K and V are staged once; the Q/dO tiles
+//   and their rows' lse and delta go through the same ring.  Under a causal
+//   mask the first key tile sees every query tile and the last a few, and
+//   two blocks share an SM (registers), so the blocks take the work
+//   heaviest first up to one an SM, then lightest first: where the card
+//   hands every SM one block before any a second, each SM's pair adds up
+//   to about the same work.  CUDA does not promise that order; in any
+//   other the bits are the same and only the balance is lost.  One block
+//   of 8 warps running a heavy and a light item as two halves pairs them
+//   whatever the order, but measured slower on the H100 (PERF.md).
+//
+// Operands are staged as bf16 rows padded by 16 bytes (ldmatrix without
+// bank conflicts), rows past Sq / Skv zero-filled.  p = 2^(s scale log2 e
+// - lse log2 e) by one FMA and one ex2; a masked score is selected as 0 and
+// never exponentiated, so an empty row's lse of -1e30 gives p = 0.  Only
+// tiles that cross the diagonal, Sq or Skv are masked; tiles wholly above
+// the diagonal are skipped.  P is rounded to bf16 for dV and dS for dK and
+// dQ, as FlashAttention-2 rounds them; dS is formed from the fp32 P; every
+// sum is fp32, and dK and dQ are scaled in fp32 at the store.  Each output
+// element is one thread's accumulator, summed in a fixed order: the same
+// bits every run.
+
+constexpr int KV_BK = 64;       // keys a dK/dV block (4 warps x 16)
+constexpr int KV_BQ = 32;       // query rows a staged Q/dO tile
+constexpr int Q_BQ = 64;        // query rows a dQ block (4 warps x 16)
+constexpr int Q_BK = 32;        // keys a staged K/V tile
+constexpr int BWD_STAGES = 2;   // tiles of the cp.async ring
+
+template <int D>
+constexpr size_t bwd_kv_mma_smem() {  // K, V, then the Q/dO ring, lse, delta
+  return sizeof(bf16) * (2 * KV_BK + 2 * BWD_STAGES * KV_BQ) * (D + 8) +
+         sizeof(float) * 2 * BWD_STAGES * KV_BQ;
+}
+template <int D>
+constexpr size_t bwd_q_mma_smem() {   // Q, dO, then the K/V ring
+  return sizeof(bf16) * (2 * Q_BQ + 2 * BWD_STAGES * Q_BK) * (D + 8);
+}
+
+// acc (16 rows x 8 NT columns) += A B^T over 16 KD: A's 16 rows at a, B's
+// 8 NT rows (the product's columns) at b, both bf16 rows of LD in shared
+// memory, by ldmatrix.
+template <int KD, int NT, int LD>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const bf16* a,
+                                        const bf16* b, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    unsigned af[4];
+    ldmatrix_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned bb[4];
+      ldmatrix_x4(bb, b + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * np], af, bb[0], bb[1]);
+      mma_bf16(acc[2 * np + 1], af, bb[2], bb[3]);
+    }
+  }
+}
+
+// acc (16 rows x 8 ND columns) += P Z over 16 KT: P the fp32 accumulators
+// p (16 x 16 KT), rounded to bf16 A fragments in registers (n-tiles 2kk and
+// 2kk + 1 are the A fragment of k-step kk); Z's 16 KT rows at z, bf16 rows
+// of LD in shared memory, as B fragments by ldmatrix.trans.
+template <int KT, int ND, int LD>
+__device__ __forceinline__ void mma_pz(float (&acc)[ND][4],
+                                       const float (&p)[2 * KT][4],
+                                       const bf16* z, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const unsigned pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < ND / 2; ++dp) {
+      unsigned zb[4];
+      ldmatrix_x4_trans(zb, z + (kk * 16 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * LD +
+                                dp * 16 + (lane >> 4) * 8);
+      mma_bf16(acc[2 * dp], pa, zb[0], zb[1]);
+      mma_bf16(acc[2 * dp + 1], pa, zb[2], zb[3]);
+    }
+  }
+}
+
+// Stores rows g and g + 8 of a warp's 16 x D accumulators (times `scale`)
+// as bf16 at out + row * D, rows at or past `limit` skipped.
+template <int ND>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[ND][4],
+                                           int row0, int limit, float scale,
+                                           int t) {
+  constexpr int D = ND * 8;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + n * 8 +
+                                         2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * r] * scale,
+                                acc[n][2 * r + 1] * scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_kv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int B, int Hq, int Hkv, int Sq,
+                        int Skv, int causal, float scale_log2, float scale,
+                        int sms) {
+  constexpr int LD = D + 8, KD = D / 16, ND = D / 8, NQ = KV_BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // KV_BK x LD
+  bf16* Vs = Ks + KV_BK * LD;                     // KV_BK x LD
+  bf16* Qs = Vs + KV_BK * LD;                     // BWD_STAGES x KV_BQ x LD
+  bf16* Ds = Qs + BWD_STAGES * KV_BQ * LD;        // dO, the same
+  float* Ls = reinterpret_cast<float*>(Ds + BWD_STAGES * KV_BQ * LD);
+  float* Es = Ls + BWD_STAGES * KV_BQ;            // lse, delta of the rows
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // work items (KV head, batch, key tile), key tile slowest: under a causal
+  // mask key tile 0 sees every query tile and the last the fewest.  Block
+  // i < sms takes item i (the heaviest first) and block i >= sms item
+  // total + sms - 1 - i (the lightest first)
+  const int total = gridDim.x, i0 = blockIdx.x;
+  const int item = i0 < sms ? i0 : total + sms - 1 - i0;
+  const int pairs = B * Hkv;
+  const int hk = item % Hkv, b = (item / Hkv) % B, k0 = item / pairs * KV_BK;
+  const int group = Hq / Hkv, offset = Skv - Sq;
+  const size_t kv_base = ((size_t)b * Hkv + hk) * Skv * D;
+  // the query tiles that see a key of this block (row i sees key k0 when
+  // i + offset >= k0), for each query head of the group
+  const int t_first = causal ? max(0, k0 - offset) / KV_BQ : 0;
+  const int per_head = max(0, (Sq + KV_BQ - 1) / KV_BQ - t_first);
+  const int n_it = group * per_head;
+
+  // Q/dO tile i (head i / per_head, query tile t_first + i % per_head) and
+  // its rows' lse and delta go to stage i % BWD_STAGES, one commit group a
+  // tile (K and V with tile 0)
+  auto issue = [&](int i) {
+    const int st = i % BWD_STAGES;
+    const int h = hk * group + i / per_head;
+    const int q0 = (t_first + i % per_head) * KV_BQ;
+    const size_t qb = ((size_t)b * Hq + h) * Sq;
+    stage_bf16<D, KV_BQ>(Qs + st * KV_BQ * LD, q + qb * D, q0, Sq);
+    stage_bf16<D, KV_BQ>(Ds + st * KV_BQ * LD, dout + qb * D, q0, Sq);
+    if (threadIdx.x < 2 * KV_BQ) {
+      const int r = threadIdx.x % KV_BQ;
+      const bool is_lse = threadIdx.x < KV_BQ, in = q0 + r < Sq;
+      const float* src = is_lse ? lse : delta;
+      cp_async4((is_lse ? Ls : Es) + st * KV_BQ + r,
+                in ? src + qb + q0 + r : src, in);
+    }
+  };
+  stage_bf16<D, KV_BK>(Ks, k + kv_base, k0, Skv);
+  stage_bf16<D, KV_BK>(Vs, v + kv_base, k0, Skv);
+  if (n_it > 0) issue(0);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+  const bf16* Kw = Ks + warp * 16 * LD;
+  const bf16* Vw = Vs + warp * 16 * LD;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+
+  for (int i = 0; i < n_it; ++i) {
+    cp_async_wait<0>();   // tile i (and K, V) have landed
+    __syncthreads();      // and tile i - 1's stage is free
+    if (i + 1 < n_it) issue(i + 1);
+    cp_async_commit();
+    const int st = i % BWD_STAGES;
+    const int q0 = (t_first + i % per_head) * KV_BQ;
+    const bf16* Qt = Qs + st * KV_BQ * LD;
+    const bf16* Dt = Ds + st * KV_BQ * LD;
+    const float* Lt = Ls + st * KV_BQ;
+    const float* Et = Es + st * KV_BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x KV_BQ query rows a warp
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    mma_abt<KD, NQ, LD>(s, Kw, Qt, lane);
+    mma_abt<KD, NQ, LD>(dp, Vw, Dt, lane);
+
+    // P^T and dS^T in place: element e of n-tile n is key key0 + (e >> 1)
+    // 8, query row q0 + 8 n + 2 t + (e & 1)
+    const bool masked = q0 + KV_BQ > Sq || k0 + KV_BK > Skv ||
+                        (causal && k0 + KV_BK - 1 > q0 + offset);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1);
+        const bool ok = !masked || visible(q0 + c, key0 + (e >> 1) * 8, Sq,
+                                           Skv, causal, offset);
+        const float p =
+            ok ? ex2(fmaf(s[n][e], scale_log2, -Lt[c] * LOG2E)) : 0.0f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - Et[c]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q
+    mma_pz<NQ / 2, ND, LD>(dv_acc, s, Dt, lane);
+    mma_pz<NQ / 2, ND, LD>(dk_acc, dp, Qt, lane);
+  }
+  cp_async_wait<0>();
+  store_rows<ND>(dk + kv_base, dk_acc, key0, Skv, scale, t);
+  store_rows<ND>(dv + kv_base, dv_acc, key0, Skv, 1.0f, t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_q_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Hq, int Hkv, int Sq, int Skv, int causal,
+                       float scale_log2, float scale) {
+  constexpr int LD = D + 8, KD = D / 16, ND = D / 8, NK = Q_BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // Q_BQ x LD
+  bf16* Ds = Qs + Q_BQ * LD;                      // dO, Q_BQ x LD
+  bf16* Ks = Ds + Q_BQ * LD;                      // BWD_STAGES x Q_BK x LD
+  bf16* Vs = Ks + BWD_STAGES * Q_BK * LD;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * Q_BQ;
+  const int hk = h / (Hq / Hkv), offset = Skv - Sq;
+  const size_t qb = ((size_t)b * Hq + h) * Sq;
+  const bf16* kh = k + ((size_t)b * Hkv + hk) * Skv * D;
+  const bf16* vh = v + ((size_t)b * Hkv + hk) * Skv * D;
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, min(q0 + Q_BQ, Sq) + offset);
+  const int n_tiles = kv_end > 0 ? (kv_end + Q_BK - 1) / Q_BK : 0;
+  // this thread's query rows row0 and row0 + 8: -lse log2 e, and the
+  // 8-column chunks t, t + 4, ... of their O rows, loaded while the
+  // prologue's copies fly
+  constexpr int CH = D / 8, CPT = (CH + 3) / 4;
+  const int row0 = q0 + warp * 16 + g;
+  float nl[2], dl[2];
+  uint4 orow[2][CPT];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    nl[r] = row < Sq ? -lse[qb + row] * LOG2E : 0.0f;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+      if (row < Sq && t + 4 * i < CH)
+        orow[r][i] = *reinterpret_cast<const uint4*>(
+            o + (qb + row) * D + (t + 4 * i) * 8);
+  }
+
+  auto issue = [&](int j) {
+    const int st = j % BWD_STAGES;
+    stage_bf16<D, Q_BK>(Ks + st * Q_BK * LD, kh, j * Q_BK, Skv);
+    stage_bf16<D, Q_BK>(Vs + st * Q_BK * LD, vh, j * Q_BK, Skv);
+  };
+  stage_bf16<D, Q_BQ>(Qs, q + qb * D, q0, Sq);
+  stage_bf16<D, Q_BQ>(Ds, dout + qb * D, q0, Sq);
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
+
+  // delta = rowsum(dO o O) of the block's rows from the staged dO, each
+  // row's quad adding its chunks, then a quad sum in a fixed order;
+  // written for the dK/dV kernel, which runs next (it reads the delta of
+  // rows that see no key too, times p = 0).  Computed before the loop:
+  // measured faster than in the first tile's step, where every warp waits
+  // on its O loads at once (PERF.md)
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      if (row >= Sq || t + 4 * i >= CH) continue;
+      const uint4 d4 = *reinterpret_cast<const uint4*>(
+          Ds + (warp * 16 + g + r * 8) * LD + (t + 4 * i) * 8);
+      const __nv_bfloat162* a =
+          reinterpret_cast<const __nv_bfloat162*>(&orow[r][i]);
+      const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&d4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a[e]);
+        const float2 y = __bfloat1622float2(b[e]);
+        sum = fmaf(x.x, y.x, fmaf(x.y, y.y, sum));
+      }
+    }
+    dl[r] = quad_sum(sum);
+    if (t == 0 && row < Sq) delta[qb + row] = dl[r];
+  }
+
+  float dq_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.0f;
+  const bf16* Qw = Qs + warp * 16 * LD;
+  const bf16* Dw = Ds + warp * 16 * LD;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();   // tile j has landed
+    __syncthreads();      // and tile j - 1's stage is free
+    if (j + 1 < n_tiles) issue(j + 1);
+    cp_async_commit();
+    const bf16* Kt = Ks + (j % BWD_STAGES) * Q_BK * LD;
+    const bf16* Vt = Vs + (j % BWD_STAGES) * Q_BK * LD;
+
+    // S = Q K^T and dP = dO V^T: 16 query rows x Q_BK keys a warp
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    mma_abt<KD, NK, LD>(s, Qw, Kt, lane);
+    mma_abt<KD, NK, LD>(dp, Dw, Vt, lane);
+
+    // dS in place of dP: element e of n-tile n is row row0 + (e >> 1) 8,
+    // key j Q_BK + 8 n + 2 t + (e & 1)
+    const int kt0 = j * Q_BK;
+    const bool masked = kt0 + Q_BK > Skv || q0 + Q_BQ > Sq ||
+                        (causal && kt0 + Q_BK - 1 > q0 + offset);
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool ok = !masked || visible(row0 + r * 8,
+                                           kt0 + n * 8 + 2 * t + (e & 1), Sq,
+                                           Skv, causal, offset);
+        const float p = ok ? ex2(fmaf(s[n][e], scale_log2, nl[r])) : 0.0f;
+        dp[n][e] = p * (dp[n][e] - dl[r]);
+      }
+
+    // dQ += dS K
+    mma_pz<NK / 2, ND, LD>(dq_acc, dp, Kt, lane);
+  }
+  cp_async_wait<0>();
+  store_rows<ND>(dq + qb * D, dq_acc, row0, Sq, scale, t);
+}
+
+template <int D>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const void* lse, void* delta, void* dq,
+                   void* dk, void* dv, int B, int Hq, int Hkv, int Sq,
+                   int Skv, int causal, float scale, cudaStream_t s) {
+  static_assert(MMA_THREADS == 128, "stage_bf16 copies with 128 threads");
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  const float* ls = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // dQ first: it also writes delta, which the dK/dV kernel reads
+  auto q_kernel = flash_bwd_q_mma_kernel<D>;
+  e = allow_smem(q_kernel, bwd_q_mma_smem<D>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  q_kernel<<<dim3(Hq, B, (Sq + Q_BQ - 1) / Q_BQ), MMA_THREADS,
+             bwd_q_mma_smem<D>(), s>>>(qt, kt, vt, static_cast<const bf16*>(o),
+                                       dot, ls, dl, static_cast<bf16*>(dq),
+                                       Hq, Hkv, Sq, Skv, causal,
+                                       scale * LOG2E, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto kv_kernel = flash_bwd_kv_mma_kernel<D>;
+  e = allow_smem(kv_kernel, bwd_kv_mma_smem<D>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kv_kernel<<<B * Hkv * ((Skv + KV_BK - 1) / KV_BK), MMA_THREADS,
+              bwd_kv_mma_smem<D>(), s>>>(
+      qt, kt, vt, dot, ls, dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      B, Hq, Hkv, Sq, Skv, causal, scale * LOG2E, scale, sms);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward of each type: tensor cores for bf16, FMA for fp32.
+template <typename T, int D>
+struct Backward;
+template <int D>
+struct Backward<bf16, D> {
+  static int run(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const void* lse, void* delta, void* dq,
+                 void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+                 int causal, float scale, cudaStream_t s) {
+    return launch_bwd_mma<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq,
+                             Hkv, Sq, Skv, causal, scale, s);
+  }
+};
+template <int D>
+struct Backward<float, D> {
+  static int run(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const void* lse, void* delta, void* dq,
+                 void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+                 int causal, float scale, cudaStream_t s) {
+    return launch_bwd<float, D>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                Hq, Hkv, Sq, Skv, causal, scale, s);
+  }
+};
+
 template <typename T>
 int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const void* lse, void* delta, void* dq,
@@ -1196,17 +1638,17 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_bwd<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               Hq, Hkv, Sq, Skv, causal, scale, s);
+      return Backward<T, 16>::run(q, k, v, o, dout, lse, delta, dq, dk,
+                                  dv, B, Hq, Hkv, Sq, Skv, causal, scale, s);
     case 32:
-      return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               Hq, Hkv, Sq, Skv, causal, scale, s);
+      return Backward<T, 32>::run(q, k, v, o, dout, lse, delta, dq, dk,
+                                  dv, B, Hq, Hkv, Sq, Skv, causal, scale, s);
     case 64:
-      return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               Hq, Hkv, Sq, Skv, causal, scale, s);
+      return Backward<T, 64>::run(q, k, v, o, dout, lse, delta, dq, dk,
+                                  dv, B, Hq, Hkv, Sq, Skv, causal, scale, s);
     case 128:
-      return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                Hq, Hkv, Sq, Skv, causal, scale, s);
+      return Backward<T, 128>::run(q, k, v, o, dout, lse, delta, dq, dk,
+                                   dv, B, Hq, Hkv, Sq, Skv, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1319,7 +1761,8 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
 // Backward of the prefill kernels: q, dout, dq (B, Hq, Sq, D); k, v, dk, dv
 // (B, Hkv, Skv, D); o the forward's output; lse its (B, Hq, Sq) fp32
 // log-sum-exp; delta an fp32 workspace of B * Hq * Sq.  All contiguous and
-// 16-byte aligned; dq, dk, dv in the operands' type.
+// 16-byte aligned; dq, dk, dv in the operands' type.  fp32: the FMA
+// kernels (section 4); bf16: the tensor-core kernels (section 5).
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k,
                                        const void* v, const void* o,
                                        const void* dout, const void* lse,

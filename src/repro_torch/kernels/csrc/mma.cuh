@@ -23,6 +23,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(in ? 16 : 0)
                : "memory");
 }
+// 4 bytes global -> shared (cp.async.ca: 4 is below .cg's 16); `in` false
+// zero-fills them.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

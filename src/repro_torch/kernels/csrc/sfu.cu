@@ -664,31 +664,38 @@ int launch_rmsnorm(const void* x, const void* gamma, void* y, void* rstd,
 // (the reference differentiates its jnp rmsnorm).  Bound: device-memory
 // bytes (x and dy read, dx written once).  Each kernel takes the block
 // shape of its forward (a warp a row up to WARP_ROW_MAX, the one-pass
-// vector kernel, the block kernel) and walks rows cyclically over a fixed
-// grid of `blocks` (the wrapper's plan), so that dgamma's column sums run
-// over the block's rows in a fixed order, then over the blocks in a fixed
-// order (column_sum_kernel): no atomics, the same bits every run.
+// vector kernel, the block kernel), `rows` rows of a block at once, and
+// walks rows cyclically over a fixed grid of `blocks` (the wrapper's
+// plan).  dgamma's column sums run over a row group's rows in registers
+// (or a warp's shared row), then over the block's row groups in a fixed
+// order into one partial row a block (part), then over the blocks in a
+// fixed order (column_sum_kernel): no atomics, the same bits every run.
+// A grid of one or two wide blocks an SM (640 threads on 4 rows at 2048 x
+// 2560, 1,024 on 32 rows at the q/k-norms' 128) keeps part small: 1.35 MB
+// at 2048 x 2560, where 528 one-row blocks wrote 5.4 MB and read it back
+// after a zero fill of dgamma.
 
-// A warp a row of N <= WARP_ROW_MAX; warp w of block b takes rows
-// (b + k * gridDim.x) * WARP_ROWS + w.  With gamma each warp sums its rows'
-// dy * xh in its own shared row of N floats (lane l owns columns l + 32 i),
-// and the block writes the sum of its warps' rows, in warp order, to
-// part[blockIdx.x].
+// A warp a row of N <= WARP_ROW_MAX, blockDim.x / 32 rows a block; warp w
+// of block b takes rows (b + k * gridDim.x) * rows + w.  With gamma each
+// warp sums its rows' dy * xh in its own shared row of N floats (lane l
+// owns columns l + 32 i), and the block writes the sum of its warps' rows,
+// in warp order, to part[blockIdx.x].
 template <typename T>
-__global__ void __launch_bounds__(WARP_ROWS * 32)
+__global__ void __launch_bounds__(MAX_THREADS)
 rmsnorm_bwd_warp_kernel(const T* __restrict__ x,
                         const float* __restrict__ gamma,
                         const float* __restrict__ rstd,
                         const T* __restrict__ dy, T* __restrict__ dx,
                         float* __restrict__ part, int R, int N) {
-  extern __shared__ float acc[];   // WARP_ROWS x N, with gamma
+  extern __shared__ float acc[];   // rows x N, with gamma
+  const int rows = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* mine = acc + warp * N;
   if (gamma != nullptr)
     for (int j = lane; j < N; j += 32) mine[j] = 0.0f;
   const float inv_n = 1.0f / static_cast<float>(N);
-  for (int row = blockIdx.x * WARP_ROWS + warp; row < R;
-       row += gridDim.x * WARP_ROWS) {   // whole warps: no shuffle is cut
+  for (int row = blockIdx.x * rows + warp; row < R;
+       row += gridDim.x * rows) {   // whole warps: no shuffle is cut
     const T* xr = x + (size_t)row * N;
     const T* dr = dy + (size_t)row * N;
     const float r = rstd[row];
@@ -707,43 +714,54 @@ rmsnorm_bwd_warp_kernel(const T* __restrict__ x,
   }
   if (gamma == nullptr) return;
   __syncthreads();
-  for (int j = threadIdx.x; j < N; j += WARP_ROWS * 32) {
+  for (int j = threadIdx.x; j < N; j += blockDim.x) {
     float t = 0.0f;
-    for (int w = 0; w < WARP_ROWS; ++w) t += acc[w * N + j];
+    for (int w = 0; w < rows; ++w) t += acc[w * N + j];
     part[(size_t)blockIdx.x * N + j] = t;
   }
 }
 
-// The one-pass forward's rows (norm_plan): blockDim.x threads a row, thread
-// t holding the row's 16-byte vectors t and t + blockDim.x; block b takes
-// rows b + k * gridDim.x.  Each thread sums dy * xh of its own columns in
-// registers over its rows and writes them to part[blockIdx.x].
+// The one-pass forward's rows (norm_plan): `threads` threads a row, thread
+// t of a row group holding the row's 16-byte vectors t and t + threads; a
+// block of blockDim.x = rows x threads works on `rows` rows at once, row
+// group q of block b taking rows (i * gridDim.x + b) * rows + q, i = 0,
+// 1, ...  Each thread sums dy * xh of its own columns in registers over
+// its group's rows; with rows > 1 the groups add theirs in group order
+// through a shared row of N floats, and the last writes part[blockIdx.x].
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
                        const float* __restrict__ gamma,
                        const float* __restrict__ rstd,
                        const T* __restrict__ dy, T* __restrict__ dx,
-                       float* __restrict__ part, int R, int V) {
+                       float* __restrict__ part, int R, int V, int threads) {
   using P = Vec16<T>;
-  __shared__ float red[2][MAX_THREADS / 32];   // row_sum's, alternating
+  extern __shared__ float cols[];              // N, with gamma and rows > 1
+  __shared__ float red[2][MAX_THREADS / 32];   // the groups' warp sums,
+                                               // alternating
+  const int rows = blockDim.x / threads, grp = threadIdx.x / threads;
+  const int tl = threadIdx.x % threads, lane = threadIdx.x & 31;
+  const int wpr = threads / 32;                // warps a row group
   float acc[ROW_VPT][P::E];
 #pragma unroll
   for (int k = 0; k < ROW_VPT; ++k)
 #pragma unroll
     for (int e = 0; e < P::E; ++e) acc[k][e] = 0.0f;
   const float inv_n = 1.0f / static_cast<float>(V * P::E);
-  int it = 0;
-  for (int row = blockIdx.x; row < R; row += gridDim.x, ++it) {
+  const int step = gridDim.x * rows;
+  const int iters = (R + step - 1) / step;     // the same in every thread
+  for (int it = 0; it < iters; ++it) {
+    const int row = (it * gridDim.x + blockIdx.x) * rows + grp;
+    const bool valid = row < R;
     const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)row * V;
     const uint4* dr = reinterpret_cast<const uint4*>(dy) + (size_t)row * V;
-    const float r = rstd[row];
+    const float r = valid ? rstd[row] : 0.0f;
     uint4 ux[ROW_VPT], ud[ROW_VPT];
     float s = 0.0f;
 #pragma unroll
     for (int k = 0; k < ROW_VPT; ++k) {
-      const int j = threadIdx.x + k * blockDim.x;
-      if (j < V) {
+      const int j = tl + k * threads;
+      if (valid && j < V) {
         ux[k] = __ldg(xr + j);
         ud[k] = __ldg(dr + j);
         float f[P::E], d[P::E];
@@ -762,11 +780,18 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
         }
       }
     }
-    const float c = row_sum(s, red[it & 1]) * inv_n;
+    // the row's sum over its group's warps, in a fixed order (warp
+    // shuffles, then the warps' partials by the same shuffles)
+    s = warp_reduce<false>(s);
+    if (lane == 0) red[it & 1][threadIdx.x >> 5] = s;
+    __syncthreads();
+    const float c = warp_reduce<false>(
+        lane < wpr ? red[it & 1][grp * wpr + lane] : 0.0f) * inv_n;
+    if (!valid) continue;
     uint4* out = reinterpret_cast<uint4*>(dx) + (size_t)row * V;
 #pragma unroll
     for (int k = 0; k < ROW_VPT; ++k) {
-      const int j = threadIdx.x + k * blockDim.x;
+      const int j = tl + k * threads;
       if (j < V) {
         float f[P::E], d[P::E];
         P::unpack(ux[k], f);
@@ -785,14 +810,24 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
   }
   if (gamma == nullptr) return;
   const int N = V * P::E;
+  float* dst = part + (size_t)blockIdx.x * N;
+  for (int q = 0; q < rows; ++q) {   // group order
+    if (grp == q) {
 #pragma unroll
-  for (int k = 0; k < ROW_VPT; ++k) {
-    const int j = threadIdx.x + k * blockDim.x;
-    if (j < V) {
+      for (int k = 0; k < ROW_VPT; ++k) {
+        const int j = tl + k * threads;
+        if (j < V) {
 #pragma unroll
-      for (int e = 0; e < P::E; ++e)
-        part[(size_t)blockIdx.x * N + j * P::E + e] = acc[k][e];
+          for (int e = 0; e < P::E; ++e) {
+            const int col = j * P::E + e;
+            const float t = q > 0 ? cols[col] + acc[k][e] : acc[k][e];
+            if (q + 1 < rows) cols[col] = t;
+            else dst[col] = t;
+          }
+        }
+      }
     }
+    if (q + 1 < rows) __syncthreads();
   }
 }
 
@@ -830,35 +865,64 @@ rmsnorm_bwd_block_kernel(const T* __restrict__ x,
   }
 }
 
-// out[j] = sum over b < blocks of part[b][j], in a fixed order: warp w of
-// a block of CS_WARPS sums rows w, w + CS_WARPS, ... for 32 columns, then
-// warp 0 adds the warps' sums in warp order.
-constexpr int CS_WARPS = 8;
-__global__ void __launch_bounds__(CS_WARPS * 32)
+// out[j] = sum over b < G of part[b][j], in a fixed order: lane l of block
+// c owns the VEC columns (32 c + l) VEC (one 16-byte vector for VEC 4),
+// warp w of the block's warps sums rows w, w + warps, ..., then warp 0
+// adds the warps' sums in warp order.  A block a 32 VEC columns, up to 32
+// warps of a few rows each (the wrapper's plan), so the loads of part are
+// in flight at once rather than in a chain down each column.
+constexpr int CS_MAX_WARPS = 32;
+template <int VEC>
+__global__ void __launch_bounds__(CS_MAX_WARPS * 32)
 column_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                  int blocks, int N) {
-  __shared__ float sums[CS_WARPS][33];
+                  int G, int N) {
+  __shared__ float sums[CS_MAX_WARPS][32 * VEC];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * 32 + lane;
-  float t = 0.0f;
-  if (j < N)
-    for (int b = warp; b < blocks; b += CS_WARPS) t += part[(size_t)b * N + j];
-  sums[warp][lane] = t;
+  const int warps = blockDim.x >> 5;
+  const int j = (blockIdx.x * 32 + lane) * VEC;   // N % VEC == 0
+  float t[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) t[e] = 0.0f;
+  if (j < N) {
+#pragma unroll 4
+    for (int b = warp; b < G; b += warps) {
+      const float* p = part + (size_t)b * N + j;
+      if constexpr (VEC == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        t[0] += v.x;
+        t[1] += v.y;
+        t[2] += v.z;
+        t[3] += v.w;
+      } else {
+        t[0] += *p;
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) sums[warp][lane * VEC + e] = t[e];
   __syncthreads();
   if (warp == 0 && j < N) {
-    float u = 0.0f;
-    for (int w = 0; w < CS_WARPS; ++w) u += sums[w][lane];
-    out[j] = u;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float u = 0.0f;
+      for (int w = 0; w < warps; ++w) u += sums[w][lane * VEC + e];
+      out[j + e] = u;
+    }
   }
 }
 
+constexpr size_t SMEM_DEFAULT = 48 * 1024;   // without an opt-in
+
 // threads > 0: the vector kernel with `threads` threads a row (norm_plan's,
 // x, dy and dx 16-byte aligned); else a warp a row up to WARP_ROW_MAX wide,
-// else the block kernel; `blocks` blocks, then, with gamma, the column sum.
+// else the block kernel (rows 1); `rows` rows of a block at once over
+// `blocks` blocks, then, with gamma, the column sum with `sum_warps` warps
+// a block over `sum_vec` columns a lane (4: N % 4 == 0).
 template <typename T>
 int launch_rmsnorm_bwd(const void* x, const void* gamma, const void* rstd,
                        const void* dy, void* dx, void* part, void* dgamma,
-                       int R, int N, int threads, int blocks, void* stream) {
+                       int R, int N, int threads, int rows, int blocks,
+                       int sum_warps, int sum_vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const T* dyt = static_cast<const T*>(dy);
@@ -866,25 +930,39 @@ int launch_rmsnorm_bwd(const void* x, const void* gamma, const void* rstd,
   const float* rs = static_cast<const float*>(rstd);
   T* dxt = static_cast<T*>(dx);
   float* pt = static_cast<float*>(part);
-  if (blocks < 1 || (gamma != nullptr && (part == nullptr || dgamma == nullptr)))
+  const bool has_g = gamma != nullptr;
+  if (blocks < 1 || rows < 1 ||
+      (has_g && (part == nullptr || dgamma == nullptr || sum_warps < 1 ||
+                 sum_warps > CS_MAX_WARPS || (sum_vec != 1 && sum_vec != 4) ||
+                 N % sum_vec != 0 || !aligned16(part) || !aligned16(dgamma))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (threads > 0) {
-    if (!vec_plan_ok<T>(N, threads, x, gamma, dy, dx))
+    const size_t smem = has_g && rows > 1 ? sizeof(float) * N : 0;
+    if (!vec_plan_ok<T>(N, threads, x, gamma, dy, dx) ||
+        rows * threads > MAX_THREADS || smem > SMEM_DEFAULT)
       return static_cast<int>(cudaErrorInvalidValue);
-    rmsnorm_bwd_vec_kernel<T><<<blocks, threads, 0, s>>>(
-        xt, g, rs, dyt, dxt, pt, R, static_cast<int>(N * sizeof(T) / 16));
+    rmsnorm_bwd_vec_kernel<T><<<blocks, rows * threads, smem, s>>>(
+        xt, g, rs, dyt, dxt, pt, R, static_cast<int>(N * sizeof(T) / 16),
+        threads);
   } else if (N <= WARP_ROW_MAX) {
-    const size_t smem = gamma != nullptr ? sizeof(float) * WARP_ROWS * N : 0;
-    rmsnorm_bwd_warp_kernel<T><<<blocks, WARP_ROWS * 32, smem, s>>>(
+    const size_t smem = has_g ? sizeof(float) * rows * N : 0;
+    if (rows * 32 > MAX_THREADS || smem > SMEM_DEFAULT)
+      return static_cast<int>(cudaErrorInvalidValue);
+    rmsnorm_bwd_warp_kernel<T><<<blocks, rows * 32, smem, s>>>(
         xt, g, rs, dyt, dxt, pt, R, N);
   } else {
+    if (rows != 1) return static_cast<int>(cudaErrorInvalidValue);
     rmsnorm_bwd_block_kernel<T><<<blocks, ROW_THREADS, 0, s>>>(
         xt, g, rs, dyt, dxt, pt, R, N);
   }
   const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || gamma == nullptr) return static_cast<int>(e);
-  column_sum_kernel<<<(N + 31) / 32, CS_WARPS * 32, 0, s>>>(
-      pt, static_cast<float*>(dgamma), blocks, N);
+  if (e != cudaSuccess || !has_g) return static_cast<int>(e);
+  const int grid = (N + 32 * sum_vec - 1) / (32 * sum_vec);
+  float* dg = static_cast<float*>(dgamma);
+  if (sum_vec == 4)
+    column_sum_kernel<4><<<grid, sum_warps * 32, 0, s>>>(pt, dg, blocks, N);
+  else
+    column_sum_kernel<1><<<grid, sum_warps * 32, 0, s>>>(pt, dg, blocks, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -977,24 +1055,28 @@ extern "C" int sfu_rmsnorm_bf16(const void* x, const void* gamma, void* y,
 
 // rmsnorm's backward: dx (x's type) from x, gamma (may be null), the
 // forward's rstd and dy (x's type); with gamma, part (blocks x N fp32
-// scratch) takes each block's column sums of dy * x * rstd and dgamma (N
-// fp32) their sum over the blocks.  threads, blocks: the wrapper's plan
-// (see launch_rmsnorm_bwd).
+// scratch, 16-byte aligned) takes each block's column sums of dy * x *
+// rstd and dgamma (N fp32, 16-byte aligned) their sum over the blocks;
+// every column of dgamma is written.  threads, rows, blocks, sum_warps,
+// sum_vec: the wrapper's plan (see launch_rmsnorm_bwd).
 extern "C" int sfu_rmsnorm_bwd_f32(const void* x, const void* gamma,
                                    const void* rstd, const void* dy,
                                    void* dx, void* part, void* dgamma, int R,
-                                   int N, int threads, int blocks,
-                                   void* stream) {
+                                   int N, int threads, int rows, int blocks,
+                                   int sum_warps, int sum_vec, void* stream) {
   return launch_rmsnorm_bwd<float>(x, gamma, rstd, dy, dx, part, dgamma, R,
-                                   N, threads, blocks, stream);
+                                   N, threads, rows, blocks, sum_warps,
+                                   sum_vec, stream);
 }
 
 extern "C" int sfu_rmsnorm_bwd_bf16(const void* x, const void* gamma,
                                     const void* rstd, const void* dy,
                                     void* dx, void* part, void* dgamma,
-                                    int R, int N, int threads, int blocks,
+                                    int R, int N, int threads, int rows,
+                                    int blocks, int sum_warps, int sum_vec,
                                     void* stream) {
   return launch_rmsnorm_bwd<__nv_bfloat16>(x, gamma, rstd, dy, dx, part,
-                                           dgamma, R, N, threads, blocks,
+                                           dgamma, R, N, threads, rows,
+                                           blocks, sum_warps, sum_vec,
                                            stream);
 }

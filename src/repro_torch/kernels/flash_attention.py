@@ -22,10 +22,14 @@ read those rows of the cache where they lie.
 - Backward (``flash_attention_bwd``, no Pallas counterpart): under
   autograd the prefill runs as ``_FlashAttention``, whose forward also
   writes each query row's fp32 log-sum-exp, and whose backward is
-  FlashAttention-2's: a kernel for ``delta = rowsum(dO·O)``, one for dK
-  and dV a (KV head, key tile) over its whole GQA group, one for dQ a
-  (query head, query tile); fp32 FMA for both dtypes, no atomics.  The
-  decode path (``kv_len`` given, or ``Sq * Hq / Hkv <= DECODE_ROWS``) has
+  FlashAttention-2's: ``delta = rowsum(dO·O)``, then a kernel for dK and
+  dV a (KV head, key tile) over its whole GQA group and one for dQ a
+  (query head, query tile), no atomics.  bf16 operands run on the tensor
+  cores (``mma.sync`` bf16, fp32 accumulators; P and dS rounded to bf16
+  in registers, never in shared memory; Q/dO or K/V tiles through a
+  ``cp.async`` ring; the dQ kernel runs first and forms delta from its
+  staged dO); fp32 operands on fp32 FMA kernels after a delta kernel.
+  The decode path (``kv_len`` given, or ``Sq * Hq / Hkv <= DECODE_ROWS``) has
   no backward and raises under autograd (ROADMAP A.5b); training never
   takes it.
 
@@ -240,8 +244,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The prefill's backward over every KV row: ``(dq, dk, dv)`` in the
     operands' dtype from q (B, Hq, Sq, D), k, v (B, Hkv, Skv, D), the
     forward's output ``out`` and fp32 log-sum-exp ``lse`` (B, Hq, Sq),
-    and ``dout`` (q's shape and dtype).  fp32 arithmetic, deterministic
-    (every output element one thread's sum in a fixed order)."""
+    and ``dout`` (q's shape and dtype).  fp32 sums (bf16 operands: P and
+    dS rounded to bf16 before their products), deterministic (every
+    output element one thread's sum in a fixed order)."""
     _check(q, k, v, None)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \

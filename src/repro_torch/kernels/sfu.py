@@ -37,7 +37,7 @@ from .ref import ACTIVATIONS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _NORM = (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P)
-_NORM_BWD = (_P,) * 7 + (_I,) * 4 + (_P,)
+_NORM_BWD = (_P,) * 7 + (_I,) * 7 + (_P,)
 _LAYERNORM = (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P)
 _SIGNATURES = {
     "sfu_softmax_f32": (_P, _P, _I, _I, _I, _I, _P),
@@ -54,8 +54,16 @@ WARP_ROW_MAX = 1024      # widest row of the warp-a-row kernels
 LANE_MAX = 32            # fp32 values a lane of the warp kernels holds
 ROW_VPT = 2              # 16-byte vectors a thread of the one-pass kernel
 MAX_THREADS = 1024
-WARP_ROWS = 8            # rows (warps) a block of rmsnorm's warp kernels
-BWD_BLOCKS_PER_SM = 4    # rmsnorm_bwd's grid: blocks an SM at most
+# rmsnorm_bwd's grids (norm_bwd_plan), measured on the H100 at qwen3-4b's
+# training rows (PERF.md): the vector kernel's rows a block fill about
+# BWD_VEC_THREADS threads, one block an SM; the warp kernel's blocks hold
+# BWD_WARP_ROWS rows, two an SM; the block kernel's one row, four an SM
+BWD_VEC_THREADS = 640
+BWD_WARP_ROWS = 32
+BWD_SMEM_FLOATS = 12288  # 48 KB: the warp kernel's shared dgamma rows
+BWD_BLOCKS_PER_SM = {"vector": 1, "warp": 2, "block": 4}
+SUM_ROWS = 4             # partial rows a warp of the column sum adds
+SUM_WARPS = 32           # warps a block of the column sum, at most
 FLOAT_TYPES = (torch.float32,)
 NORM_TYPES = (torch.float32, torch.bfloat16)
 
@@ -100,17 +108,37 @@ def warp_plan(N: int, esize: int, aligned: bool) -> tuple[int, bool]:
 
 
 def norm_bwd_plan(R: int, N: int, esize: int, aligned: bool,
-                  sms: int) -> tuple[int, int]:
-    """``(threads, blocks)`` of rmsnorm's backward: the forward's block
-    shape (``norm_plan``'s threads for the vector kernel, else 0: a warp a
-    row up to ``WARP_ROW_MAX`` wide, ``WARP_ROWS`` rows a block, or the
-    block kernel) and a grid of at most ``BWD_BLOCKS_PER_SM`` blocks an SM
-    that walks the rows cyclically.  The grid is fixed by the shape and the
-    card, so dgamma's partial sums (one row of N a block) add up in the same
+                  sms: int) -> tuple[int, int, int]:
+    """``(threads, rows, blocks)`` of rmsnorm's backward: the forward's
+    row shape (``norm_plan``'s threads for the vector kernel, else 0: a
+    warp a row up to ``WARP_ROW_MAX`` wide, or the block kernel), the rows
+    a block works on at once, and a grid that walks the rows cyclically.
+    The vector kernel takes the rows that fill ``BWD_VEC_THREADS``
+    threads, the warp kernel ``BWD_WARP_ROWS`` (fewer where their shared
+    dgamma rows would pass ``BWD_SMEM_FLOATS``), the block kernel one; each
+    over at most ``BWD_BLOCKS_PER_SM`` blocks an SM: few blocks, so few
+    partial rows of dgamma.  The grid is fixed by the shape and the card,
+    so dgamma's partial sums (one row of N a block) add up in the same
     order every run."""
     threads = norm_plan(N, esize, aligned)
-    units = _cdiv(R, WARP_ROWS) if threads == 0 and N <= WARP_ROW_MAX else R
-    return threads, max(1, min(units, BWD_BLOCKS_PER_SM * sms))
+    if threads:
+        kind, rows = "vector", max(1, BWD_VEC_THREADS // threads)
+    elif N <= WARP_ROW_MAX:
+        kind, rows = "warp", min(BWD_WARP_ROWS, BWD_SMEM_FLOATS // N)
+    else:
+        kind, rows = "block", 1
+    return threads, rows, max(1, min(_cdiv(R, rows),
+                                     BWD_BLOCKS_PER_SM[kind] * sms))
+
+
+def column_sum_plan(blocks: int, N: int) -> tuple[int, int]:
+    """``(vec, warps)`` of dgamma's column sum over ``blocks`` partial rows
+    of N: a lane adds ``vec`` columns (one 16-byte vector where N is a
+    multiple of 4), a block 32 lanes' columns, with ``warps`` warps over
+    the rows, about ``SUM_ROWS`` rows each, so every load is in flight at
+    once; then the warps' sums in warp order."""
+    return (4 if N % 4 == 0 else 1,
+            max(1, min(SUM_WARPS, _cdiv(blocks, SUM_ROWS))))
 
 
 def _on_card(x: torch.Tensor, what: str, *params: torch.Tensor | None,
@@ -309,8 +337,8 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
     None: dgamma None), the forward's rstd (R fp32) and dy (x's shape and
     dtype).  ``dx = rstd (gamma dy - x̂ mean(gamma dy x̂))`` in x's dtype and
     ``dgamma = Σ_rows dy x̂`` in fp32, x̂ = x rstd; deterministic (no
-    atomics: per-block partial sums, then a second kernel sums them in a
-    fixed order)."""
+    atomics: per-block partial sums over a grid fixed by shape and card,
+    then a second kernel sums them in a fixed order)."""
     if not _on_card(x, "rmsnorm_bwd", gamma, dtypes=NORM_TYPES):
         return ref.rmsnorm_bwd(x, gamma, rstd, dy)
     R, N = x.shape
@@ -323,13 +351,16 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
         raise ValueError(f"rmsnorm_bwd: rstd must be a contiguous float32 "
                          f"({R},) on {x.device}")
     dx = torch.empty_like(x)
-    dgamma = None if gamma is None else torch.zeros(
-        N, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return dx, dgamma
-    threads, blocks = norm_bwd_plan(R, N, x.element_size(),
-                                    _aligned(x, dy, dx, gamma),
-                                    _build.sm_count(x.device))
+        return dx, None if gamma is None else torch.zeros(
+            N, dtype=torch.float32, device=x.device)
+    # the column sum writes every column of dgamma
+    dgamma = None if gamma is None else torch.empty(
+        N, dtype=torch.float32, device=x.device)
+    threads, rows, blocks = norm_bwd_plan(R, N, x.element_size(),
+                                          _aligned(x, dy, dx, gamma),
+                                          _build.sm_count(x.device))
+    sum_vec, sum_warps = column_sum_plan(blocks, N)
     part = None if gamma is None else torch.empty(
         (blocks, N), dtype=torch.float32, device=x.device)
     fn = (_lib().sfu_rmsnorm_bwd_f32 if x.dtype == torch.float32
@@ -337,7 +368,7 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), _ptr(gamma), rstd.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), _ptr(part), _ptr(dgamma), R, N, threads,
-                 blocks, _stream(x))
+                 rows, blocks, sum_warps, sum_vec, _stream(x))
     _build.check(err, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
     return dx, dgamma

@@ -10,8 +10,13 @@ port's plain forward, on seeded numpy inputs, fp32, within
 1e-4 · max|g| per gradient (the limit the card holds the kernels to).  The
 wrappers take these plain versions for CPU tensors; the card tests
 (test_torch_cuda.py) hold the kernels against autograd of the plain
-forwards.  The backward's launch plan is a pure function, checked here.
+forwards.  The bf16 attention backward runs on the tensor cores with P
+and dS rounded to bf16 before their products; ``_emulate_attention_bwd``
+repeats that arithmetic here and shows its margin under the card's
+limit.  The backward's launch plans are pure functions, checked here.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +35,17 @@ ATTN_SHAPES = [(1, 4, 2, 64, 64, 32), (2, 8, 2, 32, 128, 64),
                (1, 2, 1, 1, 96, 32), (1, 4, 4, 50, 50, 16),
                (1, 2, 2, 1, 500, 64), (2, 6, 3, 40, 100, 32)]
 GRAD_TOL = 1e-4
+# the card holds bf16 dq, dk, dv to a relative L2 of 2e-2 (BF16_GRAD_RTOL in
+# chip_smoke.py, tests/test_torch_cuda.py); the emulated tensor-core
+# arithmetic must reach a quarter of it against fp32 references on the same
+# bf16 inputs, so that the card's limit has a margin of 4x over the
+# roundings (P and dS before their products, the outputs at the store)
+EMU_RTOL = 2e-2 / 4
+# qwen3-4b's training attention cut to one batch row and 256 tokens (32/8
+# heads of 128 cut to 8/2), and a ragged GQA-4 case with Sq != Skv whose
+# lengths are no multiple of any tile
+ATTN_BF16_SHAPES = ATTN_SHAPES + [(1, 8, 2, 256, 256, 128),
+                                  (1, 8, 2, 100, 130, 128)]
 
 
 def _np(shape, seed, scale=1.0):
@@ -123,6 +139,78 @@ def test_rows_without_a_key_get_no_gradient():
     assert not dq[0, 0, :4].any() and dq[0, 0, 4:].abs().min() > 0
 
 
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _rel_l2(got, want):
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _emulate_attention_bwd(q, k, v, out, lse, dout, causal):
+    """The bf16 tensor-core backward kernels' arithmetic (csrc/
+    flash_attention.cu, section 5) in plain torch, on fp32 tensors that
+    hold bf16 values: fp32 sums of exact bf16 products for S and dP,
+    ``p = 2^(s scale log2 e - lse log2 e)`` over the visible keys (0
+    elsewhere), dS from the fp32 P, then P rounded to bf16 for dV and dS
+    rounded to bf16 for dK and dQ, dK and dQ scaled in fp32, each output
+    rounded to bf16 once."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kf, vf = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    scale, log2e = 1.0 / math.sqrt(D), 1.4426950408889634
+    s = q @ kf.transpose(-1, -2)
+    i, j = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    seen = j <= i + (Skv - Sq) if causal else torch.ones(Sq, Skv, dtype=bool)
+    p = torch.where(seen, torch.exp2(s * (scale * log2e)
+                                     - lse[..., None] * log2e), 0.0)
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = p * (dout @ vf.transpose(-1, -2) - delta)
+    p16, ds16 = _bf16(p), _bf16(ds)
+    dq = scale * (ds16 @ kf)
+    dk = (scale * (ds16.transpose(-1, -2) @ q)).view(
+        B, Hkv, group, Skv, D).sum(2)
+    dv = (p16.transpose(-1, -2) @ dout).view(B, Hkv, group, Skv, D).sum(2)
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+@pytest.mark.parametrize("shape", ATTN_BF16_SHAPES)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_attention_bwd_emulation_meets_the_card_limit(shape, causal):
+    B, Hq, Hkv, Sq, Skv, D = shape
+    q, k, v, do = (_bf16(torch.from_numpy(_np(s, i))) for i, s in enumerate(
+        ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D),
+         (B, Hq, Sq, D)), 10))
+    # the forward kernel's bf16 output and fp32 log-sum-exp
+    out, lse = attention_lse(q, k, v, causal=causal)
+    got = _emulate_attention_bwd(q, k, v, _bf16(out), lse, do, causal)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention(*leaves, causal=causal).backward(do)
+    for g, leaf, name in zip(got, leaves, "qkv"):
+        assert _rel_l2(g, leaf.grad) <= EMU_RTOL, (f"d{name} vs autograd",
+                                                   _rel_l2(g, leaf.grad))
+    if not causal or Sq <= Skv:     # every row sees a key: the oracle holds
+        _, vjp = jax.vjp(lambda a, b, c: jref.mha_attention(
+            a, b, c, causal=causal), *(jnp.asarray(t.numpy())
+                                       for t in (q, k, v)))
+        for g, w, name in zip(got, vjp(jnp.asarray(do.numpy())), "qkv"):
+            w = torch.from_numpy(np.array(w))
+            assert _rel_l2(g, w) <= EMU_RTOL, (f"d{name} vs jax",
+                                               _rel_l2(g, w))
+
+
+def test_bf16_attention_bwd_emulation_gives_empty_rows_no_gradient():
+    # causal, Sq > Skv: rows 0-39 see no key (their lse is -1e30)
+    q, k, v, do = (_bf16(torch.from_numpy(_np(s, i))) for i, s in enumerate(
+        ((1, 4, 80, 64), (1, 2, 40, 64), (1, 2, 40, 64), (1, 4, 80, 64)), 40))
+    out, lse = attention_lse(q, k, v, causal=True)
+    assert (lse[0, :, :40] == ref.NEG_INF).all()
+    dq, dk, dv = _emulate_attention_bwd(q, k, v, _bf16(out), lse, do, True)
+    assert all(torch.isfinite(t).all() for t in (dq, dk, dv))
+    assert not dq[0, :, :40].any() and dq[0, :, 41:].abs().amin(-1).gt(0).all()
+
+
 @pytest.mark.parametrize("R", [1, 7, 2048, 65536])
 @pytest.mark.parametrize("N,esize,aligned", [(128, 2, True), (2560, 2, True),
                                              (2560, 4, True), (2561, 4, True),
@@ -131,17 +219,48 @@ def test_rows_without_a_key_get_no_gradient():
 def test_norm_bwd_plan_takes_the_forward_shape_on_a_bounded_grid(
         R, N, esize, aligned):
     sms = 132
-    threads, blocks = sfu.norm_bwd_plan(R, N, esize, aligned, sms)
+    threads, rows, blocks = sfu.norm_bwd_plan(R, N, esize, aligned, sms)
     assert threads == sfu.norm_plan(N, esize, aligned)
-    assert 1 <= blocks <= sfu.BWD_BLOCKS_PER_SM * sms
-    per_block = sfu.WARP_ROWS if threads == 0 and N <= sfu.WARP_ROW_MAX else 1
-    assert blocks <= -(-R // per_block)      # no block without a row
-    assert sfu.norm_bwd_plan(R, N, esize, aligned, sms) == (threads, blocks)
+    assert blocks <= -(-R // rows)           # no block without a row
+    per_sm = sfu.BWD_BLOCKS_PER_SM
+    if threads:                              # vector kernel: row groups
+        assert rows == max(1, sfu.BWD_VEC_THREADS // threads)
+        assert rows * threads <= sfu.MAX_THREADS
+        assert rows == 1 or N <= sfu.BWD_SMEM_FLOATS   # one shared row
+        assert 1 <= blocks <= per_sm["vector"] * sms
+    elif N <= sfu.WARP_ROW_MAX:              # warp kernel: a warp a row
+        assert 1 <= rows <= sfu.BWD_WARP_ROWS and rows * N <= \
+            sfu.BWD_SMEM_FLOATS
+        assert 1 <= blocks <= per_sm["warp"] * sms
+    else:                                    # block kernel: a block a row
+        assert rows == 1 and 1 <= blocks <= per_sm["block"] * sms
+    assert sfu.norm_bwd_plan(R, N, esize, aligned, sms) == \
+        (threads, rows, blocks)
+    # fewer SMs, no more blocks
+    assert sfu.norm_bwd_plan(R, N, esize, aligned, 66)[2] <= blocks
 
 
 def test_norm_bwd_plan_at_qwen3_4b_training_rows():
-    # 2048 x 2560 bf16 rows: the vector kernel, 160 threads; the q-norm's
-    # 65,536 x 128: the warp kernel, 8 rows a block over 528 blocks
-    assert sfu.norm_bwd_plan(2048, 2560, 2, True, 132) == (160, 528)
-    assert sfu.norm_bwd_plan(65536, 128, 2, True, 132) == (0, 528)
-    assert sfu.norm_bwd_plan(8, 128, 2, True, 132) == (0, 1)
+    # 2048 x 2560 bf16 rows: the vector kernel, 160 threads a row, 4 rows
+    # a block of 640 threads, one block an SM; the q-norm's 65,536 x 128
+    # and the k-norm's 16,384: the warp kernel, 32 rows a block, two
+    # blocks an SM
+    assert sfu.norm_bwd_plan(2048, 2560, 2, True, 132) == (160, 4, 132)
+    assert sfu.norm_bwd_plan(65536, 128, 2, True, 132) == (0, 32, 264)
+    assert sfu.norm_bwd_plan(16384, 128, 2, True, 132) == (0, 32, 264)
+    assert sfu.norm_bwd_plan(8, 128, 2, True, 132) == (0, 32, 1)
+    # dgamma's column sum over those partial rows: 16-byte vectors, 32
+    # warps of at most 9 rows
+    assert sfu.column_sum_plan(132, 2560) == (4, 32)
+    assert sfu.column_sum_plan(264, 128) == (4, 32)
+
+
+@pytest.mark.parametrize("blocks", [1, 7, 8, 9, 132, 256, 528, 4096])
+@pytest.mark.parametrize("N", [17, 128, 1000, 2560, 2561])
+def test_column_sum_plan_spreads_the_rows_over_warps(blocks, N):
+    vec, warps = sfu.column_sum_plan(blocks, N)
+    assert vec == (4 if N % 4 == 0 else 1) and N % vec == 0
+    assert 1 <= warps <= sfu.SUM_WARPS
+    # each warp adds at most SUM_ROWS rows unless the block is full
+    assert warps == sfu.SUM_WARPS or -(-blocks // warps) <= sfu.SUM_ROWS
+    assert warps <= blocks

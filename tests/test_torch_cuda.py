@@ -793,9 +793,16 @@ RMS_BWD_ROWS = [(R, N, 0) for R, N in SFU_SHAPES] + [
     (2048, 2560, 0), (65536, 128, 0), (16384, 128, 0), (64, 2561, 0),
     (2048, 2560, 1), (33, 1000, 1)]
 # the reference's attention sweep (causal and not, fp32), qwen3-4b's
-# training attention (bf16, causal)
+# training attention (bf16, causal); then on the bf16 tensor-core kernels
+# the same sweep, a causal case whose first 40 query rows see no key (Sq >
+# Skv, both dtypes) and a ragged head-128 GQA-4 case with Sq != Skv
+ATTN_EMPTY_ROWS = (1, 4, 2, 80, 40, 64)
+ATTN_RAGGED_128 = (1, 8, 2, 100, 130, 128)
 ATTN_BWD = [(s, c, torch.float32) for s in ATTN_SHAPES[:-1]
             for c in (True, False)] + [(ATTN_SHAPES[-1], True, torch.bfloat16)]
+ATTN_BWD += [(s, c, torch.bfloat16)
+             for s in ATTN_SHAPES[:-1] + [ATTN_EMPTY_ROWS, ATTN_RAGGED_128]
+             for c in (True, False)] + [(ATTN_EMPTY_ROWS, True, torch.float32)]
 
 
 def _rel_l2(got, want):
@@ -859,6 +866,18 @@ def test_cuda_rmsnorm_backward_matches_autograd_of_plain(cuda, rows, tdt,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_rmsnorm_backward_of_no_rows_gives_zero_dgamma(cuda, tdt):
+    x = torch.empty((0, 2560), device=cuda, dtype=tdt)
+    g = torch.ones(2560, device=cuda)
+    before = sfu.rmsnorm_bwd.launches
+    dx, dg = sfu.rmsnorm_bwd(x, g, torch.empty(0, device=cuda), x)
+    assert dx.shape == x.shape and dg.shape == (2560,) and not dg.any()
+    assert sfu.rmsnorm_bwd.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ATTN_BWD, ids=str)
 def test_cuda_attention_backward_matches_autograd_of_plain(cuda, case):
     (B, Hq, Hkv, Sq, Skv, D), causal, tdt = case
@@ -879,6 +898,8 @@ def test_cuda_attention_backward_matches_autograd_of_plain(cuda, case):
         assert torch.equal(got, rep)
     _, lse_plain = ref.mha_attention_lse(q, k, v, causal=causal)
     assert float((lse - lse_plain).abs().max()) <= 1e-3
+    if causal and Sq > Skv:     # rows that see no key get no gradient
+        assert not grads[0][:, :, :Sq - Skv].any()
 
 
 @pytest.mark.cuda

@@ -145,6 +145,48 @@ def test_build_targets_hopper_and_keys_on_the_sources():
     assert str(_build.BUILD_DIR.relative_to(ROOT)) + "/" in gitignore
 
 
+def test_ptxas_usage_reads_registers_and_spills_of_each_kernel():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_bwd_kv_mma_kernelILi128EEEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_bwd_kv_mma_kernelILi128EEEvPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 212 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z17column_sum_kernelILi4EEvPKfPfii' for 'sm_90a'
+ptxas info    : Function properties for _Z17column_sum_kernelILi4EEvPKfPfii
+    24 bytes stack frame, 16 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 16384 bytes smem
+"""
+    assert _build.ptxas_usage(log) == {
+        "_ZN12_GLOBAL__N_123flash_bwd_kv_mma_kernelILi128EEEvPK13__nv_bfloat16":
+            (212, 0, 0),
+        "_Z17column_sum_kernelILi4EEvPKfPfii": (30, 16, 28)}
+    assert "-v" in _build.NVCC_FLAGS and _build.ptxas_usage("") == {}
+
+
+def test_build_keeps_each_log_beside_its_library(tmp_path, monkeypatch):
+    # a stand-in for nvcc that writes the library and prints a ptxas line
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w').close()\n"
+                    "print(\"ptxas info    : Compiling entry function "
+                    "'_Z1kv' for 'sm_90a'\")\n"
+                    "print('ptxas info    : Used 40 registers')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert _build.build_log("sfu") == ""
+    (lib,) = _build.build(("sfu",))
+    assert lib.exists() and _build.ptxas_usage(
+        _build.build_log("sfu")) == {"_Z1kv": (40, 0, 0)}
+    # a built library is not rebuilt, and its log is still read
+    fake.unlink()
+    assert _build.build(("sfu",)) == [lib]
+    assert _build.ptxas_usage(
+        _build.build_log("sfu")) == {"_Z1kv": (40, 0, 0)}
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".log").name])
+
+
 def _smoke(cwd, extra_env=None):
     env = {**os.environ, **(extra_env or {})}
     env.pop("PYTHONPATH", None)
