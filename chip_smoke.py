@@ -46,7 +46,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    Every layer is held against ``reference_execute`` of that layer on
    the inputs the binary gave it (rtol 5e-4, atol 5e-4 scaled up only
    past |ref| = 100); the chained outputs against ``reference_execute``
-   of the whole graph by relative L2 error (see ``CHAIN_RTOL``).  Then
+   of the whole graph by relative L2 error (see ``CHAIN_RTOL``).  ROADMAP
+   C.2's diagnosis: DeiT-S's chained error with one kernel family at a
+   time, then every family, run on its plain version (printed).  Then
    DORA's multi-tenant path, the scenarios of
    ``benchmarks/bench_multi_tenant.py``: BERT-S + NCF-S (small_pair)
    compiled jointly into one binary and run as encoded, then reordered
@@ -108,29 +110,41 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    the largest fp32 item (the embedding, the head or a layer) plus 1 GiB,
    and under what holding one fp32 item at a time gives plus 1 GiB (a MoE
    layer's items: its mixer, norms and router, then each expert matrix).
-6. training: the backward kernels (rmsnorm's and flash attention's, no
-   Pallas counterpart) against autograd of their plain versions on the
-   card: rmsnorm over the reference's SFU rows (fp32), qwen3-4b's training
-   rows (bf16 and fp32) and a ragged and an unaligned case; attention over
-   the reference's attention shapes, causal and not (fp32, and bf16 on the
-   tensor-core kernels), a causal case whose first rows see no key (their
-   gradient must be 0), a ragged head-128 GQA-4 case with Sq != Skv (bf16)
-   and qwen3-4b's training attention (bf16); every gradient within
-   ``FP32_GRAD_TOL`` /
-   ``BF16_GRAD_RTOL`` / ``DGAMMA_RTOL``, and a second backward run equal
-   to the bit.  qwen3-4b's model gradients (``lm.loss_fn``), kernels
-   against plain versions on the same weights and ``SyntheticLM`` batch:
-   fp32 over 2 layers (``MODEL_FP32_TOL``), bf16 over the training cut
-   (``MODEL_BF16_RTOL``, each leaf printed).  Then ``launch.train.Trainer``
-   trains qwen3-4b at full width cut to ``TRAIN_LAYERS`` of 36 layers (fp32
+6. training: the backward kernels (rmsnorm's, layernorm's, flash
+   attention's and the SSD scan's, no Pallas counterpart) against autograd
+   of their plain versions on the card: rmsnorm over the reference's SFU
+   rows (fp32), qwen3-4b's training rows (bf16 and fp32) and a ragged and
+   an unaligned case; attention over the reference's attention shapes,
+   causal and not (fp32, and bf16 on the tensor-core kernels), a causal
+   case whose first rows see no key (their gradient must be 0), a ragged
+   head-128 GQA-4 case with Sq != Skv (bf16), qwen3-4b's training
+   attention and whisper-medium's (D 64, causal and full over 512 tokens,
+   and the served cross shape over 1,500 frames; bf16); layernorm, with
+   and without gamma and beta, over the reference's SFU rows (fp32),
+   whisper-medium's and nemotron-4-15b's training rows and ``LN_ODD``
+   (fp32 and bf16); ``ssd`` from zero and from an initial state with a
+   gradient into the final state, over the reference's SSD sweep (fp32
+   and bf16, its tail case, G > 1), mamba2-2.7b's training shape (bf16 and
+   fp32) and jamba's 256 heads (bf16); every gradient within
+   ``FP32_GRAD_TOL`` / ``BF16_GRAD_RTOL`` / ``DGAMMA_RTOL``, and a second
+   backward run equal to the bit.  Model gradients (``lm.loss_fn``,
+   ``encdec.loss_fn``), kernels against plain versions on the same
+   weights and ``SyntheticLM`` batch at full width: qwen3-4b fp32 over 2
+   layers (``MODEL_FP32_TOL``) and bf16 over the training cut
+   (``MODEL_BF16_RTOL``, each leaf printed); then ``MODEL_GRAD_CUTS``:
+   whisper-medium fp32 over 2 + 2 layers and bf16 over 4 + 4, mamba2-2.7b
+   fp32 over 2 and bf16 over 8, nemotron-4-15b bf16 over 2.  Then
+   ``launch.train.Trainer`` trains qwen3-4b at full width cut to
+   ``TRAIN_LAYERS`` of 36 layers, and then, one at a time, whisper-medium
+   and mamba2-2.7b at full width and depth (``FULL_TRAIN_ARCHS``; fp32
    parameters and moments, bf16 compute, remat) for ``TRAIN_STEPS`` steps
-   of 4 x 512 tokens: the mean loss of the last 3 steps must fall below
-   the first's, the launch counts, zeroed just before, must equal what the
-   call structure gives (printed with its derivation); step ms, tokens/s,
-   the predicted and measured peak memory and one profiled step.  Last, a
-   fault injected into reduced qwen3-4b's training on the card: the run
-   resumed from its checkpoint replays an uninterrupted run's losses
-   (``FAULT_RTOL``).
+   of 4 x 512 tokens each: the mean loss of the last 3 steps must fall
+   below the first's, the launch counts, zeroed just before, must equal
+   what the call structure gives (printed with its derivation); step ms,
+   tokens/s, the predicted and measured peak memory and one profiled step.
+   Last, a fault injected into reduced qwen3-4b's training on the card:
+   the run resumed from its checkpoint replays an uninterrupted run's
+   losses (``FAULT_RTOL``).
 7. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
@@ -146,10 +160,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    qwen2-vl-2b's prefill and the MoE archs' prefill and decode,
    ``sfu_layernorm`` at whisper-medium's rows, ``rmsnorm`` at qwen2-vl-2b's
    and the MoE archs', ``ssd`` at jamba's prefill; the backward kernels at
-   qwen3-4b's training shapes, beside their plain versions, the backward
-   of ``F.rms_norm`` / ``F.scaled_dot_product_attention``, and in brackets
-   their times before the redesign (``MS_BEFORE_REDESIGN``, as recorded in
-   ``PERF.md``).
+   qwen3-4b's, whisper-medium's, nemotron-4-15b's and mamba2-2.7b's
+   training shapes, beside their plain versions, the backward of
+   ``F.rms_norm`` / ``F.layer_norm`` / ``F.scaled_dot_product_attention``
+   (none computes the SSD backward), and in brackets their times before
+   the redesign (``MS_BEFORE_REDESIGN``, as recorded in ``PERF.md``).
    The profiles sum ``ssd``'s two kernels and each backward's kernels, and
    print each step's device activities.
 
@@ -387,6 +402,19 @@ RMS_BWD_ROWS = [(2048, 2560, 0), (65536, 128, 0), (16384, 128, 0),
 # are no multiple of the kernels' tiles
 ATTN_EMPTY_ROWS = (1, 4, 2, 80, 40, 64)
 ATTN_RAGGED_128 = (1, 8, 2, 100, 130, 128)
+# layernorm's backward rows (rows, width, offset), besides the reference's
+# SFU rows (fp32) and LN_ODD (fp32 and bf16): whisper-medium's training
+# rows (4 x 512 tokens of 1024) and nemotron-4-15b's (6144), bf16 and fp32
+LN_BWD_ROWS = [(2048, 1024, 0), (2048, 6144, 0)]
+# model gradients of the two new training archs and nemotron-4-15b,
+# kernels against plain versions at full width: (arch, fp32 layers or
+# None, bf16 layers); whisper's counts are encoder + decoder layers each
+MODEL_GRAD_CUTS = (("whisper-medium", 2, 4), ("mamba2-2.7b", 2, 8),
+                   ("nemotron-4-15b", None, 2))
+# the two new Trainer runs, at full width and depth, on TRAIN_BATCH x
+# TRAIN_SEQ tokens for TRAIN_STEPS steps at TRAIN_PEAK_LR (bf16 compute,
+# remat: their configs' own); one trainer at a time
+FULL_TRAIN_ARCHS = ("whisper-medium", "mamba2-2.7b")
 # device ms of the backward kernels before their redesign (fp32 FMA
 # attention kernels; rmsnorm's one-row blocks, a partial row of dgamma
 # each, a zero fill), by kernel and operand shape, as PERF.md records them
@@ -401,12 +429,20 @@ PTXAS_KERNELS = {
     "flash_attention": ("flash_bwd_delta_kernel", "flash_bwd_kv_mma_kernel",
                         "flash_bwd_q_mma_kernel"),
     "sfu": ("rmsnorm_bwd_vec_kernel", "rmsnorm_bwd_warp_kernel",
-            "rmsnorm_bwd_block_kernel", "column_sum_kernel"),
+            "rmsnorm_bwd_block_kernel", "layernorm_bwd_vec_kernel",
+            "layernorm_bwd_warp_kernel", "layernorm_bwd_block_kernel",
+            "column_sum_kernel"),
+    "ssd": ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_group_sum"),
 }
-# the kernels of one backward call, which the profiles sum (csrc/*.cu)
+# the kernels of one backward call, which the profiles sum (csrc/*.cu); the
+# norms share the column sum, which a profile with both norms' backwards
+# counts in each
 BWD_PHASES = {"flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_kv",
                                       "flash_bwd_q"),
-              "rmsnorm_bwd": ("rmsnorm_bwd_", "column_sum")}
+              "rmsnorm_bwd": ("rmsnorm_bwd_", "column_sum"),
+              "layernorm_bwd": ("layernorm_bwd_", "column_sum"),
+              "ssd_bwd": ("ssd_bwd_state", "ssd_bwd_chunk",
+                          "ssd_bwd_group_sum")}
 # Model gradients, kernels against plain versions, same weights and batch:
 # at fp32 compute over MODEL_FP32_LAYERS layers every leaf within
 # MODEL_FP32_TOL x max|g| (as FP32_DECODE_TOL holds logits); at bf16 over
@@ -435,9 +471,12 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:28",
     "ssd": "src/repro/kernels/ssd.py:31",
     # no Pallas kernel has a backward: the reference differentiates its jnp
-    # rmsnorm and attention (src/repro/models/layers.py)
+    # norms, attention and SSD (src/repro/models/layers.py,
+    # src/repro/kernels/ops.py)
     "rmsnorm_bwd": "src/repro/models/layers.py:40",
     "flash_attention_bwd": "src/repro/models/layers.py:158",
+    "layernorm_bwd": "src/repro/models/layers.py:39",
+    "ssd_bwd": "src/repro/kernels/ops.py:121",
 }
 SOURCES = {
     "flex_gemm": "src/repro_torch/kernels/csrc/flex_gemm.cu",
@@ -449,10 +488,13 @@ SOURCES = {
     "ssd": "src/repro_torch/kernels/csrc/ssd.cu",
     "rmsnorm_bwd": "src/repro_torch/kernels/csrc/sfu.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "layernorm_bwd": "src/repro_torch/kernels/csrc/sfu.cu",
+    "ssd_bwd": "src/repro_torch/kernels/csrc/ssd.cu",
 }
 DORA_KERNELS = ("flex_gemm", "sfu_softmax", "sfu_layernorm", "sfu_act")
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "ssd")
-TRAINING_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd")
+TRAINING_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd", "layernorm_bwd",
+                    "ssd_bwd")
 # the CUDA kernels of one ssd call (csrc/ssd.cu)
 SSD_PHASES = ("ssd_state_", "ssd_scan_")
 
@@ -492,10 +534,26 @@ def ssd_work(B, S, H, P, G, N, chunk, esize) -> tuple[int, int]:
     return 2 * macs, nbytes
 
 
+def ssd_bwd_work(B, S, H, P, G, N, chunk, esize) -> tuple[int, int]:
+    """(FLOPs, bytes) of the SSD backward.  Per (row, chunk of true length
+    L): C Bᵀ, dY Xᵀ, Rᵀ dY, Zᵀ C and Z B over the causal pairs only,
+    L(L+1)/2 (3N + 2P) multiply-adds, plus the four products with the
+    carried state or its gradient (w ∘ B Gᵀ, w ∘ X G, e ∘ dY S_prev, and
+    the reverse recurrence dYᵀ (C ∘ e)), 4LNP.  Bytes: x, dy, dx (``esize``
+    bytes an element), b, c, db, dc (once per group), a and da (fp32) read
+    or written once, and the forward's saved fp32 states read once."""
+    lens = [min(chunk, S - s) for s in range(0, S, chunk)]
+    macs = B * H * sum(L * (L + 1) // 2 * (3 * N + 2 * P) + 4 * L * N * P
+                       for L in lens)
+    nbytes = esize * (3 * B * S * H * P + 4 * B * S * G * N) \
+        + 8 * B * S * H + 4 * B * len(lens) * H * P * N
+    return 2 * macs, nbytes
+
+
 def kernel_label(mangled: str, name: str) -> str:
     """``name<template arguments>`` from a kernel's mangled name."""
     args = mangled.split(name + "I", 1)[-1].split("Ev", 1)[0]
-    found = re.findall(r"Li(\d+)|__nv_(bfloat16)|^(f)E", args)
+    found = re.findall(r"Li(\d+)|__nv_(bfloat16)|^(f)(?=[EL])", args)
     return f"{name}<{', '.join(n or b or 'float' for n, b, _ in found)}>"
 
 
@@ -568,7 +626,7 @@ def main() -> None:
     from repro_torch.kernels.ref import EPILOGUES
     from repro_torch.kernels.sfu import (act_rows, layernorm_rows,
                                          rmsnorm_rows, softmax_rows)
-    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd import ssd, ssd_bwd, ssd_states
     from repro_torch.launch.serve import BatchServer, Request
     from repro_torch.launch.train import TrainOptions, Trainer
     from repro_torch.optim import OptConfig
@@ -991,7 +1049,8 @@ def main() -> None:
                 "sfu_layernorm": layernorm_rows, "sfu_act": act_rows,
                 "rmsnorm": rmsnorm_rows, "flash_attention": flash_attention,
                 "ssd": ssd, "rmsnorm_bwd": sfu_k.rmsnorm_bwd,
-                "flash_attention_bwd": flash_attention_bwd}
+                "flash_attention_bwd": flash_attention_bwd,
+                "layernorm_bwd": sfu_k.layernorm_bwd, "ssd_bwd": ssd_bwd}
     whole = dict.fromkeys(counters, 0)     # launches over the whole script
 
     def zero_counts():
@@ -1080,6 +1139,61 @@ def main() -> None:
         check_layers(name, programs[name], inputs[name], outputs[name])
     del outputs
 
+    # ROADMAP C.2: DeiT-S's chained error with one kernel family at a time
+    # swapped for its plain version on the card (the runtime's references
+    # to the kernels replaced for one run each, then restored), printed
+    # beside the run with every kernel and the run with none; the limits
+    # stay as they are
+    from repro_torch.core import runtime as rt_mod
+    plain_family = {
+        "flex_gemm": {"flex_gemm": lambda a, b, epilogue="none", c=None:
+                      ref.gemm(a, b, None, epilogue, c)},
+        "sfu_softmax": {OpType.SFU_SOFTMAX: ref.softmax_rows},
+        "sfu_layernorm": {OpType.SFU_LAYERNORM: ref.layernorm_rows},
+        "sfu_act": {op: (lambda x, act=act: ref.ACT_FN[act](x))
+                    for op, act in SFU_ACT.items()},
+    }
+
+    @contextlib.contextmanager
+    def plain_kernels(families):
+        saved_gemm, saved_sfu = rt_mod.flex_gemm, dict(rt_mod._SFU_FN)
+        for fam in families:
+            for key, fn in plain_family[fam].items():
+                if key == "flex_gemm":
+                    rt_mod.flex_gemm = fn
+                else:
+                    rt_mod._SFU_FN[key] = fn
+        try:
+            yield
+        finally:
+            rt_mod.flex_gemm = saved_gemm
+            rt_mod._SFU_FN.clear()
+            rt_mod._SFU_FN.update(saved_sfu)
+
+    def chain_errors(name, families):
+        """Relative L2 of every layer's chained output against
+        ``reference_execute`` of the whole graph, with ``families`` run on
+        their plain versions: (worst, its layer, the last layer's)."""
+        res = programs[name]
+        with plain_kernels(families):
+            out = DoraCompiler().execute(res, inputs[name])
+            torch.cuda.synchronize()
+        chained = res.graph.reference_execute(inputs[name])
+        rels = [(float(np.linalg.norm(out[l.name].cpu().numpy()
+                                      - chained[l.name])
+                       / max(np.linalg.norm(chained[l.name]), 1e-30)),
+                 l.name) for l in res.graph.layers]
+        return max(rels), rels[-1][0]
+
+    c2_model = "DeiT-S"
+    for label, families in (("every kernel", ()),
+                            *((f"{f} plain", (f,)) for f in plain_family),
+                            ("every family plain", tuple(plain_family))):
+        (worst, layer), last = chain_errors(c2_model, families)
+        print(f"[C.2] {c2_model} chained rel L2 vs reference_execute, "
+              f"{label}: worst {worst:.4g} ({layer}), last layer {last:.4g}")
+    zero_counts()
+
     # DORA's multi-tenant path: each joint, interleaved or per-PE binary run
     # once, counted from zero, and checked layer by layer
     mt_inputs = {}
@@ -1121,16 +1235,19 @@ def main() -> None:
         ssd_ms = {k: sum(t for t, _, key in by_kernel if k in key) / 1e3
                   for k in SSD_PHASES}
         if any(ssd_ms.values()):
+            ssd_n = sum(n for _, n, key in by_kernel
+                        if any(k in key for k in SSD_PHASES))
             print(f"[profile]   ssd, its kernels summed: "
-                  f"{sum(ssd_ms.values()):.4f} ms in "
-                  f"{sum(n for _, n, key in by_kernel if 'ssd_' in key)} "
+                  f"{sum(ssd_ms.values()):.4f} ms in {ssd_n} "
                   f"launches (" + ", ".join(f"{k.strip('_')} {t:.4f}"
                                             for k, t in ssd_ms.items())
                   + " ms)")
         for name, phases in BWD_PHASES.items():
             parts = {k: [(t, n) for t, n, key in by_kernel if k in key]
                      for k in phases}
-            if any(parts.values()):
+            # the column sum is both norms': a backward shows where its own
+            # kernels ran
+            if any(v for k, v in parts.items() if k != "column_sum"):
                 ms = {k: sum(t for t, _ in v) / 1e3 for k, v in parts.items()}
                 print(f"[profile]   {name}, its kernels summed: "
                       f"{sum(ms.values()):.4f} ms in "
@@ -2055,6 +2172,133 @@ def main() -> None:
           f"({TRAIN_ARCH}'s training attention), deterministic: max err "
           f"{e:.3g}, worst rel L2 {rel:.3g} (dq, dk, dv rel L2 limit "
           f"{BF16_GRAD_RTOL})")
+    # whisper-medium's training attention (D 64, 16 heads, 4 x 512 tokens:
+    # the encoder's full and the decoder's causal self-attention, its
+    # cross-attention over 512 frames) and the served cross shape (a
+    # 64-token prompt over 1,500 frames)
+    for shape, causal in (((TRAIN_BATCH, wcfg.n_heads, wcfg.n_kv_heads,
+                            TRAIN_SEQ, TRAIN_SEQ, wcfg.head_dim), True),
+                          ((TRAIN_BATCH, wcfg.n_heads, wcfg.n_kv_heads,
+                            TRAIN_SEQ, TRAIN_SEQ, wcfg.head_dim), False),
+                          ((WB, wcfg.n_heads, wcfg.n_kv_heads, WP, WF,
+                            wcfg.head_dim), False)):
+        e, rel = check_attention_bwd(*shape, causal, torch.bfloat16)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
+        print(f"[train] flash_attention backward {shape} "
+              f"{'causal' if causal else 'full'} bf16 ({WHISPER_ARCH}), "
+              f"deterministic: max err {e:.3g}, worst rel L2 {rel:.3g}")
+
+    def check_layernorm_bwd(R, N, dt, offset=0) -> tuple[float, float]:
+        """layernorm's forward (with mean and rstd) and backward kernels
+        through autograd, with and without gamma and beta, against
+        autograd of the plain version: dx as the backward limits say,
+        dgamma and dbeta within FP32_GRAD_TOL x max|ref| (fp32) or
+        DGAMMA_RTOL (bf16); a second backward gives the same bits.
+        Returns (max err, worst bf16 dx rel L2)."""
+        x = offset_view(R, N, offset, dt, scale=2.0)
+        dy = offset_view(R, N, offset, dt)
+        g = 1.0 + offset_view(1, N, offset, scale=0.2)[0]
+        bt = offset_view(1, N, offset, scale=0.2)[0]
+        worst, worst_rel = 0.0, 0.0
+        for gamma, beta in ((g, bt), (g, None), (None, bt), (None, None)):
+            runs = []
+            for fn in (ref.layernorm_rows, layernorm_rows, layernorm_rows):
+                leaves = [None if t is None else t.detach().requires_grad_()
+                          for t in (x, gamma, beta)]
+                fn(*leaves).backward(dy)
+                runs.append([None if t is None else t.grad for t in leaves])
+            torch.cuda.synchronize()
+            want, got, again = runs
+            what = (f"layernorm backward {R}x{N} {str(dt)[6:]} offset "
+                    f"{offset}{' +gamma' if gamma is not None else ''}"
+                    f"{' +beta' if beta is not None else ''}")
+            require(all(a is None or torch.equal(a, b)
+                        for a, b in zip(got, again)),
+                    f"{what}: two backward runs differ")
+            worst = max(worst, grad_close(f"{what} dx", got[0], want[0], dt))
+            if dt == torch.bfloat16:
+                worst_rel = max(worst_rel, rel_l2(got[0], want[0]))
+            for name, k, w in zip(("dgamma", "dbeta"), got[1:], want[1:]):
+                if k is not None:
+                    worst = max(worst, grad_close(f"{what} {name}", k, w, dt,
+                                                  DGAMMA_RTOL))
+        return worst, worst_rel
+
+    for R, N in SFU_SHAPES:
+        errs["layernorm_bwd"] = max(errs["layernorm_bwd"], check_layernorm_bwd(
+            R, N, torch.float32)[0])
+    for R, N, offset in LN_BWD_ROWS + LN_ODD:
+        for dt in (torch.float32, torch.bfloat16):
+            e, rel = check_layernorm_bwd(R, N, dt, offset)
+            errs["layernorm_bwd"] = max(errs["layernorm_bwd"], e)
+            print(f"[train] layernorm backward {R}x{N} {str(dt)[6:]} offset "
+                  f"{offset}, +-gamma +-beta, deterministic: max err {e:.3g}"
+                  + (f", dx rel L2 {rel:.3g}" if rel else ""))
+    print(f"[train] layernorm backward over the reference's SFU rows (fp32) "
+          f"and the rows above: max err {errs['layernorm_bwd']:.3g} (fp32 "
+          f"limit {FP32_GRAD_TOL} x max|ref|; bf16 dx rel L2 "
+          f"{BF16_GRAD_RTOL}, dgamma and dbeta {DGAMMA_RTOL})")
+
+    def check_ssd_bwd(B, S, H, P, G, N, chunk, dt) -> tuple[float, float]:
+        """``ssd`` under autograd on the card (the forward kernels keeping
+        their scratch, then the backward kernels) against autograd of
+        ``ref.ssd_plain``: from zero (y's gradient alone) and from an
+        initial state with a gradient into the final state; dx, da, db, dc
+        and the initial state's gradient fp32 within FP32_GRAD_TOL x
+        max|ref|, bf16 by relative L2 within BF16_GRAD_RTOL; the backward
+        kernels twice on the saved scratch give the same bits.  Returns
+        (max err, worst relative L2)."""
+        x, a, b, c = ssd_inputs(B, S, H, P, G, N, dt)
+        dy = randn(B, S, H, P, dtype=dt)
+        worst, worst_rel = 0.0, 0.0
+        for init in (None, randn(B, H, P, N)):
+            dfin = None if init is None else randn(B, H, P, N)
+            grads = []
+            for fn in (ref.ssd_plain, ssd):
+                leaves = [None if t is None else t.detach().requires_grad_()
+                          for t in (x, a, b, c, init)]
+                y, fin = fn(*leaves[:4], chunk=chunk, initial_state=leaves[4])
+                torch.autograd.backward(
+                    [y] if init is None else [y, fin],
+                    [dy] if init is None else [dy, dfin])
+                grads.append([None if t is None else t.grad for t in leaves])
+            _, _, states = ssd_states(x, a, b, c, chunk=chunk,
+                                      initial_state=init)
+            runs = [ssd_bwd(x, a, b, c, dy, chunk=chunk, initial_state=init,
+                            dfinal=dfin, states=states) for _ in range(2)]
+            torch.cuda.synchronize()
+            what = (f"ssd backward {(B, S, H, P, G, N)} chunk {chunk} "
+                    f"{str(dt)[6:]} init={init is not None}")
+            require(all(u is None or torch.equal(u, v)
+                        for u, v in zip(*runs)),
+                    f"{what}: two backward runs differ")
+            require(all(u is None or torch.equal(u, k) for u, k in
+                        zip(runs[0], grads[1])),
+                    f"{what}: autograd's gradients are not the kernels'")
+            for name, k, w in zip(("dx", "da", "db", "dc", "dinit"),
+                                  grads[1], grads[0]):
+                if w is None:
+                    continue
+                worst = max(worst, grad_close(f"{what} {name}", k, w,
+                                              k.dtype))
+                worst_rel = max(worst_rel, rel_l2(k, w))
+        return worst, worst_rel
+
+    # the reference's SSD sweep (fp32 and bf16), its tail case and G > 1
+    # with a tail; mamba2-2.7b's training shape and jamba's 256 heads (bf16)
+    wide_ssd = [(*ssm_prefill, 128, torch.bfloat16),
+                (*ssm_prefill, 128, torch.float32),
+                (*jamba_prefill, 128, torch.bfloat16)]
+    for *shape, chunk, dt in ([(*sh, dt) for sh in SSD_SHAPES
+                               for dt in (torch.float32, torch.bfloat16)]
+                              + wide_ssd):
+        e, rel = check_ssd_bwd(*shape, chunk, dt)
+        errs["ssd_bwd"] = max(errs["ssd_bwd"], e)
+        print(f"[train] ssd backward {tuple(shape)} chunk {chunk} "
+              f"{str(dt)[6:]}, from zero and from an initial state with "
+              f"dfinal, deterministic: max err {e:.3g}, worst rel L2 "
+              f"{rel:.3g} (fp32 limit {FP32_GRAD_TOL} x max|ref|, bf16 rel "
+              f"L2 {BF16_GRAD_RTOL})")
 
     # (b) model gradients, kernels against plain versions, same weights and
     # batch: fp32 over the first layers, bf16 over the training cut
@@ -2063,128 +2307,200 @@ def main() -> None:
     train_batch = for_arch(train_cfg, TRAIN_SEQ, TRAIN_BATCH,
                            seed=0).device_batch(0, dev)
 
-    def model_grads(mcfg, params):
+    def model_grads(mcfg, params, batch=None):
         """(loss, [gradient of each leaf]) of the kernels and of the plain
-        versions."""
+        versions (``lm.loss_fn``, or ``encdec.loss_fn`` with the batch's
+        frames)."""
+        batch = train_batch if batch is None else batch
         leaves = T.leaves(params)
         for t in leaves:
             t.requires_grad_(True)
         out = []
         for plain in (False, True):
-            loss = lm.loss_fn(mcfg, params, train_batch["tokens"],
-                              train_batch["labels"], plain=plain)
+            if mcfg.is_encdec:
+                loss = encdec.loss_fn(mcfg, params, batch["frames"],
+                                      batch["tokens"], batch["labels"],
+                                      plain=plain)
+            else:
+                loss = lm.loss_fn(mcfg, params, batch["tokens"],
+                                  batch["labels"], plain=plain)
             out.append((float(loss.detach()),
                         torch.autograd.grad(loss, leaves)))
         torch.cuda.synchronize()
         return out
 
+    def fp32_grad_check(mcfg, params, label, batch=None):
+        """Every leaf's max |kernels - plain| within MODEL_FP32_TOL x
+        max|g| (fp32 compute)."""
+        (lk, gk), (lp, gp) = model_grads(mcfg, params, batch)
+        worst = max(((max_err(a, b) / max(float(b.abs().max()), 1e-30),
+                      path) for (path, _), a, b in zip(
+                          T.leaves_with_paths(params), gk, gp)),
+                    key=lambda t: t[0])
+        print(f"[train] fp32 {label} gradients of loss_fn on {TRAIN_BATCH}x"
+              f"{TRAIN_SEQ} tokens, kernels vs plain versions: loss "
+              f"{lk:.6f} vs {lp:.6f}; worst leaf {worst[1]} max |err| "
+              f"{worst[0]:.3g} x max|g| (limit {MODEL_FP32_TOL}) over "
+              f"{len(gk)} leaves")
+        require(worst[0] <= MODEL_FP32_TOL,
+                f"fp32 model gradients of {label}: {worst[1]} differs "
+                f"{worst[0]} x max|g|")
+
+    def bf16_grad_check(mcfg, params, label, batch=None):
+        """The whole flattened gradient's relative L2, kernels against plain
+        versions, within MODEL_BF16_RTOL (bf16 compute); every leaf's
+        printed, a line a layer."""
+        (lk, gk), (lp, gp) = model_grads(mcfg, params, batch)
+        paths = [path for path, _ in T.leaves_with_paths(params)]
+        diff = sum(float((a.float() - b.float()).square().sum())
+                   for a, b in zip(gk, gp))
+        norm = sum(float(b.float().square().sum()) for b in gp)
+        total = (diff / norm) ** 0.5
+        per_layer = {}
+        for path, a, b in zip(paths, gk, gp):
+            parts = path.split("/")
+            key = "/".join(parts[:2]) if parts[0] in ("layers", "encoder",
+                                                      "decoder") else "ends"
+            per_layer.setdefault(key, []).append(
+                (path[len(key) + 1:] if key != "ends" else path,
+                 rel_l2(a, b)))
+        for key, items in per_layer.items():
+            print(f"[train] bf16 {mcfg.name} gradient rel L2, {key}: "
+                  + ", ".join(f"{n} {e:.3g}" for n, e in items))
+        print(f"[train] bf16 {label} gradients of loss_fn, kernels vs "
+              f"plain versions: loss {lk:.6f} vs {lp:.6f}; the whole "
+              f"flattened gradient rel L2 {total:.4g} (limit "
+              f"{MODEL_BF16_RTOL})")
+        require(total <= MODEL_BF16_RTOL,
+                f"bf16 model gradients of {label} differ by {total}")
+
     cfg32 = dataclasses.replace(train_cfg, n_layers=MODEL_FP32_LAYERS,
                                 compute_dtype="float32")
     p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
-    (lk, gk), (lp, gp) = model_grads(cfg32, p32)
-    worst = max(((max_err(a, b) / max(float(b.abs().max()), 1e-30), path)
-                 for (path, _), a, b in zip(T.leaves_with_paths(p32), gk, gp)),
-                key=lambda t: t[0])
-    print(f"[train] fp32 {TRAIN_ARCH} [{MODEL_FP32_LAYERS} layers, full "
-          f"width] gradients of loss_fn on {TRAIN_BATCH}x{TRAIN_SEQ} "
-          f"tokens, kernels vs plain versions: loss {lk:.6f} vs {lp:.6f}; "
-          f"worst leaf {worst[1]} max |err| {worst[0]:.3g} x max|g| (limit "
-          f"{MODEL_FP32_TOL}) over {len(gk)} leaves")
-    require(worst[0] <= MODEL_FP32_TOL,
-            f"fp32 model gradients: {worst[1]} differs {worst[0]} x max|g|")
-    del p32, gk, gp
+    fp32_grad_check(cfg32, p32, f"{TRAIN_ARCH} [{MODEL_FP32_LAYERS} layers, "
+                    f"full width]")
+    del p32
     p8 = lm.init(train_cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    (lk, gk), (lp, gp) = model_grads(train_cfg, p8)
-    paths = [path for path, _ in T.leaves_with_paths(p8)]
-    diff = sum(float((a.float() - b.float()).square().sum())
-               for a, b in zip(gk, gp))
-    norm = sum(float(b.float().square().sum()) for b in gp)
-    total = (diff / norm) ** 0.5
-    per_leaf = {path: rel_l2(a, b) for path, a, b in zip(paths, gk, gp)}
-    for i in range(TRAIN_LAYERS):
-        pre = f"layers/{i}/"
-        print(f"[train] bf16 gradient rel L2, layer {i}: " + ", ".join(
-            f"{path[len(pre):]} {e:.3g}" for path, e in per_leaf.items()
-            if path.startswith(pre)))
-    print(f"[train] bf16 gradient rel L2, ends: " + ", ".join(
-        f"{path} {e:.3g}" for path, e in per_leaf.items()
-        if not path.startswith("layers/")))
-    print(f"[train] bf16 {TRAIN_ARCH} [{cut_note}] gradients of loss_fn, "
-          f"kernels vs plain versions: loss {lk:.6f} vs {lp:.6f}; the whole "
-          f"flattened gradient rel L2 {total:.4g} (limit {MODEL_BF16_RTOL})")
-    require(total <= MODEL_BF16_RTOL,
-            f"bf16 model gradients differ by {total}")
-    del p8, gk, gp
+    bf16_grad_check(train_cfg, p8, f"{TRAIN_ARCH} [{cut_note}]")
+    del p8
     torch.cuda.empty_cache()
 
+    def depth_cut(arch, n):
+        """``arch`` at full width cut to n layers (whisper: n encoder and n
+        decoder layers), and the cut's note."""
+        full = get_config(arch)
+        cut = {"n_layers": n} | ({"encoder_layers": n} if full.is_encdec
+                                 else {})
+        depth = (f"{n} + {n} of {full.encoder_layers} + {full.n_layers}"
+                 if full.is_encdec else f"{n} of {full.n_layers}")
+        return dataclasses.replace(full, **cut), (f"cut: {depth} layers, "
+                                                 f"full width")
+
+    # whisper-medium (layernorm and attention backwards, frames from the
+    # batch), mamba2-2.7b (ssd and rmsnorm backwards) and nemotron-4-15b
+    # (layernorm at 6144), kernels against plain versions on the same
+    # weights (seed 0) and SyntheticLM batch
+    for arch, n32, n16 in MODEL_GRAD_CUTS:
+        batch = for_arch(get_config(arch), TRAIN_SEQ, TRAIN_BATCH,
+                         seed=0).device_batch(0, dev)
+        model = encdec if get_config(arch).is_encdec else lm
+        if n32:
+            mcfg, note = depth_cut(arch, n32)
+            mcfg = dataclasses.replace(mcfg, compute_dtype="float32")
+            params = model.init(mcfg, torch.Generator(device=dev
+                                                      ).manual_seed(0), dev)
+            fp32_grad_check(mcfg, params, f"{arch} [{note}]", batch)
+            del params
+            torch.cuda.empty_cache()
+        mcfg, note = depth_cut(arch, n16)
+        params = model.init(mcfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        bf16_grad_check(mcfg, params, f"{arch} [{note}]", batch)
+        del params, batch
+        torch.cuda.empty_cache()
+
     # (c) train with Trainer: the main path of this phase, counted from 0
+    def train_run(tcfg, note, per_step, why):
+        """``Trainer`` on ``tcfg`` for TRAIN_STEPS steps of TRAIN_BATCH x
+        TRAIN_SEQ tokens from SyntheticLM seed 0 (fp32 parameters and
+        moments, the config's bf16 compute and remat), counted from zero:
+        the launches must be ``per_step`` a step and the mean loss of the
+        last 3 steps below the first's; prints the losses, the step's host
+        ms and tokens/s, the peak device memory against its prediction and
+        one profiled step."""
+        expected = dict.fromkeys(counters, 0) | {
+            k: TRAIN_STEPS * n for k, n in per_step.items()}
+        print(f"[train] {tcfg.name} [{note}] expected launches a step: "
+              f"{why}; x {TRAIN_STEPS} steps; the other kernels 0")
+        param_gb = tcfg.param_count() * 16 / 1e9
+        logits_gb = 2 * TRAIN_BATCH * TRAIN_SEQ * tcfg.vocab_size * 4 / 1e9
+        print(f"[train] {tcfg.name} [{note}] predicted peak: "
+              f"{tcfg.param_count() / 1e9:.4f} B parameters x 16 bytes (fp32 "
+              f"parameter, gradient and two moments) = {param_gb:.2f} GB, + "
+              f"{logits_gb:.2f} GB of fp32 logits and their gradient, + "
+              f"AdamW's temporaries for the largest leaf and the bf16 copies "
+              f"of the weights at use: {param_gb + logits_gb:.2f}-"
+              f"{param_gb + logits_gb + 8:.2f} GB")
+        trainer = Trainer(
+            tcfg, ShapeSpec("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            opt=OptConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS),
+            options=TrainOptions(steps=TRAIN_STEPS, ckpt_every=0,
+                                 log_every=1),
+            seed=0, device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        params, opt_state = trainer.run(resume=False)
+        torch.cuda.synchronize()
+        ran = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[train] {tcfg.name} launches over {TRAIN_STEPS} steps: {ran}")
+        require(ran == expected, f"{tcfg.name} training launches {ran} "
+                f"differ from {expected}")
+        for k, n in ran.items():
+            launches[k] += n
+        losses = [m["loss"] for m in trainer.metrics_log]
+        require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+                and np.mean(losses[-3:]) < losses[0],
+                f"{tcfg.name} training loss did not fall: {losses}")
+        dts = sorted(m["dt"] for m in trainer.metrics_log[1:])
+        step_ms = 1e3 * dts[len(dts) // 2]
+        tok = TRAIN_BATCH * TRAIN_SEQ
+        print(f"[train] {tcfg.name} [{note}; fp32 parameters and moments, "
+              f"{tcfg.compute_dtype} compute, remat {tcfg.remat}] "
+              f"{TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, AdamW peak "
+              f"lr {TRAIN_PEAK_LR} after {TRAIN_WARMUP} warm-up steps: "
+              f"losses " + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; mean of the last 3 {np.mean(losses[-3:]):.4f} < first "
+              f"{losses[0]:.4f}")
+        print(f"[train] {tcfg.name} step host ms (host clock around the "
+              f"step's loss read, steps 1-{TRAIN_STEPS - 1}): median "
+              f"{step_ms:.2f}, least {1e3 * dts[0]:.2f}, most "
+              f"{1e3 * dts[-1]:.2f}; {tok / (step_ms / 1e3):,.0f} tokens/s "
+              f"at the median [{note}] on {smi}")
+        print(f"[train] {tcfg.name} device memory: {base / 2**30:.2f} GiB "
+              f"before, peak {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) "
+              f"over the run, max_memory_allocated")
+        nxt = trainer.data.device_batch(TRAIN_STEPS, dev)
+        step_s = host_s(lambda: trainer.step_fn(params, opt_state, nxt))
+        device_profile(f"{tcfg.name} [{note}] train step {TRAIN_BATCH}x"
+                       f"{TRAIN_SEQ} on {smi}",
+                       lambda: trainer.step_fn(params, opt_state, nxt),
+                       step_s)
+        del trainer, params, opt_state, nxt
+        torch.cuda.empty_cache()
+
     L = TRAIN_LAYERS
-    per_step = {"rmsnorm": (4 * L + 1) + 4 * L, "rmsnorm_bwd": 4 * L + 1,
-                "flash_attention": 2 * L, "flash_attention_bwd": L}
-    expected = dict.fromkeys(counters, 0) | {
-        k: TRAIN_STEPS * n for k, n in per_step.items()}
-    print(f"[train] expected launches a step: rmsnorm {per_step['rmsnorm']} "
-          f"= (4 x {L} layers (norm1, q-norm, k-norm, norm2) + the final "
-          f"norm) in the forward + 4 x {L} in the remat recompute; "
-          f"rmsnorm_bwd {per_step['rmsnorm_bwd']} = 4 x {L} + 1; "
-          f"flash_attention {per_step['flash_attention']} = {L} + {L} "
-          f"recomputed; flash_attention_bwd {L}; x {TRAIN_STEPS} steps; the "
-          f"other kernels 0")
-    param_gb = train_cfg.param_count() * 16 / 1e9
-    logits_gb = 2 * TRAIN_BATCH * TRAIN_SEQ * train_cfg.vocab_size * 4 / 1e9
-    print(f"[train] predicted peak: {train_cfg.param_count() / 1e9:.4f} B "
-          f"parameters x 16 bytes (fp32 parameter, gradient and two "
-          f"moments) = {param_gb:.2f} GB, + {logits_gb:.2f} GB of fp32 "
-          f"logits and their gradient, + AdamW's temporaries for the "
-          f"largest leaf and the bf16 copies of the weights at use: "
-          f"{param_gb + logits_gb:.2f}-{param_gb + logits_gb + 8:.2f} GB")
-    trainer = Trainer(
-        train_cfg, ShapeSpec("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
-        opt=OptConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP,
-                      total_steps=TRAIN_STEPS),
-        options=TrainOptions(steps=TRAIN_STEPS, ckpt_every=0, log_every=1),
-        seed=0, device=dev)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    params, opt_state = trainer.run(resume=False)
-    torch.cuda.synchronize()
-    ran = {k: fn.launches for k, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[train] launches over {TRAIN_STEPS} steps: {ran}")
-    require(ran == expected, f"training launches {ran} differ from {expected}")
-    for k, n in ran.items():
-        launches[k] += n
-    losses = [m["loss"] for m in trainer.metrics_log]
-    require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
-            and np.mean(losses[-3:]) < losses[0],
-            f"training loss did not fall: {losses}")
-    dts = sorted(m["dt"] for m in trainer.metrics_log[1:])
-    step_ms = 1e3 * dts[len(dts) // 2]
-    tok = TRAIN_BATCH * TRAIN_SEQ
-    print(f"[train] {TRAIN_ARCH} [{cut_note}; fp32 parameters and moments, "
-          f"bf16 compute, remat] {TRAIN_STEPS} steps of {TRAIN_BATCH}x"
-          f"{TRAIN_SEQ}, AdamW peak lr {TRAIN_PEAK_LR} after {TRAIN_WARMUP} "
-          f"warm-up steps: losses " + ", ".join(f"{x:.4f}" for x in losses)
-          + f"; mean of the last 3 {np.mean(losses[-3:]):.4f} < first "
-          f"{losses[0]:.4f}")
-    print(f"[train] step host ms (host clock around the step's loss read, "
-          f"steps 1-{TRAIN_STEPS - 1}): median {step_ms:.2f}, least "
-          f"{1e3 * dts[0]:.2f}, most {1e3 * dts[-1]:.2f}; "
-          f"{tok / (step_ms / 1e3):,.0f} tokens/s at the median [{cut_note}] "
-          f"on {smi}")
-    print(f"[train] device memory: {base / 2**30:.2f} GiB before, peak "
-          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) over the run, "
-          f"max_memory_allocated")
-    batch10 = trainer.data.device_batch(TRAIN_STEPS, dev)
-    step_s = host_s(lambda: trainer.step_fn(params, opt_state, batch10))
-    device_profile(f"{TRAIN_ARCH} [{cut_note}] train step "
-                   f"{TRAIN_BATCH}x{TRAIN_SEQ} on {smi}",
-                   lambda: trainer.step_fn(params, opt_state, batch10),
-                   step_s)
-    del trainer, params, opt_state, batch10
-    torch.cuda.empty_cache()
+    train_run(train_cfg, cut_note,
+              {"rmsnorm": (4 * L + 1) + 4 * L, "rmsnorm_bwd": 4 * L + 1,
+               "flash_attention": 2 * L, "flash_attention_bwd": L},
+              f"rmsnorm {8 * L + 1} = (4 x {L} layers (norm1, q-norm, "
+              f"k-norm, norm2) + the final norm) in the forward + 4 x {L} in "
+              f"the remat recompute; rmsnorm_bwd {4 * L + 1} = 4 x {L} + 1; "
+              f"flash_attention {2 * L} = {L} + {L} recomputed; "
+              f"flash_attention_bwd {L}")
     # the same run at AdamW's default peak lr, printed beside the checked
     # run and not checked: the reason for TRAIN_PEAK_LR
     slow = Trainer(
@@ -2201,6 +2517,34 @@ def main() -> None:
           f"{slow_losses[0]:.4f}")
     del slow
     torch.cuda.empty_cache()
+    # whisper-medium and mamba2-2.7b at full width and depth, one at a time
+    for arch in FULL_TRAIN_ARCHS:
+        tcfg = get_config(arch)
+        depth = (f"{tcfg.encoder_layers} + {tcfg.n_layers}"
+                 if tcfg.is_encdec else f"{tcfg.n_layers}")
+        note = f"full width and depth, {depth} layers"
+        if tcfg.is_encdec:
+            E, D = tcfg.encoder_layers, tcfg.n_layers
+            norms, attn = 2 * E + 3 * D, E + 2 * D
+            per_step = {"sfu_layernorm": 2 * norms + 2,
+                        "layernorm_bwd": norms + 2,
+                        "flash_attention": 2 * attn,
+                        "flash_attention_bwd": attn}
+            why = (f"sfu_layernorm {2 * norms + 2} = ({2 * E} encoder norms "
+                   f"+ 1 final encoder norm + {3 * D} decoder norms + 1 final "
+                   f"norm) in the forward + {norms} in the remat recompute; "
+                   f"layernorm_bwd {norms + 2}; flash_attention {2 * attn} = "
+                   f"({E} encoder + {D} self + {D} cross) x 2 (forward, "
+                   f"recompute); flash_attention_bwd {attn}")
+        else:
+            L = tcfg.n_layers
+            per_step = {"rmsnorm": (2 * L + 1) + 2 * L,
+                        "rmsnorm_bwd": 2 * L + 1, "ssd": 2 * L, "ssd_bwd": L}
+            why = (f"rmsnorm {4 * L + 1} = (2 x {L} layers (norm1, the gated "
+                   f"norm) + the final norm) in the forward + 2 x {L} in the "
+                   f"remat recompute; rmsnorm_bwd {2 * L + 1}; ssd {2 * L} = "
+                   f"{L} + {L} recomputed; ssd_bwd {L}")
+        train_run(tcfg, note, per_step, why)
 
     # (d) fault and resume on the card: reduced qwen3-4b
     fcfg = get_config(TRAIN_ARCH, reduced=True)
@@ -2294,6 +2638,35 @@ def main() -> None:
                                            enable_gqa=True)
     # ssd at mamba2-2.7b's prefill (bf16, chunk 128)
     ssd_in = ssd_inputs(*ssm_prefill, torch.bfloat16)
+
+    def ln_affine(xb, g, bt):
+        """The gamma and beta ``F.layer_norm`` takes beside bf16 rows: fp32,
+        or bf16 where PyTorch refuses fp32 ones there (the yardstick's
+        choice only; the kernel takes fp32)."""
+        try:
+            F.layer_norm(xb[:1], (xb.shape[1],), g, bt, 1e-5)
+        except RuntimeError:
+            return g.to(torch.bfloat16), bt.to(torch.bfloat16)
+        return g, bt
+
+    def ln_bwd_case(R, N):
+        """bf16 rows with fp32 gamma and beta, dy, the forward's mean and
+        rstd, and ``F.layer_norm``'s graph on the same rows for its
+        backward alone."""
+        x, dy = (randn(R, N, dtype=torch.bfloat16) for _ in range(2))
+        g, bt = randn(N), randn(N)
+        leaves = [x.detach().requires_grad_()] + [
+            t.detach().requires_grad_() for t in ln_affine(x, g, bt)]
+        y = F.layer_norm(leaves[0], (N,), leaves[1], leaves[2], 1e-5)
+        return (x, g, bt, *ref.layernorm_stats(x), dy), (y, leaves)
+
+    # the new backward kernels at their training shapes: layernorm's at
+    # whisper-medium's rows (4 x 512 tokens of 1024, bf16), ssd's at
+    # mamba2-2.7b's (the prefill's shape, with dy and the saved states)
+    ln_args, (y_ln, ln_leaves) = ln_bwd_case(TRAIN_BATCH * TRAIN_SEQ,
+                                            wcfg.d_model)
+    dy_ssd = randn(*ssd_in[0].shape, dtype=torch.bfloat16)
+    _, _, st_ssd = ssd_states(*ssd_in, chunk=128)
     # name: (shape, kernel, plain version, one library call or None, FLOPs,
     #        bytes moved: each input read once, each output written once,
     #        the peak FLOP/s of the operations' type)
@@ -2354,16 +2727,41 @@ def main() -> None:
                                         retain_graph=True),
             10 * cfg.head_dim * B * cfg.n_heads * causal_pairs(plen, plen),
             2 * (4 * qp.numel() + 4 * kp.numel()) + 4 * lse_p.numel()),
-        # no single PyTorch call computes the SSD scan: library_ms is null
+        # layernorm's dx, dgamma and dbeta, about 12 operations an element
+        "layernorm_bwd": (
+            f"{ln_args[0].shape[0]}x{ln_args[0].shape[1]} bf16 +gamma +beta "
+            f"({WHISPER_ARCH} training)",
+            lambda: sfu_k.layernorm_bwd(*ln_args),
+            lambda: ref.layernorm_bwd(*ln_args),
+            lambda: torch.autograd.grad(y_ln, ln_leaves, ln_args[-1],
+                                        retain_graph=True),
+            12 * ln_args[0].numel(),
+            6 * ln_args[0].numel() + 8 * ln_args[0].shape[0]
+            + 12 * ln_args[0].shape[1]),
+        # no single PyTorch call computes the SSD scan or its backward:
+        # library_ms is null
+        "ssd_bwd": (
+            f"{ssm_prefill} chunk 128 bf16 (mamba2-2.7b training)",
+            lambda: ssd_bwd(*ssd_in, dy_ssd, chunk=128, states=st_ssd),
+            lambda: ref.ssd_bwd(*ssd_in, dy_ssd, chunk=128), None,
+            *ssd_bwd_work(*ssm_prefill, 128, 2)),
         "ssd": (
             f"{ssm_prefill} chunk 128 bf16 (mamba2-2.7b prefill)",
             lambda: ssd(*ssd_in, chunk=128),
             lambda: ref.ssd_chunked(*ssd_in, chunk=128), None,
             *ssd_work(*ssm_prefill, 128, 2)),
     }
-    # the bf16 tensor cores' peak where the kernel computes on them
+    # the bf16 tensor cores' peak where the kernel computes on them, and
+    # for ssd_bwd on its bf16 inputs (its first kernels run fp32 FMA: the
+    # operations' time at the fp32 peak is printed beside it)
     ops_peak = {"flash_attention": bf16_peak, "ssd": bf16_peak,
-                "flash_attention_bwd": bf16_peak}
+                "flash_attention_bwd": bf16_peak, "ssd_bwd": bf16_peak}
+    flops_ssd_bwd = ssd_bwd_work(*ssm_prefill, 128, 2)[0]
+    print(f"[time] ssd_bwd {ssm_prefill} chunk 128: {flops_ssd_bwd / 1e9:.4g}"
+          f" GFLOP take {1e3 * flops_ssd_bwd / fp32_peak:.4f} ms at the fp32 "
+          f"FMA peak (the kernels' arithmetic), "
+          f"{1e3 * flops_ssd_bwd / bf16_peak:.4f} ms at the bf16 tensor "
+          f"cores' (the bound's)")
 
     def report(name, shape, kernel, plain, library, flops, nbytes, peak,
                before=None):
@@ -2409,6 +2807,38 @@ def main() -> None:
             lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True),
             9 * x.numel(), 6 * x.numel() + 4 * R + 8 * N, fp32_peak,
             MS_BEFORE_REDESIGN["rmsnorm_bwd", (R, N)])
+    # layernorm's backward at nemotron-4-15b's rows (6144, bf16)
+    for R, N in RMS_WIDE[:1]:
+        args, (yl, ll) = ln_bwd_case(R, N)
+        report("layernorm_bwd", f"{R}x{N} bf16 +gamma +beta (nemotron-4-15b)",
+               lambda: sfu_k.layernorm_bwd(*args),
+               lambda: ref.layernorm_bwd(*args),
+               lambda: torch.autograd.grad(yl, ll, args[-1],
+                                           retain_graph=True),
+               12 * args[0].numel(),
+               6 * args[0].numel() + 8 * R + 12 * N, fp32_peak)
+        del args, yl, ll
+    # flash attention's backward at whisper-medium's training attention
+    # (16 heads of 64, 4 x 512 tokens), causal (decoder) and full (encoder)
+    for causal in (True, False):
+        qw, kw, vw, dow = (randn(TRAIN_BATCH, wcfg.n_heads, TRAIN_SEQ,
+                                 wcfg.head_dim, dtype=torch.bfloat16)
+                           for _ in range(4))
+        ow, lsew = attention_lse(qw, kw, vw, causal=causal)
+        wl = [t.detach().requires_grad_() for t in (qw, kw, vw)]
+        owl = F.scaled_dot_product_attention(*wl, is_causal=causal)
+        pairs = causal_pairs(TRAIN_SEQ, TRAIN_SEQ) if causal \
+            else TRAIN_SEQ * TRAIN_SEQ
+        report("flash_attention_bwd",
+               f"{tuple(qw.shape)} {'causal' if causal else 'full'} bf16 "
+               f"({WHISPER_ARCH} training)",
+               lambda: flash_attention_bwd(qw, kw, vw, ow, lsew, dow,
+                                           causal=causal),
+               lambda: ref.mha_attention_bwd(qw, kw, vw, ow, lsew, dow,
+                                             causal=causal),
+               lambda: torch.autograd.grad(owl, wl, dow, retain_graph=True),
+               10 * wcfg.head_dim * TRAIN_BATCH * wcfg.n_heads * pairs,
+               2 * 8 * qw.numel() + 4 * lsew.numel(), bf16_peak)
     qd = randn(B, cfg.n_heads, 1, cfg.head_dim, dtype=torch.bfloat16)
     kd, vd = (randn(B, cfg.n_kv_heads, SERVE_MAX_LEN, cfg.head_dim,
                     dtype=torch.bfloat16) for _ in range(2))
@@ -2482,11 +2912,7 @@ def main() -> None:
     for R in (WB * WF, WB):
         N = wcfg.d_model
         xb, g, bt = randn(R, N, dtype=torch.bfloat16), randn(N), randn(N)
-        lib_gb = (g, bt)
-        try:
-            F.layer_norm(xb, (N,), g, bt, 1e-5)
-        except RuntimeError:
-            lib_gb = (g.to(torch.bfloat16), bt.to(torch.bfloat16))
+        lib_gb = ln_affine(xb, g, bt)
         report("sfu_layernorm", f"{R}x{N} bf16 +gamma +beta (whisper-medium)",
                lambda: layernorm_rows(xb, g, bt),
                lambda: ref.layernorm_rows(xb, g, bt),
@@ -2502,14 +2928,10 @@ def main() -> None:
     # the redesign, a cast back); then fp32 rows (its 4-layer check)
     for R, N in RMS_WIDE:
         xb, g, bt = randn(R, N, dtype=torch.bfloat16), randn(N), randn(N)
-        try:
-            F.layer_norm(xb, (N,), g, bt, 1e-5)
-            lib_gb, lib_note = (g, bt), "fp32 gamma and beta"
-        except RuntimeError as refused:
-            lib_gb = (g.to(torch.bfloat16), bt.to(torch.bfloat16))
-            lib_note = (f"bf16 gamma and beta: PyTorch refused fp32 ones "
-                        f"beside bf16 rows ({str(refused)[:60]})")
-        print(f"[time] F.layer_norm on bf16 rows takes {lib_note}")
+        lib_gb = ln_affine(xb, g, bt)
+        print(f"[time] F.layer_norm on bf16 rows takes "
+              f"{'fp32' if lib_gb[0] is g else 'bf16'} gamma and beta"
+              f"{'' if lib_gb[0] is g else ' (it refuses fp32 ones there)'}")
         report("sfu_layernorm",
                f"{R}x{N} bf16 +gamma +beta (nemotron-4-15b as served)",
                lambda: layernorm_rows(xb, g, bt),

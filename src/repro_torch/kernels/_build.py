@@ -140,11 +140,16 @@ def needs_grad(*tensors) -> bool:
 
 def refuse_grad(what: str, *tensors) -> None:
     """Raise where autograd would record a call to a kernel that has no
-    backward yet: its output would carry no gradient to its inputs."""
+    backward yet: its output would carry no gradient to its inputs.  The
+    kernels that raise: ``softmax_rows``, ``act_rows``, ``flex_gemm`` and
+    flash attention's decode path (rmsnorm, layernorm, flash attention's
+    prefill and ``ssd`` have backward kernels)."""
     if needs_grad(*tensors):
         raise RuntimeError(
-            f"{what}: its CUDA kernel has no backward yet (ROADMAP A.5b), "
-            f"so autograd would get no gradient through it; call it under "
+            f"{what}: its CUDA kernel has no backward yet (ROADMAP A.5b: "
+            f"softmax_rows, act_rows, flex_gemm and flash attention's "
+            f"decode path have none; no training path reaches them), so "
+            f"autograd would get no gradient through it; call it under "
             f"torch.no_grad() or on tensors that do not require grad")
 
 

@@ -290,6 +290,7 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
 layernorm_warp_kernel(const T* __restrict__ x,
                       const float* __restrict__ gamma,
                       const float* __restrict__ beta, T* __restrict__ y,
+                      float* __restrict__ mean, float* __restrict__ rstd,
                       int R, int N, float eps) {
   using S = Slot<T, VEC>;
   const int row = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
@@ -327,6 +328,10 @@ layernorm_warp_kernel(const T* __restrict__ x,
         ss += d * d;
       }
   const float r = rsqrtf(warp_reduce<false>(ss) / n + eps);
+  if (mean != nullptr && lane == 0) {
+    mean[row] = mu;
+    rstd[row] = r;
+  }
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s)
     if (S::col(lane, s) < N)
@@ -360,6 +365,7 @@ __global__ void __launch_bounds__(ROW_THREADS)
 layernorm_rows_kernel(const T* __restrict__ x,
                       const float* __restrict__ gamma,
                       const float* __restrict__ beta, T* __restrict__ y,
+                      float* __restrict__ mean, float* __restrict__ rstd_out,
                       int N, float eps) {
   const T* xr = x + (size_t)blockIdx.x * N;
   T* yr = y + (size_t)blockIdx.x * N;
@@ -373,6 +379,10 @@ layernorm_rows_kernel(const T* __restrict__ x,
     ss += d * d;
   }
   const float rstd = rsqrtf(block_reduce<false>(ss) / n + eps);
+  if (mean != nullptr && threadIdx.x == 0) {
+    mean[blockIdx.x] = mu;
+    rstd_out[blockIdx.x] = rstd;
+  }
   for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
     float v = (to_f32(xr[j]) - mu) * rstd;
     if (gamma != nullptr) v *= gamma[j];
@@ -474,13 +484,15 @@ rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 // layernorm to 32 registers and spilled.  CENTER: layernorm (mean, then
 // the population variance over the registers, gamma and beta); else
 // rmsnorm (the mean square, gamma; beta is null).  rstd, where not null,
-// takes each row's 1 / sqrt(mean square + eps) (rmsnorm's forward under
-// autograd, for its backward).
+// takes each row's 1 / sqrt(variance or mean square + eps), and mean, where
+// not null, layernorm's row mean (the forwards under autograd, for their
+// backwards).
 template <typename T, bool CENTER>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 norm_vec_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                 const float* __restrict__ beta, T* __restrict__ y,
-                float* __restrict__ rstd, int V, float eps) {
+                float* __restrict__ mean, float* __restrict__ rstd, int V,
+                float eps) {
   using P = Vec16<T>;
   __shared__ float part[2][MAX_THREADS / 32];   // one sum per warp of the row
   const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)blockIdx.x * V;
@@ -520,6 +532,7 @@ norm_vec_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
   const float r = rsqrtf(row_sum(ss, part[1]) / n + eps);
   if (rstd != nullptr && threadIdx.x == 0) rstd[blockIdx.x] = r;
+  if (mean != nullptr && threadIdx.x == 0) mean[blockIdx.x] = mu;
   uint4* yr = reinterpret_cast<uint4*>(y) + (size_t)blockIdx.x * V;
 #pragma unroll
   for (int k = 0; k < ROW_VPT; ++k) {
@@ -600,18 +613,22 @@ unsigned warp_blocks(int R) { return (R + ROW_WARPS - 1) / ROW_WARPS; }
 // if vec); else the block kernel (see norm_plan / warp_plan).
 template <typename T>
 int launch_layernorm(const void* x, const void* gamma, const void* beta,
-                     void* y, int R, int N, float eps, int threads,
-                     int slots, int vec, void* stream) {
+                     void* y, void* mean, void* rstd, int R, int N, float eps,
+                     int threads, int slots, int vec, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   T* yt = static_cast<T*>(y);
+  float* mu = static_cast<float*>(mean);
+  float* rs = static_cast<float*>(rstd);
+  if ((mean == nullptr) != (rstd == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (threads > 0) {
     if (!vec_plan_ok<T>(N, threads, x, gamma, beta, y))
       return static_cast<int>(cudaErrorInvalidValue);
     norm_vec_kernel<T, true><<<R, threads, 0, st>>>(
-        xt, g, b, yt, nullptr, static_cast<int>(N * sizeof(T) / 16), eps);
+        xt, g, b, yt, mu, rs, static_cast<int>(N * sizeof(T) / 16), eps);
     return static_cast<int>(cudaGetLastError());
   }
   if (slots > 0) {
@@ -619,11 +636,12 @@ int launch_layernorm(const void* x, const void* gamma, const void* beta,
       return static_cast<int>(cudaErrorInvalidValue);
     return with_slots<T>(slots, vec, [&](auto s, auto v) {
       layernorm_warp_kernel<T, decltype(s)::value, decltype(v)::value>
-          <<<warp_blocks(R), ROW_WARPS * 32, 0, st>>>(xt, g, b, yt, R, N,
-                                                       eps);
+          <<<warp_blocks(R), ROW_WARPS * 32, 0, st>>>(xt, g, b, yt, mu, rs, R,
+                                                       N, eps);
     });
   }
-  layernorm_rows_kernel<T><<<R, ROW_THREADS, 0, st>>>(xt, g, b, yt, N, eps);
+  layernorm_rows_kernel<T><<<R, ROW_THREADS, 0, st>>>(xt, g, b, yt, mu, rs, N,
+                                                      eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -652,72 +670,97 @@ int launch_rmsnorm(const void* x, const void* gamma, void* y, void* rstd,
   if (!vec_plan_ok<T>(N, threads, x, gamma, nullptr, y))
     return static_cast<int>(cudaErrorInvalidValue);
   norm_vec_kernel<T, false><<<R, threads, 0, s>>>(
-      xt, g, nullptr, yt, rs, static_cast<int>(N * sizeof(T) / 16), eps);
+      xt, g, nullptr, yt, nullptr, rs, static_cast<int>(N * sizeof(T) / 16),
+      eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------- rmsnorm backward
+// ------------------------------------------- rmsnorm and layernorm backward
 // y = x * r * gamma with r = 1 / sqrt(mean(x^2) + eps) gives, over a row of
 // N, with xh = x * r (r the forward's, saved as rstd):
 //   dx = r * (gamma * dy - xh * mean(gamma * dy * xh)),
-// and dgamma = sum over rows of dy * xh.  No Pallas kernel differentiates
-// (the reference differentiates its jnp rmsnorm).  Bound: device-memory
-// bytes (x and dy read, dx written once).  Each kernel takes the block
-// shape of its forward (a warp a row up to WARP_ROW_MAX, the one-pass
-// vector kernel, the block kernel), `rows` rows of a block at once, and
-// walks rows cyclically over a fixed grid of `blocks` (the wrapper's
-// plan).  dgamma's column sums run over a row group's rows in registers
-// (or a warp's shared row), then over the block's row groups in a fixed
-// order into one partial row a block (part), then over the blocks in a
-// fixed order (column_sum_kernel): no atomics, the same bits every run.
-// A grid of one or two wide blocks an SM (640 threads on 4 rows at 2048 x
-// 2560, 1,024 on 32 rows at the q/k-norms' 128) keeps part small: 1.35 MB
-// at 2048 x 2560, where 528 one-row blocks wrote 5.4 MB and read it back
-// after a zero fill of dgamma.
+// and dgamma = sum over rows of dy * xh.  Layernorm's y = xh * gamma + beta
+// with xh = (x - mu) * r (mu and r the forward's, saved as mean and rstd)
+// gives
+//   dx = r * (gamma * dy - mean(gamma * dy) - xh * mean(gamma * dy * xh)),
+// dgamma = sum over rows of dy * xh and dbeta = sum over rows of dy (CENTER
+// below).  No Pallas kernel differentiates (the reference differentiates
+// its jnp norms).  Bound: device-memory bytes (x and dy read, dx written
+// once).  Each kernel takes the block shape of its forward (a warp a row up
+// to WARP_ROW_MAX, the one-pass vector kernel, the block kernel), `rows`
+// rows of a block at once, and walks rows cyclically over a fixed grid of
+// `blocks` (the wrapper's plan).  dgamma's and dbeta's column sums run over
+// a row group's rows in registers (or a warp's shared row), then over the
+// block's row groups in a fixed order into one partial row a block (part,
+// partb), then over the blocks in a fixed order (column_sum_kernel, once
+// for each): no atomics, the same bits every run.  A grid of one or two
+// wide blocks an SM (640 threads on 4 rows at 2048 x 2560, 1,024 on 32 rows
+// at the q/k-norms' 128) keeps part small: 1.35 MB at 2048 x 2560, where
+// 528 one-row blocks wrote 5.4 MB and read it back after a zero fill of
+// dgamma.  The kernels of both norms share one body each (CENTER), and the
+// __global__ functions below keep a name for each norm, so that ptxas and
+// the profiles tell them apart.
 
 // A warp a row of N <= WARP_ROW_MAX, blockDim.x / 32 rows a block; warp w
-// of block b takes rows (b + k * gridDim.x) * rows + w.  With gamma each
-// warp sums its rows' dy * xh in its own shared row of N floats (lane l
-// owns columns l + 32 i), and the block writes the sum of its warps' rows,
-// in warp order, to part[blockIdx.x].
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS)
-rmsnorm_bwd_warp_kernel(const T* __restrict__ x,
-                        const float* __restrict__ gamma,
-                        const float* __restrict__ rstd,
-                        const T* __restrict__ dy, T* __restrict__ dx,
-                        float* __restrict__ part, int R, int N) {
-  extern __shared__ float acc[];   // rows x N, with gamma
+// of block b takes rows (b + k * gridDim.x) * rows + w.  Each warp sums its
+// rows' dy * xh (with gamma) and dy (with beta) in its own shared rows of N
+// floats (lane l owns columns l + 32 i), and the block writes the sums of
+// its warps' rows, in warp order, to part[blockIdx.x] and partb[blockIdx.x].
+template <typename T, bool CENTER>
+__device__ __forceinline__ void norm_bwd_warp(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ mean, const float* __restrict__ rstd,
+    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+    float* __restrict__ partb, int R, int N) {
+  extern __shared__ float acc[];   // rows x N with gamma, then with beta
   const int rows = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool has_g = gamma != nullptr, has_b = CENTER && partb != nullptr;
   float* mine = acc + warp * N;
-  if (gamma != nullptr)
-    for (int j = lane; j < N; j += 32) mine[j] = 0.0f;
+  float* mineb = acc + ((has_g ? rows : 0) + warp) * N;
+  for (int j = lane; j < N; j += 32) {
+    if (has_g) mine[j] = 0.0f;
+    if (has_b) mineb[j] = 0.0f;
+  }
   const float inv_n = 1.0f / static_cast<float>(N);
   for (int row = blockIdx.x * rows + warp; row < R;
        row += gridDim.x * rows) {   // whole warps: no shuffle is cut
     const T* xr = x + (size_t)row * N;
     const T* dr = dy + (size_t)row * N;
     const float r = rstd[row];
-    float s = 0.0f;
+    const float mu = CENTER ? mean[row] : 0.0f;
+    float s = 0.0f, s1 = 0.0f;
     for (int j = lane; j < N; j += 32) {
-      const float xh = to_f32(xr[j]) * r, d = to_f32(dr[j]);
-      s += (gamma != nullptr ? gamma[j] * d : d) * xh;
-      if (gamma != nullptr) mine[j] += d * xh;
+      const float xh = (to_f32(xr[j]) - mu) * r, d = to_f32(dr[j]);
+      const float gd = has_g ? gamma[j] * d : d;
+      s += gd * xh;
+      if (CENTER) s1 += gd;
+      if (has_g) mine[j] += d * xh;
+      if (has_b) mineb[j] += d;
     }
     const float c = warp_reduce<false>(s) * inv_n;
+    const float c1 = CENTER ? warp_reduce<false>(s1) * inv_n : 0.0f;
     T* out = dx + (size_t)row * N;
     for (int j = lane; j < N; j += 32) {
-      const float xh = to_f32(xr[j]) * r, d = to_f32(dr[j]);
-      store(out + j, r * ((gamma != nullptr ? gamma[j] * d : d) - xh * c));
+      const float xh = (to_f32(xr[j]) - mu) * r, d = to_f32(dr[j]);
+      const float gd = has_g ? gamma[j] * d : d;
+      store(out + j, CENTER ? r * (gd - c1 - xh * c) : r * (gd - xh * c));
     }
   }
-  if (gamma == nullptr) return;
+  if (!has_g && !has_b) return;
   __syncthreads();
   for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    float t = 0.0f;
-    for (int w = 0; w < rows; ++w) t += acc[w * N + j];
-    part[(size_t)blockIdx.x * N + j] = t;
+    if (has_g) {
+      float t = 0.0f;
+      for (int w = 0; w < rows; ++w) t += acc[w * N + j];
+      part[(size_t)blockIdx.x * N + j] = t;
+    }
+    if (has_b) {
+      const float* b0 = acc + (has_g ? rows : 0) * N;
+      float t = 0.0f;
+      for (int w = 0; w < rows; ++w) t += b0[w * N + j];
+      partb[(size_t)blockIdx.x * N + j] = t;
+    }
   }
 }
 
@@ -725,28 +768,36 @@ rmsnorm_bwd_warp_kernel(const T* __restrict__ x,
 // t of a row group holding the row's 16-byte vectors t and t + threads; a
 // block of blockDim.x = rows x threads works on `rows` rows at once, row
 // group q of block b taking rows (i * gridDim.x + b) * rows + q, i = 0,
-// 1, ...  Each thread sums dy * xh of its own columns in registers over
-// its group's rows; with rows > 1 the groups add theirs in group order
-// through a shared row of N floats, and the last writes part[blockIdx.x].
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ rstd,
-                       const T* __restrict__ dy, T* __restrict__ dx,
-                       float* __restrict__ part, int R, int V, int threads) {
+// 1, ...  Each thread sums dy * xh (and dy) of its own columns in registers
+// over its group's rows; with rows > 1 the groups add theirs in group order
+// through shared rows of N floats, and the last writes part[blockIdx.x]
+// (and partb[blockIdx.x]).
+template <typename T, bool CENTER>
+__device__ __forceinline__ void norm_bwd_vec(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ mean, const float* __restrict__ rstd,
+    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+    float* __restrict__ partb, int R, int V, int threads) {
   using P = Vec16<T>;
-  extern __shared__ float cols[];              // N, with gamma and rows > 1
-  __shared__ float red[2][MAX_THREADS / 32];   // the groups' warp sums,
-                                               // alternating
+  extern __shared__ float cols[];   // N with gamma, N with beta; rows > 1
+  // the groups' warp sums, alternating between row steps: [it & 1][sum]
+  __shared__ float red[2][CENTER ? 2 : 1][MAX_THREADS / 32];
   const int rows = blockDim.x / threads, grp = threadIdx.x / threads;
   const int tl = threadIdx.x % threads, lane = threadIdx.x & 31;
   const int wpr = threads / 32;                // warps a row group
+  const bool has_g = gamma != nullptr, has_b = CENTER && partb != nullptr;
   float acc[ROW_VPT][P::E];
+  float accb[CENTER ? ROW_VPT : 1][P::E];
 #pragma unroll
   for (int k = 0; k < ROW_VPT; ++k)
 #pragma unroll
     for (int e = 0; e < P::E; ++e) acc[k][e] = 0.0f;
+  if constexpr (CENTER) {
+#pragma unroll
+    for (int k = 0; k < ROW_VPT; ++k)
+#pragma unroll
+      for (int e = 0; e < P::E; ++e) accb[k][e] = 0.0f;
+  }
   const float inv_n = 1.0f / static_cast<float>(V * P::E);
   const int step = gridDim.x * rows;
   const int iters = (R + step - 1) / step;     // the same in every thread
@@ -756,8 +807,9 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
     const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)row * V;
     const uint4* dr = reinterpret_cast<const uint4*>(dy) + (size_t)row * V;
     const float r = valid ? rstd[row] : 0.0f;
+    const float mu = CENTER && valid ? mean[row] : 0.0f;
     uint4 ux[ROW_VPT], ud[ROW_VPT];
-    float s = 0.0f;
+    float s = 0.0f, s1 = 0.0f;
 #pragma unroll
     for (int k = 0; k < ROW_VPT; ++k) {
       const int j = tl + k * threads;
@@ -770,23 +822,35 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
 #pragma unroll
         for (int q = 0; q < P::E; q += 4) {
           float g[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-          if (gamma != nullptr) load_cols<4>(gamma, j * P::E + q, g);
+          if (has_g) load_cols<4>(gamma, j * P::E + q, g);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float xh = f[q + e] * r;
+            const float xh = (f[q + e] - mu) * r;
             s += g[e] * d[q + e] * xh;
             acc[k][q + e] += d[q + e] * xh;
+            if constexpr (CENTER) {
+              s1 += g[e] * d[q + e];
+              accb[k][q + e] += d[q + e];
+            }
           }
         }
       }
     }
-    // the row's sum over its group's warps, in a fixed order (warp
+    // the row's sums over its group's warps, in a fixed order (warp
     // shuffles, then the warps' partials by the same shuffles)
     s = warp_reduce<false>(s);
-    if (lane == 0) red[it & 1][threadIdx.x >> 5] = s;
+    if (lane == 0) red[it & 1][0][threadIdx.x >> 5] = s;
+    if constexpr (CENTER) {
+      s1 = warp_reduce<false>(s1);
+      if (lane == 0) red[it & 1][1][threadIdx.x >> 5] = s1;
+    }
     __syncthreads();
     const float c = warp_reduce<false>(
-        lane < wpr ? red[it & 1][grp * wpr + lane] : 0.0f) * inv_n;
+        lane < wpr ? red[it & 1][0][grp * wpr + lane] : 0.0f) * inv_n;
+    float c1 = 0.0f;
+    if constexpr (CENTER)
+      c1 = warp_reduce<false>(
+          lane < wpr ? red[it & 1][1][grp * wpr + lane] : 0.0f) * inv_n;
     if (!valid) continue;
     uint4* out = reinterpret_cast<uint4*>(dx) + (size_t)row * V;
 #pragma unroll
@@ -799,18 +863,22 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
 #pragma unroll
         for (int q = 0; q < P::E; q += 4) {
           float g[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-          if (gamma != nullptr) load_cols<4>(gamma, j * P::E + q, g);
+          if (has_g) load_cols<4>(gamma, j * P::E + q, g);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            f[q + e] = r * (g[e] * d[q + e] - f[q + e] * r * c);
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (CENTER)
+              f[q + e] = r * (g[e] * d[q + e] - c1 - (f[q + e] - mu) * r * c);
+            else
+              f[q + e] = r * (g[e] * d[q + e] - f[q + e] * r * c);
+          }
         }
         out[j] = P::pack(f);
       }
     }
   }
-  if (gamma == nullptr) return;
+  if (!has_g && !has_b) return;
   const int N = V * P::E;
-  float* dst = part + (size_t)blockIdx.x * N;
+  float* colsb = cols + (has_g ? N : 0);
   for (int q = 0; q < rows; ++q) {   // group order
     if (grp == q) {
 #pragma unroll
@@ -820,9 +888,18 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
 #pragma unroll
           for (int e = 0; e < P::E; ++e) {
             const int col = j * P::E + e;
-            const float t = q > 0 ? cols[col] + acc[k][e] : acc[k][e];
-            if (q + 1 < rows) cols[col] = t;
-            else dst[col] = t;
+            if (has_g) {
+              const float t = q > 0 ? cols[col] + acc[k][e] : acc[k][e];
+              if (q + 1 < rows) cols[col] = t;
+              else part[(size_t)blockIdx.x * N + col] = t;
+            }
+            if constexpr (CENTER) {
+              if (has_b) {
+                const float t = q > 0 ? colsb[col] + accb[k][e] : accb[k][e];
+                if (q + 1 < rows) colsb[col] = t;
+                else partb[(size_t)blockIdx.x * N + col] = t;
+              }
+            }
           }
         }
       }
@@ -833,37 +910,87 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x,
 
 // Any other row (wider, unaligned or ragged): ROW_THREADS threads a row,
 // thread t on columns t + ROW_THREADS i; block b takes rows b + k *
-// gridDim.x.  With gamma, thread t adds its columns' dy * xh into
-// part[blockIdx.x] in device memory (each column is one thread's).
-template <typename T>
-__global__ void __launch_bounds__(ROW_THREADS)
-rmsnorm_bwd_block_kernel(const T* __restrict__ x,
-                         const float* __restrict__ gamma,
-                         const float* __restrict__ rstd,
-                         const T* __restrict__ dy, T* __restrict__ dx,
-                         float* __restrict__ part, int R, int N) {
-  float* mine = part + (size_t)blockIdx.x * N;
-  if (gamma != nullptr)
-    for (int j = threadIdx.x; j < N; j += ROW_THREADS) mine[j] = 0.0f;
+// gridDim.x.  Thread t adds its columns' dy * xh (with gamma) and dy (with
+// beta) into part[blockIdx.x] and partb[blockIdx.x] in device memory (each
+// column is one thread's).
+template <typename T, bool CENTER>
+__device__ __forceinline__ void norm_bwd_block(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ mean, const float* __restrict__ rstd,
+    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+    float* __restrict__ partb, int R, int N) {
+  const bool has_g = gamma != nullptr, has_b = CENTER && partb != nullptr;
+  float* mine = has_g ? part + (size_t)blockIdx.x * N : nullptr;
+  float* mineb = has_b ? partb + (size_t)blockIdx.x * N : nullptr;
+  for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
+    if (has_g) mine[j] = 0.0f;
+    if (has_b) mineb[j] = 0.0f;
+  }
   const float inv_n = 1.0f / static_cast<float>(N);
   for (int row = blockIdx.x; row < R; row += gridDim.x) {
     const T* xr = x + (size_t)row * N;
     const T* dr = dy + (size_t)row * N;
     const float r = rstd[row];
-    float s = 0.0f;
+    const float mu = CENTER ? mean[row] : 0.0f;
+    float s = 0.0f, s1 = 0.0f;
     for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
-      const float xh = to_f32(xr[j]) * r, d = to_f32(dr[j]);
-      s += (gamma != nullptr ? gamma[j] * d : d) * xh;
-      if (gamma != nullptr) mine[j] += d * xh;
+      const float xh = (to_f32(xr[j]) - mu) * r, d = to_f32(dr[j]);
+      const float gd = has_g ? gamma[j] * d : d;
+      s += gd * xh;
+      if (CENTER) s1 += gd;
+      if (has_g) mine[j] += d * xh;
+      if (has_b) mineb[j] += d;
     }
     const float c = block_reduce<false>(s) * inv_n;
+    const float c1 = CENTER ? block_reduce<false>(s1) * inv_n : 0.0f;
     T* out = dx + (size_t)row * N;
     for (int j = threadIdx.x; j < N; j += ROW_THREADS) {
-      const float xh = to_f32(xr[j]) * r, d = to_f32(dr[j]);
-      store(out + j, r * ((gamma != nullptr ? gamma[j] * d : d) - xh * c));
+      const float xh = (to_f32(xr[j]) - mu) * r, d = to_f32(dr[j]);
+      const float gd = has_g ? gamma[j] * d : d;
+      store(out + j, CENTER ? r * (gd - c1 - xh * c) : r * (gd - xh * c));
     }
   }
 }
+
+#define NORM_BWD_ARGS                                                      \
+  const T *__restrict__ x, const float *__restrict__ gamma,                \
+      const float *__restrict__ mean, const float *__restrict__ rstd,      \
+      const T *__restrict__ dy, T *__restrict__ dx,                        \
+      float *__restrict__ part, float *__restrict__ partb, int R
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+rmsnorm_bwd_warp_kernel(NORM_BWD_ARGS, int N) {
+  norm_bwd_warp<T, false>(x, gamma, mean, rstd, dy, dx, part, partb, R, N);
+}
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+layernorm_bwd_warp_kernel(NORM_BWD_ARGS, int N) {
+  norm_bwd_warp<T, true>(x, gamma, mean, rstd, dy, dx, part, partb, R, N);
+}
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+rmsnorm_bwd_vec_kernel(NORM_BWD_ARGS, int V, int threads) {
+  norm_bwd_vec<T, false>(x, gamma, mean, rstd, dy, dx, part, partb, R, V,
+                         threads);
+}
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+layernorm_bwd_vec_kernel(NORM_BWD_ARGS, int V, int threads) {
+  norm_bwd_vec<T, true>(x, gamma, mean, rstd, dy, dx, part, partb, R, V,
+                        threads);
+}
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+rmsnorm_bwd_block_kernel(NORM_BWD_ARGS, int N) {
+  norm_bwd_block<T, false>(x, gamma, mean, rstd, dy, dx, part, partb, R, N);
+}
+template <typename T>
+__global__ void __launch_bounds__(ROW_THREADS)
+layernorm_bwd_block_kernel(NORM_BWD_ARGS, int N) {
+  norm_bwd_block<T, true>(x, gamma, mean, rstd, dy, dx, part, partb, R, N);
+}
+#undef NORM_BWD_ARGS
 
 // out[j] = sum over b < G of part[b][j], in a fixed order: lane l of block
 // c owns the VEC columns (32 c + l) VEC (one 16-byte vector for VEC 4),
@@ -913,57 +1040,89 @@ column_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
 
 constexpr size_t SMEM_DEFAULT = 48 * 1024;   // without an opt-in
 
+int column_sum(const float* part, float* out, int blocks, int N,
+               int sum_warps, int sum_vec, cudaStream_t s) {
+  const int grid = (N + 32 * sum_vec - 1) / (32 * sum_vec);
+  if (sum_vec == 4)
+    column_sum_kernel<4><<<grid, sum_warps * 32, 0, s>>>(part, out, blocks, N);
+  else
+    column_sum_kernel<1><<<grid, sum_warps * 32, 0, s>>>(part, out, blocks, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // threads > 0: the vector kernel with `threads` threads a row (norm_plan's,
 // x, dy and dx 16-byte aligned); else a warp a row up to WARP_ROW_MAX wide,
 // else the block kernel (rows 1); `rows` rows of a block at once over
-// `blocks` blocks, then, with gamma, the column sum with `sum_warps` warps
-// a block over `sum_vec` columns a lane (4: N % 4 == 0).
-template <typename T>
-int launch_rmsnorm_bwd(const void* x, const void* gamma, const void* rstd,
-                       const void* dy, void* dx, void* part, void* dgamma,
-                       int R, int N, int threads, int rows, int blocks,
-                       int sum_warps, int sum_vec, void* stream) {
+// `blocks` blocks, then, with gamma (and with beta), the column sum with
+// `sum_warps` warps a block over `sum_vec` columns a lane (4: N % 4 == 0).
+// CENTER: layernorm (mean given; partb and dbeta with beta), else rmsnorm
+// (mean, partb and dbeta null).
+template <typename T, bool CENTER>
+int launch_norm_bwd(const void* x, const void* gamma, const void* mean,
+                    const void* rstd, const void* dy, void* dx, void* part,
+                    void* partb, void* dgamma, void* dbeta, int R, int N,
+                    int threads, int rows, int blocks, int sum_warps,
+                    int sum_vec, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   const T* dyt = static_cast<const T*>(dy);
   const float* g = static_cast<const float*>(gamma);
+  const float* mu = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
   T* dxt = static_cast<T*>(dx);
   float* pt = static_cast<float*>(part);
-  const bool has_g = gamma != nullptr;
-  if (blocks < 1 || rows < 1 ||
-      (has_g && (part == nullptr || dgamma == nullptr || sum_warps < 1 ||
-                 sum_warps > CS_MAX_WARPS || (sum_vec != 1 && sum_vec != 4) ||
-                 N % sum_vec != 0 || !aligned16(part) || !aligned16(dgamma))))
+  float* pb = static_cast<float*>(partb);
+  const bool has_g = gamma != nullptr, has_b = partb != nullptr;
+  const int parts = has_g + has_b;
+  auto sums_ok = [&](const void* p, const void* out) {
+    return p != nullptr && out != nullptr && aligned16(p) && aligned16(out);
+  };
+  if (blocks < 1 || rows < 1 || (CENTER != (mean != nullptr)) ||
+      (!CENTER && (has_b || dbeta != nullptr)) ||
+      (has_b != (dbeta != nullptr)) || (has_g && !sums_ok(part, dgamma)) ||
+      (has_b && !sums_ok(partb, dbeta)) ||
+      (parts && (sum_warps < 1 || sum_warps > CS_MAX_WARPS ||
+                 (sum_vec != 1 && sum_vec != 4) || N % sum_vec != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (threads > 0) {
-    const size_t smem = has_g && rows > 1 ? sizeof(float) * N : 0;
+    const size_t smem = rows > 1 ? sizeof(float) * parts * N : 0;
     if (!vec_plan_ok<T>(N, threads, x, gamma, dy, dx) ||
         rows * threads > MAX_THREADS || smem > SMEM_DEFAULT)
       return static_cast<int>(cudaErrorInvalidValue);
-    rmsnorm_bwd_vec_kernel<T><<<blocks, rows * threads, smem, s>>>(
-        xt, g, rs, dyt, dxt, pt, R, static_cast<int>(N * sizeof(T) / 16),
-        threads);
+    const int V = static_cast<int>(N * sizeof(T) / 16);
+    if constexpr (CENTER)
+      layernorm_bwd_vec_kernel<T><<<blocks, rows * threads, smem, s>>>(
+          xt, g, mu, rs, dyt, dxt, pt, pb, R, V, threads);
+    else
+      rmsnorm_bwd_vec_kernel<T><<<blocks, rows * threads, smem, s>>>(
+          xt, g, mu, rs, dyt, dxt, pt, pb, R, V, threads);
   } else if (N <= WARP_ROW_MAX) {
-    const size_t smem = has_g ? sizeof(float) * rows * N : 0;
+    const size_t smem = sizeof(float) * parts * rows * N;
     if (rows * 32 > MAX_THREADS || smem > SMEM_DEFAULT)
       return static_cast<int>(cudaErrorInvalidValue);
-    rmsnorm_bwd_warp_kernel<T><<<blocks, rows * 32, smem, s>>>(
-        xt, g, rs, dyt, dxt, pt, R, N);
+    if constexpr (CENTER)
+      layernorm_bwd_warp_kernel<T><<<blocks, rows * 32, smem, s>>>(
+          xt, g, mu, rs, dyt, dxt, pt, pb, R, N);
+    else
+      rmsnorm_bwd_warp_kernel<T><<<blocks, rows * 32, smem, s>>>(
+          xt, g, mu, rs, dyt, dxt, pt, pb, R, N);
   } else {
     if (rows != 1) return static_cast<int>(cudaErrorInvalidValue);
-    rmsnorm_bwd_block_kernel<T><<<blocks, ROW_THREADS, 0, s>>>(
-        xt, g, rs, dyt, dxt, pt, R, N);
+    if constexpr (CENTER)
+      layernorm_bwd_block_kernel<T><<<blocks, ROW_THREADS, 0, s>>>(
+          xt, g, mu, rs, dyt, dxt, pt, pb, R, N);
+    else
+      rmsnorm_bwd_block_kernel<T><<<blocks, ROW_THREADS, 0, s>>>(
+          xt, g, mu, rs, dyt, dxt, pt, pb, R, N);
   }
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !has_g) return static_cast<int>(e);
-  const int grid = (N + 32 * sum_vec - 1) / (32 * sum_vec);
-  float* dg = static_cast<float*>(dgamma);
-  if (sum_vec == 4)
-    column_sum_kernel<4><<<grid, sum_warps * 32, 0, s>>>(pt, dg, blocks, N);
-  else
-    column_sum_kernel<1><<<grid, sum_warps * 32, 0, s>>>(pt, dg, blocks, N);
-  return static_cast<int>(cudaGetLastError());
+  int e = static_cast<int>(cudaGetLastError());
+  if (e == 0 && has_g)
+    e = column_sum(pt, static_cast<float*>(dgamma), blocks, N, sum_warps,
+                   sum_vec, s);
+  if (e == 0 && has_b)
+    e = column_sum(pb, static_cast<float*>(dbeta), blocks, N, sum_warps,
+                   sum_vec, s);
+  return e;
 }
 
 }  // namespace
@@ -991,22 +1150,25 @@ extern "C" int sfu_softmax_f32(const void* x, void* y, int R, int N,
 }
 
 // gamma and beta may be null; x and y are fp32 (f32) or bf16 (bf16),
-// gamma and beta fp32.  threads, slots, vec: the wrapper's plan (see
-// launch_layernorm).
+// gamma and beta fp32; mean and rstd (R floats each, both or neither)
+// take each row's mean and 1 / sqrt(variance + eps) for the backward.
+// threads, slots, vec: the wrapper's plan (see launch_layernorm).
 extern "C" int sfu_layernorm_f32(const void* x, const void* gamma,
-                                 const void* beta, void* y, int R, int N,
-                                 float eps, int threads, int slots, int vec,
+                                 const void* beta, void* y, void* mean,
+                                 void* rstd, int R, int N, float eps,
+                                 int threads, int slots, int vec,
                                  void* stream) {
-  return launch_layernorm<float>(x, gamma, beta, y, R, N, eps, threads,
-                                 slots, vec, stream);
+  return launch_layernorm<float>(x, gamma, beta, y, mean, rstd, R, N, eps,
+                                 threads, slots, vec, stream);
 }
 
 extern "C" int sfu_layernorm_bf16(const void* x, const void* gamma,
-                                  const void* beta, void* y, int R, int N,
-                                  float eps, int threads, int slots, int vec,
+                                  const void* beta, void* y, void* mean,
+                                  void* rstd, int R, int N, float eps,
+                                  int threads, int slots, int vec,
                                   void* stream) {
-  return launch_layernorm<__nv_bfloat16>(x, gamma, beta, y, R, N, eps,
-                                         threads, slots, vec, stream);
+  return launch_layernorm<__nv_bfloat16>(x, gamma, beta, y, mean, rstd, R, N,
+                                         eps, threads, slots, vec, stream);
 }
 
 // vector 0: one element a thread (x or y not 16-byte aligned); else the
@@ -1058,15 +1220,16 @@ extern "C" int sfu_rmsnorm_bf16(const void* x, const void* gamma, void* y,
 // scratch, 16-byte aligned) takes each block's column sums of dy * x *
 // rstd and dgamma (N fp32, 16-byte aligned) their sum over the blocks;
 // every column of dgamma is written.  threads, rows, blocks, sum_warps,
-// sum_vec: the wrapper's plan (see launch_rmsnorm_bwd).
+// sum_vec: the wrapper's plan (see launch_norm_bwd).
 extern "C" int sfu_rmsnorm_bwd_f32(const void* x, const void* gamma,
                                    const void* rstd, const void* dy,
                                    void* dx, void* part, void* dgamma, int R,
                                    int N, int threads, int rows, int blocks,
                                    int sum_warps, int sum_vec, void* stream) {
-  return launch_rmsnorm_bwd<float>(x, gamma, rstd, dy, dx, part, dgamma, R,
-                                   N, threads, rows, blocks, sum_warps,
-                                   sum_vec, stream);
+  return launch_norm_bwd<float, false>(x, gamma, nullptr, rstd, dy, dx, part,
+                                       nullptr, dgamma, nullptr, R, N,
+                                       threads, rows, blocks, sum_warps,
+                                       sum_vec, stream);
 }
 
 extern "C" int sfu_rmsnorm_bwd_bf16(const void* x, const void* gamma,
@@ -1075,8 +1238,40 @@ extern "C" int sfu_rmsnorm_bwd_bf16(const void* x, const void* gamma,
                                     int R, int N, int threads, int rows,
                                     int blocks, int sum_warps, int sum_vec,
                                     void* stream) {
-  return launch_rmsnorm_bwd<__nv_bfloat16>(x, gamma, rstd, dy, dx, part,
-                                           dgamma, R, N, threads, rows,
-                                           blocks, sum_warps, sum_vec,
-                                           stream);
+  return launch_norm_bwd<__nv_bfloat16, false>(
+      x, gamma, nullptr, rstd, dy, dx, part, nullptr, dgamma, nullptr, R, N,
+      threads, rows, blocks, sum_warps, sum_vec, stream);
+}
+
+// layernorm's backward: dx (x's type) from x, gamma and beta (each may be
+// null), the forward's mean and rstd and dy (x's type); with gamma, part
+// (blocks x N fp32 scratch, 16-byte aligned) takes each block's column sums
+// of dy * (x - mean) * rstd and dgamma (N fp32, 16-byte aligned) their sum
+// over the blocks; with beta, partb and dbeta the same for dy (beta itself
+// is not read: pass partb and dbeta, or null for neither).  Every column of
+// dgamma and dbeta is written.  threads, rows, blocks, sum_warps, sum_vec:
+// the wrapper's plan (see launch_norm_bwd).
+extern "C" int sfu_layernorm_bwd_f32(const void* x, const void* gamma,
+                                     const void* mean, const void* rstd,
+                                     const void* dy, void* dx, void* part,
+                                     void* partb, void* dgamma, void* dbeta,
+                                     int R, int N, int threads, int rows,
+                                     int blocks, int sum_warps, int sum_vec,
+                                     void* stream) {
+  return launch_norm_bwd<float, true>(x, gamma, mean, rstd, dy, dx, part,
+                                      partb, dgamma, dbeta, R, N, threads,
+                                      rows, blocks, sum_warps, sum_vec,
+                                      stream);
+}
+
+extern "C" int sfu_layernorm_bwd_bf16(const void* x, const void* gamma,
+                                      const void* mean, const void* rstd,
+                                      const void* dy, void* dx, void* part,
+                                      void* partb, void* dgamma, void* dbeta,
+                                      int R, int N, int threads, int rows,
+                                      int blocks, int sum_warps, int sum_vec,
+                                      void* stream) {
+  return launch_norm_bwd<__nv_bfloat16, true>(
+      x, gamma, mean, rstd, dy, dx, part, partb, dgamma, dbeta, R, N,
+      threads, rows, blocks, sum_warps, sum_vec, stream);
 }

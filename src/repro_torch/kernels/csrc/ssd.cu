@@ -758,6 +758,497 @@ ssd_scan_fma(const float* __restrict__ x, const float* __restrict__ a,
   }
 }
 
+// ------------------------------------------------------------ backward
+// The gradients of y and of the final state give, per chunk (no Pallas
+// kernel differentiates: the reference differentiates its jnp oracles),
+// with L[t, s] = exp(acs_t - acs_s) for s <= t, w_s = exp(acs_last -
+// acs_s), e_t = exp(acs_t), S_prev the state entering the chunk (the
+// forward's scratch) and G the gradient of the state leaving it:
+//
+//   G_prev = exp(acs_last) G + dY^T (C o e)          (reverse over chunks)
+//   R = (C B^T) o L,  Z = (dY X^T) o L,  Q = R o (dY X^T)
+//   dX = R^T dY + w o (B G^T)
+//   dC = Z B + e o (dY S_prev)
+//   dB = Z^T C + w o (X G)
+//   dacs_t = sum_s Q[t, s] - sum_s Q[s, t] + Yoff_t - W_t
+//   da = reverse cumsum of dacs + exp(acs_last) <G, S_prev> + sum_s W_s
+//
+// (Yoff_t = C_t . (e o dY S_prev)_t, W_s = X_s . (w o B G^T)_s; ref.ssd_bwd
+// writes the same out in PyTorch).  Three kernels on one stream:
+//
+//   a. ssd_bwd_state_*  grid (N / 32, head, batch), the mirror of the
+//      forward's state kernel: block q carries columns [32 q, 32 q + 32) of
+//      G from the final state's gradient (or zero) back through the chunks
+//      in series, writes the G leaving each chunk to its scratch slot and
+//      the initial state's gradient after the first chunk.
+//   b. ssd_bwd_chunk_*  grid (chunk, head, batch): every per-chunk term
+//      above; dX and da written once, each head's dB and dC to fp32
+//      scratch (B, S, H, N).
+//   c. ssd_bwd_group_sum_*  sums those over the H / G heads of each state
+//      group in head order (db and dc; mamba2-2.7b sums all 80 heads into
+//      its one group), in b's and c's type.
+//
+// Every product runs on fp32 FMA, bf16 inputs converted as they are staged
+// (a first design: the tensor-core design is later work, ROADMAP K.13).
+// No atomics: every output element has one writer and every sum a fixed
+// order, so two runs give the same bits.  Block b stages C, B, X and dY of
+// its chunk in fp32 (rows past the true length and columns past N and P
+// zero), and reuses its shared memory through the phases: C B^T and dY X^T
+// in registers, then R and Z as packed lower triangles where B was, then B
+// where C was, and G, then S_prev, where R was; 208,928 bytes at a chunk of
+// 128, one block an SM.
+//
+// Bound on the H100 at mamba2-2.7b's training shapes (B 4, S 512, H 80,
+// P 64, N 128, G 1, chunk 128): about twice the forward's operations
+// (chip_smoke.py's ssd_bwd_work), against x, b, c, dy, dx, db, dc, a and da
+// read or written once and the saved states read once (about 107 MB): the
+// bytes bound it on the tensor cores; on fp32 FMA, as here, the operations.
+
+constexpr int BWD_THREADS = 256;  // chunk kernel: 16 x 16 threads
+constexpr int LDN = NMAX + 1, LDP = PMAX + 1;
+constexpr int NJ = NMAX / 16;     // columns n of a chunk-kernel thread
+constexpr int GS_THREADS = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Stages a tile of `rows` x `cols` fp32 (row stride ld): element (r, k) is
+// src[r * stride + k] for r < valid and k < width, else zero.
+template <int NT, typename S>
+__device__ __forceinline__ void stage_pad(float* dst, int ld, int rows,
+                                          int cols, const S* src,
+                                          long long stride, int valid,
+                                          int width) {
+  for (int i = threadIdx.x; i < rows * cols; i += NT) {
+    const int r = i / cols, k = i - r * cols;
+    dst[r * ld + k] =
+        r < valid && k < width ? to_f32(src[r * stride + k]) : 0.0f;
+  }
+}
+
+// Sum over the 16 threads of a half warp (those of one ty).
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int tri(int t, int s) { return t * (t + 1) / 2 + s; }
+
+// a: the reverse state recurrence, thread (tx, ty) rows p = ty + 16 i and
+// columns n = 32 q + tx + 8 j of G, as the forward's fp32 state kernel.
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS)
+ssd_bwd_state(const T* __restrict__ dy, const float* __restrict__ a,
+              const T* __restrict__ c, const float* __restrict__ dfin,
+              float* __restrict__ dstates, float* __restrict__ dinit, int S,
+              int H, int P, int G, int N, int L, int nc, long long ysb,
+              long long yss, long long asb, long long ass, long long csb,
+              long long css) {
+  extern __shared__ float smem[];
+  const int LDY = P + 1, LDC = QN + 1;
+  float* Ys = smem;              // L x LDY
+  float* Cs = Ys + L * LDY;      // L x LDC
+  float* acs = Cs + L * LDC;     // LMAX
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int q = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (H / G), n0 = q * QN, nq = min(QN, N - n0);
+  const size_t PN = (size_t)P * N, row = ((size_t)bi * H + h) * PN;
+  float st[PI][QN / 8];
+#pragma unroll
+  for (int i = 0; i < PI; ++i)
+#pragma unroll
+    for (int j = 0; j < QN / 8; ++j) {
+      const int p = ty + 16 * i, n = n0 + tx + 8 * j;
+      st[i][j] = dfin != nullptr && p < P && n < N ? dfin[row + p * N + n]
+                                                   : 0.0f;
+    }
+  for (int ci = nc - 1; ci >= 0; --ci) {
+    const int c0 = ci * L, len = min(L, S - c0);
+    __syncthreads();  // the last chunk's tiles are read
+    stage_pad<ST_THREADS>(Ys, LDY, L, P, dy + bi * ysb + c0 * yss +
+                          (long long)h * P, yss, len, P);
+    stage_pad<ST_THREADS>(Cs, LDC, L, QN, c + bi * csb + c0 * css +
+                          (long long)g * N + n0, css, len, nq);
+    chunk_cumsum(a + bi * asb + c0 * ass + h, ass, len, acs);
+    __syncthreads();
+
+    const float decay = expf(acs[LMAX - 1]);
+    float* out = dstates + slot(bi, ci, h, nc, H) * PN;
+#pragma unroll
+    for (int i = 0; i < PI; ++i)
+#pragma unroll
+      for (int j = 0; j < QN / 8; ++j) {
+        const int p = ty + 16 * i, n = n0 + tx + 8 * j;
+        if (p < P && n < N) out[p * N + n] = st[i][j];
+        st[i][j] *= decay;
+      }
+    for (int t = 0; t < len; ++t) {
+      const float e = expf(acs[t]);
+      float yv[PI], cv[QN / 8];
+#pragma unroll
+      for (int i = 0; i < PI; ++i)
+        yv[i] = Ys[t * LDY + min(ty + 16 * i, P - 1)] * e;
+#pragma unroll
+      for (int j = 0; j < QN / 8; ++j) cv[j] = Cs[t * LDC + tx + 8 * j];
+#pragma unroll
+      for (int i = 0; i < PI; ++i)
+#pragma unroll
+        for (int j = 0; j < QN / 8; ++j)
+          st[i][j] = fmaf(yv[i], cv[j], st[i][j]);
+    }
+  }
+  if (dinit == nullptr) return;
+#pragma unroll
+  for (int i = 0; i < PI; ++i)
+#pragma unroll
+    for (int j = 0; j < QN / 8; ++j) {
+      const int p = ty + 16 * i, n = n0 + tx + 8 * j;
+      if (p < P && n < N) dinit[row + p * N + n] = st[i][j];
+    }
+}
+
+// The chunk kernel's shared memory in floats, for LR = 16 LI rows: C then
+// B (LR x LDN); B, then R and Z as packed lower triangles, the R triangle
+// then G and S_prev (PMAX x LDN); X and dY (LR x LDP); acs, dacs, W, Yoff,
+// the column sums of Q by ty, and a block reduction's warp sums.
+__host__ __device__ constexpr int bwd_tri(int LR) { return LR * (LR + 1) / 2; }
+__host__ __device__ constexpr int bwd_lo(int LR) {
+  return bwd_tri(LR) > PMAX * LDN ? bwd_tri(LR) : PMAX * LDN;
+}
+__host__ __device__ constexpr int bwd_bufb(int LR) {
+  return LR * LDN > bwd_lo(LR) + bwd_tri(LR) ? LR * LDN
+                                             : bwd_lo(LR) + bwd_tri(LR);
+}
+__host__ __device__ constexpr int bwd_smem_floats(int LR) {
+  return LR * LDN + bwd_bufb(LR) + 2 * LR * LDP + 4 * LMAX + 16 * LMAX +
+         BWD_THREADS / 32;
+}
+
+// b: block (chunk, head, batch).  Thread (tx, ty) = (tid % 16, tid / 16)
+// holds rows ty + 16 i (t or s, i < LI) and columns tx + 16 j (s, p or n).
+template <typename T, int LI>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ a,
+              const T* __restrict__ b, const T* __restrict__ c,
+              const T* __restrict__ dy, const float* __restrict__ states,
+              const float* __restrict__ dstates, T* __restrict__ dx,
+              float* __restrict__ da, float* __restrict__ dbh,
+              float* __restrict__ dch, int S, int H, int P, int G, int N,
+              int L, int nc, long long xsb, long long xss, long long asb,
+              long long ass, long long bsb, long long bss, long long csb,
+              long long css, long long ysb, long long yss, int has_init) {
+  constexpr int LR = 16 * LI;
+  extern __shared__ float smem[];
+  float* bufA = smem;                       // C, then B: LR x LDN
+  float* bufB = bufA + LR * LDN;            // B; R | Z; G or S_prev | Z
+  float* lo = bufB;                         // R, then G, then S_prev
+  float* hi = bufB + bwd_lo(LR);            // Z
+  float* Xs = bufB + bwd_bufb(LR);          // LR x LDP
+  float* Ys = Xs + LR * LDP;                // LR x LDP
+  float* acs = Ys + LR * LDP;               // LMAX
+  float* dacs = acs + LMAX;                 // LMAX
+  float* Wv = dacs + LMAX;                  // LMAX
+  float* Yo = Wv + LMAX;                    // LMAX
+  float* colpart = Yo + LMAX;               // 16 x LMAX
+  float* red = colpart + 16 * LMAX;         // BWD_THREADS / 32
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int ci = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int g = h / (H / G);
+  const int c0 = ci * L, len = min(L, S - c0);
+  const bool carry = has_init || ci > 0;
+  const T* cg = c + bi * csb + c0 * css + (long long)g * N;
+  const T* bg = b + bi * bsb + c0 * bss + (long long)g * N;
+  const float* st_prev = states + slot(bi, ci, h, nc, H) * P * N;
+  const float* gst = dstates + slot(bi, ci, h, nc, H) * P * N;
+
+  stage_pad<BWD_THREADS>(bufA, LDN, LR, NMAX, cg, css, len, N);
+  stage_pad<BWD_THREADS>(bufB, LDN, LR, NMAX, bg, bss, len, N);
+  stage_pad<BWD_THREADS>(Xs, LDP, LR, PMAX,
+                         x + bi * xsb + c0 * xss + (long long)h * P, xss,
+                         len, P);
+  stage_pad<BWD_THREADS>(Ys, LDP, LR, PMAX,
+                         dy + bi * ysb + c0 * yss + (long long)h * P, yss,
+                         len, P);
+  chunk_cumsum(a + bi * asb + c0 * ass + h, ass, len, acs);
+  __syncthreads();
+  const float last = acs[LMAX - 1];
+
+  // C B^T and dY X^T over the tiles at or below the diagonal, then R, Z
+  // and the row and column sums of Q
+  float r_[LI][LI], z_[LI][LI];
+#pragma unroll
+  for (int i = 0; i < LI; ++i)
+#pragma unroll
+    for (int j = 0; j < LI; ++j) r_[i][j] = z_[i][j] = 0.0f;
+  for (int n = 0; n < N; ++n) {
+    float cv[LI], bv[LI];
+#pragma unroll
+    for (int i = 0; i < LI; ++i) cv[i] = bufA[(ty + 16 * i) * LDN + n];
+#pragma unroll
+    for (int j = 0; j < LI; ++j) bv[j] = bufB[(tx + 16 * j) * LDN + n];
+#pragma unroll
+    for (int i = 0; i < LI; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) r_[i][j] = fmaf(cv[i], bv[j], r_[i][j]);
+  }
+  for (int p = 0; p < P; ++p) {
+    float yv[LI], xv[LI];
+#pragma unroll
+    for (int i = 0; i < LI; ++i) yv[i] = Ys[(ty + 16 * i) * LDP + p];
+#pragma unroll
+    for (int j = 0; j < LI; ++j) xv[j] = Xs[(tx + 16 * j) * LDP + p];
+#pragma unroll
+    for (int i = 0; i < LI; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) z_[i][j] = fmaf(yv[i], xv[j], z_[i][j]);
+  }
+  float rs[LI], cs[LI];
+#pragma unroll
+  for (int i = 0; i < LI; ++i) rs[i] = cs[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < LI; ++i)
+#pragma unroll
+    for (int j = 0; j < LI; ++j) {
+      const int t = ty + 16 * i, s = tx + 16 * j;
+      float rv = 0.0f, zv = 0.0f;
+      if (j <= i && s <= t) {
+        const float l = expf(acs[t] - acs[s]);
+        rv = l * r_[i][j];
+        zv = l * z_[i][j];
+        const float qv = rv * z_[i][j];
+        rs[i] += qv;
+        cs[j] += qv;
+      }
+      r_[i][j] = rv;
+      z_[i][j] = zv;
+    }
+  __syncthreads();  // B is read: R and Z go where it was
+#pragma unroll
+  for (int i = 0; i < LI; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      const int t = ty + 16 * i, s = tx + 16 * j;
+      if (s <= t) {
+        lo[tri(t, s)] = r_[i][j];
+        hi[tri(t, s)] = z_[i][j];
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < LI; ++i) {
+    const float v = half_warp_sum(rs[i]);
+    if (tx == 0) dacs[ty + 16 * i] = v;
+  }
+#pragma unroll
+  for (int j = 0; j < LI; ++j) colpart[ty * LMAX + tx + 16 * j] = cs[j];
+  __syncthreads();
+  if (tid < LR) {
+    float v = dacs[tid];
+    for (int k = 0; k < 16; ++k) v -= colpart[k * LMAX + tid];
+    dacs[tid] = v;
+  }
+
+  // dX = R^T dY (rows s, columns p) and dB = Z^T C (rows s, columns n)
+  float dxa[LI][PI], dba[LI][NJ];
+#pragma unroll
+  for (int i = 0; i < LI; ++i) {
+#pragma unroll
+    for (int j = 0; j < PI; ++j) dxa[i][j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dba[i][j] = 0.0f;
+  }
+  for (int t = 0; t < len; ++t) {
+    float yv[PI], cv[NJ], rv[LI], zv[LI];
+#pragma unroll
+    for (int j = 0; j < PI; ++j) yv[j] = Ys[t * LDP + tx + 16 * j];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) cv[j] = bufA[t * LDN + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < LI; ++i) {
+      const int s = ty + 16 * i;
+      rv[i] = s <= t ? lo[tri(t, s)] : 0.0f;
+      zv[i] = s <= t ? hi[tri(t, s)] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < LI; ++i) {
+#pragma unroll
+      for (int j = 0; j < PI; ++j) dxa[i][j] = fmaf(rv[i], yv[j], dxa[i][j]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) dba[i][j] = fmaf(zv[i], cv[j], dba[i][j]);
+    }
+  }
+  __syncthreads();  // C and R are read: B where C was, G where R was
+  stage_pad<BWD_THREADS>(bufA, LDN, LR, NMAX, bg, bss, len, N);
+  stage_pad<BWD_THREADS>(lo, LDN, PMAX, NMAX, gst, N, P, N);
+  __syncthreads();
+
+  // w o (B G^T) into dX (and W = X . it), w o (X G) into dB, <G, S_prev>
+  float w[LI];
+#pragma unroll
+  for (int i = 0; i < LI; ++i) w[i] = expf(last - acs[ty + 16 * i]);
+  {
+    float dxs[LI][PI];
+#pragma unroll
+    for (int i = 0; i < LI; ++i)
+#pragma unroll
+      for (int j = 0; j < PI; ++j) dxs[i][j] = 0.0f;
+    for (int n = 0; n < N; ++n) {
+      float bv[LI], gv[PI];
+#pragma unroll
+      for (int i = 0; i < LI; ++i) bv[i] = bufA[(ty + 16 * i) * LDN + n];
+#pragma unroll
+      for (int j = 0; j < PI; ++j) gv[j] = lo[(tx + 16 * j) * LDN + n];
+#pragma unroll
+      for (int i = 0; i < LI; ++i)
+#pragma unroll
+        for (int j = 0; j < PI; ++j) dxs[i][j] = fmaf(bv[i], gv[j], dxs[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < LI; ++i) {
+      const int s = ty + 16 * i;
+      float wsum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < PI; ++j) {
+        dxs[i][j] *= w[i];
+        wsum = fmaf(Xs[s * LDP + tx + 16 * j], dxs[i][j], wsum);
+        dxa[i][j] += dxs[i][j];
+      }
+      wsum = half_warp_sum(wsum);
+      if (tx == 0) Wv[s] = wsum;
+      if (s >= len) continue;
+      T* out = dx + ((size_t)bi * S + c0 + s) * H * P + (size_t)h * P;
+#pragma unroll
+      for (int j = 0; j < PI; ++j)
+        if (tx + 16 * j < P) store_as(out + tx + 16 * j, dxa[i][j]);
+    }
+  }
+  for (int p = 0; p < P; ++p) {
+    float xv[LI], gv[NJ];
+#pragma unroll
+    for (int i = 0; i < LI; ++i) xv[i] = Xs[(ty + 16 * i) * LDP + p] * w[i];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) gv[j] = lo[p * LDN + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < LI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) dba[i][j] = fmaf(xv[i], gv[j], dba[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < LI; ++i) {
+    const int s = ty + 16 * i;
+    if (s >= len) continue;
+    float* out = dbh + (((size_t)bi * S + c0 + s) * H + h) * N;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (tx + 16 * j < N) out[tx + 16 * j] = dba[i][j];
+  }
+  float gdot = 0.0f;
+  if (carry)
+    for (int k = tid; k < P * N; k += BWD_THREADS) {
+      const int p = k / N;
+      gdot = fmaf(lo[p * LDN + (k - p * N)], st_prev[k], gdot);
+    }
+  gdot = half_warp_sum(gdot);
+  gdot += __shfl_xor_sync(0xffffffffu, gdot, 16);
+  if ((tid & 31) == 0) red[tid >> 5] = gdot;
+  __syncthreads();  // G is read: S_prev where it was
+  if (carry) stage_pad<BWD_THREADS>(lo, LDN, PMAX, NMAX, st_prev, N, P, N);
+  __syncthreads();
+
+  // dC = e o (dY S_prev) (and Yoff = C . it), then + Z B (rows t)
+  float dca[LI][NJ];
+#pragma unroll
+  for (int i = 0; i < LI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dca[i][j] = 0.0f;
+  if (carry) {
+    for (int p = 0; p < P; ++p) {
+      float yv[LI], sv[NJ];
+#pragma unroll
+      for (int i = 0; i < LI; ++i) yv[i] = Ys[(ty + 16 * i) * LDP + p];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) sv[j] = lo[p * LDN + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < LI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dca[i][j] = fmaf(yv[i], sv[j], dca[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LI; ++i) {
+    const int t = ty + 16 * i;
+    const float e = expf(acs[t]);
+    float yo = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = tx + 16 * j;
+      dca[i][j] *= e;
+      if (t < len && n < N) yo = fmaf(to_f32(cg[t * css + n]), dca[i][j], yo);
+    }
+    yo = half_warp_sum(yo);
+    if (tx == 0) Yo[t] = yo;
+  }
+  for (int s = 0; s < len; ++s) {
+    float bv[NJ], zv[LI];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) bv[j] = bufA[s * LDN + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < LI; ++i) {
+      const int t = ty + 16 * i;
+      zv[i] = s <= t ? hi[tri(t, s)] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < LI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) dca[i][j] = fmaf(zv[i], bv[j], dca[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < LI; ++i) {
+    const int t = ty + 16 * i;
+    if (t >= len) continue;
+    float* out = dch + (((size_t)bi * S + c0 + t) * H + h) * N;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (tx + 16 * j < N) out[tx + 16 * j] = dca[i][j];
+  }
+  __syncthreads();  // dacs, W and Yoff are complete
+
+  // da: the reverse cumsum of dacs + Yoff - W within the chunk, plus the
+  // terms of the chunk's total decay, in a fixed order
+  if (tid < len) {
+    float v = 0.0f, wsum = 0.0f;
+    for (int t = LR - 1; t >= tid; --t) v += dacs[t] + Yo[t] - Wv[t];
+    for (int s = 0; s < LR; ++s) wsum += Wv[s];
+    float gd = 0.0f;
+    for (int k = 0; k < BWD_THREADS / 32; ++k) gd += red[k];
+    da[((size_t)bi * S + c0 + tid) * H + h] = v + expf(last) * gd + wsum;
+  }
+}
+
+// c: out[b, s, g, n] = sum over the heads h of group g (in head order) of
+// part[b, s, h, n]; blockIdx.y 0 for db (from dbh), 1 for dc (from dch).
+template <typename T>
+__global__ void __launch_bounds__(GS_THREADS)
+ssd_bwd_group_sum(const float* __restrict__ dbh, const float* __restrict__ dch,
+                  T* __restrict__ db, T* __restrict__ dc, long long rows,
+                  int H, int G, int N) {
+  const long long i = (long long)blockIdx.x * GS_THREADS + threadIdx.x;
+  if (i >= rows * G * N) return;
+  const long long r = i / ((long long)G * N);
+  const int gn = static_cast<int>(i - r * G * N), g = gn / N, n = gn - g * N;
+  const int rep = H / G;
+  const float* part = (blockIdx.y == 0 ? dbh : dch) +
+                      (r * H + (long long)g * rep) * N + n;
+  float v = 0.0f;
+  for (int k = 0; k < rep; ++k) v += part[(long long)k * N];
+  store_as((blockIdx.y == 0 ? db : dc) + i, v);
+}
+
 // ------------------------------------------------------------ dispatch
 
 template <typename K>
@@ -860,6 +1351,67 @@ int run(const Args& r, bool bf) {
   return phase_c(r, bf);
 }
 
+struct BwdArgs {
+  const void *x, *a, *b, *c, *dy, *states, *dfin;
+  void *dx, *da, *db, *dc, *dinit, *dstates, *dbh, *dch;
+  int B, S, H, P, G, N, L, nc, state_blocks, has_init;
+  long long xsb, xss, asb, ass, bsb, bss, csb, css, ysb, yss;
+  cudaStream_t stream;
+};
+
+template <typename T, int LI>
+int launch_bwd_chunk(const BwdArgs& r) {
+  auto kernel = ssd_bwd_chunk<T, LI>;
+  const size_t smem = sizeof(float) * bwd_smem_floats(16 * LI);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<dim3(r.nc, r.H, r.B), BWD_THREADS, smem, r.stream>>>(
+      static_cast<const T*>(r.x), static_cast<const float*>(r.a),
+      static_cast<const T*>(r.b), static_cast<const T*>(r.c),
+      static_cast<const T*>(r.dy), static_cast<const float*>(r.states),
+      static_cast<const float*>(r.dstates), static_cast<T*>(r.dx),
+      static_cast<float*>(r.da), static_cast<float*>(r.dbh),
+      static_cast<float*>(r.dch), r.S, r.H, r.P, r.G, r.N, r.L, r.nc, r.xsb,
+      r.xss, r.asb, r.ass, r.bsb, r.bss, r.csb, r.css, r.ysb, r.yss,
+      r.has_init);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The three backward kernels (a, b, c above) on one stream.
+template <typename T>
+int run_bwd(const BwdArgs& r) {
+  if (r.L < 1 || r.L > LMAX || r.P < 1 || r.P > PMAX || r.N < 1 ||
+      r.N > NMAX || r.G < 1 || r.H % r.G != 0 || r.S < 0 ||
+      r.nc != (r.S + r.L - 1) / r.L || r.state_blocks * QN < r.N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem_a =
+      sizeof(float) * ((size_t)r.L * (r.P + 1) + (size_t)r.L * (QN + 1) +
+                       LMAX);
+  cudaError_t e = allow_smem(ssd_bwd_state<T>, smem_a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_state<T><<<dim3(r.state_blocks, r.H, r.B), ST_THREADS, smem_a,
+                     r.stream>>>(
+      static_cast<const T*>(r.dy), static_cast<const float*>(r.a),
+      static_cast<const T*>(r.c), static_cast<const float*>(r.dfin),
+      static_cast<float*>(r.dstates), static_cast<float*>(r.dinit), r.S, r.H,
+      r.P, r.G, r.N, r.L, r.nc, r.ysb, r.yss, r.asb, r.ass, r.csb, r.css);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || r.nc == 0) return err;
+  err = r.L <= 16   ? launch_bwd_chunk<T, 1>(r)
+        : r.L <= 32 ? launch_bwd_chunk<T, 2>(r)
+        : r.L <= 64 ? launch_bwd_chunk<T, 4>(r)
+                    : launch_bwd_chunk<T, 8>(r);
+  if (err != 0) return err;
+  const long long rows = (long long)r.B * r.S;
+  const long long total = rows * r.G * r.N;
+  const unsigned blocks =
+      static_cast<unsigned>((total + GS_THREADS - 1) / GS_THREADS);
+  ssd_bwd_group_sum<T><<<dim3(blocks, 2), GS_THREADS, 0, r.stream>>>(
+      static_cast<const float*>(r.dbh), static_cast<const float*>(r.dch),
+      static_cast<T*>(r.db), static_cast<T*>(r.dc), rows, r.H, r.G, r.N);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  x (B, S, H, P) and b, c (B, S, G, N)
@@ -896,4 +1448,46 @@ extern "C" int ssd_bf16(const void* x, const void* a, const void* b,
               state_blocks, xsb, xss, asb, ass, bsb, bss, csb, css,
               static_cast<cudaStream_t>(stream)},
              true);
+}
+
+// The backward, on the forward's operands (the same types, layouts and
+// strides), dy (B, S, H, P) in x's type with its batch and position strides
+// (ysb, yss) and its (H, P) contiguous, `states` the forward's scratch (the
+// state entering each chunk; the first chunk's read only if has_init) and
+// dfin (B, H, P, N) fp32 or null for zero.  Writes dx (B, S, H, P) in x's
+// type, da (B, S, H) fp32, db and dc (B, S, G, N) in x's type, all
+// contiguous, and dinit (B, H, P, N) fp32 unless null; dstates (B, nc, H, P,
+// N) and dbh, dch (B, S, H, N) are fp32 scratch.  Launches the three
+// backward kernels on `stream` and returns the first nonzero
+// cudaGetLastError() after a launch (0 = launched).
+extern "C" int ssd_bwd_f32(const void* x, const void* a, const void* b,
+                           const void* c, const void* dy, const void* states,
+                           const void* dfin, void* dx, void* da, void* db,
+                           void* dc, void* dinit, void* dstates, void* dbh,
+                           void* dch, int B, int S, int H, int P, int G,
+                           int N, int L, int nc, int state_blocks,
+                           int has_init, long long xsb, long long xss,
+                           long long asb, long long ass, long long bsb,
+                           long long bss, long long csb, long long css,
+                           long long ysb, long long yss, void* stream) {
+  return run_bwd<float>(
+      {x, a, b, c, dy, states, dfin, dx, da, db, dc, dinit, dstates, dbh,
+       dch, B, S, H, P, G, N, L, nc, state_blocks, has_init, xsb, xss, asb,
+       ass, bsb, bss, csb, css, ysb, yss, static_cast<cudaStream_t>(stream)});
+}
+
+extern "C" int ssd_bwd_bf16(const void* x, const void* a, const void* b,
+                            const void* c, const void* dy, const void* states,
+                            const void* dfin, void* dx, void* da, void* db,
+                            void* dc, void* dinit, void* dstates, void* dbh,
+                            void* dch, int B, int S, int H, int P, int G,
+                            int N, int L, int nc, int state_blocks,
+                            int has_init, long long xsb, long long xss,
+                            long long asb, long long ass, long long bsb,
+                            long long bss, long long csb, long long css,
+                            long long ysb, long long yss, void* stream) {
+  return run_bwd<bf16>(
+      {x, a, b, c, dy, states, dfin, dx, da, db, dc, dinit, dstates, dbh,
+       dch, B, S, H, P, G, N, L, nc, state_blocks, has_init, xsb, xss, asb,
+       ass, bsb, bss, csb, css, ysb, yss, static_cast<cudaStream_t>(stream)});
 }

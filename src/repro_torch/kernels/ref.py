@@ -101,6 +101,36 @@ def layernorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
     return y.to(x.dtype)
 
 
+def layernorm_stats(x: torch.Tensor, eps: float = 1e-5
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's mean and ``rsqrt(var + eps)`` (population variance) in
+    fp32: what the forward kernels keep for the backward."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1)
+    d = x32 - mu[:, None]
+    return mu, torch.rsqrt((d * d).mean(dim=-1) + eps)
+
+
+def layernorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
+                  beta: torch.Tensor | None, mean: torch.Tensor,
+                  rstd: torch.Tensor, dy: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor | None,
+                             torch.Tensor | None]:
+    """The backward kernel's formula in fp32: with x̂ = (x - mean)·rstd and
+    g = γ dy (dy without gamma), ``dx = rstd (g - mean(g) - x̂ mean(g x̂))``
+    (x's dtype), ``dγ = Σ_rows dy x̂`` and ``dβ = Σ_rows dy`` (fp32; None
+    where the forward had no gamma or no beta)."""
+    x32, d = x.float(), dy.float()
+    r = rstd.float()[:, None]
+    xh = (x32 - mean.float()[:, None]) * r
+    gd = d * gamma.float() if gamma is not None else d
+    dx = r * (gd - gd.mean(dim=-1, keepdim=True)
+              - xh * (gd * xh).mean(dim=-1, keepdim=True))
+    dgamma = (d * xh).sum(0) if gamma is not None else None
+    dbeta = d.sum(0) if beta is not None else None
+    return dx.to(x.dtype), dgamma, dbeta
+
+
 def rmsnorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
                  eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x²) + eps) * gamma`` in fp32, in x's dtype."""
@@ -303,7 +333,9 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     seg = acs[:, :, :, None, :] - acs[:, :, None, :, :]    # (B,nc,L,L,H)
     tri = torch.ones((chunk, chunk), dtype=torch.bool,
                      device=x.device).tril()
-    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # exp of the pairs s <= t only: above the diagonal seg overflows, and
+    # autograd through a where over an inf gives NaN (0 * inf)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], seg, -math.inf))
 
     cb = torch.einsum("bnthi,bnshi->bnhts", cf, bf)        # (B,nc,H,L,L)
     y_diag = torch.einsum("bnhts,bnshp->bnthp", cb * L.movedim(-1, 2), xf)
@@ -335,6 +367,105 @@ def ssd_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return ssd_chunked(x, a, b, c, chunk=chunk,
                            initial_state=initial_state)
     return ssd_scan(x, a, b, c, initial_state=initial_state)
+
+
+def ssd_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, dy: torch.Tensor, *, chunk: int = 128,
+            initial_state: torch.Tensor | None = None,
+            dfinal: torch.Tensor | None = None):
+    """The backward of the chunked SSD as the ``ssd_bwd`` kernels compute
+    it, in fp32: ``(dx, da, db, dc, d initial_state)`` for the upstream
+    gradients ``dy`` of y and ``dfinal`` of the final state (None: zero).
+
+    Chunks of ``min(chunk, S)`` positions, the last one zero-padded where
+    they do not divide S (a = x = b = c = dy = 0 there, so nothing past S
+    contributes).  Per chunk, with ``acs`` the in-chunk cumsum of a,
+    ``L[t, s] = exp(acs[t] - acs[s])`` (s <= t), S_prev the state entering
+    the chunk and G the gradient of the state leaving it:
+
+      G_prev = exp(acs[-1]) G + Σ_t exp(acs[t]) dy[t]ᵀ C[t]   (reverse
+               recurrence over the chunks; the first chunk's G_prev is the
+               initial state's gradient)
+      R = (C Bᵀ) ∘ L,  Z = (dY Xᵀ) ∘ L,  w[s] = exp(acs[-1] - acs[s])
+      dx = Rᵀ dY + w ∘ (B Gᵀ)
+      dC = Z B + exp(acs) ∘ (dY S_prev)
+      dB = Zᵀ C + w ∘ (X G)
+      dacs[t] = Σ_s Q[t, s] - Σ_s Q[s, t] + Yoff[t] - W[t],  Q = R ∘ (dY Xᵀ),
+               Yoff[t] = Σ_n C[t] dC_inter[t], W[s] = Σ_p X[s] dx_state[s]
+      da = reverse cumsum of dacs + exp(acs[-1]) <G, S_prev> + Σ_s W[s]
+
+    db and dc sum the heads of each state group.  Returns dx in x's dtype,
+    da fp32, db and dc in b's dtype, and the fp32 initial state's
+    gradient where an initial state was given (else None)."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    L = min(chunk, max(S, 1))
+    nc = -(-S // L)
+    pad = nc * L - S
+    bh, ch = _ssd_heads(x, b, c)
+
+    def chunks(t, *tail):                     # zero-pad S, split chunks
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((B, pad, *t.shape[2:]))], dim=1)
+        return t.reshape(B, nc, L, *tail)
+
+    xf, dyf = chunks(x, H, P), chunks(dy, H, P)
+    af = chunks(a, H)
+    bf, cf = chunks(bh, H, N), chunks(ch, H, N)
+
+    acs = torch.cumsum(af, dim=2)                          # (B,nc,L,H)
+    last = acs[:, :, -1, :]                                # (B,nc,H)
+    seg = acs[:, :, :, None, :] - acs[:, :, None, :, :]    # (B,nc,t,s,H)
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    Lm = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                               -math.inf)).movedim(-1, 2)  # (B,nc,H,t,s)
+    w = torch.exp(last[:, :, None, :] - acs)               # (B,nc,L,H)
+    e = torch.exp(acs)
+
+    # the states entering each chunk (the forward's), then the gradients
+    # of the states leaving each chunk, in reverse
+    states = torch.einsum("bnsh,bnshi,bnshp->bnhpi", w, bf, xf)
+    state = _ssd_state0(x, N, initial_state)
+    prevs = []
+    for n in range(nc):
+        prevs.append(state)
+        state = torch.exp(last[:, n])[:, :, None, None] * state + states[:, n]
+    prev = torch.stack(prevs, dim=1)                       # (B,nc,H,P,N)
+    g = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if dfinal is None else dfinal.float())
+    inflow = torch.einsum("bnth,bnthp,bnthi->bnhpi", e, dyf, cf)
+    grads = [None] * nc
+    for n in reversed(range(nc)):
+        grads[n] = g               # the gradient of the state leaving n
+        g = torch.exp(last[:, n])[:, :, None, None] * g + inflow[:, n]
+    gs = torch.stack(grads, dim=1)                         # (B,nc,H,P,N)
+
+    cb = torch.einsum("bnthi,bnshi->bnhts", cf, bf)
+    dyx = torch.einsum("bnthp,bnshp->bnhts", dyf, xf)
+    R, Z = cb * Lm, dyx * Lm
+    Q = R * dyx
+    dx_state = w[..., None] * torch.einsum("bnshi,bnhpi->bnshp", bf, gs)
+    dx = torch.einsum("bnhts,bnthp->bnshp", R, dyf) + dx_state
+    dc_inter = e[..., None] * torch.einsum("bnthp,bnhpi->bnthi", dyf, prev)
+    dc = torch.einsum("bnhts,bnshi->bnthi", Z, bf) + dc_inter
+    db = torch.einsum("bnhts,bnthi->bnshi", Z, cf) \
+        + w[..., None] * torch.einsum("bnshp,bnhpi->bnshi", xf, gs)
+    W = (xf * dx_state).sum(-1)                            # (B,nc,L,H)
+    dacs = (Q.sum(-1) - Q.sum(-2)).movedim(2, -1) \
+        + (cf * dc_inter).sum(-1) - W
+    total = torch.exp(last) * (gs * prev).sum((-1, -2)) + W.sum(2)
+    da = torch.flip(torch.cumsum(torch.flip(dacs, [2]), 2), [2]) \
+        + total[:, :, None, :]
+
+    def unchunk(t):
+        return t.reshape(B, nc * L, *t.shape[3:])[:, :S]
+
+    rep = H // G
+    db = unchunk(db).reshape(B, S, G, rep, N).sum(3)
+    dc = unchunk(dc).reshape(B, S, G, rep, N).sum(3)
+    return (unchunk(dx).to(x.dtype), unchunk(da), db.to(b.dtype),
+            dc.to(c.dtype), None if initial_state is None else g)
 
 
 def ssd_decode_step(x_t: torch.Tensor, a_t: torch.Tensor, b_t: torch.Tensor,

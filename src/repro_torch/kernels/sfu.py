@@ -17,11 +17,14 @@ take fp32, as the runtime's LMU tiles are; layernorm and rmsnorm take
 fp32 or bf16 rows (the decoders' activations) with fp32 gamma and beta,
 compute in fp32 and return x's dtype.
 
-rmsnorm has a backward kernel: under autograd (grad mode on, x or gamma
-requiring grad) ``rmsnorm_rows`` runs as ``_RmsNorm``, whose forward also
-writes each row's rstd and whose backward is ``rmsnorm_bwd``.  The other
-kernels have none yet and raise under autograd on the card (ROADMAP
-A.5b).
+rmsnorm and layernorm have backward kernels: under autograd (grad mode
+on, x, gamma or beta requiring grad) ``rmsnorm_rows`` runs as
+``_RmsNorm`` and ``layernorm_rows`` as ``_LayerNorm``, whose forwards also
+write each row's rstd (and layernorm's mean) and whose backwards are
+``rmsnorm_bwd`` and ``layernorm_bwd``.  ``softmax_rows`` and ``act_rows``
+have none (no training path reaches them: the model's activations are
+eager PyTorch, and softmax runs only in the DORA runtime) and raise under
+autograd on the card (ROADMAP A.5b).
 
 A tensor on the CPU goes to the plain version in ``ref`` (differentiable
 by autograd); a CUDA tensor goes to the kernel, or the call raises.
@@ -38,7 +41,8 @@ from .ref import ACTIVATIONS
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _NORM = (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P)
 _NORM_BWD = (_P,) * 7 + (_I,) * 7 + (_P,)
-_LAYERNORM = (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P)
+_LAYERNORM = (_P,) * 6 + (_I, _I, ctypes.c_float, _I, _I, _I, _P)
+_LAYERNORM_BWD = (_P,) * 10 + (_I,) * 7 + (_P,)
 _SIGNATURES = {
     "sfu_softmax_f32": (_P, _P, _I, _I, _I, _I, _P),
     "sfu_layernorm_f32": _LAYERNORM,
@@ -48,19 +52,21 @@ _SIGNATURES = {
     "sfu_rmsnorm_bf16": _NORM,
     "sfu_rmsnorm_bwd_f32": _NORM_BWD,
     "sfu_rmsnorm_bwd_bf16": _NORM_BWD,
+    "sfu_layernorm_bwd_f32": _LAYERNORM_BWD,
+    "sfu_layernorm_bwd_bf16": _LAYERNORM_BWD,
 }
 
 WARP_ROW_MAX = 1024      # widest row of the warp-a-row kernels
 LANE_MAX = 32            # fp32 values a lane of the warp kernels holds
 ROW_VPT = 2              # 16-byte vectors a thread of the one-pass kernel
 MAX_THREADS = 1024
-# rmsnorm_bwd's grids (norm_bwd_plan), measured on the H100 at qwen3-4b's
-# training rows (PERF.md): the vector kernel's rows a block fill about
-# BWD_VEC_THREADS threads, one block an SM; the warp kernel's blocks hold
-# BWD_WARP_ROWS rows, two an SM; the block kernel's one row, four an SM
+# the norms' backward grids (norm_bwd_plan), measured on the H100 at
+# qwen3-4b's training rows (PERF.md): the vector kernel's rows a block fill
+# about BWD_VEC_THREADS threads, one block an SM; the warp kernel's blocks
+# hold BWD_WARP_ROWS rows, two an SM; the block kernel's one row, four an SM
 BWD_VEC_THREADS = 640
 BWD_WARP_ROWS = 32
-BWD_SMEM_FLOATS = 12288  # 48 KB: the warp kernel's shared dgamma rows
+BWD_SMEM_FLOATS = 12288  # 48 KB: the shared dgamma (and dbeta) rows
 BWD_BLOCKS_PER_SM = {"vector": 1, "warp": 2, "block": 4}
 SUM_ROWS = 4             # partial rows a warp of the column sum adds
 SUM_WARPS = 32           # warps a block of the column sum, at most
@@ -108,23 +114,29 @@ def warp_plan(N: int, esize: int, aligned: bool) -> tuple[int, bool]:
 
 
 def norm_bwd_plan(R: int, N: int, esize: int, aligned: bool,
-                  sms: int) -> tuple[int, int, int]:
-    """``(threads, rows, blocks)`` of rmsnorm's backward: the forward's
-    row shape (``norm_plan``'s threads for the vector kernel, else 0: a
-    warp a row up to ``WARP_ROW_MAX`` wide, or the block kernel), the rows
-    a block works on at once, and a grid that walks the rows cyclically.
-    The vector kernel takes the rows that fill ``BWD_VEC_THREADS``
-    threads, the warp kernel ``BWD_WARP_ROWS`` (fewer where their shared
-    dgamma rows would pass ``BWD_SMEM_FLOATS``), the block kernel one; each
-    over at most ``BWD_BLOCKS_PER_SM`` blocks an SM: few blocks, so few
-    partial rows of dgamma.  The grid is fixed by the shape and the card,
-    so dgamma's partial sums (one row of N a block) add up in the same
-    order every run."""
+                  sms: int, parts: int = 1) -> tuple[int, int, int]:
+    """``(threads, rows, blocks)`` of the norms' backward (rmsnorm's and
+    layernorm's): the forward's row shape (``norm_plan``'s threads for the
+    vector kernel, else 0: a warp a row up to ``WARP_ROW_MAX`` wide, or the
+    block kernel), the rows a block works on at once, and a grid that walks
+    the rows cyclically.  ``parts``: the partial rows each block keeps
+    (dgamma, and layernorm's dbeta).  The vector kernel takes the rows that
+    fill ``BWD_VEC_THREADS`` threads (one where ``parts`` shared rows of N
+    would pass ``BWD_SMEM_FLOATS``), the warp kernel ``BWD_WARP_ROWS``
+    (fewer where their ``parts`` shared rows each would pass it), the
+    block kernel one; each over at most ``BWD_BLOCKS_PER_SM`` blocks an SM:
+    few blocks, so few partial rows.  The grid is fixed by the shape and
+    the card, so the partial sums (one row of N a block) add up in the
+    same order every run."""
     threads = norm_plan(N, esize, aligned)
+    parts = max(1, parts)
     if threads:
-        kind, rows = "vector", max(1, BWD_VEC_THREADS // threads)
+        kind = "vector"
+        rows = max(1, BWD_VEC_THREADS // threads) \
+            if parts * N <= BWD_SMEM_FLOATS else 1
     elif N <= WARP_ROW_MAX:
-        kind, rows = "warp", min(BWD_WARP_ROWS, BWD_SMEM_FLOATS // N)
+        kind = "warp"
+        rows = min(BWD_WARP_ROWS, BWD_SMEM_FLOATS // (parts * N))
     else:
         kind, rows = "block", 1
     return threads, rows, max(1, min(_cdiv(R, rows),
@@ -211,36 +223,145 @@ def layernorm_rows(x: torch.Tensor, gamma: torch.Tensor | None = None,
                    beta: torch.Tensor | None = None, eps: float = 1e-5
                    ) -> torch.Tensor:
     """Row layernorm with population variance: x fp32 or bf16, gamma and
-    beta fp32 (each optional), fp32 arithmetic, output in x's dtype."""
+    beta fp32 (each optional), fp32 arithmetic, output in x's dtype.
+    Under autograd the gradient comes from ``layernorm_bwd``."""
     if not _on_card(x, "layernorm_rows", gamma, beta, dtypes=NORM_TYPES):
         return ref.layernorm_rows(x, gamma, beta, eps)
-    _build.refuse_grad("layernorm_rows", x, gamma, beta)
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out
-    N, esize = x.shape[1], x.element_size()
-    aligned = _aligned(x, out, gamma, beta)
-    _launch_layernorm(x, gamma, beta, eps, out, norm_plan(N, esize, aligned),
-                      *warp_plan(N, esize, aligned))
+    if _build.needs_grad(x, gamma, beta):
+        out = _LayerNorm.apply(x, gamma, beta, eps)
+    else:
+        out = torch.empty_like(x)
+        if out.numel() == 0:
+            return out
+        _launch_layernorm(x, gamma, beta, eps, out,
+                          *_layernorm_plan(x, out, gamma, beta))
     layernorm_rows.launches += 1
     return out
+
+
+def _layernorm_plan(x: torch.Tensor, out: torch.Tensor,
+                    gamma: torch.Tensor | None, beta: torch.Tensor | None
+                    ) -> tuple[int, int, bool]:
+    N, esize = x.shape[1], x.element_size()
+    aligned = _aligned(x, out, gamma, beta)
+    return (norm_plan(N, esize, aligned), *warp_plan(N, esize, aligned))
 
 
 def _launch_layernorm(x: torch.Tensor, gamma: torch.Tensor | None,
                       beta: torch.Tensor | None, eps: float,
                       out: torch.Tensor, threads: int, slots: int,
-                      vector: bool) -> None:
+                      vector: bool, mean: torch.Tensor | None = None,
+                      rstd: torch.Tensor | None = None) -> None:
     """Runs the layernorm kernel on checked, non-empty CUDA operands: the
     one-pass kernel with ``threads`` threads a row (see ``norm_plan``),
     else the warp kernel with ``slots`` slots a lane (see ``warp_plan``),
-    else, both 0, the block kernel."""
+    else, both 0, the block kernel; ``mean`` and ``rstd`` (R fp32 each,
+    both or neither), where given, take each row's mean and ``rsqrt(var +
+    eps)``."""
     R, N = x.shape
     fn = (_lib().sfu_layernorm_f32 if x.dtype == torch.float32
           else _lib().sfu_layernorm_bf16)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), _ptr(gamma), _ptr(beta), out.data_ptr(), R, N,
-                 eps, threads, slots, int(vector), _stream(x))
+        err = fn(x.data_ptr(), _ptr(gamma), _ptr(beta), out.data_ptr(),
+                 _ptr(mean), _ptr(rstd), R, N, eps, threads, slots,
+                 int(vector), _stream(x))
     _build.check(err, "layernorm_rows")
+
+
+class _LayerNorm(torch.autograd.Function):
+    """layernorm on the card with its backward kernel: the forward keeps
+    each row's mean and rstd (8 bytes a row) so that the backward need not
+    recompute them."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        out = torch.empty_like(x)
+        mean, rstd = (torch.empty(x.shape[0], dtype=torch.float32,
+                                  device=x.device) for _ in range(2))
+        if out.numel():
+            _launch_layernorm(x, gamma, beta, eps, out,
+                              *_layernorm_plan(x, out, gamma, beta),
+                              mean, rstd)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = layernorm_bwd(x, gamma, beta, mean, rstd,
+                                          dy.contiguous())
+        return (dx, dgamma if ctx.needs_input_grad[1] else None,
+                dbeta if ctx.needs_input_grad[2] else None, None)
+
+
+def _check_bwd(what: str, x: torch.Tensor, dy: torch.Tensor,
+               *stats: torch.Tensor) -> None:
+    """dy must be x's shape, dtype and device, contiguous; each row
+    statistic a contiguous fp32 (R,) on x's device."""
+    R = x.shape[0]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"{what}: dy must be a contiguous {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    for t in stats:
+        if t.dtype != torch.float32 or tuple(t.shape) != (R,) \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{what}: the row statistics must be "
+                             f"contiguous float32 ({R},) on {x.device}")
+
+
+def _bwd_grid(x: torch.Tensor, parts: int, *operands: torch.Tensor | None
+              ) -> tuple[int, int, int, int, int]:
+    """``(threads, rows, blocks, sum_warps, sum_vec)``: the norms'
+    backward grid (``norm_bwd_plan``) and its column sum's
+    (``column_sum_plan``)."""
+    R, N = x.shape
+    threads, rows, blocks = norm_bwd_plan(R, N, x.element_size(),
+                                          _aligned(x, *operands),
+                                          _build.sm_count(x.device), parts)
+    return (threads, rows, blocks, *reversed(column_sum_plan(blocks, N)))
+
+
+def layernorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
+                  beta: torch.Tensor | None, mean: torch.Tensor,
+                  rstd: torch.Tensor, dy: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor | None,
+                             torch.Tensor | None]:
+    """layernorm's backward: ``(dx, dgamma, dbeta)`` from x (R, N), gamma
+    and beta (fp32, or None: their gradient None), the forward's mean and
+    rstd (R fp32 each) and dy (x's shape and dtype).  With x̂ = (x - mean)
+    rstd and g = gamma dy, ``dx = rstd (g - mean(g) - x̂ mean(g x̂))`` in x's
+    dtype, ``dgamma = Σ_rows dy x̂`` and ``dbeta = Σ_rows dy`` in fp32;
+    deterministic (no atomics: per-block partial rows over a grid fixed by
+    shape and card, then a column sum of each in a fixed order).  beta's
+    values are not read: it only says whether dbeta is wanted."""
+    if not _on_card(x, "layernorm_bwd", gamma, beta, dtypes=NORM_TYPES):
+        return ref.layernorm_bwd(x, gamma, beta, mean, rstd, dy)
+    _check_bwd("layernorm_bwd", x, dy, mean, rstd)
+    R, N = x.shape
+    dx = torch.empty_like(x)
+    wanted = [p is not None for p in (gamma, beta)]
+    if x.numel() == 0:
+        return dx, *(torch.zeros(N, dtype=torch.float32, device=x.device)
+                     if w else None for w in wanted)
+    # the column sums write every column of dgamma and dbeta
+    dgamma, dbeta = (torch.empty(N, dtype=torch.float32, device=x.device)
+                     if w else None for w in wanted)
+    threads, rows, blocks, sum_warps, sum_vec = _bwd_grid(
+        x, sum(wanted), dy, dx, gamma)
+    part, partb = (torch.empty((blocks, N), dtype=torch.float32,
+                               device=x.device) if w else None
+                   for w in wanted)
+    fn = (_lib().sfu_layernorm_bwd_f32 if x.dtype == torch.float32
+          else _lib().sfu_layernorm_bwd_bf16)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), _ptr(gamma), mean.data_ptr(), rstd.data_ptr(),
+                 dy.data_ptr(), dx.data_ptr(), _ptr(part), _ptr(partb),
+                 _ptr(dgamma), _ptr(dbeta), R, N, threads, rows, blocks,
+                 sum_warps, sum_vec, _stream(x))
+    _build.check(err, "layernorm_bwd")
+    layernorm_bwd.launches += 1
+    return dx, dgamma, dbeta
 
 
 def act_rows(x: torch.Tensor, act: str) -> torch.Tensor:
@@ -341,15 +462,8 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
     then a second kernel sums them in a fixed order)."""
     if not _on_card(x, "rmsnorm_bwd", gamma, dtypes=NORM_TYPES):
         return ref.rmsnorm_bwd(x, gamma, rstd, dy)
+    _check_bwd("rmsnorm_bwd", x, dy, rstd)
     R, N = x.shape
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
-            or not dy.is_contiguous():
-        raise ValueError(f"rmsnorm_bwd: dy must be a contiguous {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
-    if rstd.dtype != torch.float32 or tuple(rstd.shape) != (R,) \
-            or rstd.device != x.device or not rstd.is_contiguous():
-        raise ValueError(f"rmsnorm_bwd: rstd must be a contiguous float32 "
-                         f"({R},) on {x.device}")
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx, None if gamma is None else torch.zeros(
@@ -357,10 +471,8 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor | None,
     # the column sum writes every column of dgamma
     dgamma = None if gamma is None else torch.empty(
         N, dtype=torch.float32, device=x.device)
-    threads, rows, blocks = norm_bwd_plan(R, N, x.element_size(),
-                                          _aligned(x, dy, dx, gamma),
-                                          _build.sm_count(x.device))
-    sum_vec, sum_warps = column_sum_plan(blocks, N)
+    threads, rows, blocks, sum_warps, sum_vec = _bwd_grid(x, 1, dy, dx,
+                                                          gamma)
     part = None if gamma is None else torch.empty(
         (blocks, N), dtype=torch.float32, device=x.device)
     fn = (_lib().sfu_rmsnorm_bwd_f32 if x.dtype == torch.float32
@@ -379,3 +491,4 @@ layernorm_rows.launches = 0
 act_rows.launches = 0
 rmsnorm_rows.launches = 0
 rmsnorm_bwd.launches = 0
+layernorm_bwd.launches = 0

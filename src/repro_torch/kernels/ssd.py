@@ -22,8 +22,16 @@ state 128, chunk 128): 9.427 GFLOP over the causal pairs against 54.13
 MB; in bf16 on the tensor cores the bytes bound it (0.0162 ms), in fp32
 the operations at the FMA peak (0.1407 ms); see the source note.
 
-A tensor on the CPU goes to the plain version ``ref.ssd_plain``; a CUDA
-tensor goes to the kernels, or the call raises.
+Under autograd (grad mode on, an operand requiring grad) ``ssd`` runs as
+``_Ssd``: the forward keeps its scratch (the state entering each chunk)
+and the backward is ``ssd_bwd``, three more kernels of ``csrc/ssd.cu``
+(``ssd_bwd_plan``): a reverse recurrence carrying the state's gradient
+back through the chunks, a kernel per (chunk, head, batch) for dx, da and
+each head's db and dc, and a fixed-order sum of those over each group's
+heads; fp32 FMA on fp32 and bf16 inputs, deterministic.
+
+A tensor on the CPU goes to the plain versions ``ref.ssd_plain`` and
+``ref.ssd_bwd``; a CUDA tensor goes to the kernels, or the call raises.
 """
 
 from __future__ import annotations
@@ -39,9 +47,15 @@ from . import _build, ref
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = (_P,) * 8 + (_I,) * 9 + (_LL,) * 8 + (_P,)
-_SIGNATURES = {"ssd_f32": _ARGS, "ssd_bf16": _ARGS}
+_BWD_ARGS = (_P,) * 15 + (_I,) * 10 + (_LL,) * 10 + (_P,)
+_SIGNATURES = {"ssd_f32": _ARGS, "ssd_bf16": _ARGS,
+               "ssd_bwd_f32": _BWD_ARGS, "ssd_bwd_bf16": _BWD_ARGS}
 # state columns a block of the state kernel carries (csrc/ssd.cu's QN)
 STATE_COLS = 32
+# the backward's chunk kernel (csrc/ssd.cu): 16 x 16 threads, tiles of
+# 16-row blocks; the group sum's threads a block; shared memory a block
+# may use on the H100 (227 KB)
+BWD_THREADS, GROUP_SUM_THREADS, SMEM_MAX = 256, 256, 232448
 
 
 @dataclass(frozen=True)
@@ -67,6 +81,50 @@ def ssd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int) -> SsdPlan:
     return SsdPlan(chunk=L, chunks=chunks, grid=(chunks, H, B),
                    state_grid=(-(-N // STATE_COLS), H, B),
                    scratch_bytes=4 * B * chunks * H * P * N)
+
+
+@dataclass(frozen=True)
+class SsdBwdPlan:
+    """How ``ssd_bwd`` lays out one call.  The reverse state kernel runs
+    one block per ``STATE_COLS`` columns of a (head, batch)'s state
+    (``state_grid``); the chunk kernel one block per (chunk, head, batch)
+    (``grid``), on tiles of ``rows`` rows (the chunk rounded up to 16, 32,
+    64 or 128) in ``smem_bytes`` of shared memory; the group sum one
+    thread per element of db (and of dc: ``group_grid`` y = 2).
+    ``scratch_bytes``: the gradient of the state leaving every (batch,
+    chunk, head) and each head's fp32 db and dc."""
+    chunk: int
+    chunks: int
+    state_grid: tuple[int, int, int]
+    grid: tuple[int, int, int]
+    rows: int
+    smem_bytes: int
+    group_grid: tuple[int, int]
+    scratch_bytes: int
+
+
+def ssd_bwd_plan(B: int, S: int, H: int, P: int, G: int, N: int,
+                 chunk: int) -> SsdBwdPlan:
+    """The launch plan of ``ssd_bwd``: the forward's chunks
+    (``ssd_plan``), the chunk kernel's tile rows and shared memory (as
+    ``bwd_smem_floats`` in csrc/ssd.cu computes them, for the kernel's
+    largest head dim and state: C then B, B then R and Z as packed
+    triangles beside G or the entering state, X, dY, and per-row sums)."""
+    fwd = ssd_plan(B, S, H, P, N, chunk)
+    rows = 16
+    while rows < fwd.chunk:
+        rows *= 2
+    ldn, ldp = MAX_STATE + 1, MAX_HEAD_DIM + 1
+    tri = rows * (rows + 1) // 2
+    lo = max(tri, MAX_HEAD_DIM * ldn)
+    floats = (rows * ldn + max(rows * ldn, lo + tri) + 2 * rows * ldp
+              + 20 * MAX_CHUNK + BWD_THREADS // 32)
+    elems = B * S * G * N
+    return SsdBwdPlan(
+        chunk=fwd.chunk, chunks=fwd.chunks, state_grid=fwd.state_grid,
+        grid=fwd.grid, rows=rows, smem_bytes=4 * floats,
+        group_grid=(-(-elems // GROUP_SUM_THREADS), 2),
+        scratch_bytes=fwd.scratch_bytes + 2 * 4 * B * S * H * N)
 
 
 def _check(x, a, b, c, chunk, initial_state) -> None:
@@ -130,19 +188,57 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ssd_plain(x, a, b, c, chunk=chunk,
                              initial_state=initial_state)
+    _on_card(x, b, chunk)
+    if _build.needs_grad(x, a, b, c, initial_state):
+        y, final = _Ssd.apply(x, a, b, c, initial_state, chunk)
+    else:
+        y, final, _ = _forward(x, a, b, c, chunk, initial_state)
+    if final.numel():
+        ssd.launches += 1
+    return y, final
+
+
+def ssd_states(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, *, chunk: int = 128,
+               initial_state: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """``ssd``'s forward kernels outside autograd, returning also their
+    scratch, the fp32 state entering each (batch, chunk, head) (flat, as
+    ``ssd_bwd`` takes it; None where nothing was launched): what ``_Ssd``
+    keeps for the backward.  On the CPU the plain version, with no
+    scratch."""
+    _check(x, a, b, c, chunk, initial_state)
+    if x.device.type == "cpu":
+        return (*ref.ssd_plain(x, a, b, c, chunk=chunk,
+                               initial_state=initial_state), None)
+    _on_card(x, b, chunk)
+    out = _forward(x, a, b, c, chunk, initial_state)
+    if out[1].numel():
+        ssd.launches += 1
+    return out
+
+
+def _on_card(x: torch.Tensor, b: torch.Tensor, chunk: int) -> None:
+    """Raise unless x lies on the card and the kernels are built for the
+    chunk, head dim and state."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on cuda (or cpu), not {x.device}")
-    _build.refuse_grad("ssd", x, a, b, c, initial_state)
-    B, S, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
+    P, N = x.shape[3], b.shape[3]
     if chunk > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
         raise ValueError(f"ssd's kernel is built for chunk <= {MAX_CHUNK}, "
                          f"P <= {MAX_HEAD_DIM}, N <= {MAX_STATE}; got chunk "
                          f"{chunk}, P {P}, N {N}")
+
+
+def _forward(x, a, b, c, chunk, initial_state):
+    """The forward kernels on checked CUDA operands: (y, final state, the
+    scratch of entering states, or None where nothing was launched)."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if final.numel() == 0:
-        return y, final
+        return y, final, None
     plan = ssd_plan(B, S, H, P, N, chunk)
     states = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
                          device=x.device)
@@ -158,8 +254,98 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                  b.stride(0), b.stride(1), c.stride(0), c.stride(1),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd")
-    ssd.launches += 1
-    return y, final
+    return y, final, states
+
+
+class _Ssd(torch.autograd.Function):
+    """ssd on the card with its backward kernels: the forward keeps the
+    state entering each chunk (its own scratch, 4 B x chunks x H x P x N
+    bytes), so that the backward need not carry the state forward again."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c, initial_state, chunk):
+        y, final, states = _forward(x, a, b, c, chunk, initial_state)
+        ctx.save_for_backward(x, a, b, c, initial_state, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, a, b, c, initial_state, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, da, db, dc, dinit = ssd_bwd(
+            x, a, b, c, dy.contiguous(), chunk=ctx.chunk,
+            initial_state=initial_state, dfinal=dfinal, states=states)
+        return dx, da, db, dc, dinit, None
+
+
+def ssd_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, dy: torch.Tensor, *, chunk: int = 128,
+            initial_state: torch.Tensor | None = None,
+            dfinal: torch.Tensor | None = None,
+            states: torch.Tensor | None = None):
+    """``ssd``'s backward: ``(dx, da, db, dc, d initial_state)`` from the
+    forward's operands, dy (y's shape and dtype), the final state's
+    gradient ``dfinal`` (fp32 (B, H, P, N), or None: zero) and, on the
+    card, ``states``, the forward's scratch (``ssd_states``).  dx in x's
+    dtype, da fp32, db and dc fresh (B, S, G, N) tensors in b's dtype, the
+    initial state's gradient fp32 where one was given (else None).  See
+    ``ref.ssd_bwd`` for the function; deterministic (no atomics)."""
+    _check(x, a, b, c, chunk, initial_state)
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"ssd_bwd: dy must be a contiguous {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    if dfinal is not None and (dfinal.dtype != torch.float32 or tuple(
+            dfinal.shape) != (B, H, P, N) or dfinal.device != x.device
+            or not dfinal.is_contiguous()):
+        raise ValueError(f"ssd_bwd: dfinal must be a contiguous float32 "
+                         f"{(B, H, P, N)} on {x.device}")
+    if x.device.type == "cpu":
+        return ref.ssd_bwd(x, a, b, c, dy, chunk=chunk,
+                           initial_state=initial_state, dfinal=dfinal)
+    _on_card(x, b, chunk)
+    plan = ssd_bwd_plan(B, S, H, P, G, N, chunk)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    da = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
+    db, dc = (torch.empty((B, S, G, N), dtype=b.dtype, device=x.device)
+              for _ in range(2))
+    dinit = None if initial_state is None else torch.empty(
+        (B, H, P, N), dtype=torch.float32, device=x.device)
+    if B * H * P * N == 0:     # no state: the forward launched nothing
+        return dx.zero_(), da.zero_(), db.zero_(), dc.zero_(), dinit
+    n_states = B * plan.chunks * H * P * N     # the forward's scratch
+    if states is None or states.dtype != torch.float32 or \
+            states.numel() != n_states or states.device != x.device or \
+            not states.is_contiguous():
+        raise ValueError(f"ssd_bwd: states must be the forward's scratch, "
+                         f"{n_states} contiguous float32 (ssd_states)")
+    dstates = torch.empty(n_states, dtype=torch.float32, device=x.device)
+    dbh, dch = (torch.empty((B, S, H, N), dtype=torch.float32,
+                            device=x.device) for _ in range(2))
+    lib = _build.load("ssd", _SIGNATURES)
+    fn = lib.ssd_bwd_f32 if x.dtype == torch.float32 else lib.ssd_bwd_bf16
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                 dy.data_ptr(), states.data_ptr(),
+                 None if dfinal is None else dfinal.data_ptr(),
+                 dx.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                 None if dinit is None else dinit.data_ptr(),
+                 dstates.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
+                 B, S, H, P, G, N, plan.chunk, plan.chunks,
+                 plan.state_grid[0], int(initial_state is not None),
+                 x.stride(0), x.stride(1), a.stride(0), a.stride(1),
+                 b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+                 dy.stride(0), dy.stride(1),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd_bwd")
+    ssd_bwd.launches += 1
+    return dx, da, db, dc, dinit
 
 
 ssd.launches = 0
+ssd_bwd.launches = 0

@@ -14,9 +14,10 @@ device.
 
 Elastic rescale onto another mesh and ``--model-axis`` wait for the
 multi-device layer (ROADMAP A.6).  ``device=None`` means the CUDA card;
-there, every kernel of the model's path needs a backward (rmsnorm and
-flash attention have one: qwen3-4b trains; the layernorm, ``ssd`` and
-the MoE archs raise until ROADMAP A.5b).
+there, every kernel of the model's path needs a backward: rmsnorm,
+layernorm, flash attention's prefill and ``ssd`` have one, so the dense
+archs, whisper-medium and mamba2-2.7b train; the MoE archs raise until
+ROADMAP A.5b.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
           --reduced --device cpu --steps 40 --batch 8 --seq 64

@@ -34,9 +34,10 @@ encoder's, the decoder's self- and cross-attention) on the
 ``flash_attention`` kernel, through ``kernels.ops``; ``plain`` selects
 their plain versions.  ``device=None`` means the CUDA card.
 ``cfg.remat`` recomputes each encoder and decoder layer in the backward
-(``lm.remat``).  On the card the layernorm kernel has no backward yet, so
-``loss_fn`` raises under autograd there (ROADMAP A.5b); on the CPU the
-plain versions differentiate.  ``abstract_init`` and ``cache_specs`` wait
+(``lm.remat``).  Under autograd on the card the layernorm and attention
+kernels run their backward kernels (``sfu.layernorm_bwd``,
+``flash_attention.flash_attention_bwd``), so ``loss_fn`` trains there;
+on the CPU the plain versions differentiate.  ``abstract_init`` and ``cache_specs`` wait
 for the multi-device layer (A.6).
 """
 

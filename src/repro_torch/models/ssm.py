@@ -12,6 +12,10 @@ Weights are applied as ``x @ w`` and cast to the activations' dtype at
 use, as in the reference (``A_log``, ``dt_bias`` and the gated norm's
 gain stay fp32).  The SSD scan and the gated norm run on the port's
 kernels through ``kernels.ops``; ``plain`` selects their plain versions.
+Under autograd on the card both run their backward kernels
+(``ssd.ssd_bwd``, ``sfu.rmsnorm_bwd``); the gradients of dt, A_log, D,
+the conv and the projections flow through autograd around them, as on
+the CPU.
 Decode keeps a (conv window, SSD state) cache, both O(1) in the
 sequence length, and ``ssm_decode`` updates it in place.
 """

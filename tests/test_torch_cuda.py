@@ -22,6 +22,7 @@ from repro_torch.models import layers
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
 fg = importlib.import_module("repro_torch.kernels.flex_gemm")
 sfu = importlib.import_module("repro_torch.kernels.sfu")
+ssd_mod = importlib.import_module("repro_torch.kernels.ssd")
 
 # the reference's sweeps (tests/test_kernels.py) plus BERT-L tile shapes
 GEMM_SHAPES = [(128, 128, 128), (100, 200, 300), (7, 33, 129),
@@ -926,14 +927,161 @@ def test_cuda_attention_autograd_runs_the_backward_kernel(cuda):
         assert torch.equal(leaf.grad, w)
 
 
+# layernorm's backward rows (rows, width, offset): the reference's SFU
+# rows, whisper-medium's training rows (4 x 512 tokens of 1024: the warp
+# kernel), nemotron-4-15b's (6144: the vector kernel), a ragged width (the
+# block kernel), unaligned views (scalar loads) and a row past the warp
+# kernel's 1,024
+LN_BWD_ROWS = [(R, N, 0) for R, N in SFU_SHAPES] + [
+    (2048, 1024, 0), (2048, 6144, 0), (64, 2561, 0), (2048, 6144, 1),
+    (197, 768, 1), (33, 1025, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", LN_BWD_ROWS, ids=str)
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("form", ["gamma_beta", "gamma", "beta", "plain"])
+def test_cuda_layernorm_backward_matches_autograd_of_plain(cuda, rows, tdt,
+                                                           form):
+    """layernorm under autograd on the card: one forward (with mean and
+    rstd) and one backward launch, dx within the backward limits of the
+    plain version's autograd (fp32 1e-4 x max|ref|, bf16 rel L2 2e-2),
+    dgamma and dbeta (fp32 sums in another order) within 1e-4 x max|ref|
+    (fp32) or rel L2 1e-3 (bf16), and the same bits on a replay."""
+    R, N, offset = rows
+    x = _view((R, N), offset, 140, cuda, tdt, 2.0)
+    dy = _view((R, N), offset, 141, cuda, tdt)
+    g = 1.0 + _view((N,), offset, 142, cuda, torch.float32, 0.2) \
+        if "gamma" in form else None
+    bt = _view((N,), offset, 143, cuda, torch.float32, 0.2) \
+        if "beta" in form else None
+    leaves = [None if t is None else t.detach().clone().requires_grad_()
+              for t in (x, g, bt)]
+    ref.layernorm_rows(*leaves).backward(dy)
+    kl = [None if t is None else t.detach().requires_grad_()
+          for t in (x, g, bt)]
+    before = (layernorm_rows.launches, sfu.layernorm_bwd.launches)
+    out = layernorm_rows(*kl)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (layernorm_rows.launches, sfu.layernorm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.grad_fn is not None and kl[0].grad.dtype == tdt
+    _grad_close(kl[0].grad, leaves[0].grad, tdt)
+    for k, w in zip(kl[1:], leaves[1:]):
+        if k is None:
+            continue
+        if tdt == torch.float32:
+            _grad_close(k.grad, w.grad, tdt)
+        else:
+            assert _rel_l2(k.grad, w.grad) <= 1e-3
+    mean, rstd = ref.layernorm_stats(x)
+    first = sfu.layernorm_bwd(x, g, bt, mean, rstd, dy.contiguous())
+    again = sfu.layernorm_bwd(x, g, bt, mean, rstd, dy.contiguous())
+    torch.cuda.synchronize()
+    for f, a_, want in zip(first, again, (x, g, bt)):
+        assert (f is None) == (want is None)
+        if f is not None:
+            assert torch.equal(f, a_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_layernorm_backward_of_no_rows_gives_zero_sums(cuda, tdt):
+    x = torch.empty((0, 1024), device=cuda, dtype=tdt)
+    g = torch.ones(1024, device=cuda)
+    before = sfu.layernorm_bwd.launches
+    dx, dg, db = sfu.layernorm_bwd(x, g, g, torch.empty(0, device=cuda),
+                                   torch.empty(0, device=cuda), x)
+    assert dx.shape == x.shape and not dg.any() and not db.any()
+    assert sfu.layernorm_bwd.launches == before
+
+
+# ssd's backward: the forward's SSD_SHAPES sweep (chunk 32 and the SSM
+# block's), and jamba's 256 heads
+SSD_BWD_SHAPES = SSD_SHAPES + [(1, 128, 256, 64, 1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("chunk", [32, "model"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+def test_cuda_ssd_backward_matches_autograd_of_plain(cuda, shape, chunk, tdt,
+                                                     with_init):
+    """``ssd`` under autograd on the card (with a gradient into the final
+    state where it starts from one): one forward and one backward launch;
+    dx, da, db, dc and the initial state's gradient against autograd of
+    ``ref.ssd_plain`` (fp32 within 1e-4 x max|ref|, bf16 rel L2 2e-2), and
+    the backward kernels twice on the saved scratch give the same bits."""
+    B, S, H, P, G, N = shape
+    chunk = min(128, max(16, S)) if chunk == "model" else chunk
+    x, a, b, c = _ssd_inputs(shape, 150, cuda, tdt)
+    dy = torch.from_numpy(_np((B, S, H, P), 155)).to(cuda, tdt)
+    init = torch.from_numpy(_np((B, H, P, N), 156)).to(cuda) \
+        if with_init else None
+    dfin = torch.from_numpy(_np((B, H, P, N), 157)).to(cuda) \
+        if with_init else None
+    ops = [t for t in (x, a, b, c, init)]
+    plain = [None if t is None else t.detach().clone().requires_grad_()
+             for t in ops]
+    y, fin = ref.ssd_plain(*plain[:4], chunk=chunk, initial_state=plain[4])
+    torch.autograd.backward([y, fin] if with_init else [y],
+                            [dy, dfin] if with_init else [dy])
+    kern = [None if t is None else t.detach().requires_grad_() for t in ops]
+    before = (ssd.launches, ssd_mod.ssd_bwd.launches)
+    y2, fin2 = ssd(*kern[:4], chunk=chunk, initial_state=kern[4])
+    torch.autograd.backward([y2, fin2] if with_init else [y2],
+                            [dy, dfin] if with_init else [dy])
+    torch.cuda.synchronize()
+    assert (ssd.launches, ssd_mod.ssd_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for k, w in zip(kern, plain):
+        if k is not None:
+            assert k.grad.dtype == w.grad.dtype
+            _grad_close(k.grad, w.grad, k.grad.dtype)
+    _, _, states = ssd_mod.ssd_states(x, a, b, c, chunk=chunk,
+                                      initial_state=init)
+    runs = [ssd_mod.ssd_bwd(x, a, b, c, dy, chunk=chunk, initial_state=init,
+                            dfinal=dfin, states=states) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (runs[0][4] is None) == (init is None)
+    for f, r in zip(*runs):
+        if f is not None:
+            assert torch.equal(f, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_ssd_backward_reads_strided_views(cuda, tdt):
+    """b and c as slices of one (B, S, conv_dim) tensor that requires grad,
+    as the SSM block hands them over: their gradients come back through
+    the views into it, equal to the plain version's."""
+    B, S, H, P, G, N = 2, 100, 8, 32, 2, 16
+    x, a, b, c = _ssd_inputs((B, S, H, P, G, N), 160, cuda, tdt)
+    dy = torch.from_numpy(_np((B, S, H, P), 161)).to(cuda, tdt)
+    bc = torch.cat([b.reshape(B, S, G * N), c.reshape(B, S, G * N)], -1)
+    grads = []
+    for fn in (ref.ssd_plain, ssd):
+        xl, bcl = x.detach().requires_grad_(), bc.detach().requires_grad_()
+        bv = bcl[..., :G * N].reshape(B, S, G, N)
+        cv = bcl[..., G * N:].reshape(B, S, G, N)
+        assert not bv.is_contiguous()
+        fn(xl, a, bv, cv, chunk=64)[0].backward(dy)
+        grads.append((xl.grad, bcl.grad))
+    torch.cuda.synchronize()
+    for k, w in zip(grads[1], grads[0]):
+        _grad_close(k, w, tdt)
+
+
 def _c5_calls(cuda):
     """Each kernel without a backward (C.5), called on CUDA tensors that
     require grad: name -> a call."""
     x = torch.from_numpy(_np((8, 256), 130)).to(cuda).requires_grad_()
-    g = torch.ones(256, device=cuda, requires_grad=True)
-    xb = torch.from_numpy(_np((2, 64, 4, 16), 131)).to(cuda).requires_grad_()
-    a = -torch.rand((2, 64, 4), device=cuda) * 0.1
-    bc = torch.from_numpy(_np((2, 64, 1, 16), 132)).to(cuda)
     w = torch.from_numpy(_np((256, 64), 133)).to(cuda).requires_grad_()
     q = torch.from_numpy(_np((1, 4, 1, 64), 134)).to(cuda).requires_grad_()
     kv = torch.from_numpy(_np((1, 4, 32, 64), 135)).to(cuda)
@@ -941,9 +1089,7 @@ def _c5_calls(cuda):
     kv64 = torch.from_numpy(_np((1, 4, 64, 64), 137)).to(cuda)
     return {
         "softmax_rows": lambda: softmax_rows(x),
-        "layernorm_rows": lambda: layernorm_rows(x, g, None),
         "act_rows": lambda: act_rows(x, "gelu"),
-        "ssd": lambda: ssd(xb, a, bc, bc, chunk=32),
         "flex_gemm": lambda: flex_gemm(x, w),
         "flash_attention decode shape": lambda: flash_attention(
             q, kv, kv, causal=True),
@@ -953,8 +1099,7 @@ def _c5_calls(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["softmax_rows", "layernorm_rows",
-                                  "act_rows", "ssd", "flex_gemm",
+@pytest.mark.parametrize("name", ["softmax_rows", "act_rows", "flex_gemm",
                                   "flash_attention decode shape",
                                   "flash_attention kv_len"])
 def test_cuda_kernels_without_a_backward_raise_under_autograd(cuda, name):
@@ -968,30 +1113,54 @@ def test_cuda_kernels_without_a_backward_raise_under_autograd(cuda, name):
     assert out.grad_fn is None and torch.isfinite(out).all()
 
 
+# the reduced configs' launches a step (no remat there): {kernel: count}
+# from n layers (encoder layers for whisper, decoder ones after)
+TRAIN_LAUNCHES = {
+    "qwen3-4b": lambda cfg: {
+        "rmsnorm_rows": 4 * cfg.n_layers + 1, "rmsnorm_bwd": 4 * cfg.n_layers + 1,
+        "flash_attention": cfg.n_layers, "flash_attention_bwd": cfg.n_layers},
+    "whisper-medium": lambda cfg: {
+        "layernorm_rows": 2 * cfg.encoder_layers + 3 * cfg.n_layers + 2,
+        "layernorm_bwd": 2 * cfg.encoder_layers + 3 * cfg.n_layers + 2,
+        "flash_attention": cfg.encoder_layers + 2 * cfg.n_layers,
+        "flash_attention_bwd": cfg.encoder_layers + 2 * cfg.n_layers},
+    "mamba2-2.7b": lambda cfg: {
+        "rmsnorm_rows": 2 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1,
+        "ssd": cfg.n_layers, "ssd_bwd": cfg.n_layers},
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(TRAIN_LAUNCHES))
 def test_cuda_trainer_trains_reduced_qwen3_and_replays_a_fault(cuda,
-                                                               tmp_path):
-    """``Trainer`` on the card at the reduced config (fp32): the loss falls
-    as on the CPU (tests/test_torch_train.py), every step goes through the
-    backward kernels (one call of each a forward call: no remat in the
-    reduced config), and a run with a fault injected and resumed from
-    its checkpoint replays the uninterrupted losses."""
+                                                               tmp_path,
+                                                               arch):
+    """``Trainer`` on the card at the reduced config (fp32) of qwen3-4b,
+    whisper-medium and mamba2-2.7b: the loss falls as on the CPU
+    (tests/test_torch_train.py), every step goes through the backward
+    kernels (one call of each a forward call: no remat in the reduced
+    configs), and a run with a fault injected and resumed from its
+    checkpoint replays the uninterrupted losses."""
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch.train import TrainOptions, Trainer
-    cfg = get_config("qwen3-4b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     shape = ShapeSpec("t", 64, 8, "train")
-    counts = (rmsnorm_rows, sfu.rmsnorm_bwd, flash_attention,
-              fa.flash_attention_bwd)
-    before = [f.launches for f in counts]
+    fns = {"rmsnorm_rows": rmsnorm_rows, "rmsnorm_bwd": sfu.rmsnorm_bwd,
+           "layernorm_rows": layernorm_rows,
+           "layernorm_bwd": sfu.layernorm_bwd,
+           "flash_attention": flash_attention,
+           "flash_attention_bwd": fa.flash_attention_bwd, "ssd": ssd,
+           "ssd_bwd": ssd_mod.ssd_bwd}
+    before = {k: f.launches for k, f in fns.items()}
     tr = Trainer(cfg, shape, device=cuda, options=TrainOptions(
         steps=40, ckpt_every=10, ckpt_dir=str(tmp_path / "a"),
         log_every=1000))
     tr.run()
     losses = [m["loss"] for m in tr.metrics_log]
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.05
-    L = cfg.n_layers
-    assert [f.launches - b for f, b in zip(counts, before)] == \
-        [40 * (4 * L + 1), 40 * (4 * L + 1), 40 * L, 40 * L]
+    want = {k: 40 * n for k, n in TRAIN_LAUNCHES[arch](cfg).items()}
+    assert {k: f.launches - before[k] for k, f in fns.items()} == \
+        dict.fromkeys(fns, 0) | want
     faulty = Trainer(cfg, shape, device=cuda, options=TrainOptions(
         steps=40, ckpt_every=10, ckpt_dir=str(tmp_path / "b"),
         fail_at_step=25, log_every=1000))
