@@ -164,7 +164,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    training shapes, beside their plain versions, the backward of
    ``F.rms_norm`` / ``F.layer_norm`` / ``F.scaled_dot_product_attention``
    (none computes the SSD backward), and in brackets their times before
-   the redesign (``MS_BEFORE_REDESIGN``, as recorded in ``PERF.md``).
+   the redesign (``MS_BEFORE_REDESIGN``, as recorded in ``PERF.md``), and
+   ``ssd_bwd`` at jamba's 256 heads; the norms' backward plans each beside
+   an alternative in turns, through the wrappers (``[tune]``: rmsnorm's
+   q-norm rows on the warp or the vector kernel; layernorm's
+   whisper-medium rows on the vector or the warp kernel, nemotron-4-15b's
+   on one or two blocks an SM).
    The profiles sum ``ssd``'s two kernels and each backward's kernels, and
    print each step's device activities.
 
@@ -422,7 +427,10 @@ FULL_TRAIN_ARCHS = ("whisper-medium", "mamba2-2.7b")
 MS_BEFORE_REDESIGN = {("rmsnorm_bwd", (2048, 2560)): 0.0240,
                       ("rmsnorm_bwd", (65536, 128)): 0.0438,
                       ("rmsnorm_bwd", (16384, 128)): 0.0126,
-                      ("flash_attention_bwd", (4, 32, 512, 128)): 1.5186}
+                      ("flash_attention_bwd", (4, 32, 512, 128)): 1.5186,
+                      ("ssd_bwd", (4, 512, 80, 64, 1, 128)): 2.0004,
+                      ("layernorm_bwd", (2048, 1024)): 0.0311,
+                      ("layernorm_bwd", (2048, 6144)): 0.0768}
 # the backward kernels whose ptxas registers and spills the build prints,
 # by library
 PTXAS_KERNELS = {
@@ -432,7 +440,8 @@ PTXAS_KERNELS = {
             "rmsnorm_bwd_block_kernel", "layernorm_bwd_vec_kernel",
             "layernorm_bwd_warp_kernel", "layernorm_bwd_block_kernel",
             "column_sum_kernel"),
-    "ssd": ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_group_sum"),
+    "ssd": ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_state_mma",
+            "ssd_bwd_chunk_mma", "ssd_bwd_group_sum"),
 }
 # the kernels of one backward call, which the profiles sum (csrc/*.cu); the
 # norms share the column sum, which a profile with both norms' backwards
@@ -441,7 +450,8 @@ BWD_PHASES = {"flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_kv",
                                       "flash_bwd_q"),
               "rmsnorm_bwd": ("rmsnorm_bwd_", "column_sum"),
               "layernorm_bwd": ("layernorm_bwd_", "column_sum"),
-              "ssd_bwd": ("ssd_bwd_state", "ssd_bwd_chunk",
+              "ssd_bwd": ("ssd_bwd_state_mma", "ssd_bwd_chunk_mma",
+                          "ssd_bwd_state<", "ssd_bwd_chunk<",
                           "ssd_bwd_group_sum")}
 # Model gradients, kernels against plain versions, same weights and batch:
 # at fp32 compute over MODEL_FP32_LAYERS layers every leaf within
@@ -550,11 +560,23 @@ def ssd_bwd_work(B, S, H, P, G, N, chunk, esize) -> tuple[int, int]:
     return 2 * macs, nbytes
 
 
+def mangled_is(mangled: str, name: str) -> bool:
+    """Whether a mangled kernel name is ``name`` (a template's
+    instantiation, ``nameI...``, or a plain function, ``nameE...``)."""
+    return bool(re.search(rf"\d{name}[IE]", mangled))
+
+
 def kernel_label(mangled: str, name: str) -> str:
-    """``name<template arguments>`` from a kernel's mangled name."""
+    """``name<template arguments>`` from a kernel's mangled name (``name``
+    for a plain function)."""
+    if name + "I" not in mangled:
+        return name
     args = mangled.split(name + "I", 1)[-1].split("Ev", 1)[0]
-    found = re.findall(r"Li(\d+)|__nv_(bfloat16)|^(f)(?=[EL])", args)
-    return f"{name}<{', '.join(n or b or 'float' for n, b, _ in found)}>"
+    found = re.findall(r"Li(\d+)|Lb([01])|__nv_(bfloat16)|^(f)(?=[EL])",
+                       args)
+    return f"{name}<" + ", ".join(
+        n or ("false", "true")[int(t)] if n or t else b or "float"
+        for n, t, b, _ in found) + ">"
 
 
 def rel_l2(got, want) -> float:
@@ -654,7 +676,7 @@ def main() -> None:
         usage = _build.ptxas_usage(_build.build_log(lib))
         for name in names:
             found = sorted((fn, u) for fn, u in usage.items()
-                           if name + "I" in fn)
+                           if mangled_is(fn, name))
             require(found, f"no ptxas -v line for {name} in {lib}'s build "
                     f"log")
             for fn, (regs, st, ld) in found:
@@ -2751,17 +2773,9 @@ def main() -> None:
             lambda: ref.ssd_chunked(*ssd_in, chunk=128), None,
             *ssd_work(*ssm_prefill, 128, 2)),
     }
-    # the bf16 tensor cores' peak where the kernel computes on them, and
-    # for ssd_bwd on its bf16 inputs (its first kernels run fp32 FMA: the
-    # operations' time at the fp32 peak is printed beside it)
+    # the bf16 tensor cores' peak where the kernel computes on them
     ops_peak = {"flash_attention": bf16_peak, "ssd": bf16_peak,
                 "flash_attention_bwd": bf16_peak, "ssd_bwd": bf16_peak}
-    flops_ssd_bwd = ssd_bwd_work(*ssm_prefill, 128, 2)[0]
-    print(f"[time] ssd_bwd {ssm_prefill} chunk 128: {flops_ssd_bwd / 1e9:.4g}"
-          f" GFLOP take {1e3 * flops_ssd_bwd / fp32_peak:.4f} ms at the fp32 "
-          f"FMA peak (the kernels' arithmetic), "
-          f"{1e3 * flops_ssd_bwd / bf16_peak:.4f} ms at the bf16 tensor "
-          f"cores' (the bound's)")
 
     def report(name, shape, kernel, plain, library, flops, nbytes, peak,
                before=None):
@@ -2816,8 +2830,63 @@ def main() -> None:
                lambda: torch.autograd.grad(yl, ll, args[-1],
                                            retain_graph=True),
                12 * args[0].numel(),
-               6 * args[0].numel() + 8 * R + 12 * N, fp32_peak)
+               6 * args[0].numel() + 8 * R + 12 * N, fp32_peak,
+               MS_BEFORE_REDESIGN["layernorm_bwd", (R, N)])
         del args, yl, ll
+    # the norms' backward plans beside an alternative, timed in turns (plan,
+    # alternative, alternative, plan) through the wrappers, with
+    # sfu.norm_bwd_plan giving the alternative in its turns: rmsnorm's
+    # q-norm rows (65,536 x 128 bf16) on the warp kernel (the plan) and on
+    # the vector kernel (16 vectors a row on one warp, 20 rows a block);
+    # whisper-medium's layernorm rows on the vector kernel (the plan) and on
+    # the warp kernel (6 rows a block, two blocks an SM: the plan before the
+    # redesign); nemotron-4-15b's on one 384-thread block an SM (the plan)
+    # and two
+    @contextlib.contextmanager
+    def norm_bwd_plan_as(plan):
+        """The norms' backward wrappers laid out by ``plan`` (threads,
+        rows, blocks) in place of ``norm_bwd_plan``'s."""
+        was = sfu_k.norm_bwd_plan
+        sfu_k.norm_bwd_plan = lambda *_: plan
+        try:
+            yield
+        finally:
+            sfu_k.norm_bwd_plan = was
+
+    sms = _build.sm_count(dev)
+    for label, R, N, layer, alt in (
+            ("rmsnorm_bwd q-norm", TRAIN_BATCH * TRAIN_SEQ * cfg.n_heads,
+             cfg.head_dim, False, (32, 20, sms)),
+            ("layernorm_bwd whisper-medium", TRAIN_BATCH * TRAIN_SEQ,
+             wcfg.d_model, True, (0, 6, 2 * sms)),
+            ("layernorm_bwd nemotron-4-15b", *RMS_WIDE[0], True,
+             (384, 1, 2 * sms))):
+        x, dy = (randn(R, N, dtype=torch.bfloat16) for _ in range(2))
+        g = randn(N)
+        stats = ref.layernorm_stats(x) if layer else (ref.rmsnorm_rstd(x),)
+        plan = sfu_k.norm_bwd_plan(R, N, 2, True, sms, 2 if layer else 1)
+        want = (ref.layernorm_bwd(x, g, g, *stats, dy) if layer
+                else ref.rmsnorm_bwd(x, g, *stats, dy))
+
+        def call():
+            return (sfu_k.layernorm_bwd(x, g, g, *stats, dy) if layer
+                    else sfu_k.rmsnorm_bwd(x, g, *stats, dy))
+        ms = {}
+        for p in (plan, alt, alt, plan):
+            with norm_bwd_plan_as(p):
+                got = call()
+                torch.cuda.synchronize()
+                require(rel_l2(got[0], want[0]) <= BF16_GRAD_RTOL and all(
+                    rel_l2(u, v) <= DGAMMA_RTOL for u, v in zip(got[1:],
+                                                                want[1:])),
+                        f"{label} with plan {p} disagrees with the plain "
+                        f"version")
+                ms.setdefault(p, []).append(cuda_ms(torch, call)[0])
+        print(f"[tune] {label} {R}x{N} bf16: device ms, plan {plan} "
+              f"{np.mean(ms[plan]):.4f} ({', '.join(f'{t:.4f}' for t in ms[plan])}), "
+              f"alternative {alt} {np.mean(ms[alt]):.4f} "
+              f"({', '.join(f'{t:.4f}' for t in ms[alt])}); on {smi}")
+        del x, dy, want, got
     # flash attention's backward at whisper-medium's training attention
     # (16 heads of 64, 4 x 512 tokens), causal (decoder) and full (encoder)
     for causal in (True, False):
@@ -2877,7 +2946,14 @@ def main() -> None:
            lambda: ssd(*xj, chunk=128),
            lambda: ref.ssd_chunked(*xj, chunk=128), None,
            *ssd_work(*jamba_prefill, 128, 2), bf16_peak)
-    del xj
+    # and its backward (the bf16 kernels' 256-head shape)
+    dyj = randn(*xj[0].shape, dtype=torch.bfloat16)
+    _, _, stj = ssd_states(*xj, chunk=128)
+    report("ssd_bwd", f"{jamba_prefill} chunk 128 bf16 (jamba-1.5-large "
+           f"shape)", lambda: ssd_bwd(*xj, dyj, chunk=128, states=stj),
+           lambda: ref.ssd_bwd(*xj, dyj, chunk=128), None,
+           *ssd_bwd_work(*jamba_prefill, 128, 2), bf16_peak)
+    del xj, dyj, stj
     # whisper-medium's attention (bf16, 16 heads of 64, over 1,500 frames,
     # non-causal), qwen2-vl-2b's prefill (causal, 12 query heads over 2),
     # and the MoE archs' prefill and decode over the served cache (head
@@ -3040,7 +3116,8 @@ def main() -> None:
 
     kernels = []
     shapes = {"rmsnorm_bwd": tuple(x_rms.shape),
-              "flash_attention_bwd": tuple(qp.shape)}
+              "flash_attention_bwd": tuple(qp.shape),
+              "layernorm_bwd": tuple(ln_args[0].shape), "ssd_bwd": ssm_prefill}
     for name, row in rows.items():
         ms, plain_ms, lib_ms, bound_ms, bound_by = report(
             name, *row, ops_peak.get(name, fp32_peak),

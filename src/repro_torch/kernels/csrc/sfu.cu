@@ -60,6 +60,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "act.cuh"
@@ -75,6 +76,8 @@ constexpr int ROW_WARPS = 4;   // rows (warps) per block, the softmax and
 constexpr int LANE_MAX = 32;   // fp32 values a lane of those holds at most
 constexpr int MAX_THREADS = 1024;
 constexpr int ROW_VPT = 2;     // 16-byte vectors a thread, one-pass kernel
+constexpr int BWD_VEC_THREADS = 640;  // the norms' backward vector kernels'
+                                      // largest block (96 registers a thread)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -686,20 +689,27 @@ int launch_rmsnorm(const void* x, const void* gamma, void* y, void* rstd,
 // dgamma = sum over rows of dy * xh and dbeta = sum over rows of dy (CENTER
 // below).  No Pallas kernel differentiates (the reference differentiates
 // its jnp norms).  Bound: device-memory bytes (x and dy read, dx written
-// once).  Each kernel takes the block shape of its forward (a warp a row up
-// to WARP_ROW_MAX, the one-pass vector kernel, the block kernel), `rows`
-// rows of a block at once, and walks rows cyclically over a fixed grid of
-// `blocks` (the wrapper's plan).  dgamma's and dbeta's column sums run over
-// a row group's rows in registers (or a warp's shared row), then over the
-// block's row groups in a fixed order into one partial row a block (part,
-// partb), then over the blocks in a fixed order (column_sum_kernel, once
-// for each): no atomics, the same bits every run.  A grid of one or two
-// wide blocks an SM (640 threads on 4 rows at 2048 x 2560, 1,024 on 32 rows
-// at the q/k-norms' 128) keeps part small: 1.35 MB at 2048 x 2560, where
-// 528 one-row blocks wrote 5.4 MB and read it back after a zero fill of
-// dgamma.  The kernels of both norms share one body each (CENTER), and the
-// __global__ functions below keep a name for each norm, so that ptxas and
-// the profiles tell them apart.
+// once).  Rows of a whole number of 16-byte vectors with aligned operands,
+// at least 64 of them, take the vector kernel (`threads` threads a row,
+// ROW_VPT vectors a thread, up to BWD_VEC_THREADS threads a block): the
+// forward's wide rows, and rows of 512 to 1,024 bf16 (256 fp32) too, which
+// the warp kernel reads by 2-byte loads (whisper-medium's 1,024: 64
+// threads a row, 10 rows a block; on the H100 0.0131 against 0.0254 ms on
+// the warp kernel, PERF.md).  Each thread loads the next row's vectors
+// before the current row's reduction, so two rows a row group are in
+// flight.  Other rows of at most WARP_ROW_MAX take a warp a row (rmsnorm's
+// q/k-norm rows of 128, where it measured faster), wider ones the block
+// kernel.  The kernels walk rows cyclically over a fixed grid of `blocks`
+// (the wrapper's plan, norm_bwd_plan), `rows` rows of a block at once.  dgamma's and dbeta's
+// column sums run over a row group's rows in registers (or a warp's shared
+// row), then over the block's row groups in a fixed order into one partial
+// row a block (part, partb), then over the blocks in a fixed order (one
+// column_sum_kernel launch for both): no atomics, the same bits every run.
+// A grid of one or two wide blocks an SM keeps part small: 1.35 MB at 2048
+// x 2560, where 528 one-row blocks wrote 5.4 MB and read it back after a
+// zero fill of dgamma.  The kernels of both norms share one body each
+// (CENTER), and the __global__ functions below keep a name for each norm,
+// so that ptxas and the profiles tell them apart.
 
 // A warp a row of N <= WARP_ROW_MAX, blockDim.x / 32 rows a block; warp w
 // of block b takes rows (b + k * gridDim.x) * rows + w.  Each warp sums its
@@ -764,14 +774,16 @@ __device__ __forceinline__ void norm_bwd_warp(
   }
 }
 
-// The one-pass forward's rows (norm_plan): `threads` threads a row, thread
-// t of a row group holding the row's 16-byte vectors t and t + threads; a
-// block of blockDim.x = rows x threads works on `rows` rows at once, row
-// group q of block b taking rows (i * gridDim.x + b) * rows + q, i = 0,
-// 1, ...  Each thread sums dy * xh (and dy) of its own columns in registers
-// over its group's rows; with rows > 1 the groups add theirs in group order
-// through shared rows of N floats, and the last writes part[blockIdx.x]
-// (and partb[blockIdx.x]).
+// The vector rows (norm_bwd_plan): `threads` threads a row, thread t of a
+// row group holding the row's 16-byte vectors t and t + threads; a block of
+// blockDim.x = rows x threads works on `rows` rows at once, row group q of
+// block b taking rows (i * gridDim.x + b) * rows + q, i = 0, 1, ...  The
+// next row's vectors (and its mean and rstd) are loaded before this row's
+// sums are reduced.  Each thread sums dy * xh (and dy) of its own columns
+// in registers over its group's rows; with rows > 1 the groups write
+// theirs to shared rows (rows x parts x N floats) and the block adds them
+// up a column a thread, in group order, into part[blockIdx.x] (and
+// partb[blockIdx.x]).
 template <typename T, bool CENTER>
 __device__ __forceinline__ void norm_bwd_vec(
     const T* __restrict__ x, const float* __restrict__ gamma,
@@ -779,9 +791,10 @@ __device__ __forceinline__ void norm_bwd_vec(
     const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
     float* __restrict__ partb, int R, int V, int threads) {
   using P = Vec16<T>;
-  extern __shared__ float cols[];   // N with gamma, N with beta; rows > 1
+  extern __shared__ float cols[];   // rows > 1: each group's dgamma and
+                                    // dbeta sums
   // the groups' warp sums, alternating between row steps: [it & 1][sum]
-  __shared__ float red[2][CENTER ? 2 : 1][MAX_THREADS / 32];
+  __shared__ float red[2][CENTER ? 2 : 1][BWD_VEC_THREADS / 32];
   const int rows = blockDim.x / threads, grp = threadIdx.x / threads;
   const int tl = threadIdx.x % threads, lane = threadIdx.x & 31;
   const int wpr = threads / 32;                // warps a row group
@@ -801,21 +814,36 @@ __device__ __forceinline__ void norm_bwd_vec(
   const float inv_n = 1.0f / static_cast<float>(V * P::E);
   const int step = gridDim.x * rows;
   const int iters = (R + step - 1) / step;     // the same in every thread
+  // row `it` of this row group: its vectors, rstd and mean (zero past R)
+  uint4 ux[ROW_VPT], ud[ROW_VPT];
+  float r = 0.0f, mu = 0.0f;
+  auto fetch = [&](int it, uint4 (&vx)[ROW_VPT], uint4 (&vd)[ROW_VPT],
+                   float& vr, float& vm) {
+    const int row = (it * gridDim.x + blockIdx.x) * rows + grp;
+    const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)row * V;
+    const uint4* dr = reinterpret_cast<const uint4*>(dy) + (size_t)row * V;
+    const bool valid = row < R;
+#pragma unroll
+    for (int k = 0; k < ROW_VPT; ++k) {
+      const int j = tl + k * threads;
+      vx[k] = vd[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (valid && j < V) {
+        vx[k] = __ldg(xr + j);
+        vd[k] = __ldg(dr + j);
+      }
+    }
+    vr = valid ? rstd[row] : 0.0f;
+    vm = CENTER && valid ? mean[row] : 0.0f;
+  };
+  if (iters > 0) fetch(0, ux, ud, r, mu);
   for (int it = 0; it < iters; ++it) {
     const int row = (it * gridDim.x + blockIdx.x) * rows + grp;
     const bool valid = row < R;
-    const uint4* xr = reinterpret_cast<const uint4*>(x) + (size_t)row * V;
-    const uint4* dr = reinterpret_cast<const uint4*>(dy) + (size_t)row * V;
-    const float r = valid ? rstd[row] : 0.0f;
-    const float mu = CENTER && valid ? mean[row] : 0.0f;
-    uint4 ux[ROW_VPT], ud[ROW_VPT];
     float s = 0.0f, s1 = 0.0f;
 #pragma unroll
     for (int k = 0; k < ROW_VPT; ++k) {
       const int j = tl + k * threads;
       if (valid && j < V) {
-        ux[k] = __ldg(xr + j);
-        ud[k] = __ldg(dr + j);
         float f[P::E], d[P::E];
         P::unpack(ux[k], f);
         P::unpack(ud[k], d);
@@ -836,6 +864,9 @@ __device__ __forceinline__ void norm_bwd_vec(
         }
       }
     }
+    uint4 nx[ROW_VPT], nd[ROW_VPT];
+    float nr = 0.0f, nmu = 0.0f;
+    if (it + 1 < iters) fetch(it + 1, nx, nd, nr, nmu);
     // the row's sums over its group's warps, in a fixed order (warp
     // shuffles, then the warps' partials by the same shuffles)
     s = warp_reduce<false>(s);
@@ -851,60 +882,74 @@ __device__ __forceinline__ void norm_bwd_vec(
     if constexpr (CENTER)
       c1 = warp_reduce<false>(
           lane < wpr ? red[it & 1][1][grp * wpr + lane] : 0.0f) * inv_n;
-    if (!valid) continue;
-    uint4* out = reinterpret_cast<uint4*>(dx) + (size_t)row * V;
-#pragma unroll
-    for (int k = 0; k < ROW_VPT; ++k) {
-      const int j = tl + k * threads;
-      if (j < V) {
-        float f[P::E], d[P::E];
-        P::unpack(ux[k], f);
-        P::unpack(ud[k], d);
-#pragma unroll
-        for (int q = 0; q < P::E; q += 4) {
-          float g[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-          if (has_g) load_cols<4>(gamma, j * P::E + q, g);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if constexpr (CENTER)
-              f[q + e] = r * (g[e] * d[q + e] - c1 - (f[q + e] - mu) * r * c);
-            else
-              f[q + e] = r * (g[e] * d[q + e] - f[q + e] * r * c);
-          }
-        }
-        out[j] = P::pack(f);
-      }
-    }
-  }
-  if (!has_g && !has_b) return;
-  const int N = V * P::E;
-  float* colsb = cols + (has_g ? N : 0);
-  for (int q = 0; q < rows; ++q) {   // group order
-    if (grp == q) {
+    if (valid) {
+      uint4* out = reinterpret_cast<uint4*>(dx) + (size_t)row * V;
 #pragma unroll
       for (int k = 0; k < ROW_VPT; ++k) {
         const int j = tl + k * threads;
         if (j < V) {
+          float f[P::E], d[P::E];
+          P::unpack(ux[k], f);
+          P::unpack(ud[k], d);
 #pragma unroll
-          for (int e = 0; e < P::E; ++e) {
-            const int col = j * P::E + e;
-            if (has_g) {
-              const float t = q > 0 ? cols[col] + acc[k][e] : acc[k][e];
-              if (q + 1 < rows) cols[col] = t;
-              else part[(size_t)blockIdx.x * N + col] = t;
-            }
-            if constexpr (CENTER) {
-              if (has_b) {
-                const float t = q > 0 ? colsb[col] + accb[k][e] : accb[k][e];
-                if (q + 1 < rows) colsb[col] = t;
-                else partb[(size_t)blockIdx.x * N + col] = t;
-              }
+          for (int q = 0; q < P::E; q += 4) {
+            float g[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+            if (has_g) load_cols<4>(gamma, j * P::E + q, g);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if constexpr (CENTER)
+                f[q + e] =
+                    r * (g[e] * d[q + e] - c1 - (f[q + e] - mu) * r * c);
+              else
+                f[q + e] = r * (g[e] * d[q + e] - f[q + e] * r * c);
             }
           }
+          out[j] = P::pack(f);
         }
       }
     }
-    if (q + 1 < rows) __syncthreads();
+    if (it + 1 < iters) {
+#pragma unroll
+      for (int k = 0; k < ROW_VPT; ++k) {
+        ux[k] = nx[k];
+        ud[k] = nd[k];
+      }
+      r = nr;
+      mu = nmu;
+    }
+  }
+  if (!has_g && !has_b) return;
+  const int N = V * P::E, parts = has_g + has_b;
+  // with one row group the sums go straight to part and partb; else each
+  // group's into its own shared rows, then every column over the groups
+  // in group order
+  float* mine = rows == 1 ? part + (size_t)blockIdx.x * N
+                          : cols + (size_t)grp * parts * N;
+  float* mineb = rows > 1 ? mine + (has_g ? N : 0)
+                          : has_b ? partb + (size_t)blockIdx.x * N : nullptr;
+#pragma unroll
+  for (int k = 0; k < ROW_VPT; ++k) {
+    const int j = tl + k * threads;
+    if (j >= V) continue;
+#pragma unroll
+    for (int q = 0; q < P::E; q += 4) {
+      if (has_g)
+        *reinterpret_cast<float4*>(mine + j * P::E + q) = make_float4(
+            acc[k][q], acc[k][q + 1], acc[k][q + 2], acc[k][q + 3]);
+      if constexpr (CENTER) {
+        if (has_b)
+          *reinterpret_cast<float4*>(mineb + j * P::E + q) = make_float4(
+              accb[k][q], accb[k][q + 1], accb[k][q + 2], accb[k][q + 3]);
+      }
+    }
+  }
+  if (rows == 1) return;
+  __syncthreads();
+  for (int col = threadIdx.x; col < parts * N; col += blockDim.x) {
+    float t = 0.0f;
+    for (int q = 0; q < rows; ++q) t += cols[(size_t)q * parts * N + col];
+    if (has_g && col < N) part[(size_t)blockIdx.x * N + col] = t;
+    else partb[(size_t)blockIdx.x * N + col - (has_g ? N : 0)] = t;
   }
 }
 
@@ -969,13 +1014,13 @@ layernorm_bwd_warp_kernel(NORM_BWD_ARGS, int N) {
   norm_bwd_warp<T, true>(x, gamma, mean, rstd, dy, dx, part, partb, R, N);
 }
 template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
+__global__ void __launch_bounds__(BWD_VEC_THREADS, 1)
 rmsnorm_bwd_vec_kernel(NORM_BWD_ARGS, int V, int threads) {
   norm_bwd_vec<T, false>(x, gamma, mean, rstd, dy, dx, part, partb, R, V,
                          threads);
 }
 template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
+__global__ void __launch_bounds__(BWD_VEC_THREADS, 1)
 layernorm_bwd_vec_kernel(NORM_BWD_ARGS, int V, int threads) {
   norm_bwd_vec<T, true>(x, gamma, mean, rstd, dy, dx, part, partb, R, V,
                         threads);
@@ -993,27 +1038,31 @@ layernorm_bwd_block_kernel(NORM_BWD_ARGS, int N) {
 #undef NORM_BWD_ARGS
 
 // out[j] = sum over b < G of part[b][j], in a fixed order: lane l of block
-// c owns the VEC columns (32 c + l) VEC (one 16-byte vector for VEC 4),
-// warp w of the block's warps sums rows w, w + warps, ..., then warp 0
-// adds the warps' sums in warp order.  A block a 32 VEC columns, up to 32
-// warps of a few rows each (the wrapper's plan), so the loads of part are
-// in flight at once rather than in a chain down each column.
+// (c, y) owns the VEC columns (32 c + l) VEC (one 16-byte vector for VEC 4)
+// of the y-th partial array (part, then partb for dbeta's, each into its
+// own out), warp w of the block's warps sums rows w, w + warps, ..., then
+// warp 0 adds the warps' sums in warp order.  A block a 32 VEC columns, up
+// to 32 warps of a few rows each (the wrapper's plan), so the loads of
+// part are in flight at once rather than in a chain down each column.
 constexpr int CS_MAX_WARPS = 32;
 template <int VEC>
 __global__ void __launch_bounds__(CS_MAX_WARPS * 32)
 column_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                  const float* __restrict__ partb, float* __restrict__ outb,
                   int G, int N) {
   __shared__ float sums[CS_MAX_WARPS][32 * VEC];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int j = (blockIdx.x * 32 + lane) * VEC;   // N % VEC == 0
+  const float* src = blockIdx.y == 0 ? part : partb;
+  float* dst = blockIdx.y == 0 ? out : outb;
   float t[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) t[e] = 0.0f;
   if (j < N) {
 #pragma unroll 4
     for (int b = warp; b < G; b += warps) {
-      const float* p = part + (size_t)b * N + j;
+      const float* p = src + (size_t)b * N + j;
       if constexpr (VEC == 4) {
         const float4 v = *reinterpret_cast<const float4*>(p);
         t[0] += v.x;
@@ -1033,30 +1082,55 @@ column_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
     for (int e = 0; e < VEC; ++e) {
       float u = 0.0f;
       for (int w = 0; w < warps; ++w) u += sums[w][lane * VEC + e];
-      out[j + e] = u;
+      dst[j + e] = u;
     }
   }
 }
 
 constexpr size_t SMEM_DEFAULT = 48 * 1024;   // without an opt-in
+constexpr size_t SMEM_VEC_MAX = 128 * 1024;  // the vector kernels' groups'
+                                             // shared rows, at most
 
-int column_sum(const float* part, float* out, int blocks, int N,
-               int sum_warps, int sum_vec, cudaStream_t s) {
-  const int grid = (N + 32 * sum_vec - 1) / (32 * sum_vec);
+// The column sums of part into out and, where partb is given, of partb
+// into outb: one launch, blockIdx.y picking the array.
+int column_sum(const float* part, float* out, const float* partb,
+               float* outb, int blocks, int N, int sum_warps, int sum_vec,
+               cudaStream_t s) {
+  const dim3 grid((N + 32 * sum_vec - 1) / (32 * sum_vec),
+                  partb != nullptr ? 2 : 1);
   if (sum_vec == 4)
-    column_sum_kernel<4><<<grid, sum_warps * 32, 0, s>>>(part, out, blocks, N);
+    column_sum_kernel<4><<<grid, sum_warps * 32, 0, s>>>(part, out, partb,
+                                                         outb, blocks, N);
   else
-    column_sum_kernel<1><<<grid, sum_warps * 32, 0, s>>>(part, out, blocks, N);
+    column_sum_kernel<1><<<grid, sum_warps * 32, 0, s>>>(part, out, partb,
+                                                         outb, blocks, N);
   return static_cast<int>(cudaGetLastError());
 }
 
-// threads > 0: the vector kernel with `threads` threads a row (norm_plan's,
-// x, dy and dx 16-byte aligned); else a warp a row up to WARP_ROW_MAX wide,
+// threads > 0: the vector kernel with `threads` threads a row
+// (norm_bwd_plan's, x, dy and dx 16-byte aligned, rows x threads at most
+// BWD_VEC_THREADS); else a warp a row up to WARP_ROW_MAX wide,
 // else the block kernel (rows 1); `rows` rows of a block at once over
 // `blocks` blocks, then, with gamma (and with beta), the column sum with
 // `sum_warps` warps a block over `sum_vec` columns a lane (4: N % 4 == 0).
 // CENTER: layernorm (mean given; partb and dbeta with beta), else rmsnorm
 // (mean, partb and dbeta null).
+// Raises Kernel's limit of dynamic shared memory to SMEM_VEC_MAX, the most
+// a plan gives it, once a device (a flag bit a device; the first 64).
+template <auto Kernel>
+cudaError_t allow_vec_smem() {
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (bit & raised.load(std::memory_order_relaxed)) return cudaSuccess;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(SMEM_VEC_MAX));
+  if (e == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
 template <typename T, bool CENTER>
 int launch_norm_bwd(const void* x, const void* gamma, const void* mean,
                     const void* rstd, const void* dy, void* dx, void* part,
@@ -1085,17 +1159,21 @@ int launch_norm_bwd(const void* x, const void* gamma, const void* mean,
                  (sum_vec != 1 && sum_vec != 4) || N % sum_vec != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (threads > 0) {
-    const size_t smem = rows > 1 ? sizeof(float) * parts * N : 0;
+    const size_t smem = rows > 1 ? sizeof(float) * rows * parts * N : 0;
     if (!vec_plan_ok<T>(N, threads, x, gamma, dy, dx) ||
-        rows * threads > MAX_THREADS || smem > SMEM_DEFAULT)
+        rows * threads > BWD_VEC_THREADS || smem > SMEM_VEC_MAX)
       return static_cast<int>(cudaErrorInvalidValue);
     const int V = static_cast<int>(N * sizeof(T) / 16);
-    if constexpr (CENTER)
-      layernorm_bwd_vec_kernel<T><<<blocks, rows * threads, smem, s>>>(
-          xt, g, mu, rs, dyt, dxt, pt, pb, R, V, threads);
-    else
-      rmsnorm_bwd_vec_kernel<T><<<blocks, rows * threads, smem, s>>>(
-          xt, g, mu, rs, dyt, dxt, pt, pb, R, V, threads);
+    auto kernel = CENTER ? layernorm_bwd_vec_kernel<T>
+                         : rmsnorm_bwd_vec_kernel<T>;
+    if (smem > SMEM_DEFAULT) {
+      const cudaError_t e =
+          CENTER ? allow_vec_smem<layernorm_bwd_vec_kernel<T>>()
+                 : allow_vec_smem<rmsnorm_bwd_vec_kernel<T>>();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<blocks, rows * threads, smem, s>>>(xt, g, mu, rs, dyt, dxt, pt,
+                                                pb, R, V, threads);
   } else if (N <= WARP_ROW_MAX) {
     const size_t smem = sizeof(float) * parts * rows * N;
     if (rows * 32 > MAX_THREADS || smem > SMEM_DEFAULT)
@@ -1116,12 +1194,13 @@ int launch_norm_bwd(const void* x, const void* gamma, const void* mean,
           xt, g, mu, rs, dyt, dxt, pt, pb, R, N);
   }
   int e = static_cast<int>(cudaGetLastError());
-  if (e == 0 && has_g)
-    e = column_sum(pt, static_cast<float*>(dgamma), blocks, N, sum_warps,
-                   sum_vec, s);
-  if (e == 0 && has_b)
-    e = column_sum(pb, static_cast<float*>(dbeta), blocks, N, sum_warps,
-                   sum_vec, s);
+  if (e == 0 && parts) {   // dgamma's and dbeta's sums in one launch
+    const float* p0 = has_g ? pt : pb;
+    float* o0 = static_cast<float*>(has_g ? dgamma : dbeta);
+    e = column_sum(p0, o0, has_g && has_b ? pb : nullptr,
+                   has_g && has_b ? static_cast<float*>(dbeta) : nullptr,
+                   blocks, N, sum_warps, sum_vec, s);
+  }
   return e;
 }
 

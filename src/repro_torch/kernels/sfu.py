@@ -21,7 +21,13 @@ rmsnorm and layernorm have backward kernels: under autograd (grad mode
 on, x, gamma or beta requiring grad) ``rmsnorm_rows`` runs as
 ``_RmsNorm`` and ``layernorm_rows`` as ``_LayerNorm``, whose forwards also
 write each row's rstd (and layernorm's mean) and whose backwards are
-``rmsnorm_bwd`` and ``layernorm_bwd``.  ``softmax_rows`` and ``act_rows``
+``rmsnorm_bwd`` and ``layernorm_bwd``.  Their grid is ``norm_bwd_plan``'s:
+rows of a whole number of aligned 16-byte vectors, at least a warp's
+worth (whisper-medium's 1,024 bf16 as well as the wide rows), take a
+vector kernel that holds two vectors a thread and loads the next row's
+while it reduces this one's; narrower rows a warp a row, other rows a
+block a row; the dgamma and dbeta partial rows of the blocks are summed
+by one more launch (``column_sum_plan``).  ``softmax_rows`` and ``act_rows``
 have none (no training path reaches them: the model's activations are
 eager PyTorch, and softmax runs only in the DORA runtime) and raise under
 autograd on the card (ROADMAP A.5b).
@@ -62,11 +68,16 @@ ROW_VPT = 2              # 16-byte vectors a thread of the one-pass kernel
 MAX_THREADS = 1024
 # the norms' backward grids (norm_bwd_plan), measured on the H100 at
 # qwen3-4b's training rows (PERF.md): the vector kernel's rows a block fill
-# about BWD_VEC_THREADS threads, one block an SM; the warp kernel's blocks
-# hold BWD_WARP_ROWS rows, two an SM; the block kernel's one row, four an SM
+# about BWD_VEC_THREADS threads (its launch bound in csrc/sfu.cu: 96
+# registers a thread), one block an SM, on rows of at least BWD_VEC_MIN
+# 16-byte vectors (a warp's two each); the warp kernel's blocks hold
+# BWD_WARP_ROWS rows, two an SM; the block kernel's one row, four an SM
 BWD_VEC_THREADS = 640
+BWD_VEC_MIN = 64
 BWD_WARP_ROWS = 32
-BWD_SMEM_FLOATS = 12288  # 48 KB: the shared dgamma (and dbeta) rows
+BWD_SMEM_FLOATS = 12288  # 48 KB: the warp kernel's shared dgamma (and
+                         # dbeta) rows
+BWD_VEC_SMEM_FLOATS = 32768  # 128 KB: the vector kernel's row groups' rows
 BWD_BLOCKS_PER_SM = {"vector": 1, "warp": 2, "block": 4}
 SUM_ROWS = 4             # partial rows a warp of the column sum adds
 SUM_WARPS = 32           # warps a block of the column sum, at most
@@ -113,27 +124,41 @@ def warp_plan(N: int, esize: int, aligned: bool) -> tuple[int, bool]:
     return slots, vector
 
 
+def norm_bwd_threads(N: int, esize: int, aligned: bool) -> int:
+    """Threads a row of the norms' backward vector kernel, or 0 for the
+    others: rows of a whole number of 16-byte vectors with aligned
+    operands, at least ``BWD_VEC_MIN`` of them (rmsnorm's q/k-norm rows of
+    128 keep the warp kernel), ``ROW_VPT`` vectors a thread in whole warps
+    of at most ``BWD_VEC_THREADS`` (wider rows, fp32 past 5,120 and bf16
+    past 10,240, take the block kernel).  Where the forward's one-pass
+    kernel runs (``norm_plan``) up to that width, the same threads."""
+    if not aligned or N * esize % 16 or N * esize // 16 < BWD_VEC_MIN:
+        return 0
+    threads = 32 * _cdiv(_cdiv(N * esize // 16, ROW_VPT), 32)
+    return threads if threads <= BWD_VEC_THREADS else 0
+
+
 def norm_bwd_plan(R: int, N: int, esize: int, aligned: bool,
                   sms: int, parts: int = 1) -> tuple[int, int, int]:
     """``(threads, rows, blocks)`` of the norms' backward (rmsnorm's and
-    layernorm's): the forward's row shape (``norm_plan``'s threads for the
+    layernorm's): the row shape (``norm_bwd_threads``' threads for the
     vector kernel, else 0: a warp a row up to ``WARP_ROW_MAX`` wide, or the
     block kernel), the rows a block works on at once, and a grid that walks
     the rows cyclically.  ``parts``: the partial rows each block keeps
     (dgamma, and layernorm's dbeta).  The vector kernel takes the rows that
-    fill ``BWD_VEC_THREADS`` threads (one where ``parts`` shared rows of N
-    would pass ``BWD_SMEM_FLOATS``), the warp kernel ``BWD_WARP_ROWS``
-    (fewer where their ``parts`` shared rows each would pass it), the
-    block kernel one; each over at most ``BWD_BLOCKS_PER_SM`` blocks an SM:
+    fill ``BWD_VEC_THREADS`` threads (fewer where their ``parts`` shared
+    rows of N each would pass ``BWD_VEC_SMEM_FLOATS``), the warp kernel
+    ``BWD_WARP_ROWS`` (fewer where their ``parts`` shared rows each would
+    pass ``BWD_SMEM_FLOATS``), the block kernel one; each over at most ``BWD_BLOCKS_PER_SM`` blocks an SM:
     few blocks, so few partial rows.  The grid is fixed by the shape and
     the card, so the partial sums (one row of N a block) add up in the
     same order every run."""
-    threads = norm_plan(N, esize, aligned)
+    threads = norm_bwd_threads(N, esize, aligned)
     parts = max(1, parts)
     if threads:
         kind = "vector"
-        rows = max(1, BWD_VEC_THREADS // threads) \
-            if parts * N <= BWD_SMEM_FLOATS else 1
+        rows = max(1, min(BWD_VEC_THREADS // threads,
+                          BWD_VEC_SMEM_FLOATS // (parts * N)))
     elif N <= WARP_ROW_MAX:
         kind = "warp"
         rows = min(BWD_WARP_ROWS, BWD_SMEM_FLOATS // (parts * N))

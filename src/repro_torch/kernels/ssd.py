@@ -26,9 +26,15 @@ Under autograd (grad mode on, an operand requiring grad) ``ssd`` runs as
 ``_Ssd``: the forward keeps its scratch (the state entering each chunk)
 and the backward is ``ssd_bwd``, three more kernels of ``csrc/ssd.cu``
 (``ssd_bwd_plan``): a reverse recurrence carrying the state's gradient
-back through the chunks, a kernel per (chunk, head, batch) for dx, da and
-each head's db and dc, and a fixed-order sum of those over each group's
-heads; fp32 FMA on fp32 and bf16 inputs, deterministic.
+back through the chunks, a kernel per (chunk, head block, batch) for dx,
+da and each head block's db and dc, and a fixed-order sum of those over
+each group's head blocks; deterministic.  bf16 inputs run every product
+on the tensor cores, as the forward does, with the fp32 operands (C ∘
+exp(acs), the masked C Bᵀ and dY Xᵀ, the state's gradient, the entering
+state) split into a bf16 high and low part, and a block takes several
+heads of a group in series, so C and B are staged once for them and
+their db and dc are summed before they reach memory; fp32 inputs run
+one head a block on fp32 FMA.
 
 A tensor on the CPU goes to the plain versions ``ref.ssd_plain`` and
 ``ref.ssd_bwd``; a CUDA tensor goes to the kernels, or the call raises.
@@ -47,15 +53,18 @@ from . import _build, ref
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = (_P,) * 8 + (_I,) * 9 + (_LL,) * 8 + (_P,)
-_BWD_ARGS = (_P,) * 15 + (_I,) * 10 + (_LL,) * 10 + (_P,)
+_BWD_ARGS = (_P,) * 15 + (_I,) * 11 + (_LL,) * 10 + (_P,)
 _SIGNATURES = {"ssd_f32": _ARGS, "ssd_bf16": _ARGS,
                "ssd_bwd_f32": _BWD_ARGS, "ssd_bwd_bf16": _BWD_ARGS}
 # state columns a block of the state kernel carries (csrc/ssd.cu's QN)
 STATE_COLS = 32
-# the backward's chunk kernel (csrc/ssd.cu): 16 x 16 threads, tiles of
-# 16-row blocks; the group sum's threads a block; shared memory a block
-# may use on the H100 (227 KB)
+# the backward's chunk kernels (csrc/ssd.cu): 256 threads (fp32: 16 x 16,
+# tiles of 16-row blocks; bf16: 8 warps of 16 rows); the bf16 kernel's
+# shared memory (CHUNK_MMA_SMEM) and the most heads a block of it takes;
+# the group sum's threads a block; shared memory a block may use on the
+# H100 (227 KB)
 BWD_THREADS, GROUP_SUM_THREADS, SMEM_MAX = 256, 256, 232448
+BWD_MMA_SMEM, BWD_MAX_HEADS = 211216, 16
 
 
 @dataclass(frozen=True)
@@ -87,44 +96,69 @@ def ssd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int) -> SsdPlan:
 class SsdBwdPlan:
     """How ``ssd_bwd`` lays out one call.  The reverse state kernel runs
     one block per ``STATE_COLS`` columns of a (head, batch)'s state
-    (``state_grid``); the chunk kernel one block per (chunk, head, batch)
-    (``grid``), on tiles of ``rows`` rows (the chunk rounded up to 16, 32,
-    64 or 128) in ``smem_bytes`` of shared memory; the group sum one
-    thread per element of db (and of dc: ``group_grid`` y = 2).
-    ``scratch_bytes``: the gradient of the state leaving every (batch,
-    chunk, head) and each head's fp32 db and dc."""
+    (``state_grid``); the chunk kernel one block per (chunk, head block,
+    batch) (``grid``), a head block being ``heads`` heads of one group
+    taken in series (1 for fp32), on tiles of ``rows`` rows in
+    ``smem_bytes`` of shared memory; the group sum one thread per element of db (and of dc: ``group_grid``
+    y = 2).  ``scratch_bytes``: the gradient of the state leaving every
+    (batch, chunk, head) and each head block's fp32 db and dc."""
     chunk: int
     chunks: int
     state_grid: tuple[int, int, int]
     grid: tuple[int, int, int]
+    heads: int
     rows: int
     smem_bytes: int
     group_grid: tuple[int, int]
     scratch_bytes: int
 
 
+def bwd_heads(B: int, chunks: int, H: int, G: int, sms: int) -> int:
+    """Heads a block of the bf16 chunk kernel takes in series: the count
+    up to ``BWD_MAX_HEADS`` (and the group's heads) that gives the busiest
+    SM the fewest head-chunks, one block an SM at a time (rounds of
+    ``sms`` blocks times heads a block), the most heads where several tie
+    (C and B staged once for more heads, less scratch)."""
+    rep = H // G
+
+    def cost(k: int) -> int:
+        return -(-B * chunks * G * -(-rep // k) // sms) * k
+    return min(range(1, min(rep, BWD_MAX_HEADS) + 1),
+               key=lambda k: (cost(k), -k))
+
+
 def ssd_bwd_plan(B: int, S: int, H: int, P: int, G: int, N: int,
-                 chunk: int) -> SsdBwdPlan:
-    """The launch plan of ``ssd_bwd``: the forward's chunks
-    (``ssd_plan``), the chunk kernel's tile rows and shared memory (as
-    ``bwd_smem_floats`` in csrc/ssd.cu computes them, for the kernel's
-    largest head dim and state: C then B, B then R and Z as packed
-    triangles beside G or the entering state, X, dY, and per-row sums)."""
+                 chunk: int, sms: int, bf16: bool = True) -> SsdBwdPlan:
+    """The launch plan of ``ssd_bwd`` on a card of ``sms`` SMs: the
+    forward's chunks (``ssd_plan``).  bf16: tiles of the chunk rounded up
+    to 16 rows in the tensor-core kernel's fixed shared memory, with
+    ``bwd_heads`` heads a block; fp32: one head a block, tiles of 16, 32,
+    64 or 128 rows in the shared memory ``bwd_smem_floats`` of csrc/ssd.cu
+    computes for the kernel's largest head dim and state (C then B, B then
+    R and Z as packed triangles beside G or the entering state, X, dY, and
+    per-row sums)."""
     fwd = ssd_plan(B, S, H, P, N, chunk)
-    rows = 16
-    while rows < fwd.chunk:
-        rows *= 2
-    ldn, ldp = MAX_STATE + 1, MAX_HEAD_DIM + 1
-    tri = rows * (rows + 1) // 2
-    lo = max(tri, MAX_HEAD_DIM * ldn)
-    floats = (rows * ldn + max(rows * ldn, lo + tri) + 2 * rows * ldp
-              + 20 * MAX_CHUNK + BWD_THREADS // 32)
+    if bf16:
+        heads = bwd_heads(B, fwd.chunks, H, G, sms)
+        rows = -(-fwd.chunk // 16) * 16
+        smem = BWD_MMA_SMEM
+    else:
+        heads, rows = 1, 16
+        while rows < fwd.chunk:
+            rows *= 2
+        ldn, ldp = MAX_STATE + 1, MAX_HEAD_DIM + 1
+        tri = rows * (rows + 1) // 2
+        lo = max(tri, MAX_HEAD_DIM * ldn)
+        smem = 4 * (rows * ldn + max(rows * ldn, lo + tri) + 2 * rows * ldp
+                    + 20 * MAX_CHUNK + BWD_THREADS // 32)
+    hblocks = -(-(H // G) // heads)
     elems = B * S * G * N
     return SsdBwdPlan(
         chunk=fwd.chunk, chunks=fwd.chunks, state_grid=fwd.state_grid,
-        grid=fwd.grid, rows=rows, smem_bytes=4 * floats,
+        grid=(fwd.chunks, G * hblocks, B), heads=heads, rows=rows,
+        smem_bytes=smem,
         group_grid=(-(-elems // GROUP_SUM_THREADS), 2),
-        scratch_bytes=fwd.scratch_bytes + 2 * 4 * B * S * H * N)
+        scratch_bytes=fwd.scratch_bytes + 2 * 4 * B * S * G * hblocks * N)
 
 
 def _check(x, a, b, c, chunk, initial_state) -> None:
@@ -309,7 +343,8 @@ def ssd_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return ref.ssd_bwd(x, a, b, c, dy, chunk=chunk,
                            initial_state=initial_state, dfinal=dfinal)
     _on_card(x, b, chunk)
-    plan = ssd_bwd_plan(B, S, H, P, G, N, chunk)
+    plan = ssd_bwd_plan(B, S, H, P, G, N, chunk, _build.sm_count(x.device),
+                        bf16=x.dtype == torch.bfloat16)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     da = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
     db, dc = (torch.empty((B, S, G, N), dtype=b.dtype, device=x.device)
@@ -325,7 +360,7 @@ def ssd_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"ssd_bwd: states must be the forward's scratch, "
                          f"{n_states} contiguous float32 (ssd_states)")
     dstates = torch.empty(n_states, dtype=torch.float32, device=x.device)
-    dbh, dch = (torch.empty((B, S, H, N), dtype=torch.float32,
+    dbh, dch = (torch.empty((B, S, plan.grid[1], N), dtype=torch.float32,
                             device=x.device) for _ in range(2))
     lib = _build.load("ssd", _SIGNATURES)
     fn = lib.ssd_bwd_f32 if x.dtype == torch.float32 else lib.ssd_bwd_bf16
@@ -337,7 +372,8 @@ def ssd_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  None if dinit is None else dinit.data_ptr(),
                  dstates.data_ptr(), dbh.data_ptr(), dch.data_ptr(),
                  B, S, H, P, G, N, plan.chunk, plan.chunks,
-                 plan.state_grid[0], int(initial_state is not None),
+                 plan.state_grid[0], plan.heads,
+                 int(initial_state is not None),
                  x.stride(0), x.stride(1), a.stride(0), a.stride(1),
                  b.stride(0), b.stride(1), c.stride(0), c.stride(1),
                  dy.stride(0), dy.stride(1),

@@ -160,9 +160,13 @@ def main() -> None:
                                            ckpt_dir=args.ckpt_dir))
     trainer.run()
     losses = [m["loss"] for m in trainer.metrics_log]
+    # step wall times past the first (which builds the kernels)
+    dts = sorted(m["dt"] for m in trainer.metrics_log[1:]) or [float("nan")]
     print(f"done: loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
           f"{len(trainer.straggler_steps)} straggler steps, "
-          f"{trainer.failures} failures recovered")
+          f"{trainer.failures} failures recovered; step ms after the "
+          f"first: median {1e3 * dts[len(dts) // 2]:.2f}, least "
+          f"{1e3 * dts[0]:.2f}")
 
 
 if __name__ == "__main__":

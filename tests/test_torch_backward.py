@@ -215,18 +215,31 @@ def test_bf16_attention_bwd_emulation_gives_empty_rows_no_gradient():
 @pytest.mark.parametrize("N,esize,aligned", [(128, 2, True), (2560, 2, True),
                                              (2560, 4, True), (2561, 4, True),
                                              (6144, 2, False),
-                                             (16384, 4, True)])
+                                             (16384, 4, True), (6144, 4, True),
+                                             (1024, 2, True), (512, 2, True),
+                                             (256, 4, True), (256, 2, True)])
 def test_norm_bwd_plan_takes_the_forward_shape_on_a_bounded_grid(
         R, N, esize, aligned):
+    """Rows wider than 1,024 that the forward's one-pass kernel takes keep
+    its threads up to BWD_VEC_THREADS (fp32 rows past 5,120 go to the
+    block kernel); rows of 64 to 128 aligned 16-byte vectors take the
+    vector kernel too; narrower rows a warp a row."""
     sms = 132
     threads, rows, blocks = sfu.norm_bwd_plan(R, N, esize, aligned, sms)
-    assert threads == sfu.norm_plan(N, esize, aligned)
+    assert threads == sfu.norm_bwd_threads(N, esize, aligned)
+    forward = sfu.norm_plan(N, esize, aligned)
+    assert threads == (forward if forward <= sfu.BWD_VEC_THREADS else 0) \
+        or N <= sfu.WARP_ROW_MAX
+    assert bool(threads) == (aligned and N * esize % 16 == 0 and
+                             sfu.BWD_VEC_MIN <= N * esize // 16 <=
+                             sfu.ROW_VPT * sfu.BWD_VEC_THREADS)
     assert blocks <= -(-R // rows)           # no block without a row
     per_sm = sfu.BWD_BLOCKS_PER_SM
     if threads:                              # vector kernel: row groups
-        assert rows == max(1, sfu.BWD_VEC_THREADS // threads)
-        assert rows * threads <= sfu.MAX_THREADS
-        assert rows == 1 or N <= sfu.BWD_SMEM_FLOATS   # one shared row
+        assert rows == max(1, min(sfu.BWD_VEC_THREADS // threads,
+                                  sfu.BWD_VEC_SMEM_FLOATS // N))
+        assert rows * threads <= sfu.BWD_VEC_THREADS
+        assert rows * N <= sfu.BWD_VEC_SMEM_FLOATS or rows == 1
         assert 1 <= blocks <= per_sm["vector"] * sms
     elif N <= sfu.WARP_ROW_MAX:              # warp kernel: a warp a row
         assert 1 <= rows <= sfu.BWD_WARP_ROWS and rows * N <= \
@@ -243,8 +256,10 @@ def test_norm_bwd_plan_takes_the_forward_shape_on_a_bounded_grid(
 def test_norm_bwd_plan_at_qwen3_4b_training_rows():
     # 2048 x 2560 bf16 rows: the vector kernel, 160 threads a row, 4 rows
     # a block of 640 threads, one block an SM; the q-norm's 65,536 x 128
-    # and the k-norm's 16,384: the warp kernel, 32 rows a block, two
-    # blocks an SM
+    # and the k-norm's 16,384 (16 vectors a row, fewer than a warp's 64):
+    # the warp kernel, 32 rows a block, two blocks an SM, which the card
+    # measured faster there than the vector kernel (65,536 rows: 0.0299
+    # against 0.0381 ms for one warp a row, 20 rows a block; PERF.md)
     assert sfu.norm_bwd_plan(2048, 2560, 2, True, 132) == (160, 4, 132)
     assert sfu.norm_bwd_plan(65536, 128, 2, True, 132) == (0, 32, 264)
     assert sfu.norm_bwd_plan(16384, 128, 2, True, 132) == (0, 32, 264)

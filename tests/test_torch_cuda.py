@@ -928,13 +928,15 @@ def test_cuda_attention_autograd_runs_the_backward_kernel(cuda):
 
 
 # layernorm's backward rows (rows, width, offset): the reference's SFU
-# rows, whisper-medium's training rows (4 x 512 tokens of 1024: the warp
-# kernel), nemotron-4-15b's (6144: the vector kernel), a ragged width (the
-# block kernel), unaligned views (scalar loads) and a row past the warp
-# kernel's 1,024
+# rows, whisper-medium's training rows (4 x 512 tokens of 1024: the vector
+# kernel) and the same offset by one element (the warp kernel's scalar
+# loads), nemotron-4-15b's (6144: the vector kernel), a ragged width (the
+# block kernel), unaligned views (scalar loads), a row past the warp
+# kernel's 1,024, and the vector kernel's 768 and 1,000
 LN_BWD_ROWS = [(R, N, 0) for R, N in SFU_SHAPES] + [
-    (2048, 1024, 0), (2048, 6144, 0), (64, 2561, 0), (2048, 6144, 1),
-    (197, 768, 1), (33, 1025, 0)]
+    (2048, 1024, 0), (2048, 1024, 1), (2048, 6144, 0), (64, 2561, 0),
+    (2048, 6144, 1), (197, 768, 1), (33, 1025, 0), (64, 1000, 0),
+    (600, 768, 0)]
 
 
 @pytest.mark.cuda
@@ -1052,6 +1054,73 @@ def test_cuda_ssd_backward_matches_autograd_of_plain(cuda, shape, chunk, tdt,
     for f, r in zip(*runs):
         if f is not None:
             assert torch.equal(f, r)
+
+
+# the bf16 kernels' other paths, (B, S, H, P, G, N, chunk): a chunk under
+# 16 (one tile, rows past the chunk zero); a ragged last chunk (100 = 48 +
+# 48 + 4); P < 64 and N < 128 in whole 16-byte vectors (zero columns) and
+# not (element loads); G > 1 with head blocks over each group's 12 heads
+SSD_BWD_PATHS = [(2, 40, 4, 16, 2, 8, 8), (1, 100, 4, 64, 1, 128, 48),
+                 (1, 64, 6, 40, 2, 72, 32), (1, 64, 4, 20, 2, 36, 64),
+                 (1, 256, 48, 64, 4, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BWD_PATHS, ids=str)
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_ssd_backward_paths_match_autograd_of_plain(cuda, case, tdt):
+    """From an initial state with a gradient into the final state: the
+    backward kernels on the saved scratch against autograd of
+    ``ref.ssd_plain`` (fp32 within 1e-4 x max|ref|, bf16 rel L2 2e-2),
+    the same bits on a replay."""
+    *shape, chunk = case
+    B, S, H, P, G, N = shape
+    x, a, b, c = _ssd_inputs(shape, 170, cuda, tdt)
+    dy = torch.from_numpy(_np((B, S, H, P), 171)).to(cuda, tdt)
+    init = torch.from_numpy(_np((B, H, P, N), 172)).to(cuda)
+    dfin = torch.from_numpy(_np((B, H, P, N), 173)).to(cuda)
+    plain = [t.detach().clone().requires_grad_() for t in (x, a, b, c, init)]
+    y, fin = ref.ssd_plain(*plain[:4], chunk=chunk, initial_state=plain[4])
+    torch.autograd.backward([y, fin], [dy, dfin])
+    _, _, states = ssd_mod.ssd_states(x, a, b, c, chunk=chunk,
+                                      initial_state=init)
+    before = ssd_mod.ssd_bwd.launches
+    runs = [ssd_mod.ssd_bwd(x, a, b, c, dy, chunk=chunk, initial_state=init,
+                            dfinal=dfin, states=states) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ssd_mod.ssd_bwd.launches == before + 2
+    for got, again, leaf in zip(*runs, plain):
+        assert torch.equal(got, again)
+        _grad_close(got, leaf.grad, got.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_ssd_backward_reads_views_off_16_bytes(cuda, tdt):
+    """b and c as slices of one (B, S, 1 + 2 G N) tensor one element off
+    16 bytes (x and dy too): the kernels stage them by element loads; the
+    gradients equal the plain version's, the same bits on a replay."""
+    B, S, H, P, G, N = 2, 100, 8, 32, 2, 16
+    x, a, b, c = _ssd_inputs((B, S, H, P, G, N), 180, cuda, tdt)
+    dy = torch.from_numpy(_np((B, S, H, P), 181)).to(cuda, tdt)
+    pad = torch.zeros((B, S, 1), device=cuda, dtype=tdt)
+    bc = torch.cat([pad, b.reshape(B, S, G * N), c.reshape(B, S, G * N)], -1)
+    bv = bc[..., 1:1 + G * N].reshape(B, S, G, N)
+    cv = bc[..., 1 + G * N:].reshape(B, S, G, N)
+    xv = _view((B, S, H, P), 1, 182, cuda, tdt)
+    xv.copy_(x)
+    assert bv.data_ptr() % 16 and xv.data_ptr() % 16
+    plain = [t.detach().clone().requires_grad_() for t in (x, a, b, c)]
+    ref.ssd_plain(*plain, chunk=32)[0].backward(dy)
+    _, _, states = ssd_mod.ssd_states(xv, a, bv, cv, chunk=32)
+    runs = [ssd_mod.ssd_bwd(xv, a, bv, cv, dy, chunk=32, states=states)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for got, again, leaf in zip(*runs, plain):
+        assert torch.equal(got, again)
+        _grad_close(got, leaf.grad, got.dtype)
 
 
 @pytest.mark.cuda
