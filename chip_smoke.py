@@ -142,9 +142,34 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    below the first's, the launch counts, zeroed just before, must equal
    what the call structure gives (printed with its derivation); step ms,
    tokens/s, the predicted and measured peak memory and one profiled step.
-   Last, a fault injected into reduced qwen3-4b's training on the card:
-   the run resumed from its checkpoint replays an uninterrupted run's
-   losses (``FAULT_RTOL``).
+   Then the MoE archs at full width, cut in depth and experts to fit the
+   training state (``MOE_TRAIN_CUTS``, printed beside every number), one
+   cut at a time: bf16 model gradients, kernels against plain versions,
+   each MoE call of the kernels pinned to the plain path's routes of its
+   layer and its own aux loss (``MODEL_BF16_RTOL``; each decision the
+   kernels' router would have made otherwise within ``ROUTE_MARGIN`` of a
+   tie, but on ``ROUTES_VS_FP32``'s cut; on every cut the kernels' and the
+   plain versions' decisions against an fp32 evaluation of the same
+   weights, the kernels' no farther from it, ``ROUTE_FP32_SLACK``), the
+   gradient again with each kernel family on its plain version in turn
+   and both paths' gradients against an fp32 one on the same routes;
+   fp32 ones up to the first MoE layer, routes free
+   (``MODEL_FP32_TOL``, ``FP32_ROUTE_MARGIN``); ``Trainer`` with the
+   config's bf16 moments (jamba at ``MOE_TRAIN_PEAK_LR``), the same checks
+   as above and the peak under ``CARD_TRAIN_GB``; ROADMAP C.6: a bf16
+   forward of the step-10 batch, which no step trains on, on the trained
+   weights and on the initial ones, the kernels' own routes against the
+   plain path's, held as the pinned gradients' routes, and the MoE
+   inputs' drift with each kernel family on its plain version in turn
+   (on the initial weights), and that batch's loss, which must fall from
+   the initial weights to the trained ones; dbrx-132b trained again with a fault at
+   ``FAULT_AT`` and no checkpoint, its losses replayed within
+   ``FAULT_RTOL`` and its peak within 1 GiB of the uninterrupted run's.
+   Then one step's gradients of qwen3-4b's training cut under each
+   ``remat_policy`` ("nothing", "dots", "dots_nb"), equal to the bit, with
+   their peaks and host ms.  Last, a fault injected into reduced qwen3-4b's
+   and reduced dbrx-132b's training on the card: each run resumed from its
+   checkpoint replays an uninterrupted run's losses (``FAULT_RTOL``).
 7. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
@@ -165,7 +190,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    ``F.rms_norm`` / ``F.layer_norm`` / ``F.scaled_dot_product_attention``
    (none computes the SSD backward), and in brackets their times before
    the redesign (``MS_BEFORE_REDESIGN``, as recorded in ``PERF.md``), and
-   ``ssd_bwd`` at jamba's 256 heads; the norms' backward plans each beside
+   ``ssd_bwd`` at jamba's 256 heads, ``rmsnorm_bwd`` at the MoE archs'
+   training rows (5120, 8192, 16,384) and ``flash_attention_bwd`` at their
+   training attention (GQA 6, 5 and 8); the norms' backward plans each beside
    an alternative in turns, through the wrappers (``[tune]``: rmsnorm's
    q-norm rows on the warp or the vector kernel; layernorm's
    whisper-medium rows on the vector or the warp kernel, nemotron-4-15b's
@@ -181,6 +208,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -290,13 +318,55 @@ RMS_MOE = [(2048, 8192), (4, 8192), (2048, 16384), (4, 16384)]
 # wrong expert, gate or slot (tens of percent) exceeds.  At fp32 compute
 # the paths differ by fp32 reorderings (about 1e-6): a differing decision
 # must lie within FP32_ROUTE_MARGIN of a tie.
+# The training phase's bf16 route checks (the pinned gradients, C.6) hold
+# each decision of the kernels that differs from the plain versions'
+# within ROUTE_MARGIN of a tie, on every cut but ROUTES_VS_FP32's.  Every
+# cut is also held against an fp32 evaluation of the same weights and
+# tokens (``routes_vs_fp32``): the kernels' decisions that differ from it
+# at most the plain versions' count n + 3 sqrt(2n) (three standard
+# deviations of the difference of two Poisson counts of mean n: two bf16
+# paths as accurate as each other flip different near-ties), and their
+# largest margin and MoE-input drift from it within ROUTE_FP32_SLACK times
+# the plain versions' (the margin at least ROUTE_MARGIN).  jamba-1.5-large's
+# training cut is held to that alone: there the attention kernel's
+# rounding, as near fp32 as the plain version's, reaches the MoE input
+# through the dense FFN and the SSM layer at 1.3 %, and the plain bf16 path
+# itself decides otherwise than fp32 at margins past 1e-2 (0.038 at the
+# initial weights, 0.26 trained; see PERF.md), so no bf16 path can be held
+# to ROUTE_MARGIN of another there (ROADMAP C.6).
 ROUTE_MARGIN, FP32_ROUTE_MARGIN = 1e-2, 1e-5
+ROUTES_VS_FP32, ROUTE_FP32_SLACK = ("jamba-1.5-large-398b",), 1.25
 MOE_SHALLOW_LAYERS, MOE_RTOL = 2, 0.1
 # The MoE archs' fp32 checks at full width: dbrx's first 2 layers and
 # jamba's first two pattern positions (attn + dense, ssm + moe; 12
 # experts), kernels against plain versions; llama4's fp32 MoE layer alone
 # is 60 GiB, so it runs its moe_fwd alone (moe_layer_fp32_check)
 MOE_FP32_LAYERS = {"dbrx-132b": 2, "jamba-1.5-large-398b": 2}
+# The MoE archs' training cuts (phase 6): full width (d, d_ff, heads, vocab
+# and top-k unchanged), cut in depth, and in experts where one layer with
+# all of them does not fit, so that the training state (fp32 parameters and
+# gradients and the configs' bf16 moments: 12 bytes a parameter) fits one
+# card beside the step's temporaries: dbrx-132b 1 of 40 layers with its 16
+# experts (4.492 B parameters, 50.2 GiB of state); llama4-maverick one
+# block of 24 (a dense and a MoE layer) with 16 of its 128 experts (4.334
+# B, 48.4 GiB; the block with all 128 is 18.4 B); jamba-1.5-large its first
+# two pattern positions (attn + dense, ssm + moe) with 4 of its 16 experts
+# (4.652 B, 52.0 GiB; one block of 8 layers with 12 is 45.1 B)
+MOE_TRAIN_CUTS = {"dbrx-132b": {"n_layers": 1},
+                  "llama4-maverick-400b-a17b": {"n_layers": 2,
+                                                "n_experts": 16},
+                  "jamba-1.5-large-398b": {"n_layers": 2, "n_experts": 4}}
+# Their peak lr where TRAIN_PEAK_LR does not train them: at 1e-3 the loss
+# of jamba-1.5-large's cut (d 8,192) on a held-out batch rises over the 10
+# steps, at AdamW's default 3e-4 it falls (the phase prints the 1e-3 run
+# beside the checked one; PERF.md)
+MOE_TRAIN_PEAK_LR = {"jamba-1.5-large-398b": 3e-4}
+# their fp32 gradient checks run up to the first MoE layer, the experts
+# halved while the fp32 parameters and two gradients would pass this many
+# GiB; a training run's peak must stay under the card's 80 GB; the MoE
+# arch whose full-width run is repeated with a fault, and which joins
+# reduced qwen3-4b in the fault-and-resume check
+MOE_FP32_GIB, CARD_TRAIN_GB, MOE_FAULT_ARCH = 60, 80, "dbrx-132b"
 # Unaligned and ragged rows of the redesigned kernels, (rows, width,
 # offset): a view ``offset`` elements into its buffer is not 16-byte
 # aligned, and a width of no whole number of 16-byte vectors cannot be
@@ -636,7 +706,7 @@ def main() -> None:
                                   interleave_stream)
     from repro_torch.core.graph import LayerKind, WorkloadGraph
     from repro_torch.core.runtime import EPILOGUE_NAME, SFU_ACT
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import sfu as sfu_k
     from repro_torch import tree as T
     from repro_torch.configs.shapes import ShapeSpec
@@ -651,7 +721,7 @@ def main() -> None:
     from repro_torch.kernels.ssd import ssd, ssd_bwd, ssd_states
     from repro_torch.launch.serve import BatchServer, Request
     from repro_torch.launch.train import TrainOptions, Trainer
-    from repro_torch.optim import OptConfig
+    from repro_torch.optim import OptConfig, adamw
     from repro_torch.models import encdec, layers, lm
 
     # fp32 products in full fp32 for the plain versions and yardsticks
@@ -1372,27 +1442,35 @@ def main() -> None:
 
     @contextlib.contextmanager
     def moe_calls(pin=None):
-        """Every ``moe_fwd`` call while open, in call order: its route
-        (``layers.moe_route`` on the same input).  With
-        ``pin``, the plain path's routes of the same pass, each call
-        dispatches its tokens by the pinned call's choices instead of its
-        own, gated by its own router probabilities at them (renormalised
-        as ``moe_route`` does), on the index path: what differs from the
-        plain path is then the kernels' rounding alone, with no expert
-        swapped."""
-        calls, fwd = [], layers.moe_fwd
+        """Every MoE layer's route while open, in the order of the layers'
+        first calls: ``layers.moe_route`` on the same input (remat's
+        recompute calls a layer's ``moe_fwd`` again on the same tokens;
+        that call is not recorded again).  With ``pin``, the plain path's
+        routes of the same pass, each call dispatches its tokens by the
+        pinned choices of its own layer instead of its own, gated by its
+        own router probabilities at them (renormalised as ``moe_route``
+        does), on the index path, and returns the aux loss of its own
+        router probabilities and the pinned choices' kept shares: what
+        differs from the plain path is then the kernels' rounding alone,
+        with no expert swapped, and the router's gradient flows through
+        the gates and the aux loss as on the plain path."""
+        calls, fwd, layer_of = [], layers.moe_fwd, {}
 
         def wrapped(mcfg, p, x, *args, **kwargs):
             r = layers.moe_route(mcfg, p, x, *args)
-            calls.append(r)
+            if id(p) not in layer_of:
+                layer_of[id(p)] = len(calls)
+                calls.append(r)
             if pin is None:
                 return fwd(mcfg, p, x, *args, **kwargs)
-            fixed = pin[len(calls) - 1]
+            fixed = pin[layer_of[id(p)]]
             gate = r.probs.gather(-1, fixed.idx)
             gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-            y, _, _ = layers._moe_index(mcfg, p, r._replace(
+            y, density, _ = layers._moe_index(mcfg, p, r._replace(
                 idx=fixed.idx, gate=gate, pos=fixed.pos))
-            return y.reshape(x.shape), None
+            aux = mcfg.n_experts * (density * r.probs.mean((0, 1))).sum() \
+                * mcfg.router_aux_weight
+            return y.reshape(x.shape), aux
 
         layers.moe_fwd = wrapped
         try:
@@ -1424,7 +1502,7 @@ def main() -> None:
             d["margins"] += margins
             d["layer_margin"].append(max(margins, default=0.0))
             d["per_layer"].append(int(diff.sum()))
-            d["drift"].append(rel_l2(kr.xg, pr.xg))
+            d["drift"].append(rel_l2(kr.xg.detach(), pr.xg.detach()))
             d["n"] = diff.numel()
             rows = diff.reshape(B, -1).any(1)
             d["rows"] = rows if d["rows"] is None else d["rows"] | rows
@@ -2329,32 +2407,157 @@ def main() -> None:
     train_batch = for_arch(train_cfg, TRAIN_SEQ, TRAIN_BATCH,
                            seed=0).device_batch(0, dev)
 
-    def model_grads(mcfg, params, batch=None):
+    def model_grads(mcfg, params, batch=None, pin=False):
         """(loss, [gradient of each leaf]) of the kernels and of the plain
         versions (``lm.loss_fn``, or ``encdec.loss_fn`` with the batch's
-        frames)."""
+        frames), the plain versions run first; and the MoE layers' routes,
+        the kernels' own against the plain versions' (``route_diffs``;
+        None without MoE), and the plain run's routes.  With ``pin`` each
+        MoE call of the kernels' run dispatches by the plain run's choices
+        of its layer (``moe_calls(pin=)``), the routes compared being those
+        its own router would have chosen."""
         batch = train_batch if batch is None else batch
         leaves = T.leaves(params)
         for t in leaves:
             t.requires_grad_(True)
-        out = []
-        for plain in (False, True):
-            if mcfg.is_encdec:
-                loss = encdec.loss_fn(mcfg, params, batch["frames"],
-                                      batch["tokens"], batch["labels"],
-                                      plain=plain)
-            else:
-                loss = lm.loss_fn(mcfg, params, batch["tokens"],
-                                  batch["labels"], plain=plain)
-            out.append((float(loss.detach()),
-                        torch.autograd.grad(loss, leaves)))
+        out, calls = {}, {}
+        for plain in (True, False):
+            with moe_calls(None if plain or not pin else calls[True]
+                           ) as calls[plain]:
+                if mcfg.is_encdec:
+                    loss = encdec.loss_fn(mcfg, params, batch["frames"],
+                                          batch["tokens"], batch["labels"],
+                                          plain=plain)
+                else:
+                    loss = lm.loss_fn(mcfg, params, batch["tokens"],
+                                      batch["labels"], plain=plain)
+                out[plain] = (float(loss.detach()),
+                              torch.autograd.grad(loss, leaves))
         torch.cuda.synchronize()
-        return out
+        routes = route_diffs(calls[False], calls[True]) if calls[True] \
+            else None
+        return out[False], out[True], routes, calls[True]
+
+    @contextlib.contextmanager
+    def plain_ops(names):
+        """The model's ``kernels.ops`` entries ``names`` on their plain
+        versions while open, the other kernels as they are."""
+        saved = {n: getattr(ops, n) for n in names}
+        for n, fn in saved.items():
+            setattr(ops, n, lambda *a, fn=fn, **k: fn(*a, **(k | {
+                "plain": True})))
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(ops, n, fn)
+
+    def routes_vs_fp32(mcfg, params, tokens, pinned):
+        """The plain versions' and the kernels' MoE decisions in ``mcfg``'s
+        compute dtype, each against an fp32 evaluation of the same weights
+        and tokens (``route_diffs``, margins in the fp32 run's router
+        probabilities); with ``pinned`` the kernels' and the fp32 run's MoE
+        calls dispatch by the plain run's choices of their layer, so that
+        every layer decides on the same upstream routes.  Returns those
+        two comparisons and the plain run's routes."""
+        calls = {}
+        fp32 = dataclasses.replace(mcfg, compute_dtype="float32")
+        with torch.no_grad():
+            with moe_calls() as calls["plain"]:
+                lm.forward(mcfg, params, tokens, plain=True)
+            pin = calls["plain"] if pinned else None
+            with moe_calls(pin) as calls["kernels"]:
+                lm.forward(mcfg, params, tokens)
+            with moe_calls(pin) as calls["fp32"]:
+                lm.forward(fp32, params, tokens, plain=True)
+        return ({who: route_diffs(calls[who], calls["fp32"])
+                 for who in ("plain", "kernels")}, calls["plain"])
+
+    def print_routes(label, routes) -> float:
+        """Prints a pass's differing MoE decisions by layer, with their
+        margins (the reference path's gap to the neighbouring top-k
+        probability) and the MoE inputs' drift; returns the largest
+        margin."""
+        m = routes["margins"]
+        worst = max(m, default=0.0)
+        print(f"[routes] {label}: differing decisions by MoE layer "
+              f"{routes['per_layer']} of {routes['n']} each (largest "
+              f"margins {[float(f'{x:.3g}') for x in routes['layer_margin']]}"
+              f", MoE input rel L2 "
+              f"{[float(f'{x:.3g}') for x in routes['drift']]}); "
+              f"{len(m)} differing choices, margins "
+              f"{[float(f'{x:.3g}') for x in sorted(m, reverse=True)[:12]]}"
+              f"{' ...' if len(m) > 12 else ''}; largest {worst:.4g}")
+        return worst
+
+    def hold_routes(label, routes, limit) -> None:
+        """Prints a pass's differing MoE decisions by layer and holds each
+        one's margin below ``limit``."""
+        if routes is None:
+            return
+        worst = print_routes(f"{label} (limit {limit})", routes)
+        require(worst < limit, f"{label}: a route differs {worst} from a "
+                f"tie (limit {limit})")
+
+    def hold_moe_routes(label, mcfg, routes, vs32) -> None:
+        """A bf16 pass's routes on the kernels: against the plain versions'
+        within ROUTE_MARGIN of a tie (printed only on ROUTES_VS_FP32's
+        cuts), and against an fp32 evaluation (``routes_vs_fp32``) no
+        farther than the plain versions' are: differing decisions n_k <= n
+        + 3 sqrt(2n) for the plain versions' n, the largest margin within
+        ROUTE_FP32_SLACK x theirs (at least ROUTE_MARGIN) and each MoE
+        layer's input drift within ROUTE_FP32_SLACK x theirs."""
+        if mcfg.name in ROUTES_VS_FP32:
+            print_routes(f"{label}, against the plain versions (held to the "
+                         f"fp32 evaluation below instead: ROUTES_VS_FP32)",
+                         routes)
+        else:
+            hold_routes(label, routes, ROUTE_MARGIN)
+        kern, plain = vs32["kernels"], vs32["plain"]
+        n_k, n_p = sum(kern["per_layer"]), sum(plain["per_layer"])
+        n_lim = n_p + 3 * math.sqrt(2 * max(n_p, 1))
+        m_k = print_routes(f"{label}; the kernels against an fp32 evaluation",
+                           kern)
+        m_p = print_routes(f"{label}; the plain versions against an fp32 "
+                           f"evaluation", plain)
+        m_lim = max(ROUTE_FP32_SLACK * m_p, ROUTE_MARGIN)
+        drift = [(k, ROUTE_FP32_SLACK * p)
+                 for k, p in zip(kern["drift"], plain["drift"])]
+        print(f"[routes] {label}, the kernels against fp32 as far as the "
+              f"plain versions: {n_k} differing decisions (limit "
+              f"{n_lim:.1f} from the plain versions' {n_p}), largest margin "
+              f"{m_k:.4g} (limit {m_lim:.4g}), MoE input rel L2 "
+              f"{[float(f'{k:.3g}') for k, _ in drift]} (limits "
+              f"{[float(f'{x:.3g}') for _, x in drift]})")
+        require(n_k <= n_lim and m_k <= m_lim
+                and all(k <= x for k, x in drift),
+                f"{label}: the kernels' routes are farther from fp32 than "
+                f"the plain versions': {n_k} vs {n_p} decisions, margin "
+                f"{m_k} vs {m_p}, drift {drift}")
+
+    def grad_rel(ga, gb) -> float:
+        """The whole flattened gradient ``ga``'s relative L2 against
+        ``gb`` (a leaf of ``gb`` may lie on the host)."""
+        diff = norm = 0.0
+        for a, b in zip(ga, gb):
+            b = b.to(a.device).float()
+            diff += float((a.float() - b).square().sum())
+            norm += float(b.square().sum())
+        return (diff / norm) ** 0.5
+
+    def kernel_families(mcfg):
+        """The ``kernels.ops`` families on ``mcfg``'s path."""
+        return ([("attention",)] if any(p.mixer == "attn"
+                                        for p in mcfg.pattern) else []) \
+            + [("rmsnorm", "layernorm")] \
+            + ([("ssd",)] if any(p.mixer == "ssm" for p in mcfg.pattern)
+               else [])
 
     def fp32_grad_check(mcfg, params, label, batch=None):
         """Every leaf's max |kernels - plain| within MODEL_FP32_TOL x
-        max|g| (fp32 compute)."""
-        (lk, gk), (lp, gp) = model_grads(mcfg, params, batch)
+        max|g| (fp32 compute); MoE routes free, each differing decision
+        within FP32_ROUTE_MARGIN of a tie."""
+        (lk, gk), (lp, gp), routes, _ = model_grads(mcfg, params, batch)
         worst = max(((max_err(a, b) / max(float(b.abs().max()), 1e-30),
                       path) for (path, _), a, b in zip(
                           T.leaves_with_paths(params), gk, gp)),
@@ -2364,20 +2567,43 @@ def main() -> None:
               f"{lk:.6f} vs {lp:.6f}; worst leaf {worst[1]} max |err| "
               f"{worst[0]:.3g} x max|g| (limit {MODEL_FP32_TOL}) over "
               f"{len(gk)} leaves")
+        hold_routes(f"fp32 {label} gradients, routes free", routes,
+                    FP32_ROUTE_MARGIN)
         require(worst[0] <= MODEL_FP32_TOL,
                 f"fp32 model gradients of {label}: {worst[1]} differs "
                 f"{worst[0]} x max|g|")
 
-    def bf16_grad_check(mcfg, params, label, batch=None):
+    def bf16_grad_check(mcfg, params, label, batch=None, attribute=False):
         """The whole flattened gradient's relative L2, kernels against plain
         versions, within MODEL_BF16_RTOL (bf16 compute); every leaf's
-        printed, a line a layer."""
-        (lk, gk), (lp, gp) = model_grads(mcfg, params, batch)
+        printed, a line a layer.  MoE calls pinned to the plain path's
+        routes, the decisions the kernels' own router would have made held
+        by ``hold_moe_routes``.  With ``attribute``, the gradient again
+        with each kernel family on its plain version in turn (the rest on
+        the kernels, the same routes), and both paths' against an fp32
+        gradient of the same weights, batch and routes (printed)."""
+        batch = train_batch if batch is None else batch
+        tokens, labels = batch["tokens"], batch["labels"]
+        leaves = T.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        moe = any(p.ffn == "moe" for p in mcfg.pattern)
+        vs32, pin = routes_vs_fp32(mcfg, params, tokens, pinned=True) \
+            if moe else (None, None)
+        if attribute:   # on the host while the bf16 gradients are taken
+            with moe_calls(pin):
+                g32 = [g.cpu() for g in torch.autograd.grad(lm.loss_fn(
+                    dataclasses.replace(mcfg, compute_dtype="float32"),
+                    params, tokens, labels, plain=True), leaves)]
+        (lk, gk), (lp, gp), routes, own = model_grads(mcfg, params, batch,
+                                                      pin=True)
+        if moe:
+            require(all(torch.equal(a.idx, b.idx) and torch.equal(a.pos, b.pos)
+                        for a, b in zip(own, pin)),
+                    f"{label}: the plain path's routes differ between two "
+                    f"passes")
         paths = [path for path, _ in T.leaves_with_paths(params)]
-        diff = sum(float((a.float() - b.float()).square().sum())
-                   for a, b in zip(gk, gp))
-        norm = sum(float(b.float().square().sum()) for b in gp)
-        total = (diff / norm) ** 0.5
+        total = grad_rel(gk, gp)
         per_layer = {}
         for path, a, b in zip(paths, gk, gp):
             parts = path.split("/")
@@ -2390,9 +2616,31 @@ def main() -> None:
             print(f"[train] bf16 {mcfg.name} gradient rel L2, {key}: "
                   + ", ".join(f"{n} {e:.3g}" for n, e in items))
         print(f"[train] bf16 {label} gradients of loss_fn, kernels vs "
-              f"plain versions: loss {lk:.6f} vs {lp:.6f}; the whole "
-              f"flattened gradient rel L2 {total:.4g} (limit "
-              f"{MODEL_BF16_RTOL})")
+              f"plain versions{', MoE routes pinned' if routes else ''}: "
+              f"loss {lk:.6f} vs {lp:.6f}; the whole flattened gradient "
+              f"rel L2 {total:.4g} (limit {MODEL_BF16_RTOL})")
+        if attribute:
+            near = {"the kernels": grad_rel(gk, g32),
+                    "the plain versions": grad_rel(gp, g32)}
+            del gk, g32
+            one_plain = {}
+            for fam in kernel_families(mcfg):
+                with plain_ops(fam), moe_calls(own):
+                    ga = torch.autograd.grad(lm.loss_fn(mcfg, params, tokens,
+                                                        labels), leaves)
+                one_plain["/".join(fam)] = grad_rel(ga, gp)
+                del ga
+            print(f"[train] bf16 {label} gradients, the same routes: the "
+                  f"whole gradient's rel L2 against the plain versions' with "
+                  f"one kernel family on its plain version (the rest on the "
+                  f"kernels): " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                            one_plain.items())
+                  + "; against an fp32 gradient (plain versions, the same "
+                  "weights, batch and routes): " + ", ".join(
+                      f"{k} {v:.4g}" for k, v in near.items()))
+        if moe:
+            hold_moe_routes(f"bf16 {label} gradients, the kernels' own "
+                            f"routes", mcfg, routes, vs32)
         require(total <= MODEL_BF16_RTOL,
                 f"bf16 model gradients of {label} differ by {total}")
 
@@ -2442,34 +2690,79 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # (c) train with Trainer: the main path of this phase, counted from 0
-    def train_run(tcfg, note, per_step, why):
+    def train_launches(tcfg) -> tuple[dict, str]:
+        """Kernel launches a train step of a decoder, with their
+        derivation: the forward's (``path_launches``, ``ssd`` included),
+        each layer's again in the remat recompute (all but the final
+        norm, which runs outside it), and one backward a forward call
+        outside the recompute."""
+        steps, prefill, why = path_launches(tcfg)
+        norm = "sfu_layernorm" if tcfg.norm_kind == "layernorm" \
+            else "rmsnorm"
+        bwd = {"rmsnorm": "rmsnorm_bwd", "sfu_layernorm": "layernorm_bwd",
+               "flash_attention": "flash_attention_bwd", "ssd": "ssd_bwd"}
+        per_step = Counter()
+        for k, n in (Counter(steps) + Counter(prefill)).items():
+            per_step[k] += n + (n - (k == norm) if tcfg.remat else 0)
+            per_step[bwd[k]] += n
+        return dict(per_step), (
+            f"{dict(per_step)}: the forward {why}"
+            + (", each layer again in the remat recompute (the final norm "
+               "outside it)" if tcfg.remat else "")
+            + ", one backward a forward call")
+
+    def chip_trainer(tcfg, peak_lr=TRAIN_PEAK_LR, **options):
         """``Trainer`` on ``tcfg`` for TRAIN_STEPS steps of TRAIN_BATCH x
-        TRAIN_SEQ tokens from SyntheticLM seed 0 (fp32 parameters and
-        moments, the config's bf16 compute and remat), counted from zero:
-        the launches must be ``per_step`` a step and the mean loss of the
-        last 3 steps below the first's; prints the losses, the step's host
-        ms and tokens/s, the peak device memory against its prediction and
-        one profiled step."""
+        TRAIN_SEQ tokens from SyntheticLM seed 0, AdamW at ``peak_lr``
+        with the config's moments, no checkpoint unless ``options`` says."""
+        return Trainer(
+            tcfg, ShapeSpec("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            opt=OptConfig(peak_lr=peak_lr, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS),
+            options=TrainOptions(**{"steps": TRAIN_STEPS, "ckpt_every": 0,
+                                    "log_every": 1} | options),
+            seed=0, device=dev)
+
+    def train_run(tcfg, note, per_step, why, inspect=None,
+                  peak_lr=TRAIN_PEAK_LR):
+        """``Trainer`` on ``tcfg`` for TRAIN_STEPS steps of TRAIN_BATCH x
+        TRAIN_SEQ tokens from SyntheticLM seed 0 at ``peak_lr`` (fp32
+        parameters, the config's moments, bf16 compute and remat), counted
+        from zero: the
+        launches must be ``per_step`` a step and the mean loss of the
+        last 3 steps below the first's; prints the losses, the peak
+        device memory against its prediction, ``inspect(params,
+        trainer)`` on the trained state, then the step's host ms,
+        tokens/s and one profiled step.  Returns (the losses, the
+        peak)."""
         expected = dict.fromkeys(counters, 0) | {
             k: TRAIN_STEPS * n for k, n in per_step.items()}
         print(f"[train] {tcfg.name} [{note}] expected launches a step: "
               f"{why}; x {TRAIN_STEPS} steps; the other kernels 0")
-        param_gb = tcfg.param_count() * 16 / 1e9
+        msize = torch.empty((), dtype=getattr(torch, tcfg.moment_dtype)
+                            ).element_size()
+        n_par = tcfg.param_count()
+        state_gb = n_par * (8 + 2 * msize) / 1e9
         logits_gb = 2 * TRAIN_BATCH * TRAIN_SEQ * tcfg.vocab_size * 4 / 1e9
+        leaf = max(tcfg.vocab_size * tcfg.d_model,
+                   tcfg.n_experts * tcfg.d_model * tcfg.d_ff)
+        layer = max(dataclasses.replace(tcfg, pattern=(p,), n_layers=1
+                                        ).param_count()
+                    - 2 * tcfg.vocab_size * tcfg.d_model - tcfg.d_model
+                    for p in tcfg.pattern)
+        temps_gb = (4 * leaf + 24 * min(leaf, adamw.SLICE)
+                    + 4 * layer) / 1e9
         print(f"[train] {tcfg.name} [{note}] predicted peak: "
-              f"{tcfg.param_count() / 1e9:.4f} B parameters x 16 bytes (fp32 "
-              f"parameter, gradient and two moments) = {param_gb:.2f} GB, + "
-              f"{logits_gb:.2f} GB of fp32 logits and their gradient, + "
-              f"AdamW's temporaries for the largest leaf and the bf16 copies "
-              f"of the weights at use: {param_gb + logits_gb:.2f}-"
-              f"{param_gb + logits_gb + 8:.2f} GB")
-        trainer = Trainer(
-            tcfg, ShapeSpec("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
-            opt=OptConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP,
-                          total_steps=TRAIN_STEPS),
-            options=TrainOptions(steps=TRAIN_STEPS, ckpt_every=0,
-                                 log_every=1),
-            seed=0, device=dev)
+              f"{n_par / 1e9:.4f} B parameters x {8 + 2 * msize} bytes (fp32 "
+              f"parameter and gradient, two {tcfg.moment_dtype} moments) = "
+              f"{state_gb:.2f} GB, + {logits_gb:.2f} GB of fp32 logits and "
+              f"their gradient, + up to {temps_gb:.2f} GB of temporaries "
+              f"(the clip norm's square of the largest leaf, {leaf / 1e9:.3f}"
+              f" B elements, AdamW's six on at most {adamw.SLICE:,} "
+              f"elements, the largest layer's bf16 weight copies and their "
+              f"gradients): {state_gb + logits_gb:.2f}-"
+              f"{state_gb + logits_gb + temps_gb:.2f} GB")
+        trainer = chip_trainer(tcfg, peak_lr)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2490,10 +2783,11 @@ def main() -> None:
         dts = sorted(m["dt"] for m in trainer.metrics_log[1:])
         step_ms = 1e3 * dts[len(dts) // 2]
         tok = TRAIN_BATCH * TRAIN_SEQ
-        print(f"[train] {tcfg.name} [{note}; fp32 parameters and moments, "
-              f"{tcfg.compute_dtype} compute, remat {tcfg.remat}] "
+        print(f"[train] {tcfg.name} [{note}; fp32 parameters, "
+              f"{tcfg.moment_dtype} moments, {tcfg.compute_dtype} compute, "
+              f"remat {tcfg.remat}] "
               f"{TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, AdamW peak "
-              f"lr {TRAIN_PEAK_LR} after {TRAIN_WARMUP} warm-up steps: "
+              f"lr {peak_lr} after {TRAIN_WARMUP} warm-up steps: "
               f"losses " + ", ".join(f"{x:.4f}" for x in losses)
               + f"; mean of the last 3 {np.mean(losses[-3:]):.4f} < first "
               f"{losses[0]:.4f}")
@@ -2502,9 +2796,15 @@ def main() -> None:
               f"{step_ms:.2f}, least {1e3 * dts[0]:.2f}, most "
               f"{1e3 * dts[-1]:.2f}; {tok / (step_ms / 1e3):,.0f} tokens/s "
               f"at the median [{note}] on {smi}")
-        print(f"[train] {tcfg.name} device memory: {base / 2**30:.2f} GiB "
-              f"before, peak {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB) "
-              f"over the run, max_memory_allocated")
+        print(f"[train] {tcfg.name} [{note}] device memory: "
+              f"{base / 2**30:.2f} GiB before, peak {peak / 2**30:.2f} GiB "
+              f"({peak / 1e9:.2f} GB; predicted {state_gb + logits_gb:.2f}-"
+              f"{state_gb + logits_gb + temps_gb:.2f} GB) over the run, "
+              f"max_memory_allocated, on {smi}")
+        require(peak < CARD_TRAIN_GB * 1e9, f"{tcfg.name} training peak "
+                f"{peak / 1e9:.2f} GB (limit {CARD_TRAIN_GB} GB)")
+        if inspect is not None:
+            inspect(params, trainer)
         nxt = trainer.data.device_batch(TRAIN_STEPS, dev)
         step_s = host_s(lambda: trainer.step_fn(params, opt_state, nxt))
         device_profile(f"{tcfg.name} [{note}] train step {TRAIN_BATCH}x"
@@ -2513,16 +2813,9 @@ def main() -> None:
                        step_s)
         del trainer, params, opt_state, nxt
         torch.cuda.empty_cache()
+        return losses, peak
 
-    L = TRAIN_LAYERS
-    train_run(train_cfg, cut_note,
-              {"rmsnorm": (4 * L + 1) + 4 * L, "rmsnorm_bwd": 4 * L + 1,
-               "flash_attention": 2 * L, "flash_attention_bwd": L},
-              f"rmsnorm {8 * L + 1} = (4 x {L} layers (norm1, q-norm, "
-              f"k-norm, norm2) + the final norm) in the forward + 4 x {L} in "
-              f"the remat recompute; rmsnorm_bwd {4 * L + 1} = 4 x {L} + 1; "
-              f"flash_attention {2 * L} = {L} + {L} recomputed; "
-              f"flash_attention_bwd {L}")
+    train_run(train_cfg, cut_note, *train_launches(train_cfg))
     # the same run at AdamW's default peak lr, printed beside the checked
     # run and not checked: the reason for TRAIN_PEAK_LR
     slow = Trainer(
@@ -2545,52 +2838,248 @@ def main() -> None:
         depth = (f"{tcfg.encoder_layers} + {tcfg.n_layers}"
                  if tcfg.is_encdec else f"{tcfg.n_layers}")
         note = f"full width and depth, {depth} layers"
-        if tcfg.is_encdec:
-            E, D = tcfg.encoder_layers, tcfg.n_layers
-            norms, attn = 2 * E + 3 * D, E + 2 * D
-            per_step = {"sfu_layernorm": 2 * norms + 2,
-                        "layernorm_bwd": norms + 2,
-                        "flash_attention": 2 * attn,
-                        "flash_attention_bwd": attn}
-            why = (f"sfu_layernorm {2 * norms + 2} = ({2 * E} encoder norms "
-                   f"+ 1 final encoder norm + {3 * D} decoder norms + 1 final "
-                   f"norm) in the forward + {norms} in the remat recompute; "
-                   f"layernorm_bwd {norms + 2}; flash_attention {2 * attn} = "
-                   f"({E} encoder + {D} self + {D} cross) x 2 (forward, "
-                   f"recompute); flash_attention_bwd {attn}")
-        else:
-            L = tcfg.n_layers
-            per_step = {"rmsnorm": (2 * L + 1) + 2 * L,
-                        "rmsnorm_bwd": 2 * L + 1, "ssd": 2 * L, "ssd_bwd": L}
-            why = (f"rmsnorm {4 * L + 1} = (2 x {L} layers (norm1, the gated "
-                   f"norm) + the final norm) in the forward + 2 x {L} in the "
-                   f"remat recompute; rmsnorm_bwd {2 * L + 1}; ssd {2 * L} = "
-                   f"{L} + {L} recomputed; ssd_bwd {L}")
+        if not tcfg.is_encdec:
+            train_run(tcfg, note, *train_launches(tcfg))
+            continue
+        E, D = tcfg.encoder_layers, tcfg.n_layers
+        norms, attn = 2 * E + 3 * D, E + 2 * D
+        per_step = {"sfu_layernorm": 2 * norms + 2,
+                    "layernorm_bwd": norms + 2,
+                    "flash_attention": 2 * attn,
+                    "flash_attention_bwd": attn}
+        why = (f"sfu_layernorm {2 * norms + 2} = ({2 * E} encoder norms "
+               f"+ 1 final encoder norm + {3 * D} decoder norms + 1 final "
+               f"norm) in the forward + {norms} in the remat recompute; "
+               f"layernorm_bwd {norms + 2}; flash_attention {2 * attn} = "
+               f"({E} encoder + {D} self + {D} cross) x 2 (forward, "
+               f"recompute); flash_attention_bwd {attn}")
         train_run(tcfg, note, per_step, why)
 
-    # (d) fault and resume on the card: reduced qwen3-4b
-    fcfg = get_config(TRAIN_ARCH, reduced=True)
-    runs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for fail in (-1, FAULT_AT):
-            ftr = Trainer(fcfg, ShapeSpec("fault", 64, 8, "train"), device=dev,
-                          options=TrainOptions(
-                              steps=FAULT_STEPS, ckpt_every=5,
-                              ckpt_dir=f"{tmp}/run{fail}", fail_at_step=fail,
-                              log_every=1000))
-            ftr.run()
-            runs.append((ftr.failures,
-                         {m["step"]: m["loss"] for m in ftr.metrics_log}))
-    (f0, clean), (f1, resumed) = runs
-    worst = max(abs(resumed[s] - clean[s]) / abs(clean[s]) for s in clean)
-    print(f"[train] fault and resume, {fcfg.name} on the card: a fault at "
-          f"step {FAULT_AT}, resumed from step 5's checkpoint; losses of "
-          f"steps 0-{FAULT_STEPS - 1} vs an uninterrupted run: worst rel "
-          f"diff {worst:.3g} (limit {FAULT_RTOL}); failures {f1}")
-    require(f0 == 0 and f1 == 1 and clean.keys() == resumed.keys()
-            == set(range(FAULT_STEPS)) and worst <= FAULT_RTOL,
-            f"fault and resume: failures {f0}/{f1}, losses {clean} vs "
-            f"{resumed}")
+    # (d) the MoE archs at full width (MOE_TRAIN_CUTS), one cut at a time,
+    # each state drawn once and freed before the next: bf16 model
+    # gradients with the routes pinned, fp32 ones with the routes free,
+    # Trainer, C.6 on the trained and on the initial weights; dbrx again
+    # with a fault
+    def moe_train_cfg(arch):
+        """``arch`` cut as MOE_TRAIN_CUTS says (a cut below one block keeps
+        the first pattern positions), and the cut's note."""
+        full = get_config(arch)
+        cut = MOE_TRAIN_CUTS[arch]
+        n = cut["n_layers"]
+        cfg = dataclasses.replace(full, **cut, pattern=full.pattern[:n])
+        kinds = "; ".join(f"{p.mixer}+{p.ffn}" for p in cfg.pattern)
+        return cfg, ("cut: " + ", ".join(
+            f"{k} {v} of {getattr(full, k)}" for k, v in cut.items())
+            + f" (layers {kinds}), full width, top-{cfg.top_k}")
+
+    def first_moe_fp32(mcfg):
+        """fp32 compute over ``mcfg``'s layers up to its first MoE layer,
+        its experts halved while the parameters and two gradients in fp32
+        would pass MOE_FP32_GIB; and what was taken."""
+        n = 1 + next(i for i, p in enumerate(mcfg.pattern) if p.ffn == "moe")
+        cfg32 = dataclasses.replace(mcfg, n_layers=n,
+                                    pattern=mcfg.pattern[:n],
+                                    compute_dtype="float32")
+        while 12 * cfg32.param_count() > MOE_FP32_GIB * 2**30:
+            cfg32 = dataclasses.replace(cfg32,
+                                        n_experts=cfg32.n_experts // 2)
+        return cfg32, (f"fp32 check: the first {n} layers, "
+                       f"{cfg32.n_experts} of {mcfg.n_experts} experts, "
+                       f"parameters and two gradients "
+                       f"{12 * cfg32.param_count() / 2**30:.2f} GiB (limit "
+                       f"{MOE_FP32_GIB})")
+
+    def c6_routes(tcfg, params, batch, label, attribute=False) -> float:
+        """C.6: ``batch`` through ``lm.forward`` in bf16 on the kernels
+        (their own routes) and on the plain versions: the decisions that
+        differ by MoE layer, their margins and the logits' relative L2,
+        held as the pinned gradients' routes are (``hold_moe_routes``,
+        against an fp32 evaluation unpinned).  With ``attribute``, the MoE
+        inputs' drift again with each kernel family on its plain version.
+        Returns the kernels' loss on ``batch``."""
+        tokens = batch["tokens"]
+        vs32, _ = routes_vs_fp32(tcfg, params, tokens, pinned=False)
+        logits, calls = {}, {}
+        with torch.no_grad():
+            for plain in (True, False):
+                with moe_calls() as calls[plain]:
+                    logits[plain], _ = lm.forward(tcfg, params, tokens,
+                                                  plain=plain)
+            rel = rel_l2(logits[False], logits[True])
+            del logits
+            drift = {}
+            for fam in kernel_families(tcfg) if attribute else ():
+                with plain_ops(fam), moe_calls() as part:
+                    lm.forward(tcfg, params, tokens)
+                drift["/".join(fam)] = [float(f"{x:.3g}") for x in
+                                        route_diffs(part, calls[True])[
+                                            "drift"]]
+            loss = float(lm.loss_fn(tcfg, params, tokens, batch["labels"]))
+        print(f"[C.6] {label}: logits of the kernels (their own routes) vs "
+              f"the plain versions rel L2 {rel:.4g}"
+              + (f"; MoE input rel L2 with one family on its plain version "
+                 f"(the rest on the kernels): {drift}" if drift else ""))
+        hold_moe_routes(f"C.6 {label}", tcfg,
+                        route_diffs(calls[False], calls[True]), vs32)
+        return loss
+
+    def moe_fault_run(tcfg, note, clean, clean_peak):
+        """``tcfg`` trained as ``train_run`` trains it with a fault injected
+        at FAULT_AT and no checkpoint: the fault path draws the state
+        anew and replays from step 0; every loss, before the fault and
+        replayed, within FAULT_RTOL of the uninterrupted run's, and the
+        peak within 1 GiB of that run's."""
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = chip_trainer(tcfg, ckpt_dir=tmp, fail_at_step=FAULT_AT,
+                                   log_every=TRAIN_STEPS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer.run(resume=False)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log = [(m["step"], m["loss"]) for m in trainer.metrics_log]
+        steps = [s for s, _ in log]
+        worst = max(abs(x - clean[s]) / abs(clean[s]) for s, x in log)
+        print(f"[train] {tcfg.name} [{note}] again with a fault at step "
+              f"{FAULT_AT} and no checkpoint: {trainer.failures} failure, "
+              f"steps {steps[:FAULT_AT]} then replayed {steps[FAULT_AT:]}; "
+              f"worst loss rel diff to the uninterrupted run {worst:.3g} "
+              f"(limit {FAULT_RTOL}); peak {peak / 2**30:.2f} GiB against "
+              f"{clean_peak / 2**30:.2f} uninterrupted (limit + 1 GiB)")
+        require(trainer.failures == 1 and steps == list(range(FAULT_AT))
+                + list(range(TRAIN_STEPS)) and worst <= FAULT_RTOL
+                and peak <= clean_peak + 2**30,
+                f"{tcfg.name} fault replay: {log} vs {clean}, peak {peak}")
+        del trainer
+        torch.cuda.empty_cache()
+
+    for arch in MOE_TRAIN_CUTS:
+        mcfg, note = moe_train_cfg(arch)
+        data = for_arch(mcfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        batch = data.device_batch(0, dev)
+        params = lm.init(mcfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+        bf16_grad_check(mcfg, params, f"{arch} [{note}]", batch,
+                        attribute=True)
+        del params
+        torch.cuda.empty_cache()
+        cfg32, taken = first_moe_fp32(mcfg)
+        params = lm.init(cfg32, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+        fp32_grad_check(cfg32, params, f"{arch} [{note}; {taken}]", batch)
+        del params, batch
+        torch.cuda.empty_cache()
+        # the step-TRAIN_STEPS batch, which no step trains on: C.6's input
+        # and the held-out loss, whose fall from the initial weights to
+        # the trained ones no batch-to-batch spread blurs
+        late, held = data.device_batch(TRAIN_STEPS, dev), {}
+        lr = MOE_TRAIN_PEAK_LR.get(arch, TRAIN_PEAK_LR)
+        losses, peak = train_run(
+            mcfg, note, *train_launches(mcfg),
+            inspect=lambda params, _: held.__setitem__("trained", c6_routes(
+                mcfg, params, late, f"{arch} [{note}] after {TRAIN_STEPS} "
+                f"steps at peak lr {lr}, on the step-{TRAIN_STEPS} batch")),
+            peak_lr=lr)
+        params = lm.init(mcfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+        held["initial"] = c6_routes(mcfg, params, late, f"{arch} [{note}] "
+                                    f"the initial weights, on the "
+                                    f"step-{TRAIN_STEPS} batch",
+                                    attribute=True)
+        del params
+        torch.cuda.empty_cache()
+        swing = max(abs(b - a) for a, b in zip(losses, losses[1:]))
+        print(f"[train] {arch} [{note}] loss on the held-out "
+              f"step-{TRAIN_STEPS} batch (the kernels, bf16): initial weights "
+              f"{held['initial']:.4f}, after {TRAIN_STEPS} steps at peak lr "
+              f"{lr} {held['trained']:.4f}, a fall of "
+              f"{held['initial'] - held['trained']:.4f} (the training steps' "
+              f"losses, each on its own batch, move by up to {swing:.4f} "
+              f"from one step to the next)")
+        require(held["trained"] < held["initial"], f"{arch}: the held-out "
+                f"loss did not fall: {held}")
+        if lr != TRAIN_PEAK_LR:   # printed, not checked: the reason for lr
+            side = chip_trainer(mcfg, log_every=TRAIN_STEPS)
+            params, _ = side.run(resume=False)
+            with torch.no_grad():
+                after = float(lm.loss_fn(mcfg, params, late["tokens"],
+                                         late["labels"]))
+            print(f"[train] {arch} [{note}] the same run at peak lr "
+                  f"{TRAIN_PEAK_LR} (printed, not checked: the reason for "
+                  f"MOE_TRAIN_PEAK_LR): losses " + ", ".join(
+                      f"{m['loss']:.4f}" for m in side.metrics_log)
+                  + f"; loss on the held-out step-{TRAIN_STEPS} batch "
+                  f"{held['initial']:.4f} -> {after:.4f}")
+            del side, params
+        del late
+        torch.cuda.empty_cache()
+        if arch == MOE_FAULT_ARCH:
+            moe_fault_run(mcfg, note, dict(enumerate(losses)), peak)
+
+    # (e) the remat policies on qwen3-4b's training cut: one step's
+    # gradients each, equal to "nothing"'s to the bit (the kernels and the
+    # products are deterministic)
+    want = None
+    for policy in ("nothing", "dots", "dots_nb"):
+        pcfg = dataclasses.replace(train_cfg, remat_policy=policy)
+        params = lm.init(pcfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+        leaves = T.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+
+        def step():
+            return torch.autograd.grad(lm.loss_fn(
+                pcfg, params, train_batch["tokens"], train_batch["labels"]),
+                leaves)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        want = grads if want is None else want
+        same = all(torch.equal(a, b) for a, b in zip(grads, want))
+        del grads
+        ms = 1e3 * host_s(step)
+        print(f"[train] remat_policy {policy!r}, {TRAIN_ARCH} [{cut_note}], "
+              f"one step's loss and gradients on {TRAIN_BATCH}x{TRAIN_SEQ} "
+              f"tokens: host ms {ms:.2f} (the least of three after a "
+              f"warm-up), peak {(peak - base) / 2**30:.2f} GiB above the "
+              f"{base / 2**30:.2f} held before it (the parameters and, "
+              f"after the first policy, \"nothing\"'s gradients); gradients "
+              f"equal to \"nothing\"'s to the bit: {same}; on {smi}")
+        require(same, f"remat_policy {policy!r}: gradients differ from "
+                f"\"nothing\"'s")
+        del params, leaves, step
+    del want
+    torch.cuda.empty_cache()
+
+    # (f) fault and resume on the card: reduced qwen3-4b and dbrx-132b
+    for farch in (TRAIN_ARCH, MOE_FAULT_ARCH):
+        fcfg = get_config(farch, reduced=True)
+        runs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for fail in (-1, FAULT_AT):
+                ftr = Trainer(fcfg, ShapeSpec("fault", 64, 8, "train"),
+                              device=dev, options=TrainOptions(
+                                  steps=FAULT_STEPS, ckpt_every=5,
+                                  ckpt_dir=f"{tmp}/run{fail}",
+                                  fail_at_step=fail, log_every=1000))
+                ftr.run()
+                runs.append((ftr.failures,
+                             {m["step"]: m["loss"] for m in ftr.metrics_log}))
+        (f0, clean), (f1, resumed) = runs
+        worst = max(abs(resumed[s] - clean[s]) / abs(clean[s])
+                    for s in clean)
+        print(f"[train] fault and resume, {fcfg.name} on the card: a fault "
+              f"at step {FAULT_AT}, resumed from step 5's checkpoint; losses "
+              f"of steps 0-{FAULT_STEPS - 1} vs an uninterrupted run: worst "
+              f"rel diff {worst:.3g} (limit {FAULT_RTOL}); failures {f1}")
+        require(f0 == 0 and f1 == 1 and clean.keys() == resumed.keys()
+                == set(range(FAULT_STEPS)) and worst <= FAULT_RTOL,
+                f"fault and resume of {fcfg.name}: failures {f0}/{f1}, "
+                f"losses {clean} vs {resumed}")
 
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")
@@ -2908,6 +3397,50 @@ def main() -> None:
                lambda: torch.autograd.grad(owl, wl, dow, retain_graph=True),
                10 * wcfg.head_dim * TRAIN_BATCH * wcfg.n_heads * pairs,
                2 * 8 * qw.numel() + 4 * lsew.numel(), bf16_peak)
+    # the backward kernels at the MoE archs' training shapes (bf16, 4 x 512
+    # tokens): rmsnorm's rows of llama4 (5120), jamba (8192) and jamba's
+    # gated norm (16,384: the block kernel); attention's over 8 kv heads of
+    # 128, causal, at dbrx's 48, llama4's 40 and jamba's 64 query heads
+    # (dbrx's layernorm rows are nemotron-4-15b's, timed above)
+    for R, N in ((TRAIN_BATCH * TRAIN_SEQ, n) for n in (5120, 8192, 16384)):
+        x, dy, g = randn(R, N, dtype=torch.bfloat16), \
+            randn(R, N, dtype=torch.bfloat16), randn(N)
+        rs = ref.rmsnorm_rstd(x)
+        xl, gl = x.detach().requires_grad_(), \
+            g.to(torch.bfloat16).requires_grad_()
+        yl = F.rms_norm(xl, (N,), gl, 1e-6)
+        report("rmsnorm_bwd", f"{R}x{N} bf16 +gamma (MoE training rows)",
+               lambda: sfu_k.rmsnorm_bwd(x, g, rs, dy),
+               lambda: ref.rmsnorm_bwd(x, g, rs, dy),
+               lambda: torch.autograd.grad(yl, (xl, gl), dy,
+                                           retain_graph=True),
+               9 * x.numel(), 6 * x.numel() + 4 * R + 8 * N, fp32_peak)
+        del x, dy, xl, yl
+    for arch in MOE_TRAIN_CUTS:
+        acfg = get_config(arch)
+        qm = randn(TRAIN_BATCH, acfg.n_heads, TRAIN_SEQ, acfg.head_dim,
+                   dtype=torch.bfloat16)
+        km, vm = (randn(TRAIN_BATCH, acfg.n_kv_heads, TRAIN_SEQ,
+                        acfg.head_dim, dtype=torch.bfloat16)
+                  for _ in range(2))
+        dom = randn(*qm.shape, dtype=torch.bfloat16)
+        om, lsem = attention_lse(qm, km, vm, causal=True)
+        ml = [t.detach().requires_grad_() for t in (qm, km, vm)]
+        oml = F.scaled_dot_product_attention(*ml, is_causal=True,
+                                             enable_gqa=True)
+        report("flash_attention_bwd",
+               f"{tuple(qm.shape)} over {tuple(km.shape)} causal bf16 "
+               f"({arch} training, GQA {acfg.n_heads // acfg.n_kv_heads})",
+               lambda: flash_attention_bwd(qm, km, vm, om, lsem, dom,
+                                           causal=True),
+               lambda: ref.mha_attention_bwd(qm, km, vm, om, lsem, dom,
+                                             causal=True),
+               lambda: torch.autograd.grad(oml, ml, dom, retain_graph=True),
+               10 * acfg.head_dim * TRAIN_BATCH * acfg.n_heads
+               * causal_pairs(TRAIN_SEQ, TRAIN_SEQ),
+               2 * (4 * qm.numel() + 4 * km.numel()) + 4 * lsem.numel(),
+               bf16_peak)
+        del qm, km, vm, dom, om, lsem, ml, oml
     qd = randn(B, cfg.n_heads, 1, cfg.head_dim, dtype=torch.bfloat16)
     kd, vd = (randn(B, cfg.n_kv_heads, SERVE_MAX_LEN, cfg.head_dim,
                     dtype=torch.bfloat16) for _ in range(2))

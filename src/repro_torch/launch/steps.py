@@ -34,7 +34,7 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec,
     cast to each parameter's dtype, and the loss the mean of theirs (the
     reference's scan, ``steps.py:111-134``).  Metrics stay 0-d tensors on
     the device.  ``device=None`` means the CUDA card."""
-    opt = opt or adamw.OptConfig(moment_dtype=cfg.moment_dtype)
+    opt = adamw.for_arch(opt, cfg)
     dev = resolve_device(device)
     mb = max(int(cfg.microbatch), 1)
     if shape.global_batch % mb:

@@ -14,10 +14,16 @@ device.
 
 Elastic rescale onto another mesh and ``--model-axis`` wait for the
 multi-device layer (ROADMAP A.6).  ``device=None`` means the CUDA card;
-there, every kernel of the model's path needs a backward: rmsnorm,
-layernorm, flash attention's prefill and ``ssd`` have one, so the dense
-archs, whisper-medium and mamba2-2.7b train; the MoE archs raise until
-ROADMAP A.5b.
+there the kernels of every arch's path (rmsnorm, layernorm, flash
+attention's prefill and ``ssd``) run their backward kernels, and the MoE
+FFN differentiates through its index dispatch, so every arch trains.
+The >= 100B MoE configs keep bf16 moments (``cfg.moment_dtype``), which
+an ``OptConfig`` passed in takes unless it names its own.  At full width
+they fit one card cut in depth, e.g. dbrx-132b at one of its 40 layers:
+
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=1)
+    Trainer(cfg, ShapeSpec("t", 512, 4, "train"),
+            opt=OptConfig(peak_lr=1e-3))
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \\
           --reduced --device cpu --steps 40 --batch 8 --seq 64
@@ -62,8 +68,8 @@ class Trainer:
         self.shape = shape
         self.device = resolve_device(device)
         self.options = options or TrainOptions()
-        self.opt_cfg = opt or adamw.OptConfig(
-            moment_dtype=cfg.moment_dtype, total_steps=self.options.steps)
+        self.opt_cfg = adamw.for_arch(
+            opt or adamw.OptConfig(total_steps=self.options.steps), cfg)
         self.step_fn = make_train_step(cfg, shape, self.opt_cfg, self.device)
         self.data = for_arch(cfg, shape.seq_len, shape.global_batch, seed)
         self.saver = ckpt.AsyncSaver()
@@ -104,6 +110,7 @@ class Trainer:
                 params, opt_state, metrics = self.step_fn(
                     params, opt_state, batch)
                 loss = float(metrics["loss"])
+                failed = False
             except Exception as e:   # noqa: BLE001 — the fault path
                 self.failures += 1
                 self.fault_log.append(traceback.format_exc())
@@ -111,7 +118,13 @@ class Trainer:
                       f"({self.failures}/{opts.max_failures})")
                 if self.failures > opts.max_failures:
                     raise
+                failed = True
+            if failed:
+                # outside the except block, whose traceback holds the
+                # failed step's frames (its gradients): the old state goes
+                # before the new is drawn, or a full-width fault holds two
                 self.saver.wait()
+                params = opt_state = None
                 params, opt_state, step = self.init_state()
                 params, opt_state, step = self.try_resume(
                     params, opt_state, step)

@@ -34,15 +34,17 @@ encoder's, the decoder's self- and cross-attention) on the
 ``flash_attention`` kernel, through ``kernels.ops``; ``plain`` selects
 their plain versions.  ``device=None`` means the CUDA card.
 ``cfg.remat`` recomputes each encoder and decoder layer in the backward
-(``lm.remat``).  Under autograd on the card the layernorm and attention
-kernels run their backward kernels (``sfu.layernorm_bwd``,
-``flash_attention.flash_attention_bwd``), so ``loss_fn`` trains there;
-on the CPU the plain versions differentiate.  ``abstract_init`` and ``cache_specs`` wait
+(``lm.remat`` under ``_remat_cfg``: policy "nothing", whatever
+``cfg.remat_policy`` says, as the reference's ``encdec`` does).  Under autograd on the card the
+layernorm and attention kernels run their backward kernels
+(``sfu.layernorm_bwd``, ``flash_attention.flash_attention_bwd``), so
+``loss_fn`` trains there; on the CPU the plain versions differentiate.  ``abstract_init`` and ``cache_specs`` wait
 for the multi-device layer (A.6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -169,6 +171,11 @@ def cast_params(cfg: ArchConfig, params: dict) -> dict:
 
 # ------------------------------------------------------------------- encoder
 
+def _remat_cfg(cfg: ArchConfig) -> ArchConfig:
+    """``cfg`` as ``lm.remat`` reads it here: no activation saved."""
+    return dataclasses.replace(cfg, remat_policy="nothing")
+
+
 def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
            plain: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> encoder states, in the
@@ -177,8 +184,9 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
     cd = lm._dtype(cfg.compute_dtype)
     _, S, D = frames.shape
     h = frames.to(cd) + _device_sinusoidal(S, D, frames.device, cd)[None]
+    rcfg = _remat_cfg(cfg)
     for lp in params["encoder"]:
-        h = lm.remat(cfg, _enc_layer, cfg, lp, h, plain)
+        h = lm.remat(rcfg, _enc_layer, cfg, lp, h, plain)
     return L.apply_norm(cfg, params["enc_norm"], h, plain=plain)
 
 
@@ -221,8 +229,9 @@ def forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
     in fp32 (no loss)."""
     enc = encode(cfg, params, frames, plain=plain)
     h = _embed(cfg, params, tokens)
+    rcfg = _remat_cfg(cfg)
     for lp in params["decoder"]:
-        h = lm.remat(cfg, _dec_train_layer, cfg, lp, h, enc, plain)
+        h = lm.remat(rcfg, _dec_train_layer, cfg, lp, h, enc, plain)
     return lm._logits(cfg, params, h, plain)
 
 

@@ -34,8 +34,11 @@ instead of the kernels, and the MoE FFN in the reference's one-hot
 einsum form.  ``forward`` sums the MoE aux loss over the layers, as the
 reference does, and ``loss_fn`` adds it; ``prefill`` and ``decode_step``
 drop it.  ``cfg.remat`` recomputes each layer in the backward
-(``torch.utils.checkpoint``, the reference's ``remat_policy`` "nothing";
-its "dots" policies wait for ROADMAP A.5b).  A prefill
+(``torch.utils.checkpoint``) under ``cfg.remat_policy``: "nothing" saves
+no activation of the layer, "dots" the output of every product and
+"dots_nb" those of the products with no batch dimension (the 2-D weight
+products; attention's and the experts' batched products are
+recomputed), the reference's ``jax.checkpoint_policies``.  A prefill
 routes its S tokens as one group and may drop choices past an expert's
 capacity; a decode step routes groups of one token, which never drop:
 so prefill + decode equals ``forward`` only where nothing dropped.
@@ -46,10 +49,12 @@ ROADMAP item that ports it; an encoder-decoder arch (whisper) raises
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import tree as T
 from ..convert import resolve_device
@@ -216,21 +221,40 @@ def _logits(cfg, params, h, plain):
     return (h @ params["lm_head"].to(h.dtype)).float()
 
 
+# the products each remat policy saves (the reference's
+# ``jax.checkpoint_policies.dots_saveable`` and
+# ``checkpoint_dots_with_no_batch_dims``); every other op, the kernels'
+# launches among them, runs again in the backward
+_aten = torch.ops.aten
+SAVED_PRODUCTS = {
+    "nothing": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default),
+    "dots_nb": (_aten.mm.default, _aten.addmm.default),
+}
+
+
 def remat(cfg: ArchConfig, fn, *args):
     """``fn(*args)``, its activations recomputed in the backward where
     ``cfg.remat`` asks and autograd records: grad mode on and a tensor of
-    ``args`` (or of a dict of them) requiring grad.  One layer at a time."""
+    ``args`` (or of a dict of them) requiring grad.  One layer at a time;
+    ``cfg.remat_policy`` names the products whose outputs are saved
+    instead (``SAVED_PRODUCTS``)."""
     tensors = [t for a in args
                for t in (T.leaves(a) if isinstance(a, dict) else [a])
                if isinstance(t, torch.Tensor)]
     if not (cfg.remat and torch.is_grad_enabled()
             and any(t.requires_grad for t in tensors)):
         return fn(*args)
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(f"{cfg.name}: remat_policy "
-                                  f"{cfg.remat_policy!r} saves the products' "
-                                  f"outputs: ROADMAP A.5b")
-    return checkpoint(fn, *args, use_reentrant=False)
+    policy = cfg.remat_policy
+    if policy not in SAVED_PRODUCTS:
+        raise ValueError(f"{cfg.name}: remat_policy {policy!r} is none of "
+                         f"{sorted(SAVED_PRODUCTS)}")
+    if not SAVED_PRODUCTS[policy]:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.
+                      partial(create_selective_checkpoint_contexts,
+                              list(SAVED_PRODUCTS[policy])))
 
 
 def _layer(cfg, pat, lp, h, positions, plain):

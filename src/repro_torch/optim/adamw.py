@@ -1,5 +1,7 @@
 """AdamW with warmup + cosine schedule, global-norm clipping, and
-optionally bf16 moments (``ArchConfig.moment_dtype``).
+optionally bf16 moments (``ArchConfig.moment_dtype``).  An ``OptConfig``
+whose ``moment_dtype`` is None takes the arch config's where a train
+step is built (``for_arch``), fp32 where none is given.
 
 Port of ``repro.optim.adamw``, on one device (``state_specs`` waits for
 the multi-device layer, ROADMAP A.6).  The state is ``{"m": tree, "v":
@@ -22,6 +24,7 @@ So the port decays every leaf under a list (``layers``, encdec's
 from __future__ import annotations
 
 import math
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -40,7 +43,16 @@ class OptConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
-    moment_dtype: str = "float32"
+    moment_dtype: str | None = None   # None: the arch config's
+
+
+def for_arch(cfg: OptConfig | None, arch) -> OptConfig:
+    """``cfg`` (None: the defaults) with the arch config ``arch``'s
+    ``moment_dtype`` where it names none."""
+    cfg = cfg or OptConfig()
+    if cfg.moment_dtype is None:
+        cfg = dataclasses.replace(cfg, moment_dtype=arch.moment_dtype)
+    return cfg
 
 
 def lr_at(cfg: OptConfig, step: torch.Tensor | int) -> torch.Tensor:
@@ -56,7 +68,7 @@ def lr_at(cfg: OptConfig, step: torch.Tensor | int) -> torch.Tensor:
 
 
 def init_state(params, cfg: OptConfig) -> dict:
-    mdt = getattr(torch, cfg.moment_dtype)
+    mdt = getattr(torch, cfg.moment_dtype or "float32")
     first = T.leaves(params)[0]
     return {"m": T.tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
             "v": T.tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
@@ -89,33 +101,50 @@ def clip_by_global_norm(grads, max_norm: float):
     return T.tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
 
+# Leaves of more elements than this are updated a slice of a flat view at
+# a time: AdamW is element-wise, so the numbers are the whole leaf's to
+# the bit, and the update's fp32 temporaries (about six the size of what
+# it updates) stay near 1.5 GB where dbrx-132b's 1.06e9-element expert
+# leaves would take 25 GB whole.
+SLICE = 1 << 26
+
+
+def _update(p, g, m, v, decay: bool, scale, lr, bc1, bc2,
+            cfg: OptConfig) -> None:
+    """AdamW on one slice of a leaf's flat view, in place."""
+    b1, b2 = cfg.b1, cfg.b2
+    g32 = (g.float() * scale).to(g.dtype).float()
+    m32 = m if m.dtype == torch.float32 else m.float()
+    v32 = v if v.dtype == torch.float32 else v.float()
+    m32.mul_(b1).add_((1 - b1) * g32)
+    v32.mul_(b2).add_((1 - b2) * g32 * g32)
+    delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
+    if decay:   # decoupled weight decay
+        delta.add_(cfg.weight_decay * p.float())
+    p.copy_(p.float() - lr * delta)
+    if m32 is not m:
+        m.copy_(m32)
+        v.copy_(v32)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state: dict, cfg: OptConfig):
     """One AdamW step: returns ``(params, state, {"lr", "grad_norm"})``,
     the parameters and moments updated in place.  The gradients are
     clipped leaf by leaf as they are used (``clip_by_global_norm``'s
-    numbers, without a clipped copy of every gradient)."""
+    numbers, without a clipped copy of every gradient), ``SLICE``
+    elements of a leaf at a time."""
     gnorm, scale = _clip_scale(grads, cfg.grad_clip)
     step = state["step"] + 1
     lr = lr_at(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - b1 ** step.float()
-    bc2 = 1.0 - b2 ** step.float()
-    flat_p = T.leaves(params)
-    for p, g, m, v, decay in zip(flat_p, T.leaves(grads), T.leaves(state["m"]),
-                                 T.leaves(state["v"]),
+    bc1 = 1.0 - cfg.b1 ** step.float()
+    bc2 = 1.0 - cfg.b2 ** step.float()
+    for p, g, m, v, decay in zip(T.leaves(params), T.leaves(grads),
+                                 T.leaves(state["m"]), T.leaves(state["v"]),
                                  T.leaves(decay_mask(params))):
-        g32 = (g.float() * scale).to(g.dtype).float()
-        m32 = m if m.dtype == torch.float32 else m.float()
-        v32 = v if v.dtype == torch.float32 else v.float()
-        m32.mul_(b1).add_((1 - b1) * g32)
-        v32.mul_(b2).add_((1 - b2) * g32 * g32)
-        delta = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(cfg.eps))
-        if decay:   # decoupled weight decay
-            delta.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr * delta)
-        if m32 is not m:
-            m.copy_(m32)
-            v.copy_(v32)
+        flat = [t.view(-1) for t in (p, m, v)] + [g.reshape(-1)]
+        for s in range(0, p.numel(), SLICE):
+            fp, fm, fv, fg = (t[s:s + SLICE] for t in flat)
+            _update(fp, fg, fm, fv, decay, scale, lr, bc1, bc2, cfg)
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"lr": lr, "grad_norm": gnorm}

@@ -781,6 +781,42 @@ def test_cuda_moe_index_path_gives_the_one_hot_numbers(cuda, moe, S, tdt):
                      int(np.ceil(S * cfg.top_k / cfg.n_experts * 1.25)))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_moe_index_path_gradients_are_the_one_hot_gradients(cuda, tdt):
+    """Autograd through the index path against the one-hot einsums' at
+    dbrx's widths (d 6144, d_ff 10752, 16 experts top-4, 4 x 512 tokens),
+    through y and the aux loss: the gradients of x, the router and the
+    three expert leaves, fp32 within 1e-4 x max|g| (reordered fp32 sums,
+    the backward kernels' tolerance), bf16 within a relative L2 of 2e-2;
+    a second backward pass of the index path equal to the bit (the
+    accumulating gather's backward sorts its indices and sums in
+    order)."""
+    cfg = get_config("dbrx-132b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = layers.init_moe(cfg, gen, cuda, tdt)
+    x = torch.from_numpy(_np((4, 512, cfg.d_model), 97)).to(cuda, tdt)
+    dy = torch.from_numpy(_np((4, 512, cfg.d_model), 98)).to(cuda, tdt)
+
+    def grads(plain):
+        leaves = [x.clone().requires_grad_()] + [
+            t.detach().requires_grad_() for t in p.values()]
+        y, aux = layers.moe_fwd(cfg, dict(zip(p, leaves[1:])), leaves[0],
+                                plain=plain)
+        return torch.autograd.grad((y.float() * dy.float()).sum() + aux,
+                                   leaves)
+
+    index = grads(False)
+    again = grads(False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(index, again))
+    del again
+    for name, got, want in zip(["x", *p], index, grads(True)):
+        assert float(want.float().abs().max()) > 0, name
+        _grad_close(got, want, tdt)
+
+
 # ------------------------------------------------------ training (backward)
 # Backward kernels against autograd of the plain versions (the reference's
 # models differentiate their jnp oracles; no Pallas kernel has a VJP):
@@ -793,6 +829,10 @@ def test_cuda_moe_index_path_gives_the_one_hot_numbers(cuda, moe, S, tdt):
 RMS_BWD_ROWS = [(R, N, 0) for R, N in SFU_SHAPES] + [
     (2048, 2560, 0), (65536, 128, 0), (16384, 128, 0), (64, 2561, 0),
     (2048, 2560, 1), (33, 1000, 1)]
+# the MoE archs' training rows (4 x 512 tokens): llama4-maverick's 5120,
+# jamba-1.5-large's 8192 (the vector kernel) and its gated norm over
+# 16,384 (past 10,240 bf16: the block kernel)
+RMS_BWD_ROWS += [(2048, 5120, 0), (2048, 8192, 0), (2048, 16384, 0)]
 # the reference's attention sweep (causal and not, fp32), qwen3-4b's
 # training attention (bf16, causal); then on the bf16 tensor-core kernels
 # the same sweep, a causal case whose first 40 query rows see no key (Sq >
@@ -804,6 +844,13 @@ ATTN_BWD = [(s, c, torch.float32) for s in ATTN_SHAPES[:-1]
 ATTN_BWD += [(s, c, torch.bfloat16)
              for s in ATTN_SHAPES[:-1] + [ATTN_EMPTY_ROWS, ATTN_RAGGED_128]
              for c in (True, False)] + [(ATTN_EMPTY_ROWS, True, torch.float32)]
+# the MoE archs' training attention (bf16, causal, 4 x 512 tokens, head
+# 128 over 8 kv heads): dbrx's GQA 6, llama4's GQA 5 and jamba's GQA 8, and
+# a ragged GQA-5 case with Sq != Skv, both masks
+ATTN_RAGGED_GQA5 = (1, 10, 2, 100, 130, 128)
+ATTN_BWD += [((4, hq, 8, 512, 512, 128), True, torch.bfloat16)
+             for hq in (48, 40, 64)] + [
+    (ATTN_RAGGED_GQA5, c, torch.bfloat16) for c in (True, False)]
 
 
 def _rel_l2(got, want):

@@ -246,6 +246,46 @@ def test_index_path_gives_the_one_hot_numbers(case, compute):
     assert float((yi.float() - yo.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("case", ["top1", "top2", "top4of16", "drops"])
+def test_index_path_gradients_are_the_one_hot_gradients(case):
+    """Autograd through the main path (slots gathered by index, whose
+    backward accumulates rows by index, and the combine read back by
+    slot) against the one-hot einsums', fp32, on the same parameters and
+    tokens: the gradients of x, the router and every expert leaf, through
+    y and the aux loss, each within 1e-5 x max|g| of its leaf (reordered
+    fp32 sums), and a second backward pass equal to the bit.  "drops"
+    (capacity factor 0.5) drops choices, whose rows get no expert
+    gradient.  At top-1 the renormalised gate is p / p = 1, whose
+    gradient into the router is zero but for rounding: there the router
+    is held on the aux loss alone."""
+    cfg, rcfg = _configs(case)
+    _, tp = _moe_params(rcfg)
+    x = torch.from_numpy(_x((3, 16, cfg.d_model), 9))
+    dy = torch.from_numpy(_x((3, 16, cfg.d_model), 10))
+
+    def grads(plain, through_y=True):
+        leaves = [x.clone().requires_grad_()] + [
+            t.clone().requires_grad_() for t in tp.values()]
+        y, aux = layers.moe_fwd(cfg, dict(zip(tp, leaves[1:])), leaves[0],
+                                plain=plain)
+        return dict(zip(["x", *tp], torch.autograd.grad(
+            (y * dy).sum() * through_y + aux, leaves)))
+
+    r = layers.moe_route(cfg, tp, x)
+    assert case != "drops" or float((r.pos < r.cap).float().mean()) < 0.9
+    index, again, onehot = grads(False), grads(False), grads(True)
+    for name, a in index.items():
+        assert torch.equal(a, again[name]), name
+    if cfg.top_k == 1:
+        index["router"], onehot["router"] = (
+            grads(plain, through_y=False)["router"] for plain in (False, True))
+    for name, a in index.items():
+        b = onehot[name]
+        assert float(b.abs().max()) > 0, name
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), \
+            name
+
+
 def test_moe_capacity_and_balance_loss():
     """Port of tests/test_models.py::test_moe_capacity_and_balance_loss."""
     cfg = get_config("dbrx-132b", reduced=True)

@@ -27,8 +27,9 @@ from repro_torch import tree as T
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.data import DataConfig, SyntheticLM, for_arch
-from repro_torch.optim import (OptConfig, apply_updates, clip_by_global_norm,
-                               decay_mask, init_state, lr_at)
+from repro_torch.optim import (OptConfig, adamw, apply_updates,
+                               clip_by_global_norm, decay_mask, init_state,
+                               lr_at)
 
 
 # ----------------------------------------------------------------- optimizer
@@ -124,6 +125,34 @@ def test_adamw_five_steps_match_the_reference(moments):
                else 5 * opt.peak_lr * 2.0 ** -7)
         assert err <= tol, (path, err)
     assert int(state["step"]) == 5
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_sliced_update_is_the_whole_leaf_update_to_the_bit(moments,
+                                                           monkeypatch):
+    """A leaf past ``adamw.SLICE`` elements is updated a slice of its flat
+    view at a time (on the card, dbrx-132b's expert leaves): AdamW is
+    element-wise, so five clipped and decayed steps in slices of 1,000
+    elements (the last one of each leaf partial) leave the parameters and
+    both moments equal to the whole-leaf update's, bit for bit."""
+    _, jp, grads = _ref_tree()
+    cfg = get_config("qwen3-4b", reduced=True)
+    opt = OptConfig(warmup_steps=2, total_steps=10, moment_dtype=moments,
+                    grad_clip=0.5)
+    runs = []
+    for slice_ in (adamw.SLICE, 1000):
+        monkeypatch.setattr(adamw, "SLICE", slice_)
+        p = params_from_jax(cfg, jp, "cpu")
+        state = init_state(p, opt)
+        for g in grads:
+            p, state, _ = apply_updates(p, params_from_jax(cfg, g, "cpu"),
+                                        state, opt)
+        runs.append([p, state["m"], state["v"]])
+    sliced = [t for t in T.leaves(runs[1][0]) if t.numel() > 1000]
+    assert sliced and any(t.numel() % 1000 for t in sliced)
+    for whole, parts in zip(runs[0], runs[1]):
+        for (path, a), b in zip(T.leaves_with_paths(whole), T.leaves(parts)):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
 
 
 def test_weight_decay_falls_where_the_reference_stacks_the_leaf():

@@ -15,12 +15,15 @@ gradient trees) through ``convert.params_from_jax``; batches from
 """
 
 import dataclasses
+import weakref
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as ref_get_config
 from repro.configs.shapes import ShapeSpec as RefShapeSpec
@@ -41,7 +44,8 @@ from repro_torch.models import encdec, lm
 from repro_torch.optim import OptConfig, init_state
 
 LOSS_ARCHS = ["qwen3-4b", "mamba2-2.7b", "nemotron-4-15b", "qwen2-vl-2b",
-              "dbrx-132b", "whisper-medium"]
+              "dbrx-132b", "llama4-maverick-400b-a17b",
+              "jamba-1.5-large-398b", "whisper-medium"]
 GRAD_TOL = 1e-4
 B, S = 2, 16
 
@@ -176,23 +180,61 @@ def test_microbatches_give_the_whole_batch_step():
                         ShapeSpec("t", S, 4, "train"), opt, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "whisper-medium"])
+class _Products(TorchDispatchMode):
+    """Counts the products dispatched while open, by op."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in ("mm", "addmm", "bmm", "baddbmm"):
+            self.n[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "whisper-medium", "dbrx-132b"])
 def test_remat_gives_the_same_gradients(arch):
+    """remat off, and on under each ``remat_policy``: the same gradients
+    to the bit.  The products the backward runs, counted by op with a
+    ``TorchDispatchMode``, show what each policy recomputes beside the
+    gradient's own products (remat off): "nothing" every product of the
+    layers, "dots" none, "dots_nb" the batched products (attention's
+    einsums on the CPU, dbrx's experts) and no 2-D weight product.
+    whisper's encoder-decoder keeps "nothing" under every policy, as the
+    reference's does."""
     cfg, _, jp, batch = _setup(arch)
-    grads = []
-    for remat in (False, True):
-        c = dataclasses.replace(cfg, remat=remat)
+    grads, products = {}, {}
+    for policy in (None, "nothing", "dots", "dots_nb"):
+        c = dataclasses.replace(cfg, remat=policy is not None,
+                                remat_policy=policy or "nothing")
         p = _to_port(c, jp)
         leaves = T.leaves(p)
         for t in leaves:
             t.requires_grad_(True)
-        grads.append(torch.autograd.grad(_port_loss(c, p, batch), leaves))
-    for a, b in zip(*grads):
-        assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="A.5b"):
-        c = dataclasses.replace(cfg, remat=True, remat_policy="dots")
-        p = _to_port(c, jp)
-        T.leaves(p)[0].requires_grad_(True)
+        loss = _port_loss(c, p, batch)
+        with _Products() as seen:
+            grads[policy] = torch.autograd.grad(loss, leaves)
+        products[policy] = seen.n
+    for policy in ("nothing", "dots", "dots_nb"):
+        for a, b in zip(grads[None], grads[policy]):
+            assert torch.equal(a, b), policy
+    again = {policy: n - products[None] for policy, n in products.items()}
+    assert again["nothing"]["mm"] > 0 and again["nothing"]["bmm"] > 0
+    if cfg.is_encdec:
+        assert again["dots"] == again["dots_nb"] == again["nothing"]
+    else:
+        assert not again["dots"]
+        assert again["dots_nb"] == Counter(bmm=again["nothing"]["bmm"])
+
+
+def test_remat_refuses_an_unknown_policy():
+    cfg, _, jp, batch = _setup("qwen3-4b")
+    c = dataclasses.replace(cfg, remat=True, remat_policy="everything")
+    p = _to_port(c, jp)
+    T.leaves(p)[0].requires_grad_(True)
+    with pytest.raises(ValueError, match="remat_policy"):
         _port_loss(c, p, batch)
 
 
@@ -266,6 +308,84 @@ def test_fault_resume_replays_the_uninterrupted_losses(tmp_path):
     assert runs[1].keys() == runs[0].keys() == set(range(12))
     for s in range(12):
         assert runs[1][s] == pytest.approx(runs[0][s], rel=1e-6)
+
+
+def test_trainer_trains_reduced_dbrx_and_replays_a_fault(tmp_path):
+    """A MoE arch through ``Trainer`` (reduced dbrx-132b: top-2 of 4
+    experts, layernorm; its config's bf16 moments, peak lr 1e-3 as the
+    card's MoE runs take): the loss falls, and a
+    run with a fault at step 7, resumed from step 5's checkpoint, replays
+    the uninterrupted losses (the index dispatch's backward is
+    deterministic).  4 x 32 tokens, as the replay test above: past 32,768
+    elements PyTorch's CPU backward of a gather (the embedding's, the
+    dispatch's) accumulates with parallel atomics, and two runs then part
+    in the last bits; the card's sorts its indices and sums in order."""
+    cfg = get_config("dbrx-132b", reduced=True)
+    assert cfg.moment_dtype == "bfloat16"
+    shape = ShapeSpec("t", 32, 4, "train")
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=5, total_steps=30)
+    runs = []
+    for fail in (-1, 7):
+        tr = Trainer(cfg, shape, opt=opt, device="cpu", options=TrainOptions(
+            steps=30, ckpt_every=5, ckpt_dir=str(tmp_path / str(fail)),
+            fail_at_step=fail, log_every=1000))
+        tr.run()
+        runs.append({m["step"]: m["loss"] for m in tr.metrics_log})
+    losses = [runs[0][s] for s in range(30)]
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.05
+    assert runs[1].keys() == runs[0].keys() == set(range(30))
+    for s in range(30):
+        assert runs[1][s] == pytest.approx(runs[0][s], rel=1e-6)
+
+
+def test_trainer_gives_a_passed_optconfig_the_configs_moments():
+    """An ``OptConfig`` that names no ``moment_dtype`` takes the arch
+    config's (bf16 for the >= 100B MoE configs), one that names its own
+    keeps it, and the drawn state's moments are of that dtype."""
+    cfg = get_config("dbrx-132b", reduced=True)
+    shape = ShapeSpec("t", 16, 2, "train")
+    for opt, want in ((OptConfig(peak_lr=1e-3), torch.bfloat16),
+                      (OptConfig(moment_dtype="float32"), torch.float32)):
+        tr = Trainer(cfg, shape, opt=opt, device="cpu",
+                     options=TrainOptions(steps=1, ckpt_every=0))
+        assert tr.opt_cfg.peak_lr == opt.peak_lr
+        _, state, _ = tr.init_state()
+        moments = T.leaves(state["m"]) + T.leaves(state["v"])
+        assert moments and all(t.dtype == want for t in moments)
+
+
+def test_trainer_drops_the_old_state_before_drawing_a_new_one(tmp_path):
+    """A step that fails with its state referenced from the failing frame
+    (as a real fault's traceback holds the step's gradients): when the
+    fault path draws the new state, no reference to the old parameters
+    or moments is left (weakrefs, no garbage collection), so a fault at
+    full width does not hold two states."""
+    cfg = get_config("qwen3-4b", reduced=True)
+    tr = Trainer(cfg, ShapeSpec("t", 16, 2, "train"), device="cpu",
+                 options=TrainOptions(steps=3, ckpt_every=0,
+                                      ckpt_dir=str(tmp_path),
+                                      log_every=1000))
+    drawn, alive_at_draw = [], []
+    init_state, step_fn = tr.init_state, tr.step_fn
+
+    def counted_init_state(seed=0):
+        alive_at_draw.append(sum(r() is not None for r in drawn))
+        params, opt_state, step = init_state(seed)
+        drawn.extend(weakref.ref(t) for t in
+                     T.leaves(params) + T.leaves(opt_state))
+        return params, opt_state, step
+
+    def failing_step(params, opt_state, batch):
+        if tr.metrics_log and not tr.failures:
+            held = (params, opt_state)   # noqa: F841 — in the traceback
+            raise RuntimeError("fault with the step's state referenced")
+        return step_fn(params, opt_state, batch)
+
+    tr.init_state, tr.step_fn = counted_init_state, failing_step
+    tr.run()
+    assert tr.failures == 1 and len(alive_at_draw) == 2
+    assert alive_at_draw == [0, 0]
+    assert [m["step"] for m in tr.metrics_log] == [0, 0, 1, 2]
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):
