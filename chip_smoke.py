@@ -170,7 +170,28 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    their peaks and host ms.  Last, a fault injected into reduced qwen3-4b's
    and reduced dbrx-132b's training on the card: each run resumed from its
    checkpoint replays an uninterrupted run's losses (``FAULT_RTOL``).
-7. timing: BERT-L's compile and execute seconds and its device time by
+7. mesh: the multi-device layer (``repro_torch.parallel``) on the card's
+   one-device mesh, (data 1, model 1) over a world of one (NCCL takes one
+   rank a card; ``launch.mesh.make_local_mesh``).  qwen3-4b at full width
+   and depth, its weights laid out by the sharding rules, serves the
+   serving phase's 4 requests: the greedy tokens and the launch counts
+   (145 rmsnorm, 36 flash_attention a step) are the meshless server's
+   on the same weights, and the teacher-forced logits of a prefill and
+   ``MESH_DECODE_STEPS`` steps equal the meshless ones; the prefill and
+   decode ``StepBundle``s (4 x 512, a 1,024-row cache) give
+   ``lm.prefill``'s and ``lm.decode_step``'s outputs; mamba2-2.7b cut to
+   ``MESH_SSM_LAYERS`` (its prefill's ``ssd`` calls) and whisper-medium
+   cut to ``MESH_WHISPER_LAYERS`` + ``MESH_WHISPER_LAYERS`` (encoder over
+   1,500 frames, prefill, decode) equal their meshless runs; ``Trainer``
+   on qwen3-4b's training cut for ``MESH_TRAIN_STEPS`` steps gives the
+   meshless losses and backward launches, its checkpoint holds the
+   meshless one's bytes (every leaf's crc32, shape and dtype in the two
+   manifests), and the meshless one restores onto the mesh bit for bit;
+   ``ef_tree_quantize`` over a few gradients on the card equals the
+   CPU's, and ``compressed_psum`` over the world of one equals
+   ``decompress(ef_quantize(g))``.  Prints the phase's seconds and a
+   decode step's host ms with and without the mesh.
+8. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
    PyTorch library call where one computes the same function, and the
@@ -572,6 +593,23 @@ SOURCES = {
     "ssd_bwd": "src/repro_torch/kernels/csrc/ssd.cu",
 }
 DORA_KERNELS = ("flex_gemm", "sfu_softmax", "sfu_layernorm", "sfu_act")
+# The mesh phase (ROADMAP A.6): the multi-device layer on the card's one-
+# device mesh, (data 1, model 1) over a world of one (NCCL takes one rank
+# a card).  qwen3-4b served at full width and depth as the serving phase
+# serves it, the step bundles at 4 x 512 (prefill) and a 1,024-row cache
+# (decode), mamba2-2.7b cut to MESH_SSM_LAYERS, whisper-medium cut to
+# MESH_WHISPER_LAYERS encoder and decoder layers (MESH_DECODE_STEPS greedy
+# steps), qwen3-4b's training cut for MESH_TRAIN_STEPS steps with a
+# checkpoint at the last, each against the same run without the mesh.
+# Logits are held bit for bit; where an op's DTensor path reorders a sum
+# the check falls to relative L2 within MESH_RTOL (a tenth of SERVE_RTOL)
+# and the op is named.  The compression check takes the gradients of
+# MESH_COMPRESS_LEAVES (a product's weight, the largest matrix, a norm's
+# gain) of the meshless training state.  The phase prints its seconds.
+MESH_SSM_LAYERS, MESH_WHISPER_LAYERS, MESH_DECODE_STEPS = 8, 4, 8
+MESH_TRAIN_STEPS, MESH_RTOL = 3, 2e-3
+MESH_COMPRESS_LEAVES = ("layers/0/attn/wq", "layers/0/mlp/w_down",
+                        "final_norm/scale")
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "ssd")
 TRAINING_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd", "layernorm_bwd",
                     "ssd_bwd")
@@ -687,6 +725,364 @@ def max_err(got, want) -> float:
 def close(got, want, rtol: float, atol: float) -> bool:
     return bool(((got.float() - want.float()).abs()
                  <= atol + rtol * want.float().abs()).all())
+
+
+def mesh_phase(counters, launches, zero_counts, smi) -> None:
+    """The multi-device layer on the card's (1, 1) mesh, each path against
+    the same path without the mesh (see ``MESH_*``).  The mesh paths'
+    launches, each counted from 0, are added to ``launches``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch.train import TrainOptions, Trainer
+    from repro_torch.models import encdec, lm
+    from repro_torch.optim import OptConfig, compression
+    from repro_torch.parallel import sharding as SH
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    mesh = make_local_mesh()
+    require(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+            and dist.get_backend() == "nccl",
+            f"the card's mesh is {mesh} over {dist.get_backend()}")
+
+    t_lap = [time.perf_counter()]
+
+    def lap() -> str:
+        """Seconds since the last lap, for the phase's lines."""
+        now = time.perf_counter()
+        dt, t_lap[0] = now - t_lap[0], now
+        return f" [{dt:.1f} s]"
+    # NCCL sets up a communicator (and its device buffers) at a group's
+    # first collective: set up the world's and each mesh axis's now,
+    # before the phase fills the card
+    torch.cuda.empty_cache()
+    for group in (dist.group.WORLD, mesh.get_group("data"),
+                  mesh.get_group("model")):
+        dist.all_reduce(torch.zeros(1, device=dev), group=group)
+    torch.cuda.synchronize()
+    print(f"[mesh] {mesh.mesh_dim_names} {tuple(mesh.shape)} on cuda, "
+          f"{dist.get_backend()} world of {dist.get_world_size()}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held by the "
+          f"phases before")
+
+    def counted(fn, on_mesh: bool):
+        """``fn()`` with the counts from 0; (its result, the counts).  A
+        mesh path's counts join ``launches``."""
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items()}
+        if on_mesh:
+            for k, n in got.items():
+                launches[k] += n
+        return out, got
+
+    def same(what, got, want) -> None:
+        """Bit for bit, else within MESH_RTOL by relative L2 (printed)."""
+        got = got.full_tensor() if isinstance(got, SH.DTensor) else got
+        if torch.equal(got, want):
+            return
+        err = rel_l2(got, want)
+        print(f"[mesh] {what}: not bit for bit, relative L2 {err:.3e}")
+        require(err <= MESH_RTOL, f"{what}: relative L2 {err} over "
+                f"{MESH_RTOL}")
+
+    # qwen3-4b served with and without the mesh on the same weights
+    cfg = get_config(SERVE_ARCH)
+    params = lm.init_cast(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+    plain_srv = BatchServer(cfg, max_len=SERVE_MAX_LEN, device=dev,
+                            params=params)
+    mesh_srv = BatchServer(cfg, max_len=SERVE_MAX_LEN, device=dev,
+                           params=params, mesh=mesh)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    def requests(n=SERVE_NEW):
+        return [Request(i, p, n) for i, p in enumerate(prompts)]
+
+    for srv in (plain_srv, mesh_srv):
+        srv.serve(requests(2))           # warm-up
+    plain, plain_n = counted(lambda: plain_srv.serve(requests()), False)
+    served, mesh_n = counted(lambda: mesh_srv.serve(requests()), True)
+    require(served["outputs"] == plain["outputs"],
+            "the mesh server's greedy tokens differ from the meshless one's")
+    require(mesh_n == plain_n and mesh_n["rmsnorm"] == 145 * SERVE_NEW
+            and mesh_n["flash_attention"] == 36 * SERVE_NEW,
+            f"mesh serving launches {mesh_n} vs meshless {plain_n}")
+    print(f"[mesh] {cfg.name} served on the mesh: the meshless server's "
+          f"greedy tokens and launches ({mesh_n['rmsnorm'] // SERVE_NEW} "
+          f"rmsnorm, {mesh_n['flash_attention'] // SERVE_NEW} "
+          f"flash_attention a step); prefill {served['prefill_s']:.4f} s vs "
+          f"{plain['prefill_s']:.4f} s, decode {served['decode_s']:.4f} s vs "
+          f"{plain['decode_s']:.4f} s (host clock) on {smi}" + lap())
+
+    # teacher-forced on the served tokens, with and without the mesh
+    B, plen = len(prompts), max(SERVE_PROMPTS)
+    tok = np.zeros((B, plen), np.int64)
+    for i, p in enumerate(prompts):
+        tok[i, plen - len(p):] = p
+    tok = torch.from_numpy(tok).to(dev)
+    outs = torch.tensor([served["outputs"][i] for i in range(B)],
+                        device=dev)
+
+    def teacher(srv):
+        def run():
+            logits, cache = srv._on_mesh(lambda t: lm.prefill(
+                cfg, srv.params, t, max_len=SERVE_MAX_LEN), tok)
+            steps = [logits]
+            for t in range(MESH_DECODE_STEPS):
+                logits, cache = srv._on_mesh(
+                    lambda s, c, q: lm.decode_step(cfg, srv.params, c, s, q),
+                    outs[:, t:t + 1], cache, plen + t)
+                steps.append(logits)
+            return steps
+        return run
+
+    want, _ = counted(teacher(plain_srv), False)
+    got, _ = counted(teacher(mesh_srv), True)
+    for t, (g, w) in enumerate(zip(got, want)):
+        same(f"{cfg.name} teacher-forced step {t}", g, w)
+    print(f"[mesh] {cfg.name} teacher-forced prefill + {MESH_DECODE_STEPS} "
+          f"decode steps: logits as without the mesh" + lap())
+    step_tok = outs[:, :1]
+    for srv, label in ((plain_srv, "without"), (mesh_srv, "with")):
+        _, cache = srv._on_mesh(lambda t: lm.prefill(
+            cfg, srv.params, t, max_len=SERVE_MAX_LEN), tok)
+        best = math.inf
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv._on_mesh(lambda s, c, q: lm.decode_step(
+                cfg, srv.params, c, s, q), step_tok, cache, plen)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        print(f"[mesh] {cfg.name} decode step {label} the mesh: host ms "
+              f"{best * 1e3:.3f} (least of 3) on {smi}" + lap())
+        del cache
+
+    # the step bundles against lm.prefill / lm.decode_step
+    ptok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 512))).to(dev)
+    pb = make_prefill_step(cfg, mesh, ShapeSpec("p", 512, 4, "prefill"))
+    p_mesh, batch = pb.place(params, {"tokens": ptok})
+    (got_l, got_c), _ = counted(lambda: pb(p_mesh, batch), True)
+    want_l, want_c = lm.prefill(cfg, params, ptok)
+    same("prefill bundle logits", got_l, want_l)
+    for key, leaf in T.leaves_with_paths(want_c):
+        same(f"prefill bundle cache {key}", SH.full(got_c)[key.split("/")[0]]
+             [key.split("/")[1]], leaf)
+    del got_c, want_c
+    db = make_decode_step(cfg, mesh, ShapeSpec("d", 1024, 4, "decode"))
+    want_l, want_c = lm.prefill(cfg, params, ptok, max_len=1024)
+    with SH.use_rules(db.rules):
+        _, got_c = lm.prefill(cfg, p_mesh, batch["tokens"], max_len=1024)
+    step = want_l.argmax(-1)[:, None]
+    (got_l, _), _ = counted(lambda: db(p_mesh, got_c, SH.place(
+        step, db.in_shardings[2]), 512), True)
+    want_l, _ = lm.decode_step(cfg, params, want_c, step, 512)
+    same("decode bundle logits", got_l, want_l)
+    print(f"[mesh] {cfg.name} bundles: make_prefill_step on 4 x 512 and "
+          f"make_decode_step on a 1,024-row cache give lm.prefill's and "
+          f"lm.decode_step's outputs" + lap())
+    del plain_srv, mesh_srv, params, p_mesh, got_c, want_c, got_l, want_l
+    torch.cuda.empty_cache()
+
+    # mamba2-2.7b cut: the prefill's ssd calls on the mesh
+    scfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=MESH_SSM_LAYERS)
+    sp = lm.init_cast(scfg, torch.Generator(device=dev).manual_seed(0), dev)
+    srules = SH.make_rules(scfg, mesh)
+    sp_mesh = SH.distribute(sp, lm.param_specs(scfg), srules)
+    stok = torch.from_numpy(rng.integers(0, scfg.vocab_size,
+                                         (4, 512))).to(dev)
+    want_l, want_c = lm.prefill(scfg, sp, stok)
+
+    def ssm_prefill():
+        with SH.use_rules(srules):
+            return lm.prefill(scfg, sp_mesh, SH.place(
+                stok, srules.sharding_for(("batch", None), (4, 512))))
+    (got_l, got_c), n = counted(ssm_prefill, True)
+    require(n["ssd"] == MESH_SSM_LAYERS, f"{n['ssd']} ssd calls on the mesh")
+    same(f"{scfg.name} cut prefill logits", got_l, want_l)
+    same(f"{scfg.name} cut prefill SSD state",
+         SH.full(got_c)["pos0"]["state"], want_c["pos0"]["state"])
+    print(f"[mesh] {scfg.name} ({MESH_SSM_LAYERS} of 64 layers) prefill on "
+          f"the mesh: {n['ssd']} ssd calls, logits and state as without it" + lap())
+    del sp, sp_mesh, got_c, want_c
+    torch.cuda.empty_cache()
+
+    # whisper-medium cut: encoder, prefill and decode on the mesh
+    wcfg = dataclasses.replace(get_config(WHISPER_ARCH),
+                               n_layers=MESH_WHISPER_LAYERS,
+                               encoder_layers=MESH_WHISPER_LAYERS)
+    wp = encdec.init_cast(wcfg, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+    wrules = SH.make_rules(wcfg, mesh)
+    wp_mesh = SH.distribute(wp, encdec.param_specs(wcfg), wrules)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, WHISPER_FRAMES, wcfg.d_model)).astype(
+            np.float32)).to(dev)
+    wtok = torch.from_numpy(rng.integers(
+        0, wcfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT))).to(dev)
+
+    def whisper(on_mesh):
+        def run():
+            ctx = SH.use_rules(wrules) if on_mesh else contextlib.nullcontext()
+            p = wp_mesh if on_mesh else wp
+
+            def put(t):
+                return SH.place(t, wrules.sharding_for(
+                    ("batch",) + (None,) * (t.dim() - 1), tuple(t.shape))) \
+                    if on_mesh else t
+            with ctx:
+                logits, cache = encdec.prefill(wcfg, p, put(frames),
+                                               put(wtok), WHISPER_MAX_LEN)
+                steps = [SH.full(logits)]
+                for t in range(MESH_DECODE_STEPS):
+                    nxt = steps[-1].argmax(-1)[:, None]
+                    logits, cache = encdec.decode_step(
+                        wcfg, p, cache, put(nxt), WHISPER_PROMPT + t)
+                    steps.append(SH.full(logits))
+            return steps
+        return run
+    want, _ = counted(whisper(False), False)
+    got, n = counted(whisper(True), True)
+    for t, (g, w) in enumerate(zip(got, want)):
+        same(f"{wcfg.name} cut step {t}", g, w)
+    print(f"[mesh] {wcfg.name} ({MESH_WHISPER_LAYERS} + "
+          f"{MESH_WHISPER_LAYERS} layers) on the mesh: encoder over "
+          f"{WHISPER_FRAMES} frames, prefill and {MESH_DECODE_STEPS} decode "
+          f"steps as without it ({n['sfu_layernorm']} sfu_layernorm, "
+          f"{n['flash_attention']} flash_attention)" + lap())
+    del wp, wp_mesh, frames
+    torch.cuda.empty_cache()
+
+    # training: qwen3-4b's training cut, with and without the mesh
+    tcfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    work = Path(tempfile.mkdtemp(prefix="mesh_ckpt_", dir=Path.cwd()))
+
+    def trainer(on_mesh):
+        return Trainer(
+            tcfg, ShapeSpec("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            opt=OptConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=MESH_TRAIN_STEPS),
+            options=TrainOptions(steps=MESH_TRAIN_STEPS,
+                                 ckpt_every=MESH_TRAIN_STEPS,
+                                 ckpt_dir=str(work / ("mesh" if on_mesh
+                                                      else "none")),
+                                 log_every=MESH_TRAIN_STEPS),
+            seed=0, device=dev, mesh=mesh if on_mesh else None)
+    t_none = trainer(False)
+    (p0, o0), n0 = counted(lambda: t_none.run(resume=False), False)
+
+    # int8 gradient compression on a few of the meshless state's
+    # gradients (MESH_COMPRESS_LEAVES): the card's ef_tree_quantize is
+    # decompress(compress(g + 0)) leaf by leaf, and compress on the card
+    # gives the CPU's payloads and scales bit for bit
+    batch = t_none.data.device_batch(MESH_TRAIN_STEPS, dev)
+    named = dict(T.leaves_with_paths(p0))
+    for k, p in named.items():
+        p.requires_grad_(k in MESH_COMPRESS_LEAVES)
+    loss = lm.loss_fn(tcfg, p0, batch["tokens"], batch["labels"])
+    grads = dict(zip(MESH_COMPRESS_LEAVES, torch.autograd.grad(
+        loss, [named[k] for k in MESH_COMPRESS_LEAVES])))
+    for p in named.values():
+        p.requires_grad_(False)
+    del named, loss, batch
+    ghat, new_err = compression.ef_tree_quantize(
+        grads, compression.ef_tree_init(grads))
+    for k, g in grads.items():
+        q, sc = compression.compress(g)
+        require(torch.equal(ghat[k], compression.decompress(q, sc, g.dtype))
+                and torch.equal(new_err[k],
+                                g.float() - compression.decompress(q, sc)),
+                f"ef_tree_quantize on the card is not decompress(compress) "
+                f"at {k}")
+        cq, cs = compression.compress(g.cpu())
+        require(torch.equal(q.cpu(), cq) and torch.equal(sc.cpu(), cs),
+                f"compress on the card differs from the CPU's at {k}")
+    del ghat, new_err
+    g0 = grads[MESH_COMPRESS_LEAVES[0]]
+    mean, _ = compression.compressed_psum(
+        g0, mesh.get_group("data"), torch.zeros_like(g0, dtype=torch.float32))
+    q, sc, _ = compression.ef_quantize(g0, torch.zeros_like(
+        g0, dtype=torch.float32))
+    require(torch.equal(mean, compression.decompress(q, sc, g0.dtype)),
+            "compressed_psum over the world of one differs")
+    print(f"[mesh] int8 error-feedback compression of step "
+          f"{MESH_TRAIN_STEPS}'s gradients of {', '.join(grads)}: "
+          f"ef_tree_quantize on the card is decompress(compress) of each, "
+          f"and compress's payloads and scales are the CPU's bit for bit; "
+          f"compressed_psum (one fp32 all-reduce) over the world of one is "
+          f"decompress(ef_quantize(g))" + lap())
+    # the meshless state is in its checkpoint: the card is freed for the
+    # mesh's run
+    del grads, g0, mean, q, sc, p0, o0
+    torch.cuda.empty_cache()
+
+    t_mesh = trainer(True)
+    torch.cuda.reset_peak_memory_stats()
+    (p1, o1), n1 = counted(lambda: t_mesh.run(resume=False), True)
+    l0 = [m["loss"] for m in t_none.metrics_log]
+    l1 = [m["loss"] for m in t_mesh.metrics_log]
+    require(l1 == l0, f"losses on the mesh {l1} vs without {l0}")
+    require(n1 == n0 and n1["rmsnorm_bwd"] > 0
+            and n1["flash_attention_bwd"] > 0,
+            f"training launches on the mesh {n1} vs without {n0}")
+    print(f"[mesh] {tcfg.name} ({TRAIN_LAYERS} of 36 layers) Trainer on the "
+          f"mesh, {MESH_TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}: "
+          f"losses {l1} as without it; launches {n1}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" + lap())
+
+    # the two step checkpoints hold the same bytes: every leaf's key,
+    # shape, dtype and crc32 in their manifests agree
+    def manifest(name):
+        with open(work / name / f"step_{MESH_TRAIN_STEPS:08d}"
+                  / "manifest.json") as f:
+            return json.load(f)
+    m_mesh, m_none = manifest("mesh"), manifest("none")
+    for key in ("step", "keys", "shapes", "dtypes", "crc32", "extra"):
+        require(m_mesh[key] == m_none[key],
+                f"the mesh's and no mesh's checkpoints differ in {key}")
+    # no mesh's checkpoint onto the mesh (the rules' placements), against
+    # the mesh's own state
+    p_sh, o_sh = t_mesh.step_fn.in_shardings[:2]
+    state1 = {"params": p1, "opt": o1}
+    onto_mesh, _ = ckpt.restore(str(work / "none"), MESH_TRAIN_STEPS,
+                                state1, verify=False,
+                                shardings={"params": p_sh, "opt": o_sh})
+    def whole(t):
+        return t.full_tensor() if isinstance(t, SH.DTensor) else t
+    for (k, a), b in zip(T.leaves_with_paths(onto_mesh), T.leaves(state1)):
+        require(isinstance(a, SH.DTensor) == isinstance(b, SH.DTensor)
+                and a.dtype == b.dtype and torch.equal(whole(a), whole(b)),
+                f"the meshless checkpoint restored onto the mesh differs at "
+                f"{k}: {type(a).__name__} {a.dtype} "
+                f"{getattr(a, 'placements', None)} against "
+                f"{type(b).__name__} {b.dtype} "
+                f"{getattr(b, 'placements', None)}")
+    print(f"[mesh] checkpoints: the mesh's step {MESH_TRAIN_STEPS} and no "
+          f"mesh's hold the same bytes ({len(m_mesh['keys'])} leaves' "
+          f"crc32, shapes and dtypes), and no mesh's restores onto the "
+          f"mesh bit for bit" + lap())
+    del onto_mesh, p1, o1, state1
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    secs = time.perf_counter() - t_phase
+    print(f"[mesh] phase: {secs:.1f} s on {smi}")
 
 
 def main() -> None:
@@ -3080,6 +3476,9 @@ def main() -> None:
                 == set(range(FAULT_STEPS)) and worst <= FAULT_RTOL,
                 f"fault and resume of {fcfg.name}: failures {f0}/{f1}, "
                 f"losses {clean} vs {resumed}")
+
+    # ---------------------------------------------------------------- mesh
+    mesh_phase(counters, launches, zero_counts, smi)
 
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")

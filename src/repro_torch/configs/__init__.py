@@ -4,8 +4,8 @@
 Copies of ``repro.configs``: the ten arch files keep the reference's
 code with their import rewritten (``tests/test_torch_compiler.py`` locks
 them); ``get_config`` / ``ARCH_IDS`` / ``all_configs`` resolve an arch
-the same way.  The per-arch input shapes of the multi-device dry run
-(``repro.configs.shapes``) wait for that slice.
+the same way.  ``SHAPES`` / ``applicable`` / ``input_specs``
+(``configs.shapes``) are the dry run's input-shape cells.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import importlib
 
 from ..models.config import ArchConfig
+from .shapes import SHAPES, ShapeSpec, applicable, input_specs  # noqa: F401
 
 _ARCH_MODULES = {
     "internlm2-20b": "internlm2_20b",

@@ -5,8 +5,8 @@ that a ``(seed, step)`` gives the reference's tokens bit for bit.
 The batch is a function of ``(seed, step)`` alone: a restarted or resumed
 run replays the same batches.  The token stream is a per-sequence Markov
 chain with 15 % noise, so the LM loss falls during training.
-``device_batch`` puts one step's batch on one device (the reference's
-``sharded_batch`` spreads it over a mesh: ROADMAP A.6).
+``device_batch`` puts one step's batch on one device; ``sharded_batch``
+lays it out over a mesh, each rank taking its block of the host batch.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from ..convert import resolve_device
 from ..models.config import ArchConfig
+from ..parallel.sharding import NamedSharding, place
 
 
 @dataclass(frozen=True)
@@ -62,9 +63,24 @@ class SyntheticLM:
         """``batch(step)`` on ``device`` (None: the CUDA card): tokens and
         labels as int64, frames fp32."""
         dev = resolve_device(device)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                    dev, torch.float32 if k == "frames" else torch.int64)
+        return {k: _host(k, v).to(dev) for k, v in self.batch(step).items()}
+
+    def sharded_batch(self, step: int,
+                      shardings: dict[str, NamedSharding]
+                      ) -> dict[str, torch.Tensor]:
+        """``batch(step)`` laid out by ``shardings`` (name -> sharding of
+        the mesh): each rank moves its own block to the mesh's device,
+        as DTensors (dtypes as ``device_batch``'s)."""
+        return {k: place(_host(k, v), shardings[k],
+                         shardings[k].mesh.device_type)
                 for k, v in self.batch(step).items()}
+
+
+def _host(name: str, arr: np.ndarray) -> torch.Tensor:
+    """One batch array as a host tensor: tokens and labels int64, frames
+    fp32."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        torch.float32 if name == "frames" else torch.int64)
 
 
 def for_arch(cfg: ArchConfig, seq_len: int, global_batch: int,

@@ -138,6 +138,17 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def refuse_dtensor(what: str, *tensors) -> None:
+    """Raise where a DTensor reaches a kernel wrapper: the kernels read
+    ``data_ptr()`` and cannot see one, and the plain version is no
+    fallback for it.  ``kernels.ops`` hands each rank's tensors over
+    (``local_map``)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what} takes this rank's tensors, not a DTensor: "
+                        f"call it through repro_torch.kernels.ops")
+
+
 def refuse_grad(what: str, *tensors) -> None:
     """Raise where autograd would record a call to a kernel that has no
     backward yet: its output would carry no gradient to its inputs.  The

@@ -88,6 +88,7 @@ def decode_plan(skv: int, pairs: int, sms: int) -> DecodePlan:
 
 def _check(q, k, v, kv_len) -> int:
     """Validate the operands; returns the number of KV rows read."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention needs q (B,Hq,Sq,D) and k, v "
                          f"(B,Hkv,S,D), got {tuple(q.shape)}, "

@@ -91,6 +91,7 @@ def gemm_plan(M: int, K: int, N: int, sms: int) -> GemmPlan:
 
 
 def _check(a, b, bias, epilogue, c) -> None:
+    _build.refuse_dtensor("flex_gemm", a, b, bias, c)
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:

@@ -183,18 +183,42 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     admit every key, so the two agree), masked scores are -1e30 and a
     row with no visible key gives 0 where the oracle gives NaN.
     """
+    skv = k.shape[2] if kv_len is None else kv_len
+    return _attend(q, k, v, causal, skv, skv - q.shape[2])
+
+
+def mha_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, q_chunk: int = 1024
+                          ) -> torch.Tensor:
+    """``mha_attention`` over every KV row, ``q_chunk`` query rows at a
+    time: the (Sq, Skv) scores never exist whole (the reference's
+    ``mha_attention_chunked``, whose scan over query chunks this loop is;
+    the long-prefill plain path).  Each chunk's rows take
+    ``mha_attention``'s arithmetic."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    q_chunk = min(q_chunk, Sq)
+    if Sq % q_chunk:
+        raise ValueError(f"{Sq} query rows do not split into chunks of "
+                         f"{q_chunk}")
+    return torch.cat([_attend(q[:, :, i:i + q_chunk], k, v, causal, Skv,
+                              i + Skv - Sq)
+                      for i in range(0, Sq, q_chunk)], dim=2)
+
+
+def _attend(q, k, v, causal: bool, skv: int, offset: int) -> torch.Tensor:
+    """``mha_attention`` over KV rows ``[0, skv)``, query row i at
+    position ``i + offset``."""
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
-    skv = k.shape[2] if kv_len is None else kv_len
     group = Hq // Hkv
     qf = q.float() * (1.0 / math.sqrt(D))
     kf = k[:, :, :skv].float().repeat_interleave(group, dim=1)
     vf = v[:, :, :skv].float().repeat_interleave(group, dim=1)
     s = qf @ kf.transpose(-1, -2)                       # (B, Hq, Sq, Skv)
     if causal:
-        qi = torch.arange(Sq, device=q.device)[:, None] + (skv - Sq)
+        qi = torch.arange(Sq, device=q.device)[:, None] + offset
         ki = torch.arange(skv, device=q.device)[None, :]
         mask = ki <= qi
         s = torch.where(mask, s, NEG_INF)

@@ -183,6 +183,7 @@ def _on_card(x: torch.Tensor, what: str, *params: torch.Tensor | None,
     """Validate ``x`` (2-D, of ``dtypes``) and its per-column fp32 params;
     True when the call goes to the kernel, False when it goes to the CPU's
     plain version."""
+    _build.refuse_dtensor(what, x, *params)
     if x.dim() != 2:
         raise ValueError(f"{what} takes a 2-D (rows, cols) tensor, got "
                          f"{tuple(x.shape)}")

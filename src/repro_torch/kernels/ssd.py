@@ -162,6 +162,7 @@ def ssd_bwd_plan(B: int, S: int, H: int, P: int, G: int, N: int,
 
 
 def _check(x, a, b, c, chunk, initial_state) -> None:
+    _build.refuse_dtensor("ssd", x, a, b, c, initial_state)
     if x.dim() != 4 or a.dim() != 3 or b.dim() != 4 or c.shape != b.shape:
         raise ValueError(f"ssd needs x (B,S,H,P), a (B,S,H) and b, c "
                          f"(B,S,G,N), got {tuple(x.shape)}, {tuple(a.shape)}, "

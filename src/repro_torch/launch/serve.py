@@ -8,8 +8,10 @@ then decodes one token per step at ``pos = plen + t - 1``.  Sampling is
 greedy (``argmax``, the first maximum) or by temperature, drawn from a
 ``torch.Generator`` seeded with 0 for each ``serve`` call (it cannot
 reproduce ``jax.random.categorical``'s bits).  One model replica on one
-device; there is no mesh (the multi-device layer is ROADMAP A.6).  It
-serves the dense archs (qwen3-4b, qwen1.5-4b, internlm2-20b,
+device, or, with ``mesh``, laid out over a DeviceMesh by the arch's
+sharding rules (``parallel.sharding``: prefill and decode run under
+them on DTensors, each rank's kernels on its own tensors; every rank
+samples the same tokens from the gathered logits).  It serves the dense archs (qwen3-4b, qwen1.5-4b, internlm2-20b,
 nemotron-4-15b, and qwen2-vl-2b on text position streams), mamba2-2.7b,
 whose cache is a conv window and an SSD state per layer, and the MoE
 archs (dbrx-132b, llama4-maverick-400b-a17b, and the attention + SSM
@@ -43,6 +45,7 @@ from ..configs import get_config
 from ..convert import resolve_device
 from ..models import lm
 from ..models.config import ArchConfig
+from ..parallel import sharding as SH
 
 
 @dataclass
@@ -61,12 +64,16 @@ class BatchServer:
     parameters are drawn on the device from ``seed`` and cast one layer at
     a time (``lm.init_cast``: the peak is the cast parameters plus one
     fp32 item), or taken from ``params`` (e.g. ``convert.params_from_jax``)
-    and cast once to the compute dtype (``lm.cast_params``)."""
+    and cast once to the compute dtype (``lm.cast_params``).  With
+    ``mesh`` they are then laid out by ``sharding.make_rules`` (each rank
+    keeps its block), on the mesh's device."""
 
     def __init__(self, cfg: ArchConfig, max_len: int = 256, seed: int = 0,
                  device: str | torch.device | None = None,
-                 params: dict | None = None):
-        self.device = resolve_device(device)
+                 params: dict | None = None, mesh=None):
+        self.device = resolve_device(
+            mesh.device_type if mesh is not None and device is None
+            else device)
         lm.check_supported(cfg)
         self.cfg = cfg
         self.max_len = max_len
@@ -75,6 +82,21 @@ class BatchServer:
             self.params = lm.init_cast(cfg, gen, self.device)
         else:
             self.params = lm.cast_params(cfg, params)
+        self.rules = None
+        if mesh is not None:
+            self.rules = SH.make_rules(cfg, mesh)
+            self.params = SH.distribute(self.params, lm.param_specs(cfg),
+                                        self.rules)
+
+    def _on_mesh(self, fn, tokens: torch.Tensor, *args):
+        """``fn(cfg, params, ..., tokens, *args)`` under the rules, the
+        tokens' rows over the data axes; the logits come back whole."""
+        if self.rules is None:
+            return fn(tokens, *args)
+        sh = self.rules.sharding_for(("batch", None), tuple(tokens.shape))
+        with SH.use_rules(self.rules):
+            logits, cache = fn(SH.place(tokens, sh), *args)
+        return logits.full_tensor(), cache
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -108,8 +130,9 @@ class BatchServer:
         tokens = torch.from_numpy(prompts).to(dev)
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(cfg, self.params, tokens,
-                                   max_len=self.max_len)
+        logits, cache = self._on_mesh(
+            lambda t: lm.prefill(cfg, self.params, t, max_len=self.max_len),
+            tokens)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
@@ -123,8 +146,9 @@ class BatchServer:
         ndec = 0
         for t in range(1, max_new):
             step = torch.from_numpy(tok[:, None].astype(np.int64)).to(dev)
-            logits, cache = lm.decode_step(cfg, self.params, cache, step,
-                                           plen + t - 1)
+            logits, cache = self._on_mesh(
+                lambda s, c, p: lm.decode_step(cfg, self.params, c, s, p),
+                step, cache, plen + t - 1)
             tok = self._sample(logits, temps, gen)
             ndec += 1
             for i, r in enumerate(requests):

@@ -12,8 +12,19 @@ device.
   * stragglers: step wall times feed an EWMA; a step slower than
     ``straggler_factor`` times it is logged and counted.
 
-Elastic rescale onto another mesh and ``--model-axis`` wait for the
-multi-device layer (ROADMAP A.6).  ``device=None`` means the CUDA card;
+With ``mesh`` (a ``launch.mesh`` DeviceMesh with "data" and "model"
+axes) the trainer runs the step's ``StepBundle``: parameters laid out by
+the arch's sharding rules, ZeRO-1 moments, each step's batch rows over
+the data axis (``sharded_batch``), checkpoints gathered to rank 0 and
+restored onto whatever mesh the trainer has (elastic rescale).  The CLI
+builds the mesh with ``--model-axis``, over the world ``torchrun``
+starts:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \
+        qwen3-4b --reduced --device cpu --model-axis 2
+
+(gloo on the CPU; NCCL takes one rank a card, so one H100 has the
+(1, 1) mesh).  ``device=None`` means the CUDA card;
 there the kernels of every arch's path (rmsnorm, layernorm, flash
 attention's prefill and ``ssd``) run their backward kernels, and the MoE
 FFN differentiates through its index dispatch, so every arch trains.
@@ -45,6 +56,8 @@ from ..convert import resolve_device
 from ..data import for_arch
 from ..models import encdec, lm
 from ..optim import adamw
+from ..parallel.sharding import distribute_like
+from .mesh import make_local_mesh
 from .steps import make_train_step
 
 
@@ -63,14 +76,18 @@ class Trainer:
     def __init__(self, cfg, shape: ShapeSpec,
                  opt: adamw.OptConfig | None = None,
                  options: TrainOptions | None = None, seed: int = 0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.cfg = cfg
         self.shape = shape
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device_type if mesh is not None and device is None
+            else device)
         self.options = options or TrainOptions()
         self.opt_cfg = adamw.for_arch(
             opt or adamw.OptConfig(total_steps=self.options.steps), cfg)
-        self.step_fn = make_train_step(cfg, shape, self.opt_cfg, self.device)
+        self.step_fn = make_train_step(cfg, shape, self.opt_cfg, self.device,
+                                       mesh)
         self.data = for_arch(cfg, shape.seq_len, shape.global_batch, seed)
         self.saver = ckpt.AsyncSaver()
         self.metrics_log: list[dict] = []
@@ -83,14 +100,32 @@ class Trainer:
         model = encdec if self.cfg.is_encdec else lm
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = model.init(self.cfg, gen, self.device)
-        return params, adamw.init_state(params, self.opt_cfg), 0
+        opt_state = adamw.init_state(params, self.opt_cfg)
+        if self.mesh is not None:
+            p_sh, o_sh = self.step_fn.in_shardings[:2]
+            params = distribute_like(params, p_sh)
+            opt_state = distribute_like(opt_state, o_sh)
+        return params, opt_state, 0
+
+    def _shardings(self):
+        if self.mesh is None:
+            return None
+        p_sh, o_sh = self.step_fn.in_shardings[:2]
+        return {"params": p_sh, "opt": o_sh}
+
+    def batch(self, step: int) -> dict:
+        """Step ``step``'s batch on the device, or laid out on the mesh."""
+        if self.mesh is None:
+            return self.data.device_batch(step, self.device)
+        return self.data.sharded_batch(step, self.step_fn.in_shardings[2])
 
     def try_resume(self, params, opt_state, start_step):
         latest = ckpt.latest_step(self.options.ckpt_dir)
         if latest is None:
             return params, opt_state, start_step
         restored, extra = ckpt.restore(self.options.ckpt_dir, latest,
-                                       {"params": params, "opt": opt_state})
+                                       {"params": params, "opt": opt_state},
+                                       shardings=self._shardings())
         print(f"[resume] restored step {latest}")
         return restored["params"], restored["opt"], int(extra["next_step"])
 
@@ -106,7 +141,7 @@ class Trainer:
             try:
                 if step == opts.fail_at_step and self.failures == 0:
                     raise RuntimeError("injected fault (node failure)")
-                batch = self.data.device_batch(step, self.device)
+                batch = self.batch(step)
                 params, opt_state, metrics = self.step_fn(
                     params, opt_state, batch)
                 loss = float(metrics["loss"])
@@ -163,15 +198,23 @@ def main() -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--model-axis", type=int, default=0,
+                    help="train on a (world / m, m) mesh of the world "
+                         "that exists (torchrun's, else one rank); 0: "
+                         "no mesh")
     args = ap.parse_args()
 
     cfg = get_config(args.arch, reduced=args.reduced)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
-    trainer = Trainer(cfg, shape, device=args.device,
+    mesh = (make_local_mesh(args.model_axis, args.device)
+            if args.model_axis else None)
+    trainer = Trainer(cfg, shape, device=args.device, mesh=mesh,
                       options=TrainOptions(steps=args.steps,
                                            ckpt_every=args.ckpt_every,
                                            ckpt_dir=args.ckpt_dir))
     trainer.run()
+    if mesh is not None and mesh.get_rank() != 0:
+        return
     losses = [m["loss"] for m in trainer.metrics_log]
     # step wall times past the first (which builds the kernels)
     dts = sorted(m["dt"] for m in trainer.metrics_log[1:]) or [float("nan")]

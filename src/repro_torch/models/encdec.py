@@ -38,8 +38,11 @@ their plain versions.  ``device=None`` means the CUDA card.
 ``cfg.remat_policy`` says, as the reference's ``encdec`` does).  Under autograd on the card the
 layernorm and attention kernels run their backward kernels
 (``sfu.layernorm_bwd``, ``flash_attention.flash_attention_bwd``), so
-``loss_fn`` trains there; on the CPU the plain versions differentiate.  ``abstract_init`` and ``cache_specs`` wait
-for the multi-device layer (A.6).
+``loss_fn`` trains there; on the CPU the plain versions differentiate.
+``param_specs`` / ``abstract_init`` / ``cache_specs`` give the logical
+axes of the parameters and the cache for ``parallel.sharding``; under
+``sharding.use_rules`` every entry point runs on DTensors, as
+``models.lm``'s do.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ import numpy as np
 import torch
 
 from ..convert import resolve_device
+from ..parallel import sharding as SH
+from ..parallel.sharding import constrain
 from . import layers as L
 from . import lm
 from .config import ArchConfig
@@ -123,7 +128,7 @@ def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
     is held at a time."""
     check_supported(cfg)
     dev = resolve_device(device)
-    if gen.device.type != dev.type:
+    if gen.device.type != dev.type and dev.type != "meta":
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
     V, D = cfg.vocab_size, cfg.d_model
 
@@ -141,6 +146,27 @@ def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
         "decoder": [lm._cast_layer(_init_dec_layer(cfg, gen, dev), cd)
                     for _ in range(cfg.n_layers)],
     }
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter, in ``init``'s tree (the
+    reference's specs without the stacked leading "layers")."""
+    check_supported(cfg)
+    n = L.norm_specs(cfg)
+    enc = {"norm1": n, "norm2": n, "attn": L.attention_specs(cfg),
+           "mlp": L.mlp_specs(cfg)}
+    dec = {"norm1": n, "norm2": n, "norm3": n,
+           "self_attn": L.attention_specs(cfg),
+           "cross_attn": L.attention_specs(cfg), "mlp": L.mlp_specs(cfg)}
+    return {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+            "enc_norm": n, "final_norm": n,
+            "encoder": [enc] * cfg.encoder_layers,
+            "decoder": [dec] * cfg.n_layers}
+
+
+def abstract_init(cfg: ArchConfig) -> tuple[dict, dict]:
+    """(``init``'s fp32 parameters as ``meta`` tensors, ``param_specs``)."""
+    return init(cfg, torch.Generator(), "meta"), param_specs(cfg)
 
 
 def init(cfg: ArchConfig, gen: torch.Generator,
@@ -184,6 +210,7 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
     cd = lm._dtype(cfg.compute_dtype)
     _, S, D = frames.shape
     h = frames.to(cd) + _device_sinusoidal(S, D, frames.device, cd)[None]
+    h = constrain(h, "batch", None, "embed_act")
     rcfg = _remat_cfg(cfg)
     for lp in params["encoder"]:
         h = lm.remat(rcfg, _enc_layer, cfg, lp, h, plain)
@@ -232,7 +259,8 @@ def forward(cfg: ArchConfig, params: dict, frames: torch.Tensor,
     rcfg = _remat_cfg(cfg)
     for lp in params["decoder"]:
         h = lm.remat(rcfg, _dec_train_layer, cfg, lp, h, enc, plain)
-    return lm._logits(cfg, params, h, plain)
+    return constrain(lm._logits(cfg, params, h, plain), "batch", None,
+                     "vocab")
 
 
 def _dec_train_layer(cfg, lp, h, enc, plain):
@@ -254,15 +282,22 @@ def loss_fn(cfg: ArchConfig, params: dict, frames: torch.Tensor,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
                dtype: torch.dtype | None = None,
                device: str | torch.device | None = None) -> dict:
+    """Zeros in the reference's layout; under active rules, DTensors laid
+    out by ``sharding.cache_layout``."""
     check_supported(cfg)
     dtype = dtype or lm._dtype(cfg.compute_dtype)
-    dev = resolve_device(device)
-    kv = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    ckv = (cfg.n_layers, batch, cfg.n_kv_heads, enc_len, cfg.head_dim)
-    return {"self_k": torch.zeros(kv, dtype=dtype, device=dev),
-            "self_v": torch.zeros(kv, dtype=dtype, device=dev),
-            "cross_k": torch.zeros(ckv, dtype=dtype, device=dev),
-            "cross_v": torch.zeros(ckv, dtype=dtype, device=dev)}
+    kv = ((cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim),
+          dtype)
+    ckv = ((cfg.n_layers, batch, cfg.n_kv_heads, enc_len, cfg.head_dim),
+           dtype)
+    shapes = {"self_k": kv, "self_v": kv, "cross_k": ckv, "cross_v": ckv}
+    return SH.zeros_tree(shapes, cache_specs(cfg), cfg, batch, max_len,
+                         resolve_device(device))
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    ax = ("layers", "batch", "kv_heads", None, None)
+    return {"self_k": ax, "self_v": ax, "cross_k": ax, "cross_v": ax}
 
 
 def prefill(cfg: ArchConfig, params: dict, frames: torch.Tensor,
@@ -278,12 +313,12 @@ def prefill(cfg: ArchConfig, params: dict, frames: torch.Tensor,
     h = _embed(cfg, params, tokens)
     for i, lp in enumerate(params["decoder"]):
         ck, cv = L.encode_kv(cfg, lp["cross_attn"], enc)
-        cache["cross_k"][i].copy_(ck)
-        cache["cross_v"][i].copy_(cv)
+        SH.assign(cache["cross_k"][i], ck)
+        SH.assign(cache["cross_v"][i], cv)
         h, (k, v) = _dec_layer(cfg, lp, h, (cache["cross_k"][i],
                                             cache["cross_v"][i]), plain)
-        cache["self_k"][i, :, :, :Sp] = k
-        cache["self_v"][i, :, :, :Sp] = v
+        SH.write_rows(cache["self_k"][i], k, 0)
+        SH.write_rows(cache["self_v"][i], v, 0)
     return lm._logits(cfg, params, h[:, -1:], plain)[:, 0], cache
 
 

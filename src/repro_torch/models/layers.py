@@ -9,8 +9,13 @@ at load).  Norm gains stay fp32, as in the reference.  The norms and
 attention run on the port's kernels through ``kernels.ops``; ``plain``
 selects their plain versions.  The matrix products stay ``torch.matmul``
 as the reference leaves them to XLA, and so do the MoE's expert
-products (``torch.bmm``).  Sharding specs wait for the multi-device layer
-(ROADMAP A.6).
+products (``torch.bmm``).  Each ``*_specs`` function gives the logical
+axes of its parameters (the reference's specs, consumed by
+``parallel.sharding``); the ``constrain`` calls sit where the reference's
+do and act only under ``sharding.use_rules``.  There the activations and
+parameters are DTensors: the kernels see this rank's tensors through
+``kernels.ops``, and the MoE FFN runs its routing and dispatch on each
+rank's rows and experts (``_moe_sharded``).
 """
 
 from __future__ import annotations
@@ -23,7 +28,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from ..kernels import ops
+from ..parallel.sharding import (constrain, merge_last, split_last,
+                                 write_rows)
 
 
 def _init(gen: torch.Generator, shape: tuple[int, ...], device: torch.device,
@@ -40,6 +50,12 @@ def init_norm(cfg, device: torch.device, d: int | None = None) -> dict:
         return {"scale": torch.ones(d, device=device),
                 "bias": torch.zeros(d, device=device)}
     return {"scale": torch.ones(d, device=device)}
+
+
+def norm_specs(cfg) -> dict:
+    if cfg.norm_kind == "layernorm":
+        return {"scale": ("embed_act",), "bias": ("embed_act",)}
+    return {"scale": ("embed_act",)}
 
 
 def apply_norm(cfg, p: dict, x: torch.Tensor, *, plain: bool = False
@@ -120,15 +136,24 @@ def init_attention(cfg, gen: torch.Generator, device: torch.device) -> dict:
     return p
 
 
+def attention_specs(cfg) -> dict:
+    s = {"wq": ("embed", "q_dim"), "wk": ("embed", "kv_dim"),
+         "wv": ("embed", "kv_dim"), "wo": ("q_dim", "embed")}
+    if cfg.qkv_bias:
+        s |= {"bq": ("q_dim",), "bk": ("kv_dim",), "bv": ("kv_dim",)}
+    if cfg.qk_norm:
+        s |= {"q_norm": ("head_dim",), "k_norm": ("head_dim",)}
+    return s
+
+
 def _project_q(cfg, p: dict, x: torch.Tensor, *, plain: bool = False
                ) -> torch.Tensor:
     """q as (B, S, Hq, D), with its bias and q-norm where the arch has
     them, before any rotation."""
-    B, S, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_last(q, cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = ops.rmsnorm(q, p["q_norm"], plain=plain)
     return q
@@ -138,14 +163,13 @@ def _project_kv(cfg, p: dict, x: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """k and v as (B, S, Hkv, D), with their biases where the arch has
     them."""
-    B, S, _ = x.shape
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
     if cfg.qkv_bias:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+    return (split_last(k, cfg.n_kv_heads, cfg.head_dim),
+            split_last(v, cfg.n_kv_heads, cfg.head_dim))
 
 
 def _project_qkv(cfg, p: dict, x: torch.Tensor,
@@ -173,7 +197,7 @@ def attention_fwd(cfg, p: dict, x: torch.Tensor,
     ``causal=False``).  ``kv_override``: (k, v) of an encoder in the
     (B, Hkv, Senc, D) layout, for cross-attention: q takes no rotation.
     Returns (out, (k, v)) with k/v in the cache's (B, Hkv, S, D) layout."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     if kv_override is None:
         q, k, v = _project_qkv(cfg, p, x, positions, plain=plain)
         k_t = k.transpose(1, 2).contiguous()
@@ -181,10 +205,14 @@ def attention_fwd(cfg, p: dict, x: torch.Tensor,
     else:
         q = _project_q(cfg, p, x, plain=plain)
         k_t, v_t = kv_override
-    q_t = q.transpose(1, 2).contiguous()
-    out = ops.attention(q_t, k_t, v_t, causal=causal, plain=plain)
-    out = out.transpose(1, 2).reshape(B, S, cfg.q_dim)
-    return out @ p["wo"].to(x.dtype), (k_t, v_t)
+    q_t = constrain(q.transpose(1, 2).contiguous(),
+                    "batch_attn", "heads", None, None)
+    # the plain path is chunked over queries at and past the threshold, as
+    # the reference's (the dense (Sq, Skv) scores never exist)
+    out = ops.attention(q_t, k_t, v_t, causal=causal, plain=plain,
+                        chunked=S >= cfg.attn_chunk_threshold)
+    out = merge_last(out.transpose(1, 2)) @ p["wo"].to(x.dtype)
+    return constrain(out, "batch", None, "embed_act"), (k_t, v_t)
 
 
 def encode_kv(cfg, p: dict, enc_out: torch.Tensor
@@ -204,7 +232,8 @@ def attention_decode(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
 
     Self-attention writes this token's k/v into row ``pos`` of the caches
     in place (the reference's ``dynamic_update_slice`` returns new
-    arrays) and attends over rows ``[0, pos]``; ``rope=False`` leaves q
+    arrays; ``cfg.kv_cache_repeat`` copies of each KV head, as the cache
+    holds them) and attends over rows ``[0, pos]``; ``rope=False`` leaves q
     and k unrotated (the sinusoidal archs).  Cross-attention
     (``cross=True``) reads the encoder's k/v from the caches, writes
     nothing and attends over their first ``kv_len`` rows (default all).
@@ -216,8 +245,9 @@ def attention_decode(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
         if cfg.m_rope:
             positions = positions[None].expand(3, B, 1)
         q, k, v = _project_qkv(cfg, p, x, positions, rope=rope, plain=plain)
-        cache_k[:, :, pos] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, :, pos] = v[:, 0].to(cache_v.dtype)
+        k, v = (repeat_kv(cfg, t.transpose(1, 2)) for t in (k, v))
+        write_rows(cache_k, k, pos)
+        write_rows(cache_v, v, pos)
         valid = pos + 1
     else:
         q = _project_q(cfg, p, x, plain=plain)
@@ -225,8 +255,8 @@ def attention_decode(cfg, p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     q_t = q.transpose(1, 2).contiguous()
     out = ops.attention(q_t, cache_k.to(q_t.dtype), cache_v.to(q_t.dtype),
                         causal=False, kv_len=valid, plain=plain)
-    out = out.transpose(1, 2).reshape(B, 1, cfg.q_dim)
-    return out @ p["wo"].to(x.dtype), cache_k, cache_v
+    return merge_last(out.transpose(1, 2)) @ p["wo"].to(x.dtype), cache_k, \
+        cache_v
 
 
 # ---------------------------------------------------------------- dense mlp
@@ -241,6 +271,21 @@ def init_mlp(cfg, gen: torch.Generator, device: torch.device) -> dict:
             "w_down": _init(gen, (f, d), device, scale=1.0 / math.sqrt(f))}
 
 
+def repeat_kv(cfg, t: torch.Tensor) -> torch.Tensor:
+    """k or v (B, Hkv, S, D) with each head repeated
+    ``cfg.kv_cache_repeat`` times in place, as the cache holds them (the
+    reference's ``jnp.repeat`` over the heads)."""
+    r = cfg.kv_cache_repeat
+    return t if r == 1 else t.repeat_interleave(r, dim=1)
+
+
+def mlp_specs(cfg) -> dict:
+    if cfg.mlp_kind == "swiglu":
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+    return {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
 def mlp_fwd(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_kind == "swiglu":
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
@@ -248,7 +293,8 @@ def mlp_fwd(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = torch.square(torch.clamp_min(x @ p["w_up"].to(x.dtype), 0.0))
     else:  # gelu, the tanh form (jax.nn.gelu's default)
         h = F.gelu(x @ p["w_up"].to(x.dtype), approximate="tanh")
-    return h @ p["w_down"].to(x.dtype)
+    h = constrain(h, "batch", None, "mlp")
+    return constrain(h @ p["w_down"].to(x.dtype), "batch", None, "embed_act")
 
 
 # ---------------------------------------------------------------------- moe
@@ -279,6 +325,15 @@ def init_moe(cfg, gen: torch.Generator, device: torch.device,
             leaf[e].copy_(_init(gen, shape, device, scale))
         p[name] = leaf
     return p
+
+
+def moe_specs(cfg) -> dict:
+    s = {"router": ("embed", "experts"),
+         "w_up": ("experts", "embed", "mlp"),
+         "w_down": ("experts", "mlp", "embed")}
+    if cfg.mlp_kind == "swiglu":
+        s["w_gate"] = ("experts", "embed", "mlp")
+    return s
 
 
 class MoeRoute(NamedTuple):
@@ -345,13 +400,16 @@ def _one_hot(i: torch.Tensor, n: int) -> torch.Tensor:
     return (i[..., None] == torch.arange(n, device=i.device)).float()
 
 
-def _moe_onehot(cfg, p: dict, r: MoeRoute):
+def _moe_onehot(cfg, p: dict, r: MoeRoute, e0: int = 0):
     """The plain version: the reference's GShard einsums over one-hot
     (G, Sg, E, C) dispatch and combine tensors, with the queue positions
     taken again from an fp32 cumsum.  Returns (y (G, Sg, D), the share of
-    tokens each expert kept (E,), the dispatched slots xe (E, G·C, D))."""
+    tokens each expert kept (E,), the dispatched slots xe (E, G·C, D)).
+    The experts of ``p`` are ``e0 ..`` (all of them by default): y then
+    sums theirs alone."""
     G, Sg, D = r.xg.shape
     E, K, cap, cd = cfg.n_experts, cfg.top_k, r.cap, r.xg.dtype
+    El = p["w_up"].shape[0]
     onehot = _one_hot(r.idx, E)                               # (G, Sg, K, E)
     oh_flat = onehot.transpose(1, 2).reshape(G, K * Sg, E)
     pos = torch.cumsum(oh_flat, 1) - oh_flat
@@ -360,17 +418,20 @@ def _moe_onehot(cfg, p: dict, r: MoeRoute):
     disp_flat = keep[..., None] * _one_hot(pos_idx, cap)[:, :, None, :]
     dispatch = disp_flat.view(G, K, Sg, E, cap).sum(1)        # (G, Sg, E, C)
     combine = torch.einsum("gsec,gsk,gske->gsec", dispatch, r.gate, onehot)
-    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), r.xg)
-    xe = xe.reshape(E, G * cap, D)
-    ye = _experts(cfg, p, xe).view(E, G, cap, D)
-    y = torch.einsum("gsec,egcd->gsd", combine.to(cd), ye)
+    mine = dispatch[:, :, e0:e0 + El]
+    xe = torch.einsum("gsec,gsd->egcd", mine.to(cd), r.xg)
+    xe = xe.reshape(El, G * cap, D)
+    ye = _experts(cfg, p, xe).view(El, G, cap, D)
+    y = torch.einsum("gsec,egcd->gsd", combine[:, :, e0:e0 + El].to(cd), ye)
     return y, dispatch.sum(-1).mean((0, 1)), xe
 
 
-def _moe_index(cfg, p: dict, r: MoeRoute):
+def _moe_index(cfg, p: dict, r: MoeRoute, e0: int = 0):
     """The main path: the same slots filled by index.  Each kept choice
-    goes to slot (expert, group, pos) of a flat (E·G·C) layout, a choice
-    past the capacity to a spare slot past its end that no expert reads;
+    of an expert of ``p`` (``e0 ..``, all by default) goes to slot
+    (expert, group, pos) of a flat (E·G·C) layout, any other choice (past
+    the capacity, or another rank's expert) to a spare slot past its end
+    that no expert reads;
     each slot gathers its token's row (empty slots a zero row), bit for
     bit the one-hot einsum's xe.  The combine gathers each choice's
     expert output back, with its gate cast to the compute dtype first
@@ -379,21 +440,23 @@ def _moe_index(cfg, p: dict, r: MoeRoute):
     Returns what ``_moe_onehot`` returns."""
     G, Sg, D = r.xg.shape
     E, K, cap, cd = cfg.n_experts, cfg.top_k, r.cap, r.xg.dtype
+    El = p["w_up"].shape[0]
     dev = r.xg.device
     keep = r.pos < cap
-    spare = E * G * cap
+    mine = keep if El == E else keep & (r.idx >= e0) & (r.idx < e0 + El)
+    spare = El * G * cap
     group = torch.arange(G, device=dev)[:, None, None]
-    slot = torch.where(keep, (r.idx * G + group) * cap + r.pos, spare)
+    slot = torch.where(mine, ((r.idx - e0) * G + group) * cap + r.pos, spare)
     token = torch.arange(G * Sg, device=dev).view(G, Sg, 1).expand(G, Sg, K)
     # the token in each slot; G·Sg names the zero row (the spare slot,
     # written by every dropped choice, is cut off)
     filled = torch.full((spare + 1,), G * Sg, dtype=torch.long, device=dev)
     filled.scatter_(0, slot.reshape(-1), token.reshape(-1))
     rows = torch.cat([r.xg.reshape(G * Sg, D), r.xg.new_zeros(1, D)])
-    xe = rows[filled[:spare]].view(E, G * cap, D)
+    xe = rows[filled[:spare]].view(El, G * cap, D)
     ye = _experts(cfg, p, xe)
     out = torch.cat([ye.reshape(spare, D), ye.new_zeros(1, D)])[slot]
-    w = torch.where(keep, r.gate, 0.0).to(cd).float()
+    w = torch.where(mine, r.gate, 0.0).to(cd).float()
     y = out[:, :, 0].float() * w[..., :1]
     for k in range(1, K):
         y = y + out[:, :, k].float() * w[..., k:k + 1]
@@ -413,8 +476,83 @@ def moe_fwd(cfg, p: dict, x: torch.Tensor, group_size: int = 1024, *,
     back by index (``_moe_index``).  ``aux`` is the Switch load-balance
     loss, E · Σ(share of tokens kept · mean router probability) ·
     ``router_aux_weight``."""
-    r = moe_route(cfg, p, x, group_size)
-    y, density, _ = (_moe_onehot if plain else _moe_index)(cfg, p, r)
-    aux = cfg.n_experts * (density * r.probs.mean((0, 1))).sum() \
+    if isinstance(x, DTensor):
+        y, density, router_mean = _moe_sharded(cfg, p, x, group_size, plain)
+    else:
+        y, density, router_mean = _moe_local(cfg, p, x, group_size, plain)
+    aux = cfg.n_experts * (density * router_mean).sum() \
         * cfg.router_aux_weight
-    return y.reshape(x.shape), aux
+    return constrain(y, "batch", None, "embed_act"), aux
+
+
+def _moe_local(cfg, p: dict, x: torch.Tensor, group_size: int, plain: bool,
+               e0: int = 0):
+    """(y, each expert's kept share, the mean router probability) of the
+    tokens ``x`` (B, S, D), y summing the experts of ``p`` (``e0 ..``)."""
+    r = moe_route(cfg, p, x, group_size)
+    y, density, _ = (_moe_onehot if plain else _moe_index)(cfg, p, r, e0)
+    return y.reshape(x.shape), density, r.probs.mean((0, 1))
+
+
+def _moe_sharded(cfg, p: dict, x: DTensor, group_size: int, plain: bool):
+    """The MoE FFN on DTensors, in two regions run on each rank's tensors.
+    The rows keep their batch shards (a route group is ``min(group_size,
+    S)`` tokens of one row, so no group is split and the drops are the
+    meshless run's).  The route runs on each rank's rows with the whole
+    router (its gradient a partial sum over the row shards); the experts
+    keep their shards (``"experts" -> model``), each rank filling and
+    running its own experts' slots, so y and the gradients of x and the
+    gates are partial sums over the expert shards.  The kept counts are
+    summed over the row shards before the aux loss."""
+    mesh = x.device_mesh
+    names = sorted(k for k in p if k != "router")
+    rows = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in x.placements]
+    rep = [Replicate()] * mesh.ndim
+    by_rows = [Partial() if isinstance(pl, Shard) else Replicate()
+               for pl in rows]
+    w = p["w_up"]
+    e_dims = [md for md, pl in enumerate(w.placements)
+              if isinstance(pl, Shard) and pl.dim == 0] \
+        if isinstance(w, DTensor) else []
+    coord = mesh.get_coordinate()
+    n_shards, idx = 1, 0
+    for md in e_dims:
+        n_shards *= mesh.size(md)
+        idx = idx * mesh.size(md) + coord[md]
+    e0 = idx * (cfg.n_experts // n_shards)
+    B, S, D = x.shape
+    Sg = min(group_size, S)
+    cap = max(1, int(math.ceil(Sg * cfg.top_k / cfg.n_experts
+                               * cfg.capacity_factor)))
+
+    def route(xl, router):
+        r = moe_route(cfg, {"router": router}, xl, group_size)
+        kept = torch.zeros(cfg.n_experts, device=xl.device).index_add_(
+            0, r.idx.reshape(-1), (r.pos < r.cap).reshape(-1).float())
+        return r.probs, r.gate, r.idx, r.pos, kept
+
+    probs, gate, ids, pos, kept = local_map(
+        route, out_placements=(rows, rows, rows, rows, by_rows),
+        in_placements=(rows, rep), in_grad_placements=(rows, by_rows),
+        device_mesh=mesh, redistribute_inputs=True)(x, p["router"])
+
+    def experts(xl, gl, il, pl_, *ws):
+        r = MoeRoute(xl.reshape(-1, Sg, D), None, gl, il, pl_, cap)
+        y, _, _ = (_moe_onehot if plain else _moe_index)(
+            cfg, dict(zip(names, ws)), r, e0)
+        return y.reshape(xl.shape)
+
+    split = [Partial() if md in e_dims else pl for md, pl in enumerate(rows)]
+    w_pl = [Shard(0) if md in e_dims else Replicate()
+            for md in range(mesh.ndim)]
+    w_grad = [Partial() if isinstance(pl, Shard) else w_
+              for pl, w_ in zip(rows, w_pl)]
+    y = local_map(
+        experts, out_placements=split,
+        in_placements=(rows, rows, rows, rows, *[w_pl] * len(names)),
+        in_grad_placements=(split, split, rows, rows,
+                            *[w_grad] * len(names)),
+        device_mesh=mesh, redistribute_inputs=True)(
+        x, gate, ids, pos, *(p[k] for k in names))
+    return y, kept / (B * S), probs.mean((0, 1))

@@ -42,9 +42,17 @@ recomputed), the reference's ``jax.checkpoint_policies``.  A prefill
 routes its S tokens as one group and may drop choices past an expert's
 capacity; a decode step routes groups of one token, which never drop:
 so prefill + decode equals ``forward`` only where nothing dropped.
-``kv_cache_repeat > 1`` raises ``NotImplementedError`` naming the
-ROADMAP item that ports it; an encoder-decoder arch (whisper) raises
-``ValueError``: it runs through ``models.encdec``.
+``kv_cache_repeat`` = r > 1 keeps r copies of each KV head in the cache
+(the reference's ``jnp.repeat``), so that the cached heads divide a
+model axis.  An encoder-decoder arch (whisper) raises ``ValueError``: it
+runs through ``models.encdec``.
+
+On a mesh (``parallel.sharding``): ``param_specs`` / ``abstract_init``
+give the logical axes of the parameters (``meta`` tensors for the dry
+run), ``cache_specs`` those of the cache.  Under ``sharding.use_rules``
+with parameters placed by ``sharding.distribute`` every entry point runs
+on DTensors: the ``constrain`` calls sit at the reference's places and
+``init_cache`` lays the cache out by the rules (``sharding.cache_layout``).
 """
 
 from __future__ import annotations
@@ -56,8 +64,14 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from .. import tree as T
 from ..convert import resolve_device
+from ..parallel import sharding as SH
+from ..parallel.sharding import constrain
 from . import layers as L
 from . import ssm as SSM
 from .config import ArchConfig
@@ -65,15 +79,10 @@ from .config import ArchConfig
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what this module does not run: an encoder-decoder
-    (``ValueError``: ``models.encdec`` runs it) and what the port does not
-    serve yet (``NotImplementedError``)."""
+    (``ValueError``: ``models.encdec`` runs it)."""
     if cfg.is_encdec:
         raise ValueError(f"{cfg.name} is an encoder-decoder model: run it "
                          f"through repro_torch.models.encdec")
-    if cfg.kv_cache_repeat > 1:
-        raise NotImplementedError(f"{cfg.name}: kv_cache_repeat > 1 serves "
-                                  f"the sharded cache of the multi-device "
-                                  f"layer: ROADMAP A.6")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -119,7 +128,7 @@ def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
                                   f"{cfg.param_dtype!r}; every arch keeps "
                                   f"float32 parameters")
     dev = resolve_device(device)
-    if gen.device.type != dev.type:
+    if gen.device.type != dev.type and dev.type != "meta":
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
     V, D = cfg.vocab_size, cfg.d_model
 
@@ -155,6 +164,39 @@ def init_cast(cfg: ArchConfig, gen: torch.Generator,
     largest fp32 item, where ``init`` then ``cast_params`` holds all of
     both (over one card's memory for internlm2-20b and nemotron-4-15b)."""
     return _draw(cfg, gen, device, _dtype(cfg.compute_dtype))
+
+
+def layer_specs(cfg: ArchConfig, pat) -> dict:
+    """One layer's logical axes (``_init_layer``'s tree)."""
+    s = {"norm1": L.norm_specs(cfg)}
+    if pat.mixer == "attn":
+        s["attn"] = L.attention_specs(cfg)
+    else:
+        s["ssm"] = SSM.ssm_specs(cfg)
+    if pat.ffn == "dense":
+        s["norm2"] = L.norm_specs(cfg)
+        s["mlp"] = L.mlp_specs(cfg)
+    elif pat.ffn == "moe":
+        s["norm2"] = L.norm_specs(cfg)
+        s["moe"] = L.moe_specs(cfg)
+    return s
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter, in ``init``'s tree: the
+    reference's specs with the stacked leading "layers" dropped, since
+    ``params["layers"]`` is a list here."""
+    check_supported(cfg)
+    return {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+            "final_norm": L.norm_specs(cfg),
+            "layers": [layer_specs(cfg, _pattern(cfg, i))
+                       for i in range(cfg.n_layers)]}
+
+
+def abstract_init(cfg: ArchConfig) -> tuple[dict, dict]:
+    """(``init``'s fp32 parameters as ``meta`` tensors, ``param_specs``):
+    shapes and specs without storage (the dry run's path)."""
+    return init(cfg, torch.Generator(), "meta"), param_specs(cfg)
 
 
 # leaves of "attn" / "ssm" / "moe" that the model code uses in fp32: the
@@ -212,8 +254,40 @@ def _positions(cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(cfg, params, tokens):
-    # rows first, then the cast: the reference's embed.astype(cd)[tokens]
-    return params["embed"][tokens.long()].to(_dtype(cfg.compute_dtype))
+    # rows first, then the cast: the reference's embed.astype(cd)[tokens];
+    # a sharded table takes DTensor's vocab-parallel embedding (each rank
+    # its rows, then a sum in which every other rank adds zeros)
+    e = params["embed"]
+    if isinstance(e, DTensor):
+        # FSDP's shards of the embed dim gathered first: DTensor's
+        # embedding takes a table split over the vocab alone.  A table
+        # whole on every rank (a vocab axis of one) is indexed, as without
+        # a mesh, so that its gradient sums in the same order.
+        mesh = e.device_mesh
+        split = [isinstance(p, Shard) and p.dim == 0 and mesh.size(md) > 1
+                 for md, p in enumerate(e.placements)]
+        e = e.redistribute(mesh, [Shard(0) if s else Replicate()
+                                  for s in split])
+        rows = F.embedding(tokens.long(), e) if any(split) \
+            else _lookup(e, tokens.long())
+    else:
+        rows = e[tokens.long()]
+    return constrain(rows.to(_dtype(cfg.compute_dtype)), "batch", None,
+                     "embed_act")
+
+
+def _lookup(e: DTensor, tokens: torch.Tensor) -> DTensor:
+    """``e[tokens]`` on each rank's tokens with the whole table (its
+    gradient a partial sum over the tokens' shards)."""
+    mesh = e.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    tok = tokens if isinstance(tokens, DTensor) else DTensor.from_local(
+        tokens, mesh, rep, run_check=False)
+    pl = [p if isinstance(p, Shard) else Replicate() for p in tok.placements]
+    part = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    return local_map(lambda el, tl: el[tl], out_placements=pl,
+                     in_placements=(rep, pl), in_grad_placements=(part, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(e, tok)
 
 
 def _logits(cfg, params, h, plain):
@@ -285,7 +359,11 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                      plain)
         if a is not None:
             aux = aux + a
-    return _logits(cfg, params, h, plain), aux
+        if cfg.seq_parallel:
+            # the token dim sharded over the model axis between layers
+            h = constrain(h, "batch", "seq_sp", "embed_act")
+    return constrain(_logits(cfg, params, h, plain), "batch", None,
+                     "vocab"), aux
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -293,7 +371,14 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token nll over fp32 logits (B, S, V) plus ``z_loss`` times
     the mean squared log-partition."""
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # each rank's vocab block: the label's logit where the block holds
+        # it, zeros elsewhere, summed over the blocks (exact: one term)
+        hit = labels.long()[..., None] == torch.arange(
+            logits.shape[-1], device=logits.device)
+        ll = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (lse - ll).mean() + z_loss * lse.square().mean()
 
 
@@ -308,29 +393,51 @@ def loss_fn(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 # -------------------------------------------------------------------- decode
 
+def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                  dtype: torch.dtype) -> dict:
+    """{pos{i}: {leaf: (shape, dtype)}} of the cache."""
+    out = {}
+    for pi, pat in enumerate(cfg.pattern):
+        lead = (cfg.n_blocks, batch)
+        if pat.mixer == "attn":
+            kv = (*lead, cfg.n_kv_heads * cfg.kv_cache_repeat, max_len,
+                  cfg.head_dim)
+            out[f"pos{pi}"] = {"k": (kv, dtype), "v": (kv, dtype)}
+        else:
+            conv_dim = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            out[f"pos{pi}"] = {
+                "conv": ((*lead, cfg.ssm_conv_width - 1, conv_dim), dtype),
+                "state": ((*lead, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), torch.float32)}
+    return out
+
+
+def cache_specs(cfg: ArchConfig) -> dict:
+    """The logical axes of the cache (the reference's)."""
+    specs = {}
+    for pi, pat in enumerate(cfg.pattern):
+        if pat.mixer == "attn":
+            ax = ("layers", "batch", "kv_heads", None, None)
+            specs[f"pos{pi}"] = {"k": ax, "v": ax}
+        else:
+            specs[f"pos{pi}"] = {
+                "conv": ("layers", "batch", None, "conv_dim"),
+                "state": ("layers", "batch", "ssm_heads", None, None)}
+    return specs
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: torch.dtype | None = None,
                device: str | torch.device | None = None) -> dict:
+    """Zeros in the reference's layout: per pattern position, k and v
+    (n_blocks, B, Hkv·kv_cache_repeat, max_len, D), or the conv window and
+    the fp32 SSD state.  Under active rules, DTensors laid out by
+    ``sharding.cache_layout``."""
     check_supported(cfg)
-    dtype = dtype or _dtype(cfg.compute_dtype)
-    dev = resolve_device(device)
-
-    def zeros(*shape, dt=dtype):
-        return torch.zeros((cfg.n_blocks, batch, *shape), dtype=dt,
-                           device=dev)
-
-    cache = {}
-    for pi, pat in enumerate(cfg.pattern):
-        if pat.mixer == "attn":
-            kv = (cfg.n_kv_heads, max_len, cfg.head_dim)
-            cache[f"pos{pi}"] = {"k": zeros(*kv), "v": zeros(*kv)}
-        else:
-            conv_dim = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-            cache[f"pos{pi}"] = {
-                "conv": zeros(cfg.ssm_conv_width - 1, conv_dim),
-                "state": zeros(cfg.ssm_heads, cfg.ssm_head_dim,
-                               cfg.ssm_state, dt=torch.float32)}
-    return cache
+    shapes = _cache_shapes(cfg, batch, max_len,
+                           dtype or _dtype(cfg.compute_dtype))
+    return SH.zeros_tree(shapes, cache_specs(cfg), cfg, batch, max_len,
+                         resolve_device(device))
 
 
 def _cache_at(cfg, cache, i) -> dict:
@@ -359,13 +466,13 @@ def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         if pat.mixer == "attn":
             mix, (k, v) = L.attention_fwd(cfg, lp["attn"], hn, positions,
                                           causal=True, plain=plain)
-            c["k"][:, :, :Sp] = k
-            c["v"][:, :, :Sp] = v
+            SH.write_rows(c["k"], L.repeat_kv(cfg, k), 0)
+            SH.write_rows(c["v"], L.repeat_kv(cfg, v), 0)
         else:
             mix, state, conv = SSM.ssm_fwd_with_cache(cfg, lp["ssm"], hn,
                                                       plain=plain)
-            c["conv"].copy_(conv)
-            c["state"].copy_(state)
+            SH.assign(c["conv"], conv)
+            SH.assign(c["state"], state)
         h, _ = _ffn(cfg, pat, lp, h + mix, plain)
     return _logits(cfg, params, h[:, -1:], plain)[:, 0], cache
 

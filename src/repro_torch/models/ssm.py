@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.sharding import assign, constrain, merge_last, split_last
 
 
 def _splits(cfg) -> tuple[int, int, int]:
@@ -56,6 +57,14 @@ def init_ssm(cfg, gen: torch.Generator, device: torch.device) -> dict:
     }
 
 
+def ssm_specs(cfg) -> dict:
+    """The logical axes of ``init_ssm``'s leaves (the reference's)."""
+    return {"in_proj": ("embed", "ssm_inner"), "conv_w": (None, "conv_dim"),
+            "conv_b": ("conv_dim",), "A_log": ("ssm_heads",),
+            "D": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "norm": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")}
+
+
 def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor,
                  conv_b: torch.Tensor, prev: torch.Tensor | None = None
                  ) -> torch.Tensor:
@@ -75,7 +84,7 @@ def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor,
 def _mix(cfg, p: dict, x: torch.Tensor, *, plain: bool):
     """The block up to the output projection: (out, final SSD state,
     xbc before the conv)."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     din, gn, nh = _splits(cfg)
     proj = x @ p["in_proj"].to(x.dtype)
     z, xin, bb, cc, dt_raw = torch.split(proj, [din, din, gn, gn, nh], dim=-1)
@@ -83,17 +92,19 @@ def _mix(cfg, p: dict, x: torch.Tensor, *, plain: bool):
     xbc = F.silu(_causal_conv(xbc_pre, p["conv_w"].to(x.dtype),
                               p["conv_b"].to(x.dtype)))
     xin, bb, cc = torch.split(xbc, [din, gn, gn], dim=-1)
+    xin = constrain(xin, "batch", None, "ssm_inner")
     dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None])   # (B,S,nh)
     a = -torch.exp(p["A_log"])[None, None] * dt
-    xh = xin.reshape(B, S, nh, cfg.ssm_head_dim) * dt[..., None].to(x.dtype)
+    xh = split_last(xin, nh, cfg.ssm_head_dim) * dt[..., None].to(x.dtype)
     # b and c stay views into xbc: the kernel reads them in place
-    bg = bb.reshape(B, S, cfg.ssm_groups, cfg.ssm_state)
-    cg = cc.reshape(B, S, cfg.ssm_groups, cfg.ssm_state)
+    bg = split_last(bb, cfg.ssm_groups, cfg.ssm_state)
+    cg = split_last(cc, cfg.ssm_groups, cfg.ssm_state)
     y, state = ops.ssd(xh, a, bg, cg, chunk=min(128, max(16, S)),
                        plain=plain)
     y = y + p["D"][None, None, :, None].to(y.dtype) * xh
-    y = ops.rmsnorm(y.reshape(B, S, din) * F.silu(z), p["norm"], plain=plain)
-    return y @ p["out_proj"].to(x.dtype), state, xbc_pre
+    y = ops.rmsnorm(merge_last(y) * F.silu(z), p["norm"], plain=plain)
+    out = constrain(y @ p["out_proj"].to(x.dtype), "batch", None, "embed_act")
+    return out, state, xbc_pre
 
 
 def ssm_fwd(cfg, p: dict, x: torch.Tensor, *, plain: bool = False
@@ -130,7 +141,6 @@ def ssm_decode(cfg, p: dict, x: torch.Tensor, conv_window: torch.Tensor,
     state: (B, nh, P, N) fp32.  Updates the window and the state in place
     (the reference returns new arrays) and returns (out, conv_window,
     state)."""
-    B = x.shape[0]
     din, gn, nh = _splits(cfg)
     proj = x @ p["in_proj"].to(x.dtype)
     z, xin, bb, cc, dt_raw = torch.split(proj, [din, din, gn, gn, nh], dim=-1)
@@ -141,12 +151,13 @@ def ssm_decode(cfg, p: dict, x: torch.Tensor, conv_window: torch.Tensor,
     xin, bb, cc = torch.split(F.silu(conv_out), [din, gn, gn], dim=-1)
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"][None])   # (B, nh)
     a = -torch.exp(p["A_log"])[None] * dt
-    xh = xin.reshape(B, nh, cfg.ssm_head_dim) * dt[..., None].to(x.dtype)
-    bg = bb.reshape(B, cfg.ssm_groups, cfg.ssm_state)
-    cg = cc.reshape(B, cfg.ssm_groups, cfg.ssm_state)
+    xh = split_last(xin, nh, cfg.ssm_head_dim) * dt[..., None].to(x.dtype)
+    bg = split_last(bb, cfg.ssm_groups, cfg.ssm_state)
+    cg = split_last(cc, cfg.ssm_groups, cfg.ssm_state)
     y, new_state = ops.ssd_decode_step(xh, a, bg, cg, state)
-    state.copy_(new_state)
-    conv_window.copy_(window[:, 1:])
+    assign(state, new_state)
+    assign(conv_window, window[:, 1:])
     y = y + p["D"][None, :, None].to(y.dtype) * xh
-    y = ops.rmsnorm(y.reshape(B, 1, din) * F.silu(z), p["norm"], plain=plain)
+    y = ops.rmsnorm(merge_last(y)[:, None] * F.silu(z), p["norm"],
+                    plain=plain)
     return y @ p["out_proj"].to(x.dtype), conv_window, state

@@ -3,9 +3,14 @@ optionally bf16 moments (``ArchConfig.moment_dtype``).  An ``OptConfig``
 whose ``moment_dtype`` is None takes the arch config's where a train
 step is built (``for_arch``), fp32 where none is given.
 
-Port of ``repro.optim.adamw``, on one device (``state_specs`` waits for
-the multi-device layer, ROADMAP A.6).  The state is ``{"m": tree, "v":
-tree, "step": int32 0-d tensor}`` with the parameters' structure.  The
+Port of ``repro.optim.adamw``.  The state is ``{"m": tree, "v": tree,
+"step": int32 0-d tensor}`` with the parameters' structure;
+``state_specs`` gives its logical axes.  On a mesh the leaves are
+DTensors: each rank updates its own shard (a moment laid out otherwise
+than its parameter, ZeRO-1's, takes the parameter's block of its own
+layout, and the updated block is gathered back), and the global norm
+sums each rank's squares of the shards it owns in one all-reduce, so that
+a replicated leaf counts once.  The
 schedule and bias corrections are fp32 0-d tensors on the step's device,
 as the reference computes them in fp32, so a step reads nothing back to
 the host.  ``apply_updates`` updates the parameters and the moments in
@@ -28,6 +33,9 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate
 
 from .. import tree as T
 
@@ -75,6 +83,12 @@ def init_state(params, cfg: OptConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
+def state_specs(param_specs):
+    """The state's logical axes mirror the parameters' (``step``: a
+    scalar)."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
+
+
 def decay_mask(params) -> dict:
     """True for each leaf the reference decays: every leaf under a list
     (stacked over the layers there), else a leaf of ndim >= 2."""
@@ -87,10 +101,27 @@ def decay_mask(params) -> dict:
     return mark(params, False)
 
 
+def _owned_squares(g: DTensor) -> torch.Tensor:
+    """The fp32 sum of squares of this rank's shard of ``g``, or 0 where
+    another rank holds the same block (a lower coordinate on a mesh dim
+    ``g`` is replicated over)."""
+    coord = g.device_mesh.get_coordinate()
+    local = g.to_local().float().square().sum()
+    owner = all(coord[md] == 0 for md, p in enumerate(g.placements)
+                if isinstance(p, Replicate))
+    return local if owner else torch.zeros_like(local)
+
+
 def _clip_scale(grads, max_norm: float):
     """(the global L2 norm of ``grads``, the factor that clips it to
-    ``max_norm``), both fp32 0-d tensors."""
-    gnorm = torch.sqrt(sum(g.float().square().sum() for g in T.leaves(grads)))
+    ``max_norm``), both fp32 0-d tensors (on each rank, for DTensor
+    gradients: one all-reduce of the owned squares)."""
+    leaves = T.leaves(grads)
+    if leaves and isinstance(leaves[0], DTensor):
+        total = sum(_owned_squares(g) for g in leaves)
+        gnorm = torch.sqrt(funcol.all_reduce(total, "sum", dist.group.WORLD))
+    else:
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in leaves))
     return gnorm, torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
 
 
@@ -98,7 +129,13 @@ def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global L2 norm of at most ``max_norm``, the norm
     before scaling as an fp32 0-d tensor)."""
     gnorm, scale = _clip_scale(grads, max_norm)
-    return T.tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
+
+    def clip(g):
+        if isinstance(g, DTensor):     # each rank scales its own shard
+            return DTensor.from_local((g.to_local().float() * scale).to(
+                g.dtype), g.device_mesh, g.placements, run_check=False)
+        return (g.float() * scale).to(g.dtype)
+    return T.tree_map(clip, grads), gnorm
 
 
 # Leaves of more elements than this are updated a slice of a flat view at
@@ -142,9 +179,36 @@ def apply_updates(params, grads, state: dict, cfg: OptConfig):
     for p, g, m, v, decay in zip(T.leaves(params), T.leaves(grads),
                                  T.leaves(state["m"]), T.leaves(state["v"]),
                                  T.leaves(decay_mask(params))):
-        flat = [t.view(-1) for t in (p, m, v)] + [g.reshape(-1)]
-        for s in range(0, p.numel(), SLICE):
-            fp, fm, fv, fg = (t[s:s + SLICE] for t in flat)
-            _update(fp, fg, fm, fv, decay, scale, lr, bc1, bc2, cfg)
+        if isinstance(p, DTensor):
+            _update_shard(p, g, m, v, decay, scale, lr, bc1, bc2, cfg)
+        else:
+            _update_leaf(p, g, m, v, decay, scale, lr, bc1, bc2, cfg)
     new_state = {"m": state["m"], "v": state["v"], "step": step}
     return params, new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _update_leaf(p, g, m, v, decay, scale, lr, bc1, bc2, cfg) -> None:
+    """AdamW on one whole leaf, ``SLICE`` elements of its flat view at a
+    time."""
+    flat = [t.view(-1) for t in (p, m, v)] + [g.reshape(-1)]
+    for s in range(0, p.numel(), SLICE):
+        fp, fm, fv, fg = (t[s:s + SLICE] for t in flat)
+        _update(fp, fg, fm, fv, decay, scale, lr, bc1, bc2, cfg)
+
+
+def _update_shard(p: DTensor, g: DTensor, m: DTensor, v: DTensor, decay,
+                  scale, lr, bc1, bc2, cfg) -> None:
+    """AdamW on this rank's shard.  The moments' layout rules: where the
+    parameter's differs (ZeRO-1), the parameter and gradient are taken in
+    the moments' layout (a slice of a replicated block, no collective),
+    updated there, and the parameter gathered back to its own layout."""
+    mesh, pl = m.device_mesh, m.placements
+    pm = p.to_local() if p.placements == pl \
+        else p.redistribute(mesh, pl).to_local().clone()
+    gm = g.redistribute(mesh, pl).to_local() if g.placements != pl \
+        else g.to_local()
+    _update_leaf(pm, gm, m.to_local(), v.to_local(), decay, scale, lr, bc1,
+                 bc2, cfg)
+    if p.placements != pl:
+        p.to_local().copy_(DTensor.from_local(pm, mesh, pl, run_check=False)
+                           .redistribute(mesh, p.placements).to_local())

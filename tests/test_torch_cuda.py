@@ -1285,3 +1285,86 @@ def test_cuda_trainer_trains_reduced_qwen3_and_replays_a_fault(cuda,
     replayed = {m["step"]: m["loss"] for m in faulty.metrics_log}
     for m in tr.metrics_log:
         assert replayed[m["step"]] == pytest.approx(m["loss"], rel=1e-6)
+
+
+# ------------------------------------------------------ the one-device mesh
+
+@pytest.fixture
+def card_mesh(cuda):
+    """The card's (data 1, model 1) mesh over a world of one (NCCL)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh()
+
+
+def _on_mesh(t, mesh, placements):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, placements, run_check=False)
+
+
+def _op_cases(dev, tdt):
+    """(name, fn of (plain, to_mesh), the kernel wrapper it launches)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.kernels import ops
+    rows, rep = [Shard(0), Replicate()], [Replicate(), Replicate()]
+    heads = [Shard(0), Shard(1)]
+    x = torch.from_numpy(_np((4, 64, 256), 1)).to(dev, tdt)
+    g = torch.from_numpy(_np((256,), 2)).to(dev) + 1
+    b = torch.from_numpy(_np((256,), 3)).to(dev)
+    q = torch.from_numpy(_np((4, 8, 64, 128), 4)).to(dev, tdt)
+    k = torch.from_numpy(_np((4, 2, 64, 128), 5)).to(dev, tdt)
+    v = torch.from_numpy(_np((4, 2, 64, 128), 6)).to(dev, tdt)
+    xs = torch.from_numpy(_np((2, 128, 8, 64), 7)).to(dev, tdt)
+    a = -torch.from_numpy(np.abs(_np((2, 128, 8), 8)) * 0.1).to(dev)
+    bs = torch.from_numpy(_np((2, 128, 1, 64), 9)).to(dev, tdt)
+    cs = torch.from_numpy(_np((2, 128, 1, 64), 10)).to(dev, tdt)
+    return [
+        ("rmsnorm", lambda plain, m: ops.rmsnorm(m(x, rows), m(g, rep),
+                                                 plain=plain), rmsnorm_rows),
+        ("layernorm", lambda plain, m: ops.layernorm(
+            m(x, rows), m(g, rep), m(b, rep), plain=plain), layernorm_rows),
+        ("attention", lambda plain, m: ops.attention(
+            m(q, heads), m(k, heads), m(v, heads), causal=True,
+            plain=plain), flash_attention),
+        ("decode", lambda plain, m: ops.attention(
+            m(q[:, :, :1].contiguous(), heads), m(k, heads), m(v, heads),
+            causal=False, kv_len=40, plain=plain), flash_attention),
+        ("ssd", lambda plain, m: ops.ssd(
+            m(xs, [Shard(0), Shard(2)]), m(a, [Shard(0), Shard(2)]),
+            m(bs, [Shard(0), Replicate()]), m(cs, [Shard(0), Replicate()]),
+            chunk=64, plain=plain)[0], ssd),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rmsnorm", "layernorm", "attention",
+                                  "decode", "ssd"])
+@pytest.mark.parametrize("plain", [False, True], ids=["kernel", "plain"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_ops_on_the_one_device_mesh_equal_plain_tensors(
+        card_mesh, case, plain, tdt):
+    """``kernels.ops``' four entry points on (1, 1)-mesh DTensors hand the
+    kernel (or the plain version) this rank's tensors: the numbers of the
+    same call on plain tensors, bit for bit, and one launch a call."""
+    from torch.distributed.tensor import DTensor
+    name, fn, wrapper = next(c for c in _op_cases(torch.device("cuda"), tdt)
+                             if c[0] == case)
+    want = fn(plain, lambda t, pl: t)
+    before = wrapper.launches
+    got = fn(plain, lambda t, pl: _on_mesh(t, card_mesh, pl))
+    assert isinstance(got, DTensor)
+    assert wrapper.launches - before == (0 if plain else 1)
+    assert torch.equal(got.to_local(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_wrappers_refuse_a_dtensor(card_mesh):
+    from torch.distributed.tensor import Replicate
+    x = torch.ones(4, 256, device="cuda")
+    xd = _on_mesh(x, card_mesh, [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="DTensor"):
+        rmsnorm_rows(xd)
+    q = _on_mesh(torch.ones(1, 2, 8, 64, device="cuda"), card_mesh,
+                 [Replicate(), Replicate()])
+    with pytest.raises(TypeError, match="DTensor"):
+        flash_attention(q, q, q)

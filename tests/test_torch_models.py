@@ -25,8 +25,8 @@ from repro_torch.models import lm
 
 DENSE = ["qwen3-4b", "qwen1.5-4b", "internlm2-20b", "nemotron-4-15b",
          "qwen3-4b-gqa"]
-# the MoE archs, unported before MoE was; what they still do not run
-# (a cache repeated over the KV heads) raises
+# the MoE archs, unported before MoE was, and the cache repeated over the
+# KV heads, unported before the multi-device layer was
 UNSUPPORTED = ["jamba-1.5-large-398b",
                "llama4-maverick-400b-a17b", "dbrx-132b"]
 
@@ -254,8 +254,10 @@ def test_qwen3_4b_is_served_at_its_published_width():
 @pytest.mark.parametrize("arch", UNSUPPORTED)
 def test_unported_archs_raise(arch):
     """A MoE arch inits, forwards and serves on the CPU; with
-    ``kv_cache_repeat=2`` (the sharded cache, not ported) it raises
-    naming ROADMAP A.6."""
+    ``kv_cache_repeat=2`` (its 4 query heads over 2 KV heads, so that
+    the 4 cached heads group them) its cache holds each KV head twice, in
+    the reference's layout, and prefill and decode give the logits of
+    the unrepeated cache, bit for bit."""
     cfg = get_config(arch, reduced=True)
     lm.check_supported(cfg)
     p = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -267,11 +269,30 @@ def test_unported_archs_raise(arch):
     out = BatchServer(cfg, max_len=12, device="cpu", params=p).serve(
         [Request(0, tok[0].numpy(), 4)])["outputs"]
     assert len(out[0]) == 4
+    cfg = dataclasses.replace(cfg, n_kv_heads=2)
+    p = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
     sharded = dataclasses.replace(cfg, kv_cache_repeat=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        lm.init(sharded, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        lm.forward(sharded, {}, torch.zeros(1, 2, dtype=torch.long))
+    want = jax.eval_shape(lambda: ref_lm.init_cache(
+        dataclasses.replace(ref_get_config(arch, reduced=True), n_kv_heads=2,
+                            kv_cache_repeat=2), 2, 12))
+    got = lm.init_cache(sharded, 2, 12, device="cpu")
+    assert {k: {n: tuple(t.shape) for n, t in v.items()}
+            for k, v in got.items()} == \
+        {k: {n: tuple(t.shape) for n, t in v.items()}
+         for k, v in want.items()}
+    (l1, c1), (l2, c2) = (lm.prefill(c, p, tok, max_len=12)
+                          for c in (cfg, sharded))
+    assert torch.equal(l1, l2)
+    for pos in range(5, 7):
+        step = l1.argmax(-1)[:, None]
+        l1, _ = lm.decode_step(cfg, p, c1, step, pos)
+        l2, _ = lm.decode_step(sharded, p, c2, step, pos)
+        assert torch.equal(l1, l2)
+    for key, leaves in c1.items():
+        if "k" in leaves:
+            for n in ("k", "v"):
+                assert torch.equal(c2[key][n],
+                                   leaves[n].repeat_interleave(2, dim=2))
 
 
 def test_encoder_decoder_archs_are_sent_to_encdec():

@@ -147,3 +147,57 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         flash_attention(torch.zeros(1, 2, 4, 16), k, k, kv_len=5)
     with pytest.raises(TypeError):
         flash_attention(torch.zeros(1, 2, 4, 16), k.bfloat16(), k.bfloat16())
+
+
+# (B, Hq, Hkv, Sq, Skv, D, q_chunk): GQA groups of 1, 2 and 4, Sq < Skv,
+# a chunk of the whole and chunks of a few rows
+CHUNKED = [(1, 4, 2, 64, 64, 32, 16), (2, 8, 2, 32, 128, 64, 8),
+           (1, 4, 4, 48, 48, 16, 48), (2, 4, 1, 40, 100, 32, 10)]
+
+
+@pytest.mark.parametrize("shape", CHUNKED)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_mha_attention_chunked_matches_the_reference(shape, causal):
+    """``ref.mha_attention_chunked`` against the reference's (a scan over
+    query chunks with a grouped einsum) and against the port's
+    unchunked ``mha_attention``: fp32 reorderings only."""
+    from repro_torch.kernels import ref
+    B, Hq, Hkv, Sq, Skv, D, qc = shape
+    q, k, v = (_np((B, Hq, Sq, D), 1), _np((B, Hkv, Skv, D), 2),
+               _np((B, Hkv, Skv, D), 3))
+    got = ref.mha_attention_chunked(*map(torch.from_numpy, (q, k, v)),
+                                    causal=causal, q_chunk=qc)
+    want = jref.mha_attention_chunked(*map(jnp.asarray, (q, k, v)),
+                                      causal=causal, q_chunk=qc)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+    whole = ref.mha_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(whole), rtol=2e-6, atol=2e-6)
+
+
+def test_plain_attention_is_chunked_at_the_threshold(monkeypatch):
+    """``layers.attention_fwd`` takes the chunked plain version at and
+    past ``cfg.attn_chunk_threshold`` query rows (the reference's switch,
+    ``src/repro/models/layers.py:153-156``), the dense one below it, and
+    both give ``ref.mha_attention``'s numbers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    cfg = dataclasses.replace(get_config("qwen3-4b", reduced=True),
+                              attn_chunk_threshold=32)
+    p = layers.init_attention(cfg, torch.Generator().manual_seed(0), "cpu")
+    calls = []
+    real = ref.mha_attention_chunked
+    monkeypatch.setattr(ref, "mha_attention_chunked",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    for S, chunked in ((31, False), (32, True), (64, True)):
+        x = torch.from_numpy(_np((2, S, cfg.d_model), S))
+        pos = torch.arange(S)[None].expand(2, S)
+        calls.clear()
+        out, _ = layers.attention_fwd(cfg, p, x, pos, plain=True)
+        assert bool(calls) == chunked, S
+        dense = dataclasses.replace(cfg, attn_chunk_threshold=10 ** 9)
+        want, _ = layers.attention_fwd(dense, p, x, pos, plain=True)
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=2e-6,
+                                   atol=2e-6)

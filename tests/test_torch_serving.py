@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.launch.mesh import make_local_mesh
@@ -74,11 +75,18 @@ def test_serve_refuses_what_the_cache_cannot_hold_and_unported_archs():
     server = BatchServer(cfg, max_len=16, device="cpu")
     with pytest.raises(ValueError, match="max_len"):
         server.serve([Request(0, np.zeros(12, np.int32), 6)])
-    # a MoE arch serves; what is not ported (a KV cache repeated for the
-    # sharded layer) raises naming its ROADMAP item
+    # a MoE arch serves, and with its KV cache repeated (each head held
+    # twice, as a sharded cache holds it) serves the same tokens
     moe = get_config("llama4-maverick-400b-a17b", reduced=True)
-    out = BatchServer(moe, max_len=16, device="cpu").serve(
-        [Request(0, _prompts(moe.vocab_size, (5,))[0], 4)])["outputs"]
+    prompt = _prompts(moe.vocab_size, (5,))[0]
+    server = BatchServer(moe, max_len=16, device="cpu")
+    out = server.serve([Request(0, prompt, 4)])["outputs"]
     assert len(out[0]) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        BatchServer(dataclasses.replace(moe, kv_cache_repeat=2), device="cpu")
+    gqa = dataclasses.replace(moe, n_kv_heads=2)   # 4 query heads
+    repeated = BatchServer(dataclasses.replace(gqa, kv_cache_repeat=2),
+                           max_len=16, device="cpu")
+    plain = BatchServer(gqa, max_len=16, device="cpu")
+    assert torch.equal(repeated.params["layers"][0]["attn"]["wk"],
+                       plain.params["layers"][0]["attn"]["wk"])
+    assert repeated.serve([Request(0, prompt, 4)])["outputs"] == \
+        plain.serve([Request(0, prompt, 4)])["outputs"]

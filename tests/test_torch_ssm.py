@@ -195,11 +195,25 @@ def test_mamba2_is_served_at_its_published_width():
     assert [(p.mixer, p.ffn) for p in cfg.pattern] == [("ssm", "none")]
     assert abs(cfg.param_count() - 2.83e9) < 0.01e9
     lm.check_supported(cfg)
-    # the hybrid with its MoE FFNs runs; a repeated KV cache does not yet
+    # the hybrid with its MoE FFNs runs, with its KV cache repeated too:
+    # each attention position's k/v hold every KV head twice, the SSM
+    # positions' conv window and state are unchanged (the reference's
+    # layout)
     jamba = get_config("jamba-1.5-large-398b")
     lm.check_supported(jamba)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        lm.check_supported(dataclasses.replace(jamba, kv_cache_repeat=2))
+    rep = dataclasses.replace(jamba, kv_cache_repeat=2)
+    lm.check_supported(rep)
+    small = dataclasses.replace(get_config("jamba-1.5-large-398b",
+                                           reduced=True), n_kv_heads=2,
+                                kv_cache_repeat=2)
+    cache = lm.init_cache(small, 2, 8, device="cpu")
+    want = jax.eval_shape(lambda: ref_lm.init_cache(dataclasses.replace(
+        ref_get_config("jamba-1.5-large-398b", reduced=True), n_kv_heads=2,
+        kv_cache_repeat=2), 2, 8))
+    assert {k: {n: tuple(t.shape) for n, t in v.items()}
+            for k, v in cache.items()} == \
+        {k: {n: tuple(t.shape) for n, t in v.items()}
+         for k, v in want.items()}
 
 
 def test_params_from_jax_carries_ssm_leaves_and_mixer_only_layers():
