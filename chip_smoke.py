@@ -156,13 +156,16 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    fp32 ones up to the first MoE layer, routes free
    (``MODEL_FP32_TOL``, ``FP32_ROUTE_MARGIN``); ``Trainer`` with the
    config's bf16 moments (jamba at ``MOE_TRAIN_PEAK_LR``), the same checks
-   as above and the peak under ``CARD_TRAIN_GB``; ROADMAP C.6: a bf16
-   forward of the step-10 batch, which no step trains on, on the trained
-   weights and on the initial ones, the kernels' own routes against the
-   plain path's, held as the pinned gradients' routes, and the MoE
-   inputs' drift with each kernel family on its plain version in turn
-   (on the initial weights), and that batch's loss, which must fall from
-   the initial weights to the trained ones; dbrx-132b trained again with a fault at
+   as above and the peak under ``CARD_TRAIN_GB`` (jamba's cut for
+   ``MOE_TRAIN_STEPS`` steps); ROADMAP C.6: a bf16
+   forward of the batch after the last step's, which no step trains on,
+   on the trained weights and on the initial ones, the kernels' own
+   routes against the plain path's, held as the pinned gradients' routes,
+   and the MoE inputs' drift with each kernel family on its plain version
+   in turn (on the initial weights), and that batch's loss, which must
+   fall from the initial weights to the trained ones (jamba's by more
+   than ``HELD_OUT_SPREADS`` standard deviations of its step-to-step loss
+   differences); dbrx-132b trained again with a fault at
    ``FAULT_AT`` and no checkpoint, its losses replayed within
    ``FAULT_RTOL`` and its peak within 1 GiB of the uninterrupted run's.
    Then one step's gradients of qwen3-4b's training cut under each
@@ -191,7 +194,20 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    CPU's, and ``compressed_psum`` over the world of one equals
    ``decompress(ef_quantize(g))``.  Prints the phase's seconds and a
    decode step's host ms with and without the mesh.
-8. timing: BERT-L's compile and execute seconds and its device time by
+8. examples: ``examples_torch/`` through each example's ``run`` (see
+   ``EX_*``): quickstart (BERT-S compiled by the MILP, executed on the
+   DORA kernels; launches equal to the binary's, every layer's chained
+   output within ``CHAIN_RTOL``), serve_batch at its defaults (reduced
+   qwen3-4b; launches, greedy tokens teacher-forced again, prefill ms and
+   decode tok/s), train_lm's 100m preset at full width for
+   ``EX_TRAIN_STEPS`` steps with a fault at ``EX_TRAIN_FAIL_AT`` (one
+   failure, the replayed losses, the loss falling, launches of the
+   backward kernels, step ms, tokens/s and the peak), and
+   grad_compression over the card's NCCL world (the fp32 path against
+   full-batch descent, both paths' mse and all-reduced bytes).  Prints
+   the phase's seconds.  dora_scheduling is numpy only and is tested on
+   the CPU.
+9. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
    PyTorch library call where one computes the same function, and the
@@ -382,6 +398,16 @@ MOE_TRAIN_CUTS = {"dbrx-132b": {"n_layers": 1},
 # steps, at AdamW's default 3e-4 it falls (the phase prints the 1e-3 run
 # beside the checked one; PERF.md)
 MOE_TRAIN_PEAK_LR = {"jamba-1.5-large-398b": 3e-4}
+# Their step counts where TRAIN_STEPS cannot show descent (ROADMAP C.6): at
+# 3e-4 jamba's cut moves its held-out loss less in 10 steps than one
+# step's loss moves the next, and in 30 steps by 0.50 of the standard
+# deviation of its step-to-step loss differences (at peak lr 1e-4, 6e-4 or
+# 1e-3, without the aux loss or the clip, it does no better; PERF.md); in
+# 90 steps by 3.9 of them.  Such a cut trains MOE_TRAIN_STEPS steps and
+# its held-out loss must fall by more than HELD_OUT_SPREADS standard
+# deviations of its step-to-step loss differences; the other cuts' must
+# fall.
+MOE_TRAIN_STEPS, HELD_OUT_SPREADS = {"jamba-1.5-large-398b": 90}, 3.0
 # their fp32 gradient checks run up to the first MoE layer, the experts
 # halved while the fp32 parameters and two gradients would pass this many
 # GiB; a training run's peak must stay under the card's 80 GB; the MoE
@@ -610,6 +636,24 @@ MESH_SSM_LAYERS, MESH_WHISPER_LAYERS, MESH_DECODE_STEPS = 8, 4, 8
 MESH_TRAIN_STEPS, MESH_RTOL = 3, 2e-3
 MESH_COMPRESS_LEAVES = ("layers/0/attn/wq", "layers/0/mlp/w_down",
                         "final_norm/scale")
+# The examples phase: examples_torch/ on the card, each through its run()
+# with the counts from 0.  quickstart (BERT-S, stage-2 MILP) is held as the
+# DORA path is (launches equal to the binary's lead MMU_GEMM and SFU_*
+# counts, every layer's chained output within CHAIN_RTOL); serve_batch at
+# its defaults (reduced qwen3-4b, 4 requests, 24 new tokens) by its
+# launches and its greedy tokens, which the same weights teacher-forced
+# through the kernels must give again (and the plain versions within
+# SERVE_RTOL); train_lm's 100m preset at its full width for EX_TRAIN_STEPS
+# steps (its "few hundred") with a fault at EX_TRAIN_FAIL_AT, which
+# resumes from the last checkpoint (every CKPT_EVERY steps) and replays
+# the steps since within FAULT_RTOL; the mean loss of its last
+# EX_TRAIN_TAIL steps must fall below the first step's; its step times
+# are read past the first EX_TRAIN_WARM steps; grad_compression over the
+# card's NCCL world, its fp32 path equal to full-batch gradient descent on
+# one process within EX_GD_TOL x max|w|.  dora_scheduling is numpy only
+# and touches no device: its tests run it on the CPU.
+EX_TRAIN_STEPS, EX_TRAIN_FAIL_AT = 300, 160
+EX_TRAIN_TAIL, EX_TRAIN_WARM, EX_GD_TOL = 10, 5, 1e-5
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "ssd")
 TRAINING_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd", "layernorm_bwd",
                     "ssd_bwd")
@@ -725,6 +769,80 @@ def max_err(got, want) -> float:
 def close(got, want, rtol: float, atol: float) -> bool:
     return bool(((got.float() - want.float()).abs()
                  <= atol + rtol * want.float().abs()).all())
+
+
+def binary_launches(res) -> dict:
+    """Launches a run of ``res``'s binary must make: its lead
+    ``MMU_GEMM`` and its ``SFU_*`` instructions; no serving kernel."""
+    from repro_torch.core import OpType
+    from repro_torch.core.runtime import SFU_ACT
+    sfu_ops = {"sfu_softmax": {OpType.SFU_SOFTMAX},
+               "sfu_layernorm": {OpType.SFU_LAYERNORM},
+               "sfu_act": set(SFU_ACT)}
+    prog = res.codegen.program.instructions
+    expected = {k: sum(1 for i in prog if i.op_type in ops)
+                for k, ops in sfu_ops.items()}
+    expected["flex_gemm"] = sum(1 for i in prog
+                                if i.op_type == OpType.MMU_GEMM
+                                and i.body.ping_op == 1)
+    return expected | {k: 0 for k in SERVING_KERNELS + TRAINING_KERNELS}
+
+
+def path_launches(cfg) -> tuple[dict, dict, str]:
+    """Kernel launches per prefill or decode step, and in the prefill
+    only, of a decoder, with their derivation from its layer pattern:
+    norm1 a layer, norm2 a layer with an FFN (dense or MoE) and the
+    final norm on the rmsnorm kernel (or the layernorm kernel, on the
+    bf16 rows); the gated norm of an SSM layer, and q- and k-norm an
+    attention layer on rmsnorm where the arch has them; one attention
+    an attention layer; one ``ssd`` an SSM layer, in the prefill only
+    (decode updates the state in plain PyTorch, as the reference
+    does).  The MoE FFN launches none of the kernels."""
+    layers_ = [cfg.pattern[i % cfg.pattern_len]
+               for i in range(cfg.n_layers)]
+    attn = sum(p.mixer == "attn" for p in layers_)
+    ssm = len(layers_) - attn
+    ffn = sum(p.ffn != "none" for p in layers_)
+    L = len(layers_)
+    norm = "sfu_layernorm" if cfg.norm_kind == "layernorm" else "rmsnorm"
+    steps = Counter({norm: L + ffn + 1})
+    why = [f"{norm} {L + ffn + 1} = {L} norm1 + {ffn} norm2 + 1 final"]
+    if ssm:
+        steps["rmsnorm"] += ssm
+        why.append(f"rmsnorm {ssm} gated norms of the SSM layers")
+    if cfg.qk_norm and attn:
+        steps["rmsnorm"] += 2 * attn
+        why.append(f"rmsnorm q/k-norm 2 x {attn} attention layers")
+    if attn:
+        steps["flash_attention"] = attn
+        why.append(f"flash_attention {attn} = 1 x {attn} attention "
+                   f"layers")
+    prefill = {"ssd": ssm} if ssm else {}
+    if ssm:
+        why.append(f"ssd 1 x {ssm} SSM layers in the prefill only")
+    return dict(steps), prefill, "x (" + "; ".join(why) + ")"
+
+
+def train_launches(tcfg) -> tuple[dict, str]:
+    """Kernel launches a train step of a decoder, with their
+    derivation: the forward's (``path_launches``, ``ssd`` included),
+    each layer's again in the remat recompute (all but the final
+    norm, which runs outside it), and one backward a forward call
+    outside the recompute."""
+    steps, prefill, why = path_launches(tcfg)
+    norm = "sfu_layernorm" if tcfg.norm_kind == "layernorm" \
+        else "rmsnorm"
+    bwd = {"rmsnorm": "rmsnorm_bwd", "sfu_layernorm": "layernorm_bwd",
+           "flash_attention": "flash_attention_bwd", "ssd": "ssd_bwd"}
+    per_step = Counter()
+    for k, n in (Counter(steps) + Counter(prefill)).items():
+        per_step[k] += n + (n - (k == norm) if tcfg.remat else 0)
+        per_step[bwd[k]] += n
+    return dict(per_step), (
+        f"{dict(per_step)}: the forward {why}"
+        + (", each layer again in the remat recompute (the final norm "
+           "outside it)" if tcfg.remat else "")
+        + ", one backward a forward call")
 
 
 def mesh_phase(counters, launches, zero_counts, smi) -> None:
@@ -1085,6 +1203,193 @@ def mesh_phase(counters, launches, zero_counts, smi) -> None:
     print(f"[mesh] phase: {secs:.1f} s on {smi}")
 
 
+def examples_phase(counters, launches, zero_counts, smi) -> None:
+    """The examples of ``examples_torch/`` on the card, each through its
+    ``run`` with the counts from 0 (see ``EX_*``); their launches are
+    added to ``launches``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from examples_torch import (grad_compression, quickstart, serve_batch,
+                                train_lm)
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def counted(fn):
+        """``fn()`` with the counts from 0: (its result, the counts, its
+        host seconds); the counts join ``launches``."""
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counters.items()}
+        for k, n in got.items():
+            launches[k] += n
+        return out, got, secs
+
+    # quickstart: BERT-S through the DORA kernels
+    qs, ran, secs = counted(lambda: quickstart.run(quickstart.parse_args([]),
+                                                   device=dev))
+    res, graph = qs["result"], qs["graph"]
+    want = binary_launches(res)
+    print(f"[examples] quickstart: {graph.name}, stage-2 MILP optimal="
+          f"{res.optimal}, makespan {res.makespan_s * 1e3:.3f} ms, "
+          f"{len(res.codegen.program)} instructions; launches {ran} "
+          f"[{secs:.1f} s]")
+    require(ran == want, f"quickstart launches {ran} differ from the "
+            f"binary's instruction counts {want}")
+    rels = {}
+    for layer in graph.layers:
+        got, ref_out = qs["outputs"][layer.name], qs["reference"][layer.name]
+        require(bool(np.isfinite(got).all()) and got.shape == ref_out.shape,
+                f"quickstart {layer.name}: {got.shape} or non-finite")
+        rels[layer.name] = float(np.linalg.norm(got - ref_out) / max(
+            np.linalg.norm(ref_out), 1e-30))
+    worst = max(rels, key=rels.get)
+    print(f"[examples] quickstart vs reference_execute: last layer rel L2 "
+          f"{qs['rel_l2']:.4g}, max abs err {qs['max_abs_err']:.4g}; worst "
+          f"chained layer {worst} {rels[worst]:.4g} (limit {CHAIN_RTOL})")
+    require(max(rels.values()) <= CHAIN_RTOL,
+            f"quickstart chained rel L2 errors {rels}")
+
+    # serve_batch at its defaults, its weights from seed 0
+    args = serve_batch.parse_args([])
+    cfg = get_config(args.arch, reduced=True)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    per_step, per_prefill, why = path_launches(cfg)
+    want = dict.fromkeys(counters, 0) | {
+        k: args.gen * n for k, n in per_step.items()} | per_prefill
+    sv, ran, secs = counted(lambda: serve_batch.run(args, device=dev,
+                                                    params=params))
+    print(f"[examples] serve_batch: {cfg.name}, {args.batch} requests of "
+          f"{[len(r.prompt) for r in sv['requests']]} prompt tokens, "
+          f"{args.gen} new; prefill {sv['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{sv['decode_tok_per_s']:.1f} tok/s (host clock around "
+          f"synchronize, one call) on {smi}; launches {ran}, expected "
+          f"{args.gen} steps {why} [{secs:.1f} s]")
+    require(ran == want, f"serve_batch launches {ran} differ from {want}")
+    reqs, outs = sv["requests"], sv["outputs"]
+    require(all(len(outs[r.id]) == args.gen and all(
+        0 <= t < cfg.vocab_size for t in outs[r.id]) for r in reqs),
+        f"serve_batch outputs malformed: {outs}")
+    # the served tokens teacher-forced through the kernels (the greedy
+    # rows' argmax must give them again) and the plain versions
+    plen = max(len(r.prompt) for r in reqs)
+    padded = np.zeros((len(reqs), plen), np.int64)
+    for i, r in enumerate(reqs):
+        padded[i, plen - len(r.prompt):] = r.prompt
+    tokens = torch.from_numpy(padded).to(dev)
+    served = torch.tensor([outs[r.id] for r in reqs], device=dev)
+    greedy = [i for i, r in enumerate(reqs) if r.temperature == 0]
+    cast, caches, rel = lm.cast_params(cfg, params), {}, []
+    with torch.no_grad():
+        for t in range(args.gen):
+            logits = {}
+            for plain in (False, True):
+                if t == 0:
+                    logits[plain], caches[plain] = lm.prefill(
+                        cfg, cast, tokens, max_len=128, plain=plain)
+                else:
+                    logits[plain], caches[plain] = lm.decode_step(
+                        cfg, cast, caches[plain], served[:, t - 1:t],
+                        plen + t - 1, plain=plain)
+            rel.append(rel_l2(logits[False], logits[True]))
+            require(torch.equal(logits[False].argmax(-1)[greedy],
+                                served[greedy, t]),
+                    f"serve_batch step {t}: the kernels' greedy tokens "
+                    f"differ from the served ones")
+    print(f"[examples] serve_batch greedy requests {greedy}: the served "
+          f"tokens teacher-forced through the kernels give them again; "
+          f"logits vs the plain versions rel L2 max {max(rel):.4g} (limit "
+          f"{SERVE_RTOL})")
+    require(max(rel) <= SERVE_RTOL, f"serve_batch logits rel L2 {rel}")
+    del params, cast, caches, logits
+
+    # train_lm's 100m preset with a fault near the middle
+    cfg, shape = train_lm.preset_config("100m")
+    per_step, why = train_launches(cfg)
+    resume = EX_TRAIN_FAIL_AT // train_lm.CKPT_EVERY * train_lm.CKPT_EVERY
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_lm.parse_args(
+            ["--preset", "100m", "--steps", str(EX_TRAIN_STEPS), "--fail-at",
+             str(EX_TRAIN_FAIL_AT), "--ckpt-dir", tmp])
+        tr, ran, secs = counted(lambda: train_lm.run(args, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    metrics, losses = tr["metrics"], tr["losses"]
+    steps = [m["step"] for m in metrics]
+    want = dict.fromkeys(counters, 0) | {
+        k: len(metrics) * n for k, n in per_step.items()}
+    print(f"[examples] train_lm --preset 100m: {cfg.name} "
+          f"({cfg.param_count() / 1e6:.1f} M parameters, d {cfg.d_model}, "
+          f"{cfg.n_layers} layers, {cfg.compute_dtype} compute, remat "
+          f"{cfg.remat}), {shape.global_batch} x {shape.seq_len} tokens a "
+          f"step, {EX_TRAIN_STEPS} steps, a fault at step "
+          f"{EX_TRAIN_FAIL_AT}, resumed from step {resume}: {len(metrics)} "
+          f"steps run; launches {ran}, expected {len(metrics)} x {why} "
+          f"[{secs:.1f} s, checkpoints and the restore included]")
+    require(ran == want, f"train_lm launches {ran} differ from {want}")
+    require(tr["failures"] == 1 and steps == list(range(EX_TRAIN_FAIL_AT))
+            + list(range(resume, EX_TRAIN_STEPS)),
+            f"train_lm: {tr['failures']} failures, steps {steps}")
+    first = {}
+    for m in metrics:
+        first.setdefault(m["step"], m["loss"])
+    replay = max(abs(m["loss"] - first[m["step"]]) / abs(first[m["step"]])
+                 for m in metrics)
+    tail = float(np.mean(losses[-EX_TRAIN_TAIL:]))
+    dts = sorted(m["dt"] for m in metrics[EX_TRAIN_WARM:])
+    step_ms = 1e3 * dts[len(dts) // 2]
+    print(f"[examples] train_lm 100m: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, mean of the last {EX_TRAIN_TAIL} {tail:.4f} "
+          f"< first; replayed steps' losses within {replay:.3g} relative of "
+          f"their first run (limit {FAULT_RTOL}); step host ms past the "
+          f"first {EX_TRAIN_WARM}: median {step_ms:.2f}, least "
+          f"{1e3 * dts[0]:.2f}, most {1e3 * dts[-1]:.2f}; "
+          f"{shape.global_batch * shape.seq_len / (step_ms / 1e3):,.0f} "
+          f"tokens/s at the median (the example's mean "
+          f"{tr['mean_tok_per_s']:,.0f}); {len(tr['straggler_steps'])} "
+          f"straggler steps; peak {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated, {base / 2**30:.2f} held before) on {smi}")
+    require(all(np.isfinite(losses)) and tail < losses[0]
+            and replay <= FAULT_RTOL,
+            f"train_lm 100m: losses {losses}, replay {replay}")
+
+    # grad_compression over the card's NCCL world
+    gc, ran, secs = counted(lambda: grad_compression.run(
+        grad_compression.parse_args([]), device=dev))
+    world = gc["world"]
+    require(world == torch.cuda.device_count(), f"grad_compression world "
+            f"{world} of {torch.cuda.device_count()} cards")
+    X, y = grad_compression.problem(world)
+    xs, ys = torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev)
+    w = torch.zeros(grad_compression.D, device=dev)
+    for _ in range(grad_compression.STEPS):
+        w = w - grad_compression.LR * grad_compression.local_grad(w, xs, ys)
+    paths = gc["paths"]
+    fp32 = torch.tensor(paths["fp32 all-reduce"]["w"], device=dev)
+    err = float((fp32 - w).abs().max())
+    print(f"[examples] grad_compression over a NCCL world of {world}: "
+          + "; ".join(f"{name} final mse {r['mse']:.4g}, all-reduced bytes "
+                      f"a step {r['wire_bytes']:.0f}" for name, r in
+                      paths.items())
+          + f"; fp32 path vs full-batch descent max |dw| {err:.3g} (limit "
+          f"{EX_GD_TOL} x max|w| = {EX_GD_TOL * float(w.abs().max()):.3g})"
+          f" [{secs:.1f} s]")
+    require(err <= EX_GD_TOL * float(w.abs().max()) and all(
+        r["wire_bytes"] == 4 * grad_compression.D and np.isfinite(r["mse"])
+        for r in paths.values()), f"grad_compression: {paths}")
+    print(f"[examples] phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
 def main() -> None:
     import dataclasses
 
@@ -1123,6 +1428,7 @@ def main() -> None:
     # fp32 products in full fp32 for the plain versions and yardsticks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1545,21 +1851,6 @@ def main() -> None:
         for k, fn in counters.items():
             whole[k] += fn.launches
             fn.launches = 0
-    sfu_ops = {"sfu_softmax": {OpType.SFU_SOFTMAX},
-               "sfu_layernorm": {OpType.SFU_LAYERNORM},
-               "sfu_act": set(SFU_ACT)}
-
-    def binary_launches(res) -> dict:
-        """Launches a run of ``res``'s binary must make: its lead
-        ``MMU_GEMM`` and its ``SFU_*`` instructions; no serving kernel."""
-        prog = res.codegen.program.instructions
-        expected = {k: sum(1 for i in prog if i.op_type in ops)
-                    for k, ops in sfu_ops.items()}
-        expected["flex_gemm"] = sum(1 for i in prog
-                                    if i.op_type == OpType.MMU_GEMM
-                                    and i.body.ping_op == 1)
-        return expected | {k: 0 for k in SERVING_KERNELS + TRAINING_KERNELS}
-
     def run_binary(name, res, inputs):
         """Runs ``res`` on the card from ``inputs``; its launches, counted
         from zero, must be the binary's.  Returns the outputs on the host
@@ -1801,40 +2092,6 @@ def main() -> None:
             for _ in range(matrices):
                 draw(cfg.d_model * cfg.d_ff, expert)
         return esize * cfg.param_count(), 4 * item, held
-
-    def path_launches(cfg) -> tuple[dict, dict, str]:
-        """Kernel launches per prefill or decode step, and in the prefill
-        only, of a decoder, with their derivation from its layer pattern:
-        norm1 a layer, norm2 a layer with an FFN (dense or MoE) and the
-        final norm on the rmsnorm kernel (or the layernorm kernel, on the
-        bf16 rows); the gated norm of an SSM layer, and q- and k-norm an
-        attention layer on rmsnorm where the arch has them; one attention
-        an attention layer; one ``ssd`` an SSM layer, in the prefill only
-        (decode updates the state in plain PyTorch, as the reference
-        does).  The MoE FFN launches none of the kernels."""
-        layers_ = [cfg.pattern[i % cfg.pattern_len]
-                   for i in range(cfg.n_layers)]
-        attn = sum(p.mixer == "attn" for p in layers_)
-        ssm = len(layers_) - attn
-        ffn = sum(p.ffn != "none" for p in layers_)
-        L = len(layers_)
-        norm = "sfu_layernorm" if cfg.norm_kind == "layernorm" else "rmsnorm"
-        steps = Counter({norm: L + ffn + 1})
-        why = [f"{norm} {L + ffn + 1} = {L} norm1 + {ffn} norm2 + 1 final"]
-        if ssm:
-            steps["rmsnorm"] += ssm
-            why.append(f"rmsnorm {ssm} gated norms of the SSM layers")
-        if cfg.qk_norm and attn:
-            steps["rmsnorm"] += 2 * attn
-            why.append(f"rmsnorm q/k-norm 2 x {attn} attention layers")
-        if attn:
-            steps["flash_attention"] = attn
-            why.append(f"flash_attention {attn} = 1 x {attn} attention "
-                       f"layers")
-        prefill = {"ssd": ssm} if ssm else {}
-        if ssm:
-            why.append(f"ssd 1 x {ssm} SSM layers in the prefill only")
-        return dict(steps), prefill, "x (" + "; ".join(why) + ")"
 
     @contextlib.contextmanager
     def moe_calls(pin=None):
@@ -3086,42 +3343,22 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # (c) train with Trainer: the main path of this phase, counted from 0
-    def train_launches(tcfg) -> tuple[dict, str]:
-        """Kernel launches a train step of a decoder, with their
-        derivation: the forward's (``path_launches``, ``ssd`` included),
-        each layer's again in the remat recompute (all but the final
-        norm, which runs outside it), and one backward a forward call
-        outside the recompute."""
-        steps, prefill, why = path_launches(tcfg)
-        norm = "sfu_layernorm" if tcfg.norm_kind == "layernorm" \
-            else "rmsnorm"
-        bwd = {"rmsnorm": "rmsnorm_bwd", "sfu_layernorm": "layernorm_bwd",
-               "flash_attention": "flash_attention_bwd", "ssd": "ssd_bwd"}
-        per_step = Counter()
-        for k, n in (Counter(steps) + Counter(prefill)).items():
-            per_step[k] += n + (n - (k == norm) if tcfg.remat else 0)
-            per_step[bwd[k]] += n
-        return dict(per_step), (
-            f"{dict(per_step)}: the forward {why}"
-            + (", each layer again in the remat recompute (the final norm "
-               "outside it)" if tcfg.remat else "")
-            + ", one backward a forward call")
-
-    def chip_trainer(tcfg, peak_lr=TRAIN_PEAK_LR, **options):
-        """``Trainer`` on ``tcfg`` for TRAIN_STEPS steps of TRAIN_BATCH x
+    def chip_trainer(tcfg, peak_lr=TRAIN_PEAK_LR, steps=TRAIN_STEPS,
+                     **options):
+        """``Trainer`` on ``tcfg`` for ``steps`` steps of TRAIN_BATCH x
         TRAIN_SEQ tokens from SyntheticLM seed 0, AdamW at ``peak_lr``
         with the config's moments, no checkpoint unless ``options`` says."""
         return Trainer(
             tcfg, ShapeSpec("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
             opt=OptConfig(peak_lr=peak_lr, warmup_steps=TRAIN_WARMUP,
-                          total_steps=TRAIN_STEPS),
-            options=TrainOptions(**{"steps": TRAIN_STEPS, "ckpt_every": 0,
+                          total_steps=steps),
+            options=TrainOptions(**{"steps": steps, "ckpt_every": 0,
                                     "log_every": 1} | options),
             seed=0, device=dev)
 
     def train_run(tcfg, note, per_step, why, inspect=None,
-                  peak_lr=TRAIN_PEAK_LR):
-        """``Trainer`` on ``tcfg`` for TRAIN_STEPS steps of TRAIN_BATCH x
+                  peak_lr=TRAIN_PEAK_LR, steps=TRAIN_STEPS):
+        """``Trainer`` on ``tcfg`` for ``steps`` steps of TRAIN_BATCH x
         TRAIN_SEQ tokens from SyntheticLM seed 0 at ``peak_lr`` (fp32
         parameters, the config's moments, bf16 compute and remat), counted
         from zero: the
@@ -3132,9 +3369,9 @@ def main() -> None:
         tokens/s and one profiled step.  Returns (the losses, the
         peak)."""
         expected = dict.fromkeys(counters, 0) | {
-            k: TRAIN_STEPS * n for k, n in per_step.items()}
+            k: steps * n for k, n in per_step.items()}
         print(f"[train] {tcfg.name} [{note}] expected launches a step: "
-              f"{why}; x {TRAIN_STEPS} steps; the other kernels 0")
+              f"{why}; x {steps} steps; the other kernels 0")
         msize = torch.empty((), dtype=getattr(torch, tcfg.moment_dtype)
                             ).element_size()
         n_par = tcfg.param_count()
@@ -3158,7 +3395,7 @@ def main() -> None:
               f"elements, the largest layer's bf16 weight copies and their "
               f"gradients): {state_gb + logits_gb:.2f}-"
               f"{state_gb + logits_gb + temps_gb:.2f} GB")
-        trainer = chip_trainer(tcfg, peak_lr)
+        trainer = chip_trainer(tcfg, peak_lr, steps)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3167,13 +3404,13 @@ def main() -> None:
         torch.cuda.synchronize()
         ran = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
-        print(f"[train] {tcfg.name} launches over {TRAIN_STEPS} steps: {ran}")
+        print(f"[train] {tcfg.name} launches over {steps} steps: {ran}")
         require(ran == expected, f"{tcfg.name} training launches {ran} "
                 f"differ from {expected}")
         for k, n in ran.items():
             launches[k] += n
         losses = [m["loss"] for m in trainer.metrics_log]
-        require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+        require(len(losses) == steps and all(np.isfinite(losses))
                 and np.mean(losses[-3:]) < losses[0],
                 f"{tcfg.name} training loss did not fall: {losses}")
         dts = sorted(m["dt"] for m in trainer.metrics_log[1:])
@@ -3182,13 +3419,13 @@ def main() -> None:
         print(f"[train] {tcfg.name} [{note}; fp32 parameters, "
               f"{tcfg.moment_dtype} moments, {tcfg.compute_dtype} compute, "
               f"remat {tcfg.remat}] "
-              f"{TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, AdamW peak "
+              f"{steps} steps of {TRAIN_BATCH}x{TRAIN_SEQ}, AdamW peak "
               f"lr {peak_lr} after {TRAIN_WARMUP} warm-up steps: "
               f"losses " + ", ".join(f"{x:.4f}" for x in losses)
               + f"; mean of the last 3 {np.mean(losses[-3:]):.4f} < first "
               f"{losses[0]:.4f}")
         print(f"[train] {tcfg.name} step host ms (host clock around the "
-              f"step's loss read, steps 1-{TRAIN_STEPS - 1}): median "
+              f"step's loss read, steps 1-{steps - 1}): median "
               f"{step_ms:.2f}, least {1e3 * dts[0]:.2f}, most "
               f"{1e3 * dts[-1]:.2f}; {tok / (step_ms / 1e3):,.0f} tokens/s "
               f"at the median [{note}] on {smi}")
@@ -3201,7 +3438,7 @@ def main() -> None:
                 f"{peak / 1e9:.2f} GB (limit {CARD_TRAIN_GB} GB)")
         if inspect is not None:
             inspect(params, trainer)
-        nxt = trainer.data.device_batch(TRAIN_STEPS, dev)
+        nxt = trainer.data.device_batch(steps, dev)
         step_s = host_s(lambda: trainer.step_fn(params, opt_state, nxt))
         device_profile(f"{tcfg.name} [{note}] train step {TRAIN_BATCH}x"
                        f"{TRAIN_SEQ} on {smi}",
@@ -3368,43 +3605,50 @@ def main() -> None:
         # the step-TRAIN_STEPS batch, which no step trains on: C.6's input
         # and the held-out loss, whose fall from the initial weights to
         # the trained ones no batch-to-batch spread blurs
-        late, held = data.device_batch(TRAIN_STEPS, dev), {}
+        steps = MOE_TRAIN_STEPS.get(arch, TRAIN_STEPS)
+        late, held = data.device_batch(steps, dev), {}
         lr = MOE_TRAIN_PEAK_LR.get(arch, TRAIN_PEAK_LR)
         losses, peak = train_run(
             mcfg, note, *train_launches(mcfg),
             inspect=lambda params, _: held.__setitem__("trained", c6_routes(
-                mcfg, params, late, f"{arch} [{note}] after {TRAIN_STEPS} "
-                f"steps at peak lr {lr}, on the step-{TRAIN_STEPS} batch")),
-            peak_lr=lr)
+                mcfg, params, late, f"{arch} [{note}] after {steps} "
+                f"steps at peak lr {lr}, on the step-{steps} batch")),
+            peak_lr=lr, steps=steps)
         params = lm.init(mcfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
         held["initial"] = c6_routes(mcfg, params, late, f"{arch} [{note}] "
                                     f"the initial weights, on the "
-                                    f"step-{TRAIN_STEPS} batch",
+                                    f"step-{steps} batch",
                                     attribute=True)
         del params
         torch.cuda.empty_cache()
-        swing = max(abs(b - a) for a, b in zip(losses, losses[1:]))
+        diffs = np.diff(losses)
+        swing, spread = float(np.abs(diffs).max()), float(np.std(diffs))
+        fall = held["initial"] - held["trained"]
+        limit = HELD_OUT_SPREADS if arch in MOE_TRAIN_STEPS else 0.0
         print(f"[train] {arch} [{note}] loss on the held-out "
-              f"step-{TRAIN_STEPS} batch (the kernels, bf16): initial weights "
-              f"{held['initial']:.4f}, after {TRAIN_STEPS} steps at peak lr "
-              f"{lr} {held['trained']:.4f}, a fall of "
-              f"{held['initial'] - held['trained']:.4f} (the training steps' "
-              f"losses, each on its own batch, move by up to {swing:.4f} "
-              f"from one step to the next)")
-        require(held["trained"] < held["initial"], f"{arch}: the held-out "
-                f"loss did not fall: {held}")
+              f"step-{steps} batch (the kernels, bf16): initial weights "
+              f"{held['initial']:.4f}, after {steps} steps at peak lr "
+              f"{lr} {held['trained']:.4f}, a fall of {fall:.4f} (the "
+              f"training steps' losses, each on its own batch, move by up "
+              f"to {swing:.4f} from one step to the next, standard "
+              f"deviation {spread:.4f}: the fall is {fall / spread:.2f} of "
+              f"it, limit {limit})")
+        require(fall > limit * spread,
+                f"{arch}: the held-out loss did not fall by {limit} times "
+                f"the step-to-step spread: {held}, spread {spread}")
         if lr != TRAIN_PEAK_LR:   # printed, not checked: the reason for lr
             side = chip_trainer(mcfg, log_every=TRAIN_STEPS)
             params, _ = side.run(resume=False)
             with torch.no_grad():
                 after = float(lm.loss_fn(mcfg, params, late["tokens"],
                                          late["labels"]))
-            print(f"[train] {arch} [{note}] the same run at peak lr "
+            print(f"[train] {arch} [{note}] the same run for {TRAIN_STEPS} "
+                  f"steps at peak lr "
                   f"{TRAIN_PEAK_LR} (printed, not checked: the reason for "
                   f"MOE_TRAIN_PEAK_LR): losses " + ", ".join(
                       f"{m['loss']:.4f}" for m in side.metrics_log)
-                  + f"; loss on the held-out step-{TRAIN_STEPS} batch "
+                  + f"; loss on the held-out step-{steps} batch "
                   f"{held['initial']:.4f} -> {after:.4f}")
             del side, params
         del late
@@ -3479,6 +3723,9 @@ def main() -> None:
 
     # ---------------------------------------------------------------- mesh
     mesh_phase(counters, launches, zero_counts, smi)
+
+    # ------------------------------------------------------------ examples
+    examples_phase(counters, launches, zero_counts, smi)
 
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")
@@ -4062,7 +4309,8 @@ def main() -> None:
 
     zero_counts()
     print(f"[main] launches over the whole script, checks and timing "
-          f"included: {whole}")
+          f"included: {whole}; the script's phases took "
+          f"{time.perf_counter() - t_script:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,29 @@
-"""The model code's kernel entry points.
+"""The kernel entry points: port of ``repro.kernels.ops``.
 
-Counterpart of the serving half of ``repro.kernels.ops``: ``rmsnorm``
-and ``layernorm`` flatten the leading dims into rows for the row kernels
-in x's own dtype (``src/repro/kernels/ops.py:95-103``), ``attention`` takes the
+The DORA half: ``matmul`` (a 2-D GEMM with a fused epilogue), ``linear``
+(leading dims flattened into rows), ``softmax`` and ``gelu`` over the
+last dim (``src/repro/kernels/ops.py:54-110``).  A CUDA tensor goes to
+``flex_gemm`` (its tiles and split-K cut from ``flex_gemm.gemm_plan``,
+not the reference's TPU plan ``plan_tpu_gemm_tiles``), ``softmax_rows``
+and ``act_rows(x, "gelu")``; a CPU tensor to ``ref.gemm``,
+``ref.softmax_rows`` and ``ref.gelu_rows``.  No model calls these four,
+so they take no DTensor (it raises, as in the wrappers).  Under autograd
+on the card they raise (the kernels have no backward); on the CPU they
+differentiate through their plain versions.
+
+The serving half: ``rmsnorm`` and ``layernorm`` flatten the leading dims
+into rows for the row kernels in x's own dtype
+(``src/repro/kernels/ops.py:95-103``), ``attention`` takes the
 ``(B, H, S, D)`` layout of the attention kernel, ``ssd`` the
 ``(B, S, H, P)`` layout of the SSM block, and ``ssd_decode_step`` is
 the plain one-token update (no kernel in either package).  A CUDA tensor
 goes to the kernel and a CPU tensor to its plain version, through the
 wrappers.
-``plain=True`` names the plain version on any device: ``chip_smoke.py``
-uses it to run the same model on the card without the kernels.  It is an
+
+There is no ``set_kernel_mode``: the port keeps no global mode.  The
+reference's "ref" is ``plain=True``, which names the plain version on
+any device (``chip_smoke.py`` uses it to run the same model on the card
+without the kernels); its "pallas" is a CUDA tensor.  ``plain`` is an
 argument, never a fallback.
 """
 
@@ -19,19 +33,21 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from . import ref
+from . import _build, ref
 from .flash_attention import flash_attention
-from .sfu import layernorm_rows, rmsnorm_rows
+from .flex_gemm import flex_gemm
+from .sfu import act_rows, layernorm_rows, rmsnorm_rows, softmax_rows
 from .ssd import ssd as ssd_kernel
 
 
 # ------------------------------------------------------------ DTensor seam
 #
 # Under ``parallel.sharding.use_rules`` the model's tensors are DTensors.
-# The four entry points then call themselves through ``local_map`` on
-# this rank's tensors: a kernel (ctypes, ``data_ptr()``) cannot read a
-# DTensor, and its wrapper raises on one.  Inputs are redistributed to
-# the placements each entry point states (a collective where they differ).
+# The serving half's entry points then call themselves through
+# ``local_map`` on this rank's tensors: a kernel (ctypes, ``data_ptr()``)
+# cannot read a DTensor, and its wrapper raises on one.  Inputs are
+# redistributed to the placements each entry point states (a collective
+# where they differ).
 
 def _keep(x: DTensor, dims) -> list:
     """x's placements with a shard kept only on the tensor dims ``dims``."""
@@ -101,6 +117,41 @@ def _select(t: torch.Tensor, heads: list[int] | None, dim: int):
 
 
 # ---------------------------------------------------------- entry points
+
+def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None,
+           epilogue: str = "none", *, plain: bool = False) -> torch.Tensor:
+    """``epi(a @ b + bias)`` for a (M, K) and b (K, N), fp32 accumulation,
+    in a's dtype; ``bias`` (N,) is read only by the ``bias*`` epilogues."""
+    _build.refuse_dtensor("ops.matmul", a, b, bias)
+    if plain:
+        return ref.gemm(a, b, bias, epilogue)
+    return flex_gemm(a.contiguous(), b.contiguous(), bias, epilogue=epilogue)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
+           epilogue: str = "none", *, plain: bool = False) -> torch.Tensor:
+    """(..., K) @ (K, N) with the leading dims flattened into rows."""
+    _build.refuse_dtensor("ops.linear", x, w, bias)
+    rows = x.reshape(-1, x.shape[-1]).contiguous()
+    out = matmul(rows, w, bias, epilogue, plain=plain)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def softmax(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """Softmax over the last dim (fp32 on the card)."""
+    _build.refuse_dtensor("ops.softmax", x)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out = ref.softmax_rows(x2) if plain else softmax_rows(x2)
+    return out.reshape(x.shape)
+
+
+def gelu(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+    """GELU in the tanh form, element-wise (fp32 on the card)."""
+    _build.refuse_dtensor("ops.gelu", x)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out = ref.gelu_rows(x2) if plain else act_rows(x2, "gelu")
+    return out.reshape(x.shape)
+
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None = None,
             eps: float = 1e-6, *, plain: bool = False) -> torch.Tensor:

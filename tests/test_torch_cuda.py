@@ -1368,3 +1368,41 @@ def test_cuda_kernel_wrappers_refuse_a_dtensor(card_mesh):
                  [Replicate(), Replicate()])
     with pytest.raises(TypeError, match="DTensor"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["none", "bias_gelu"])
+def test_cuda_ops_linear_launches_flex_gemm_once(cuda, epilogue):
+    """``ops.linear`` flattens (2, 5, 64) rows into one ``flex_gemm``
+    launch and matches its plain version; under autograd it raises."""
+    from repro_torch.kernels import ops
+    x = torch.from_numpy(_np((2, 5, 64), 140)).to(cuda)
+    w = torch.from_numpy(_np((64, 48), 141)).to(cuda)
+    bias = torch.from_numpy(_np((48,), 142)).to(cuda)
+    before = flex_gemm.launches
+    got = ops.linear(x, w, bias, epilogue)
+    torch.cuda.synchronize()
+    assert flex_gemm.launches == before + 1 and got.shape == (2, 5, 48)
+    want = ops.linear(x, w, bias, epilogue, plain=True)
+    assert flex_gemm.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5 * 8)
+    with pytest.raises(RuntimeError, match="A.5b"):
+        ops.linear(x, w.clone().requires_grad_(True), bias, epilogue)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,wrapper", [("softmax", softmax_rows),
+                                        ("gelu", act_rows)])
+def test_cuda_ops_softmax_and_gelu_launch_their_kernel_once(cuda, fn,
+                                                            wrapper):
+    from repro_torch.kernels import ops
+    x = torch.from_numpy(_np((3, 7, 197), 143, scale=3.0)).to(cuda)
+    before = wrapper.launches
+    got = getattr(ops, fn)(x)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and got.shape == x.shape
+    want = getattr(ops, fn)(x, plain=True)
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    with pytest.raises(RuntimeError, match="A.5b"):
+        getattr(ops, fn)(x.clone().requires_grad_(True))

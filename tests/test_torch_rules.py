@@ -1,8 +1,9 @@
-"""The port's package rules: it imports neither JAX nor the JAX package,
-its entry points run on the CUDA card unless the caller names another
-device (and raise where there is none), its C entry points match the
-wrappers' ctypes signatures, and ``chip_smoke.py`` fails without a card
-or without the rest of the repository."""
+"""The port's package rules: it, its examples and its experiments import
+neither JAX nor the JAX package, its entry points run on the CUDA card
+unless the caller names another device (and raise where there is none),
+its C entry points match the wrappers' ctypes signatures, and
+``chip_smoke.py`` fails without a card or without the rest of the
+repository."""
 
 import ast
 import importlib
@@ -30,7 +31,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted(
+        (ROOT / "examples_torch").glob("*.py")) + sorted(
+        (ROOT / "experiments_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", _port_files(),
