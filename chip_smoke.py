@@ -239,13 +239,55 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --cards 4
+
+is the four-card mode, on a machine with four cards (it raises at once on
+fewer; see ``CARDS``): it prints every card's name and power limit, starts
+four ranks of this script, rank r on card r, joined over NCCL through a
+``FileStore`` (``launch.mesh.join_world``); rank 0 builds the kernels while
+the others wait, every rank checks itself, and a rank that fails stops
+the world; a rank that misses a numeric bound prints it, runs on through
+the phases and fails at their end.  Its phases drive the multi-device
+layer through ``BatchServer``, ``Trainer``, the step bundles and
+``checkpoint.ckpt`` at full width:
+
+* serve: qwen3-4b at full depth on (1, 4), (2, 2) and (4, 1), drawn onto
+  each mesh (``lm.init_cast(..., rules=)``), each card's load peak under
+  its block of the bf16 parameters plus the largest fp32 item plus 1 GiB;
+  the serving phase's traffic with each rank's launches the meshless
+  path's, every rank sampling the same tokens; teacher-forced logits
+  against rank 0's one-card server (``SERVE_RTOL``) and, at fp32 over
+  ``CARDS_FP32_LAYERS`` layers, against one card's (``FP32_DECODE_TOL``);
+* moe: dbrx-132b at full depth (40 layers, 245 GiB in bf16) on (1, 4),
+  4 experts a rank, served the same way, and its first
+  ``MOE_SHALLOW_LAYERS`` and ``CARDS_MOE_CUT`` layers teacher-forced with
+  each MoE call pinned to the plain path's routes (``SERVE_RTOL``,
+  ``MOE_RTOL``; the kernels' own differing decisions within
+  ``ROUTE_MARGIN`` of a tie);
+* train: qwen3-4b's training cut on each mesh: step 0's loss and whole
+  bf16 gradient against rank 0's one-card ones (``CARDS_LOSS_RTOL``,
+  ``MODEL_BF16_RTOL``), then ``TRAIN_STEPS`` steps of ``Trainer``
+  (descent, each rank's backward launches the meshless path's);
+* nemotron: nemotron-4-15b at full width and depth trained
+  ``TRAIN_STEPS`` steps on (2, 2) (FSDP, tensor parallel, ZeRO-1), its
+  peak under ``CARD_TRAIN_GB`` a card, step ms and tokens/s;
+* state: ``examples_torch/grad_compression.py`` over the NCCL world
+  against its gloo world of 4 on the CPU (``EX_GD_TOL``, equal bytes), and
+  a reduced dbrx-132b training state saved from (2, 2), restored onto
+  (1, 4) and onto one card bit for bit.
+
+It prints the readings as one JSON line, every card's ``nvidia-smi``
+line, and ``{"ok": true, ...}`` last, with ``count`` the cards.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -654,6 +696,35 @@ MESH_COMPRESS_LEAVES = ("layers/0/attn/wq", "layers/0/mlp/w_down",
 # and touches no device: its tests run it on the CPU.
 EX_TRAIN_STEPS, EX_TRAIN_FAIL_AT = 300, 160
 EX_TRAIN_TAIL, EX_TRAIN_WARM, EX_GD_TOL = 10, 5, 1e-5
+# The four-card mode (``--cards 4``): a world of CARDS ranks, one a card,
+# joined over NCCL by a FileStore; every rank checks itself and a failed
+# rank stops the world.  qwen3-4b served at full width and depth on each
+# of CARD_MESHES, (data, model), held per rank to the meshless launches
+# and, teacher-forced, to rank 0's one-card server (SERVE_RTOL; a
+# row-parallel product's bf16 sum is one more rounding on a mesh), and at
+# fp32 over CARDS_FP32_LAYERS layers (FP32_DECODE_TOL); where the bf16 gap
+# opens is read, not held: the prefill's logits after the first k of
+# CARDS_DEPTHS layers, mesh against one card, and both bf16 runs against
+# rank 0's one-card fp32 server on the same weights; dbrx-132b served
+# at full depth on CARDS_MOE_MESH (its experts over the model axis), its
+# logits over its first MOE_SHALLOW_LAYERS layers and CARDS_MOE_CUT layers
+# held with each MoE call pinned to the plain path's routes (SERVE_RTOL,
+# MOE_RTOL); qwen3-4b's training cut trained on each mesh, its step 0
+# through the Trainer's own step against rank 0's one-card step: the loss
+# and the gradient read back from the first moments (CARDS_LOSS_RTOL,
+# MODEL_BF16_RTOL);
+# nemotron-4-15b trained at full width and depth on CARDS_TRAIN_MESH, its
+# peak under CARD_TRAIN_GB a card; grad_compression over the world against
+# its gloo run on the CPU (EX_GD_TOL); a reduced dbrx-132b training state
+# saved from (2, 2) and restored onto (1, 4) and onto one card, bit for
+# bit.  A card's load peak of a server stays under its block of the cast
+# parameters plus the largest fp32 item plus 1 GiB.  The world's ranks
+# stop after CARDS_DEADLINE_S seconds.
+CARDS, CARD_MESHES, CARDS_FP32_LAYERS = 4, ((1, 4), (2, 2), (4, 1)), 4
+CARDS_MOE_ARCH, CARDS_MOE_MESH, CARDS_MOE_CUT = "dbrx-132b", (1, 4), 8
+CARDS_TRAIN_ARCH, CARDS_TRAIN_MESH = "nemotron-4-15b", (2, 2)
+CARDS_LOSS_RTOL, CARDS_DEADLINE_S = 1e-3, 1140
+CARDS_DEPTHS = (1, 2, 4, 9, 18, 36)
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "ssd")
 TRAINING_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd", "layernorm_bwd",
                     "ssd_bwd")
@@ -956,21 +1027,10 @@ def mesh_phase(counters, launches, zero_counts, smi) -> None:
     outs = torch.tensor([served["outputs"][i] for i in range(B)],
                         device=dev)
 
-    def teacher(srv):
-        def run():
-            logits, cache = srv._on_mesh(lambda t: lm.prefill(
-                cfg, srv.params, t, max_len=SERVE_MAX_LEN), tok)
-            steps = [logits]
-            for t in range(MESH_DECODE_STEPS):
-                logits, cache = srv._on_mesh(
-                    lambda s, c, q: lm.decode_step(cfg, srv.params, c, s, q),
-                    outs[:, t:t + 1], cache, plen + t)
-                steps.append(logits)
-            return steps
-        return run
-
-    want, _ = counted(teacher(plain_srv), False)
-    got, _ = counted(teacher(mesh_srv), True)
+    want, _ = counted(lambda: forced_logits(plain_srv, tok, outs,
+                                            MESH_DECODE_STEPS), False)
+    got, _ = counted(lambda: forced_logits(mesh_srv, tok, outs,
+                                           MESH_DECODE_STEPS), True)
     for t, (g, w) in enumerate(zip(got, want)):
         same(f"{cfg.name} teacher-forced step {t}", g, w)
     print(f"[mesh] {cfg.name} teacher-forced prefill + {MESH_DECODE_STEPS} "
@@ -1388,6 +1448,832 @@ def examples_phase(counters, launches, zero_counts, smi) -> None:
         r["wire_bytes"] == 4 * grad_compression.D and np.isfinite(r["mse"])
         for r in paths.values()), f"grad_compression: {paths}")
     print(f"[examples] phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+# ---------------------------------------------------------------- four cards
+
+def kernel_counters() -> dict:
+    """The kernels' wrappers by name; each counts in ``.launches`` the
+    launches of its kernel."""
+    from repro_torch.kernels import sfu as sfu_k
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.flex_gemm import flex_gemm
+    from repro_torch.kernels.sfu import (act_rows, layernorm_rows,
+                                         rmsnorm_rows, softmax_rows)
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
+    return {"flex_gemm": flex_gemm, "sfu_softmax": softmax_rows,
+            "sfu_layernorm": layernorm_rows, "sfu_act": act_rows,
+            "rmsnorm": rmsnorm_rows, "flash_attention": flash_attention,
+            "ssd": ssd, "rmsnorm_bwd": sfu_k.rmsnorm_bwd,
+            "flash_attention_bwd": flash_attention_bwd,
+            "layernorm_bwd": sfu_k.layernorm_bwd, "ssd_bwd": ssd_bwd}
+
+
+def cast_block_bytes(cfg, rules) -> int:
+    """Bytes of this rank's blocks of ``cfg``'s parameters in the compute
+    dtype, reckoned from their specs under ``rules``."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as SH
+    aparams, specs = lm.abstract_init(cfg)
+    total = []
+
+    def block(t, spec):
+        sh = rules.sharding_for(spec, tuple(t.shape))
+        total.append(math.prod(b.stop - b.start for b in SH.block_index(
+            tuple(t.shape), sh.mesh, sh.placements)) * t.element_size())
+    SH.map_specs(block, lm.cast_params(cfg, aparams), specs)
+    return sum(total)
+
+
+def largest_fp32_item(cfg) -> int:
+    """Bytes of the largest fp32 item ``lm.init_cast`` draws whole on
+    every rank: the embedding, the head, a layer, or in a MoE layer its
+    mixer, norms and router, or one expert matrix."""
+    from repro_torch import tree as T
+    from repro_torch.models import lm
+    aparams, _ = lm.abstract_init(cfg)
+    items = [aparams["embed"].numel(), aparams["lm_head"].numel()]
+    for lp in aparams["layers"]:
+        experts = sum(t.numel() for k, t in lp.get("moe", {}).items()
+                      if k != "router")
+        items.append(sum(t.numel() for t in T.leaves(lp)) - experts)
+        if experts:
+            items.append(cfg.d_model * cfg.d_ff)
+    return 4 * max(items)
+
+
+def serve_prompts(cfg, dev):
+    """The serving phase's prompts (seed 0) and the batch left-padded to
+    the longest."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+    padded = np.zeros((len(prompts), max(SERVE_PROMPTS)), np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, padded.shape[1] - len(p):] = p
+    return prompts, torch.from_numpy(padded).to(dev)
+
+
+def pass_logits(srv, tokens, served, t: int, cache, cfg=None, params=None,
+                plain: bool = False):
+    """Pass ``t`` of a teacher-forced run through ``srv`` (on its mesh
+    where it has one), or through ``cfg`` and ``params`` under its rules:
+    the prefill of ``tokens`` (t = 0) or the decode step fed column t - 1
+    of ``served``.  (Its full logits, the cache.)"""
+    from repro_torch.models import lm
+    cfg, params = cfg or srv.cfg, params or srv.params
+    if t == 0:
+        return srv._on_mesh(lambda x: lm.prefill(
+            cfg, params, x, max_len=SERVE_MAX_LEN, plain=plain), tokens)
+    return srv._on_mesh(lambda s, c, q: lm.decode_step(
+        cfg, params, c, s, q, plain=plain), served[:, t - 1:t], cache,
+        tokens.shape[1] + t - 1)
+
+
+def forced_logits(srv, tokens, served, steps: int, cfg=None,
+                  params=None) -> list:
+    """The prefill of ``tokens`` and ``steps`` decode steps fed the
+    columns of ``served`` through ``srv`` (or ``cfg`` and ``params``
+    there): each pass's full logits."""
+    out, cache = [], None
+    for t in range(steps + 1):
+        logits, cache = pass_logits(srv, tokens, served, t, cache, cfg,
+                                    params)
+        out.append(logits)
+    return out
+
+
+def depth_logits(srv, tokens, cfg=None, params=None) -> dict:
+    """The prefill's logits of ``tokens`` through ``srv`` (or ``cfg`` and
+    ``params`` there) after the first k layers, for each k of
+    CARDS_DEPTHS: where a gap between two runs opens."""
+    import dataclasses
+    cfg, params = cfg or srv.cfg, params or srv.params
+    return {k: pass_logits(srv, tokens, None, 0, None, dataclasses.replace(
+        cfg, n_layers=k), {**params, "layers": params["layers"][:k]})[0]
+        for k in CARDS_DEPTHS}
+
+
+@contextlib.contextmanager
+def moe_calls(pin=None):
+    """Every MoE layer's route while open, in the order of the layers'
+    first calls: ``layers.moe_route`` as the layer's ``moe_fwd`` calls it
+    (on a mesh each rank's route of its rows, inside the route's
+    ``local_map`` region; remat's recompute calls a layer's ``moe_fwd``
+    again on the same tokens, and that call is not recorded again).  With
+    ``pin``, the plain path's routes of the same pass (on the same mesh),
+    each call dispatches its tokens by the pinned choices of its own
+    layer instead of its own, gated by its own router probabilities at
+    them (renormalised as ``moe_route`` does), on the index path, and
+    returns the aux loss of its own router probabilities and the pinned
+    choices' kept shares: what differs from the plain path is then the
+    kernels' rounding alone, with no expert swapped, and the router's
+    gradient flows through the gates and the aux loss as on the plain
+    path."""
+    from repro_torch.models import layers
+    calls, fwd, route, layer_of = [], layers.moe_fwd, layers.moe_route, {}
+
+    def wrapped(mcfg, p, x, *args, **kwargs):
+        first = id(p) not in layer_of
+        if first:
+            layer_of[id(p)] = len(calls)
+        fixed = None if pin is None else pin[layer_of[id(p)]]
+
+        def own(*a, **k):
+            r = route(*a, **k)
+            if first:
+                calls.append(r)
+            if fixed is None:
+                return r
+            gate = r.probs.gather(-1, fixed.idx)
+            gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            return r._replace(idx=fixed.idx, gate=gate, pos=fixed.pos)
+
+        layers.moe_route = own
+        try:
+            return fwd(mcfg, p, x, *args, **(kwargs if fixed is None
+                                              else kwargs | {"plain": False}))
+        finally:
+            layers.moe_route = route
+
+    layers.moe_fwd = wrapped
+    try:
+        yield calls
+    finally:
+        layers.moe_fwd = fwd
+
+
+def route_diffs(kcalls, pcalls):
+    """One pass's routing, MoE layer by layer, on a kernels' path
+    (``kcalls``) against the plain path (``pcalls``): the decisions
+    (expert or kept) that differ at each layer, the decisions a layer,
+    the margin of each differing choice (the plain path's gap between
+    that choice's router probability and its nearer top-k neighbour),
+    the largest margin and the relative L2 difference of the MoE
+    input at each layer, and the rows (B,) with any difference."""
+    import torch
+    require(len(kcalls) == len(pcalls), f"{len(kcalls)} MoE calls on "
+            f"the kernels' path, {len(pcalls)} on the plain one")
+    d = {"per_layer": [], "margins": [], "layer_margin": [], "drift": [],
+         "n": 0, "rows": None}
+    for kr, pr in zip(kcalls, pcalls):
+        B, K = kr.probs.shape[0], kr.idx.shape[-1]
+        top = pr.probs.sort(-1, descending=True).values[..., :K + 1]
+        gap = top[..., :-1] - top[..., 1:]
+        near = torch.minimum(gap, torch.cat([gap[..., :1], gap[..., :-1]],
+                                            -1))
+        choice = kr.idx != pr.idx
+        diff = choice | ((kr.pos < kr.cap) != (pr.pos < pr.cap))
+        margins = near[choice].tolist()
+        d["margins"] += margins
+        d["layer_margin"].append(max(margins, default=0.0))
+        d["per_layer"].append(int(diff.sum()))
+        d["drift"].append(rel_l2(kr.xg.detach(), pr.xg.detach()))
+        d["n"] = diff.numel()
+        rows = diff.reshape(B, -1).any(1)
+        d["rows"] = rows if d["rows"] is None else d["rows"] | rows
+    return d
+
+
+class Cards:
+    """One rank of the four-card world: its device, the kernels' counts,
+    the readings rank 0 keeps, and what rank 0 prints."""
+
+    def __init__(self, rank: int, world: int, dev):
+        self.rank, self.world, self.dev = rank, world, dev
+        self.counters = kernel_counters()
+        self.readings: dict = {}
+        self.t_lap = time.perf_counter()
+        self.meshes: dict = {}
+        self.failed: list[str] = []
+
+    def mesh(self, shape: tuple[int, int]):
+        """The (data, model) mesh ``shape`` of the world, made once (each
+        of its groups sets up its NCCL communicator once)."""
+        from repro_torch.launch.mesh import make_local_mesh
+        if shape not in self.meshes:
+            self.meshes[shape] = make_local_mesh(shape[1], self.dev)
+        require(tuple(self.meshes[shape].shape) == tuple(shape),
+                f"mesh {tuple(self.meshes[shape].shape)}, not {shape}")
+        return self.meshes[shape]
+
+    def say(self, msg: str) -> None:
+        if self.rank == 0:
+            print(f"[cards] {msg}", flush=True)
+
+    def hold(self, cond: bool, msg: str) -> None:
+        """A bound the rank's result must meet: a miss is printed and
+        counted, the phases go on, and the rank fails at their end (so
+        one run reads every phase; the world still exits non-zero)."""
+        if not cond:
+            print(f"[cards] FAILED on rank {self.rank}: {msg}", flush=True)
+            self.failed.append(msg)
+
+    def lap(self) -> str:
+        now = time.perf_counter()
+        dt, self.t_lap = now - self.t_lap, now
+        return f" [{dt:.1f} s]"
+
+    def gather(self, obj) -> list:
+        import torch.distributed as dist
+        out = [None] * self.world
+        dist.all_gather_object(out, obj)
+        return out
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+        dist.barrier(device_ids=[self.dev.index]
+                     if self.dev.type == "cuda" else None)
+
+    def sync(self) -> None:
+        import torch
+        torch.cuda.synchronize(self.dev)
+
+    def counted(self, fn):
+        """``fn()`` with the counts from 0: (its result, the counts)."""
+        for f in self.counters.values():
+            f.launches = 0
+        out = fn()
+        self.sync()
+        return out, {k: f.launches for k, f in self.counters.items()}
+
+    def hold_launches(self, what: str, got: dict, want: dict) -> None:
+        """Each rank's counts of one run are ``want`` (the meshless
+        path's; every other kernel 0); rank 0 prints them."""
+        want = dict.fromkeys(self.counters, 0) | want
+        require(got == want, f"rank {self.rank}: {what}: launches {got}, "
+                f"the meshless path's {want}")
+        self.gather(None)
+        self.say(f"{what}: launches on each of the {self.world} ranks "
+                 f"{ {k: n for k, n in want.items() if n} }, the meshless "
+                 f"path's")
+
+    def peak_reset(self) -> int:
+        import torch
+        self.sync()
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        return torch.cuda.memory_allocated(self.dev)
+
+    def peak(self) -> int:
+        import torch
+        self.sync()
+        return torch.cuda.max_memory_allocated(self.dev)
+
+    def load_server(self, cfg, mesh, label: str):
+        """``BatchServer`` of ``cfg`` drawn onto ``mesh`` from seed 0; each
+        card's load peak held under its block of the cast parameters plus
+        the largest fp32 item plus 1 GiB.  (The server, the peaks.)"""
+        from repro_torch.launch.serve import BatchServer
+        from repro_torch.parallel.sharding import make_rules
+        before = self.peak_reset()
+        t0 = time.perf_counter()
+        srv = BatchServer(cfg, max_len=SERVE_MAX_LEN, seed=0, device=self.dev,
+                          mesh=mesh)
+        self.sync()
+        secs = time.perf_counter() - t0
+        peak = self.peak() - before
+        block = cast_block_bytes(cfg, make_rules(cfg, mesh))
+        item = largest_fp32_item(cfg)
+        self.hold(peak <= block + item + 2**30, f"rank {self.rank}: {label} "
+                  f"load peak {peak} B over {block} + {item} + 1 GiB")
+        peaks = [p / 2**30 for p in self.gather(peak)]
+        self.say(f"{label}: {cfg.param_count() / 1e9:.3f} B parameters "
+                 f"drawn onto the mesh in {secs:.2f} s; load peak a card "
+                 f"{[round(p, 3) for p in peaks]} GiB, limit "
+                 f"{block / 2**30:.3f} GiB block of the cast parameters + "
+                 f"{item / 2**30:.3f} GiB largest fp32 item + 1 GiB")
+        return srv, peaks
+
+    def serve_counted(self, srv, prompts, label: str) -> dict:
+        """The serving traffic through ``srv`` (after a 2-token warm-up),
+        its launches held to ``path_launches``; every rank's greedy
+        tokens the same.  Returns ``serve``'s stats."""
+        from repro_torch.launch.serve import Request
+
+        def requests(n):
+            return [Request(i, p, n) for i, p in enumerate(prompts)]
+        srv.serve(requests(2))
+        stats, got = self.counted(lambda: srv.serve(requests(SERVE_NEW)))
+        per_step, per_prefill, why = path_launches(srv.cfg)
+        self.hold_launches(f"{label} serving, 1 prefill + {SERVE_NEW - 1} "
+                           f"decode steps {why}", got, {
+                               k: SERVE_NEW * n for k, n in per_step.items()}
+                           | per_prefill)
+        outs = self.gather(stats["outputs"])
+        require(all(o == outs[0] for o in outs), f"{label}: the ranks' "
+                f"greedy tokens differ")
+        self.say(f"{label}: prefill {stats['prefill_s']} s, decode "
+                 f"{stats['decode_tok_per_s']} tok/s ({len(prompts)} x "
+                 f"{SERVE_NEW - 1} tokens, host clock around synchronize); "
+                 f"every rank sampled the same tokens")
+        return stats
+
+
+def cards_serve(c: Cards, work: str) -> None:
+    """M4.1: qwen3-4b at full width and depth on each of CARD_MESHES; where
+    its bf16 logits part from one card's is read by depth, and each bf16
+    run is read against fp32 arithmetic on the same weights."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import BatchServer
+
+    cfg = get_config(SERVE_ARCH)
+    prompts, tokens = serve_prompts(cfg, c.dev)
+    c.readings["serve"] = {}
+    for shape in CARD_MESHES:
+        mesh = c.mesh(shape)
+        label = f"{cfg.name} on {shape}"
+        seen = c.readings["serve"][str(shape)] = {}
+        srv, peaks = c.load_server(cfg, mesh, label)
+        stats = c.serve_counted(srv, prompts, label)
+        served = torch.tensor([stats["outputs"][i]
+                               for i in range(len(prompts))], device=c.dev)
+        got = forced_logits(srv, tokens, served, SERVE_NEW - 1)
+        depth = depth_logits(srv, tokens)
+        del srv
+        torch.cuda.empty_cache()
+
+        # fp32 compute, CARDS_FP32_LAYERS layers: the mesh's prefill and
+        # decode against one card's (first: it tells a fault from the
+        # bf16 roundings the check after it bounds)
+        cfg32 = dataclasses.replace(cfg, n_layers=CARDS_FP32_LAYERS,
+                                    compute_dtype="float32")
+        srv32 = BatchServer(cfg32, max_len=SERVE_MAX_LEN, seed=0,
+                            device=c.dev, mesh=mesh)
+        got32 = forced_logits(srv32, tokens, served, MESH_DECODE_STEPS)
+        del srv32
+        c.barrier()
+        if c.rank == 0:      # the others wait at the barrier below
+            one = BatchServer(cfg32, max_len=SERVE_MAX_LEN, seed=0,
+                              device=c.dev)
+            want = forced_logits(one, tokens, served, MESH_DECODE_STEPS)
+            del one
+            worst = max(max_err(g, w) / float(w.abs().max())
+                        for g, w in zip(got32, want))
+            c.say(f"{label}, fp32 compute, {CARDS_FP32_LAYERS} layers: "
+                  f"prefill + {MESH_DECODE_STEPS} decode steps against one "
+                  f"card's, max |err| / max|logit| {worst:.3g} (limit "
+                  f"{FP32_DECODE_TOL})")
+            c.hold(worst <= FP32_DECODE_TOL, f"{label}: fp32 logits "
+                   f"{worst} from one card's")
+            seen["fp32_err_over_max_logit"] = worst
+            # one card in bf16 and, as a second witness, the same bf16
+            # weights in fp32 arithmetic: each bf16 run's own rounding
+            one = BatchServer(cfg, max_len=SERVE_MAX_LEN, seed=0,
+                              device=c.dev)
+            want = forced_logits(one, tokens, served, SERVE_NEW - 1)
+            want_d = depth_logits(one, tokens)
+            cfg_x = dataclasses.replace(cfg, compute_dtype="float32")
+            p_x = T.tree_map(lambda t: t.float(), one.params)
+            exact = forced_logits(one, tokens, served, SERVE_NEW - 1,
+                                  cfg_x, p_x)
+            exact_d = depth_logits(one, tokens, cfg_x, p_x)
+            del one, p_x
+            torch.cuda.empty_cache()
+            rel = [rel_l2(g, w) for g, w in zip(got, want)]
+            c.say(f"{label} teacher-forced on the served tokens against the "
+                  f"one-card server: logits rel L2 prefill {rel[0]:.4g}, "
+                  f"decode max {max(rel[1:]):.4g} (limit {SERVE_RTOL})")
+            c.hold(max(rel) <= SERVE_RTOL, f"{label}: logits differ from "
+                   f"one card's: {rel}")
+            seen["bf16_rel_l2_max"] = max(rel)
+            vs = {"mesh": [rel_l2(g, e) for g, e in zip(got, exact)],
+                  "one card": [rel_l2(w, e) for w, e in zip(want, exact)]}
+            by_depth = {
+                "mesh vs one card": {k: rel_l2(depth[k], want_d[k])
+                                     for k in CARDS_DEPTHS},
+                "mesh vs fp32": {k: rel_l2(depth[k], exact_d[k])
+                                 for k in CARDS_DEPTHS},
+                "one card vs fp32": {k: rel_l2(want_d[k], exact_d[k])
+                                     for k in CARDS_DEPTHS}}
+            c.say(f"{label}, bf16 against fp32 arithmetic on the same bf16 "
+                  f"weights (one card), teacher-forced: " + "; ".join(
+                      f"{who} prefill {r[0]:.4g}, decode max "
+                      f"{max(r[1:]):.4g}, mean {sum(r) / len(r):.4g}"
+                      for who, r in vs.items()))
+            c.say(f"{label}, the prefill's logits after the first k layers, "
+                  f"rel L2 by k: " + "; ".join(
+                      f"{who} " + ", ".join(f"{k}: {r:.3g}"
+                                            for k, r in d.items())
+                      for who, d in by_depth.items()))
+            seen["bf16_vs_fp32"] = {who: {"prefill": r[0],
+                                          "decode_max": max(r[1:]),
+                                          "mean": sum(r) / len(r)}
+                                    for who, r in vs.items()}
+            seen["prefill_by_depth"] = by_depth
+            del want, want_d, exact, exact_d
+            torch.cuda.empty_cache()
+        c.barrier()
+        del got, got32, depth
+        torch.cuda.empty_cache()
+        seen |= {"load_peak_gib": peaks, "prefill_s": stats["prefill_s"],
+                 "decode_tok_per_s": stats["decode_tok_per_s"]}
+        c.say(f"{label} done" + c.lap())
+
+
+def cards_moe(c: Cards, work: str) -> None:
+    """M4.2: dbrx-132b at full depth on CARDS_MOE_MESH, the experts over
+    the model axis."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(CARDS_MOE_ARCH)
+    mesh = c.mesh(CARDS_MOE_MESH)
+    label = f"{cfg.name} ({cfg.n_layers} layers) on {CARDS_MOE_MESH}"
+    srv, peaks = c.load_server(cfg, mesh, label)
+    local = cfg.n_experts // CARDS_MOE_MESH[1]
+    for i, lp in enumerate(srv.params["layers"]):
+        for k, t in lp.get("moe", {}).items():
+            if k != "router":
+                require(t.to_local().shape[0] == local, f"rank {c.rank}: "
+                        f"layer {i} {k} holds {t.to_local().shape[0]} "
+                        f"experts, not {local}")
+    c.say(f"{label}: each rank holds {local} of {cfg.n_experts} experts a "
+          f"MoE leaf")
+    prompts, tokens = serve_prompts(cfg, c.dev)
+    stats = c.serve_counted(srv, prompts, label)
+    served = torch.tensor([stats["outputs"][i] for i in range(len(prompts))],
+                          device=c.dev)
+    cuts = {}
+    for n, limit in ((MOE_SHALLOW_LAYERS, SERVE_RTOL),
+                     (CARDS_MOE_CUT, MOE_RTOL)):
+        cut = dataclasses.replace(cfg, n_layers=n)
+        params = {**srv.params, "layers": srv.params["layers"][:n]}
+        rel, margins, caches = [], [], {}
+        for t in range(SERVE_NEW):
+            logits, calls = {}, {}
+            for path in ("plain", "pinned"):
+                with moe_calls(calls.get("plain")) as calls[path]:
+                    logits[path], caches[path] = pass_logits(
+                        srv, tokens, served, t, caches.get(path), cut,
+                        params, plain=path == "plain")
+            rel.append(rel_l2(logits["pinned"], logits["plain"]))
+            margins += route_diffs(calls["pinned"], calls["plain"])[
+                "margins"]
+        del caches
+        c.say(f"{cfg.name} cut to its first {n} layers on "
+              f"{CARDS_MOE_MESH}, teacher-forced, each MoE call pinned to "
+              f"the plain path's routes: kernels vs plain logits rel L2 "
+              f"prefill {rel[0]:.4g}, decode max {max(rel[1:]):.4g} (limit "
+              f"{limit}); {len(margins)} decisions of the kernels' own "
+              f"router differ, largest margin {max(margins, default=0):.3g}")
+        c.hold(max(rel) <= limit, f"rank {c.rank}: {cfg.name} cut to {n}: "
+               f"logits {rel}")
+        cuts[n] = {"rel_l2_max": max(rel), "route_diffs": len(margins),
+                   "largest_margin": max(margins, default=0.0)}
+        if limit == SERVE_RTOL:
+            c.hold(all(m < ROUTE_MARGIN for m in margins), f"rank "
+                   f"{c.rank}: a route differs {max(margins, default=0)} "
+                   f"from a tie")
+    del srv, params
+    torch.cuda.empty_cache()
+    c.readings["moe"] = {"mesh": str(CARDS_MOE_MESH), "load_peak_gib": peaks,
+                         "prefill_s": stats["prefill_s"],
+                         "decode_tok_per_s": stats["decode_tok_per_s"],
+                         "pinned_cuts": cuts}
+    c.say(f"{label} done" + c.lap())
+
+
+def cards_trainer(c: Cards, cfg, mesh, steps: int, ckpt_dir: str,
+                  ckpt_every: int = 0, device=None, shape=None):
+    """``Trainer`` of ``cfg`` on ``mesh`` (None: one card) from seed 0,
+    the training phase's optimizer and 4 x 512-token batches."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.train import TrainOptions, Trainer
+    from repro_torch.optim import OptConfig
+    return Trainer(
+        cfg, shape or ShapeSpec("cards", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        opt=OptConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP,
+                      total_steps=steps),
+        options=TrainOptions(steps=steps, ckpt_every=ckpt_every,
+                             ckpt_dir=ckpt_dir, log_every=steps),
+        seed=0, device=device or c.dev, mesh=mesh)
+
+
+def first_step(tr) -> tuple[float, "torch.Tensor"]:
+    """Step 0 of ``tr``'s own ``step_fn`` (on its mesh: the gradients laid
+    out by the step's hooks, reduced and taken into ZeRO-1's layout) from
+    its drawn state on batch 0: (the loss, the step's gradient flattened
+    in the tree's order, fp32, whole on every rank).  From zero moments
+    the first moment is (1 - b1) times the clipped gradient, so the
+    gradient is read back from it and the step's grad_norm."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.parallel import sharding as SH
+    params, opt_state, _ = tr.init_state()
+    _, opt_state, metrics = tr.step_fn(params, opt_state, tr.batch(0))
+    del params
+    opt = tr.opt_cfg
+    scale = min(1.0, opt.grad_clip / (float(metrics["grad_norm"]) + 1e-9))
+    flat = torch.cat([(m.full_tensor() if isinstance(m, SH.DTensor) else m)
+                      .float().flatten() for m in T.leaves(opt_state["m"])])
+    return float(metrics["loss"]), flat.div_((1 - opt.b1) * scale)
+
+
+def cards_train(c: Cards, work: str) -> None:
+    """M4.3: qwen3-4b's training cut on each of CARD_MESHES (reversed),
+    against rank 0's one-card loss and gradients, then trained."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    tcfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    per_step, why = train_launches(tcfg)
+    c.readings["train"] = {}
+    for shape in reversed(CARD_MESHES):
+        mesh = c.mesh(shape)
+        label = f"{tcfg.name} ({TRAIN_LAYERS} of 36 layers) on {shape}"
+        tr = cards_trainer(c, tcfg, mesh, TRAIN_STEPS, work)
+        loss, flat = first_step(tr)
+        c.barrier()
+        if c.rank == 0:      # the others wait at the barrier below
+            loss1, flat1 = first_step(cards_trainer(c, tcfg, None,
+                                                    TRAIN_STEPS, work))
+            rel = rel_l2(flat, flat1)
+            c.say(f"{label}: the Trainer's step 0, loss {loss:.6f} vs one "
+                  f"card's {loss1:.6f} (rel "
+                  f"{abs(loss - loss1) / abs(loss1):.3g}, limit "
+                  f"{CARDS_LOSS_RTOL}); the whole bf16 gradient read back "
+                  f"from the first moments ({flat.numel():,} elements) rel "
+                  f"L2 {rel:.4g} (limit {MODEL_BF16_RTOL})")
+            c.hold(abs(loss - loss1) <= CARDS_LOSS_RTOL * abs(loss1)
+                   and rel <= MODEL_BF16_RTOL, f"{label}: loss {loss} vs "
+                   f"{loss1}, gradient rel L2 {rel}")
+            c.readings["train"][f"{shape} vs one card"] = {
+                "loss_rel": abs(loss - loss1) / abs(loss1), "grad_rel_l2": rel}
+            del flat1
+        del flat
+        torch.cuda.empty_cache()
+        c.barrier()
+        before = c.peak_reset()
+        _, got = c.counted(lambda: tr.run(resume=False))
+        c.hold_launches(f"{label} Trainer, {TRAIN_STEPS} steps of "
+                        f"{TRAIN_BATCH}x{TRAIN_SEQ} ({why})", got,
+                        {k: TRAIN_STEPS * n for k, n in per_step.items()})
+        losses = [m["loss"] for m in tr.metrics_log]
+        c.hold(np.mean(losses[-3:]) < losses[0], f"rank {c.rank}: {label}: "
+               f"losses {losses} do not fall")
+        peaks = [p / 2**30 for p in c.gather(c.peak() - before)]
+        ms = 1e3 * float(np.median([m["dt"] for m in tr.metrics_log[1:]]))
+        c.say(f"{label} Trainer: losses {[round(x, 4) for x in losses]}; "
+              f"step ms median after the first {ms:.2f}, "
+              f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:,.0f} tokens/s; peak a "
+              f"card {[round(p, 2) for p in peaks]} GiB" + c.lap())
+        c.readings["train"][str(shape)] = {"losses": losses, "step_ms": ms,
+                                           "peak_gib": peaks}
+        del tr, mesh
+        torch.cuda.empty_cache()
+
+
+def cards_nemotron(c: Cards, work: str) -> None:
+    """M4.4: nemotron-4-15b trained at full width and depth on
+    CARDS_TRAIN_MESH (FSDP over data, tensor parallel over model, ZeRO-1
+    moments)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(CARDS_TRAIN_ARCH)
+    mesh = c.mesh(CARDS_TRAIN_MESH)
+    label = f"{cfg.name} ({cfg.n_layers} layers) on {CARDS_TRAIN_MESH}"
+    per_step, why = train_launches(cfg)
+    tr = cards_trainer(c, cfg, mesh, TRAIN_STEPS, work)
+    before = c.peak_reset()
+    _, got = c.counted(lambda: tr.run(resume=False))
+    c.hold_launches(f"{label} Trainer, {TRAIN_STEPS} steps of "
+                    f"{TRAIN_BATCH}x{TRAIN_SEQ} ({why})", got,
+                    {k: TRAIN_STEPS * n for k, n in per_step.items()})
+    peak = c.peak() - before
+    c.hold(peak < CARD_TRAIN_GB * 1e9, f"rank {c.rank}: {label}: peak "
+           f"{peak} B")
+    losses = [m["loss"] for m in tr.metrics_log]
+    c.hold(np.mean(losses[-3:]) < losses[0], f"rank {c.rank}: {label}: "
+           f"losses {losses} do not fall")
+    peaks = [p / 1e9 for p in c.gather(peak)]
+    ms = 1e3 * float(np.median([m["dt"] for m in tr.metrics_log[1:]]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / ms * 1e3
+    c.say(f"{label} Trainer, {cfg.param_count() / 1e9:.3f} B parameters: "
+          f"losses {[round(x, 4) for x in losses]}; step ms median after "
+          f"the first {ms:.2f}, {tok_s:,.0f} tokens/s; peak a card "
+          f"{[round(p, 2) for p in peaks]} GB (limit {CARD_TRAIN_GB})"
+          + c.lap())
+    c.readings["nemotron"] = {"mesh": str(CARDS_TRAIN_MESH), "losses": losses,
+                              "step_ms": ms, "tokens_per_s": tok_s,
+                              "peak_gb": peaks}
+    del tr, mesh
+    torch.cuda.empty_cache()
+
+
+def cards_state(c: Cards, work: str) -> None:
+    """M4.5: grad_compression over the world (its CPU run is the parent's)
+    and a reduced dbrx-132b training state saved from (2, 2), restored
+    onto (1, 4) and onto one card bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from examples_torch import grad_compression
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.parallel import sharding as SH
+
+    gc = grad_compression.run(grad_compression.parse_args([]), device=c.dev)
+    require(gc["world"] == c.world, f"grad_compression's world "
+            f"{gc['world']}")
+    c.readings["grad_compression"] = gc
+    c.say(f"grad_compression over the NCCL world of {gc['world']}: "
+          + "; ".join(f"{k}: mse {v['mse']:.4g}, all-reduced bytes "
+                      f"{v['wire_bytes']}" for k, v in gc["paths"].items())
+          + c.lap())
+
+    rcfg = get_config(CARDS_MOE_ARCH, reduced=True)
+    shape = ShapeSpec("state", 64, 8, "train")
+    steps, saved = 2, f"{work}/state"
+    tr = cards_trainer(c, rcfg, c.mesh((2, 2)), steps, saved,
+                       ckpt_every=steps, shape=shape)
+    p, o = tr.run(resume=False)
+    want = SH.full({"params": p, "opt": o})
+    del p, o
+    c.barrier()            # rank 0 has written the checkpoint
+
+    def same(got, where):
+        for (k, a), b in zip(T.leaves_with_paths(SH.full(got)),
+                             T.leaves(want)):
+            require(a.dtype == b.dtype and torch.equal(a, b), f"rank "
+                    f"{c.rank}: the state restored {where} differs at {k}")
+
+    t14 = cards_trainer(c, rcfg, c.mesh((1, 4)), steps, saved,
+                        shape=shape)
+    p, o, _ = t14.init_state()
+    got, _ = ckpt.restore(saved, steps, {"params": p, "opt": o},
+                          shardings=t14._shardings())
+    experts = got["params"]["layers"][0]["moe"]["w_up"].to_local().shape[0]
+    require(experts == rcfg.n_experts // 4, f"{experts} experts a rank")
+    same(got, "onto (1, 4)")
+    del p, o, got, t14
+    if c.rank == 0:
+        t1 = cards_trainer(c, rcfg, None, steps, saved, shape=shape)
+        p, o, _ = t1.init_state()
+        got, _ = ckpt.restore(saved, steps, {"params": p, "opt": o})
+        same(got, "onto one card")
+    c.barrier()
+    c.say(f"{rcfg.name} (reduced, {rcfg.n_experts} experts over the model "
+          f"axis) trained {steps} steps on (2, 2): its checkpoint restores "
+          f"onto (1, 4) ({experts} expert a rank) and onto one card without "
+          f"a mesh bit for bit" + c.lap())
+
+
+CARD_PHASES = (cards_serve, cards_moe, cards_train, cards_nemotron,
+               cards_state)
+
+
+def cards_rank(rank: int, world: int, store: str, out: str, work: str,
+               device_type: str = "cuda") -> None:
+    """One rank of the four-card mode: joins the world (its card set
+    first), waits while rank 0 builds the kernels, runs the phases and,
+    on rank 0, writes the readings to ``out``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import join_world
+
+    import torch
+
+    # fp32 products in full fp32, as in the one-card check
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = join_world(rank, world, store, device_type)
+    c = Cards(rank, world, dev)
+    if rank == 0:
+        t0 = time.perf_counter()
+        _build.build()
+        c.say(f"rank 0 built {len(_build.SOURCES)} libraries in "
+              f"{time.perf_counter() - t0:.2f} s; the other ranks waited")
+    c.barrier()
+    # a rank that raises exits at once (the parent stops the others), and
+    # tears down no communicator the others may still be waiting on
+    for phase in CARD_PHASES:
+        phase(c, work)
+    c.barrier()
+    if rank == 0:
+        Path(out).write_text(json.dumps(c.readings))
+    require(not c.failed, f"rank {rank}: {len(c.failed)} bounds missed: "
+            + "; ".join(m[:300] for m in c.failed))
+    dist.destroy_process_group()
+
+
+def wait_world(procs, deadline_s: float) -> None:
+    """Waits for every process of a world; the first that fails, or the
+    deadline, stops the others and raises."""
+    deadline = time.monotonic() + deadline_s
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
+            require(not bad, f"rank {bad[0][0] if bad else -1} of the world "
+                    f"exited with {bad[0][1] if bad else 0}")
+            if all(c == 0 for c in codes):
+                return
+            require(time.monotonic() < deadline, f"the world ran past "
+                    f"{deadline_s} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def cards_main(n: int) -> None:
+    """The four-card mode: ``n`` ranks, a card each (raises at once where
+    the machine has fewer), then grad_compression's gloo run on the CPU
+    against the ranks' NCCL run."""
+    import torch
+    require(torch.cuda.is_available(), "no CUDA device")
+    have = torch.cuda.device_count()
+    require(have >= n, f"--cards {n} needs {n} CUDA devices; this machine "
+            f"has {have}")
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    for i, line in enumerate(smi[:n]):
+        print(f"[device] card {i}: {torch.cuda.get_device_name(i)}; "
+              f"nvidia-smi: {line}")
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="cards_") as tmp:
+        out = Path(tmp) / "readings.json"
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        wait_world([subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cards",
+             str(n), "--rank", str(r), "--store", f"{tmp}/store", "--out",
+             str(out), "--work", tmp],
+            env=env) for r in range(n)], CARDS_DEADLINE_S)
+        readings = json.loads(out.read_text())
+    # grad_compression's gloo world of n on the CPU, against the cards' run
+    from examples_torch import grad_compression
+    cpu = grad_compression.run(grad_compression.parse_args(
+        ["--device", "cpu", "--world", str(n)]), device="cpu")
+    card = readings["grad_compression"]
+    for name, res in cpu["paths"].items():
+        got = card["paths"][name]
+        require(got["wire_bytes"] == res["wire_bytes"], f"{name}: "
+                f"all-reduced bytes {got['wire_bytes']} on the cards, "
+                f"{res['wire_bytes']} on the CPU")
+    w = torch.tensor(card["paths"]["fp32 all-reduce"]["w"])
+    w_cpu = torch.tensor(cpu["paths"]["fp32 all-reduce"]["w"])
+    err = max_err(w, w_cpu) / float(w_cpu.abs().max())
+    require(err <= EX_GD_TOL, f"grad_compression's fp32 path on the "
+            f"cards {err} x max|w| from its gloo run")
+    wire = [r["wire_bytes"] for r in cpu["paths"].values()]
+    print(f"[cards] grad_compression: the NCCL world's fp32 weights "
+          f"{err:.3g} x max|w| from the gloo world's on the CPU (limit "
+          f"{EX_GD_TOL}); all-reduced bytes equal on both paths {wire}")
+    for res in card["paths"].values():
+        res.pop("w")
+    secs = time.perf_counter() - t0
+    print(f"[cards] the {n}-card mode took {secs:.1f} s")
+    print(json.dumps({"cards": n, "seconds": secs, "readings": readings}))
+    for line in smi[:n]:
+        print(line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def cli() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cards", type=int, default=1, choices=(1, CARDS),
+                    help=f"1: the one-card check; {CARDS}: the four-card "
+                         f"mode, a rank a card")
+    for flag in ("--rank", "--store", "--out", "--work"):
+        ap.add_argument(flag, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.rank is not None:
+        cards_rank(int(args.rank), args.cards, args.store, args.out,
+                   args.work)
+    elif args.cards == 1:
+        main()
+    else:
+        cards_main(args.cards)
 
 
 def main() -> None:
@@ -1839,12 +2725,7 @@ def main() -> None:
               f"initial state: max err (y, state) {e:.3g}")
 
     # ----------------------------------------------------------- DORA path
-    counters = {"flex_gemm": flex_gemm, "sfu_softmax": softmax_rows,
-                "sfu_layernorm": layernorm_rows, "sfu_act": act_rows,
-                "rmsnorm": rmsnorm_rows, "flash_attention": flash_attention,
-                "ssd": ssd, "rmsnorm_bwd": sfu_k.rmsnorm_bwd,
-                "flash_attention_bwd": flash_attention_bwd,
-                "layernorm_bwd": sfu_k.layernorm_bwd, "ssd_bwd": ssd_bwd}
+    counters = kernel_counters()
     whole = dict.fromkeys(counters, 0)     # launches over the whole script
 
     def zero_counts():
@@ -2092,74 +2973,6 @@ def main() -> None:
             for _ in range(matrices):
                 draw(cfg.d_model * cfg.d_ff, expert)
         return esize * cfg.param_count(), 4 * item, held
-
-    @contextlib.contextmanager
-    def moe_calls(pin=None):
-        """Every MoE layer's route while open, in the order of the layers'
-        first calls: ``layers.moe_route`` on the same input (remat's
-        recompute calls a layer's ``moe_fwd`` again on the same tokens;
-        that call is not recorded again).  With ``pin``, the plain path's
-        routes of the same pass, each call dispatches its tokens by the
-        pinned choices of its own layer instead of its own, gated by its
-        own router probabilities at them (renormalised as ``moe_route``
-        does), on the index path, and returns the aux loss of its own
-        router probabilities and the pinned choices' kept shares: what
-        differs from the plain path is then the kernels' rounding alone,
-        with no expert swapped, and the router's gradient flows through
-        the gates and the aux loss as on the plain path."""
-        calls, fwd, layer_of = [], layers.moe_fwd, {}
-
-        def wrapped(mcfg, p, x, *args, **kwargs):
-            r = layers.moe_route(mcfg, p, x, *args)
-            if id(p) not in layer_of:
-                layer_of[id(p)] = len(calls)
-                calls.append(r)
-            if pin is None:
-                return fwd(mcfg, p, x, *args, **kwargs)
-            fixed = pin[layer_of[id(p)]]
-            gate = r.probs.gather(-1, fixed.idx)
-            gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-            y, density, _ = layers._moe_index(mcfg, p, r._replace(
-                idx=fixed.idx, gate=gate, pos=fixed.pos))
-            aux = mcfg.n_experts * (density * r.probs.mean((0, 1))).sum() \
-                * mcfg.router_aux_weight
-            return y.reshape(x.shape), aux
-
-        layers.moe_fwd = wrapped
-        try:
-            yield calls
-        finally:
-            layers.moe_fwd = fwd
-
-    def route_diffs(kcalls, pcalls):
-        """One pass's routing, MoE layer by layer, on a kernels' path
-        (``kcalls``) against the plain path (``pcalls``): the decisions
-        (expert or kept) that differ at each layer, the decisions a layer,
-        the margin of each differing choice (the plain path's gap between
-        that choice's router probability and its nearer top-k neighbour),
-        the largest margin and the relative L2 difference of the MoE
-        input at each layer, and the rows (B,) with any difference."""
-        require(len(kcalls) == len(pcalls), f"{len(kcalls)} MoE calls on "
-                f"the kernels' path, {len(pcalls)} on the plain one")
-        d = {"per_layer": [], "margins": [], "layer_margin": [], "drift": [],
-             "n": 0, "rows": None}
-        for kr, pr in zip(kcalls, pcalls):
-            B, K = kr.probs.shape[0], kr.idx.shape[-1]
-            top = pr.probs.sort(-1, descending=True).values[..., :K + 1]
-            gap = top[..., :-1] - top[..., 1:]
-            near = torch.minimum(gap, torch.cat([gap[..., :1], gap[..., :-1]],
-                                                -1))
-            choice = kr.idx != pr.idx
-            diff = choice | ((kr.pos < kr.cap) != (pr.pos < pr.cap))
-            margins = near[choice].tolist()
-            d["margins"] += margins
-            d["layer_margin"].append(max(margins, default=0.0))
-            d["per_layer"].append(int(diff.sum()))
-            d["drift"].append(rel_l2(kr.xg.detach(), pr.xg.detach()))
-            d["n"] = diff.numel()
-            rows = diff.reshape(B, -1).any(1)
-            d["rows"] = rows if d["rows"] is None else d["rows"] | rows
-        return d
 
     def route_report(label, passes) -> list[float]:
         """Prints one run's differing decisions: the prefill's by MoE layer
@@ -4319,4 +5132,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    cli()

@@ -37,7 +37,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -46,7 +45,7 @@ import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
 
 from repro_torch.convert import resolve_device
-from repro_torch.launch.mesh import start_world
+from repro_torch.launch.mesh import join_world, start_world
 from repro_torch.optim.compression import compressed_psum
 from repro_torch.parallel.hlo_analysis import TraceCounter, collective_stats
 
@@ -120,14 +119,8 @@ def train(dev: torch.device) -> dict:
 def _worker(args: argparse.Namespace) -> None:
     """One rank of a spawned world: joins it through the FileStore, trains,
     and rank 0 writes the results."""
-    dev = torch.device(args.device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(args.rank)
-        dev = torch.device("cuda", args.rank)
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                            store=dist.FileStore(args.store, args.world),
-                            rank=args.rank, world_size=args.world,
-                            timeout=timedelta(seconds=WORLD_TIMEOUT_S))
+    dev = join_world(args.rank, args.world, args.store, args.device,
+                     WORLD_TIMEOUT_S)
     try:
         out = train(dev)
         if args.rank == 0:

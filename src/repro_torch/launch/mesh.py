@@ -12,7 +12,10 @@ axis; the port keeps those shapes for the dry run
 where none does: NCCL over a ``HashStore`` on the card, gloo with
 ``device="cpu"``.  Under ``torchrun`` (``WORLD_SIZE`` > 1 in the
 environment) it starts the launcher's world.  NCCL takes one rank a
-card, so on one H100 the mesh is (1, 1).
+card, so on one H100 the mesh is (1, 1); ``join_world`` joins processes
+started together on one host (rank r on card r) through a ``FileStore``,
+as ``chip_smoke.py --cards 4`` starts its four ranks.  ``cli_mesh`` is
+the CLIs' ``--model-axis``.
 """
 
 from __future__ import annotations
@@ -74,6 +77,33 @@ def start_world(device: str | torch.device | None = None,
     return dev
 
 
+def join_world(rank: int, world: int, store: str,
+               device: str | torch.device | None = None,
+               timeout_s: float = 600.0) -> torch.device:
+    """Join a world of ``world`` processes started together on one host,
+    as rank ``rank``, through a ``FileStore`` at ``store`` (no port):
+    NCCL on the cards, rank r on card r, which becomes this process's
+    card before anything is allocated on it; gloo with ``device="cpu"``.
+    Returns the rank's device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(store, world), rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=timeout_s))
+    return dev
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device of ``mesh``: its card (the process's current
+    one, which ``start_world`` / ``join_world`` set) or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def make_local_mesh(model_axis: int = 1,
                     device: str | torch.device | None = None) -> DeviceMesh:
     """Whatever ranks exist, as (data, model) = (world / model_axis,
@@ -104,3 +134,18 @@ def make_pe_mesh(n_pes: int, device_type: str | None = None) -> DeviceMesh:
                             (n_pes, n // n_pes),
                             mesh_dim_names=("pe", "data"))
 
+
+def cli_mesh(model_axis: int, device: str | torch.device | None = None
+             ) -> DeviceMesh | None:
+    """The CLIs' ``--model-axis``: ``make_local_mesh(model_axis, device)``,
+    or None for 0 in a world of one.  A launcher's world of more ranks
+    (``WORLD_SIZE`` > 1) without a mesh raises: each rank would run its
+    own meshless copy, as the reference never does."""
+    if model_axis:
+        return make_local_mesh(model_axis, device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        raise ValueError(f"a world of {world} ranks without a mesh: pass "
+                         f"--model-axis m (m dividing {world}) to lay the "
+                         f"model over the ranks")
+    return None

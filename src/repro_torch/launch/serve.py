@@ -30,6 +30,11 @@ Run on the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+and over the cards of one host, a rank a card (rank 0 prints):
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch qwen3-4b --model-axis 4
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..convert import resolve_device
 from ..models import lm
 from ..models.config import ArchConfig
 from ..parallel import sharding as SH
+from .mesh import cli_mesh, mesh_device
 
 
 @dataclass
@@ -65,28 +71,29 @@ class BatchServer:
     a time (``lm.init_cast``: the peak is the cast parameters plus one
     fp32 item), or taken from ``params`` (e.g. ``convert.params_from_jax``)
     and cast once to the compute dtype (``lm.cast_params``).  With
-    ``mesh`` they are then laid out by ``sharding.make_rules`` (each rank
-    keeps its block), on the mesh's device."""
+    ``mesh`` they are laid out by ``sharding.make_rules`` on the mesh's
+    device, each rank keeping its block: drawn onto the mesh one item at
+    a time (``lm.init_cast``'s ``rules``), or ``params`` cast and then
+    sliced."""
 
     def __init__(self, cfg: ArchConfig, max_len: int = 256, seed: int = 0,
                  device: str | torch.device | None = None,
                  params: dict | None = None, mesh=None):
         self.device = resolve_device(
-            mesh.device_type if mesh is not None and device is None
+            mesh_device(mesh) if mesh is not None and device is None
             else device)
         lm.check_supported(cfg)
         self.cfg = cfg
         self.max_len = max_len
+        self.rules = None if mesh is None else SH.make_rules(cfg, mesh)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            self.params = lm.init_cast(cfg, gen, self.device)
+            self.params = lm.init_cast(cfg, gen, self.device, self.rules)
         else:
             self.params = lm.cast_params(cfg, params)
-        self.rules = None
-        if mesh is not None:
-            self.rules = SH.make_rules(cfg, mesh)
-            self.params = SH.distribute(self.params, lm.param_specs(cfg),
-                                        self.rules)
+            if mesh is not None:
+                self.params = SH.distribute(self.params, lm.param_specs(cfg),
+                                            self.rules)
 
     def _on_mesh(self, fn, tokens: torch.Tensor, *args):
         """``fn(cfg, params, ..., tokens, *args)`` under the rules, the
@@ -173,16 +180,22 @@ def main() -> None:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (raises without one)")
+    ap.add_argument("--model-axis", type=int, default=0,
+                    help="serve on a (world / m, m) mesh of the world that "
+                         "exists (torchrun's, else one rank); 0: no mesh")
     args = ap.parse_args()
 
     cfg = get_config(args.arch, reduced=args.reduced)
-    server = BatchServer(cfg, max_len=128, device=args.device)
+    mesh = cli_mesh(args.model_axis, args.device)
+    server = BatchServer(cfg, max_len=128, device=args.device, mesh=mesh)
     rng = np.random.default_rng(0)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size,
                                     rng.integers(4, 24)).astype(np.int32),
                     max_new=args.gen, temperature=0.7 * (i % 2))
             for i in range(args.batch)]
     stats = server.serve(reqs)
+    if mesh is not None and mesh.get_rank() != 0:
+        return
     print(f"prefill {stats['prefill_s']:.3f}s, "
           f"decode {stats['decode_tok_per_s']:.1f} tok/s")
     for rid, toks in stats["outputs"].items():

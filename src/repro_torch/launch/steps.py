@@ -14,6 +14,7 @@ it.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -152,20 +153,31 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec,
         leaves = T.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        if mb == 1:
-            total = loss(params, batch)
-            grads = torch.autograd.grad(total, leaves)
-        else:
-            acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-            total = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(mb):
-                part = {k: _micro(v, mb, i) for k, v in batch.items()}
-                l = loss(params, part)
-                for a, g in zip(acc, torch.autograd.grad(l, leaves)):
-                    a.add_(_as_param(g, a))
-                total = total + l.detach()
-            total = total / mb
-            grads = [(a / mb).to(p.dtype) for a, p in zip(acc, leaves)]
+        # on a mesh each gradient takes its parameter's layout as soon as
+        # it is computed: left a partial sum over the data axis (an FSDP
+        # weight's, gathered for its product) it holds twice the
+        # parameter's block until the last gradient arrives
+        hooks = [p.register_hook(functools.partial(_as_param, p=p))
+                 for p in leaves if isinstance(p, DTensor)]
+        try:
+            if mb == 1:
+                total = loss(params, batch)
+                grads = torch.autograd.grad(total, leaves)
+            else:
+                acc = [torch.zeros_like(p, dtype=torch.float32)
+                       for p in leaves]
+                total = torch.zeros((), dtype=torch.float32, device=dev)
+                for i in range(mb):
+                    part = {k: _micro(v, mb, i) for k, v in batch.items()}
+                    l = loss(params, part)
+                    for a, g in zip(acc, torch.autograd.grad(l, leaves)):
+                        a.add_(_as_param(g, a))
+                    total = total + l.detach()
+                total = total / mb
+                grads = [(a / mb).to(p.dtype) for a, p in zip(acc, leaves)]
+        finally:
+            for h in hooks:
+                h.remove()
         grads = [_as_param(g, p) for g, p in zip(grads, leaves)]
         params, opt_state, om = adamw.apply_updates(
             params, T.unflatten(params, list(grads)), opt_state, opt)

@@ -56,8 +56,7 @@ from ..convert import resolve_device
 from ..data import for_arch
 from ..models import encdec, lm
 from ..optim import adamw
-from ..parallel.sharding import distribute_like
-from .mesh import make_local_mesh
+from .mesh import cli_mesh, mesh_device
 from .steps import make_train_step
 
 
@@ -81,7 +80,7 @@ class Trainer:
         self.shape = shape
         self.mesh = mesh
         self.device = resolve_device(
-            mesh.device_type if mesh is not None and device is None
+            mesh_device(mesh) if mesh is not None and device is None
             else device)
         self.options = options or TrainOptions()
         self.opt_cfg = adamw.for_arch(
@@ -94,18 +93,24 @@ class Trainer:
         self.straggler_steps: list[int] = []
         self.fault_log: list[str] = []
         self.failures = 0
+        # on a mesh, rank 0 logs the steps (each rank logs its own faults)
+        self.lead = mesh is None or mesh.get_rank() == 0
 
     # ------------------------------------------------------------ state
     def init_state(self, seed: int = 0):
+        """Parameters drawn from ``seed`` and zero moments; on the mesh
+        drawn into the step's layouts one item at a time (``init``'s
+        ``rules``) and the moments made in ZeRO-1's, so that no rank holds
+        the whole fp32 tree."""
         model = encdec if self.cfg.is_encdec else lm
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = model.init(self.cfg, gen, self.device)
-        opt_state = adamw.init_state(params, self.opt_cfg)
-        if self.mesh is not None:
-            p_sh, o_sh = self.step_fn.in_shardings[:2]
-            params = distribute_like(params, p_sh)
-            opt_state = distribute_like(opt_state, o_sh)
-        return params, opt_state, 0
+        if self.mesh is None:
+            params = model.init(self.cfg, gen, self.device)
+            return params, adamw.init_state(params, self.opt_cfg), 0
+        params = model.init(self.cfg, gen, self.device,
+                            rules=self.step_fn.rules)
+        return params, adamw.init_state(
+            params, self.opt_cfg, self.step_fn.in_shardings[1]), 0
 
     def _shardings(self):
         if self.mesh is None:
@@ -126,7 +131,8 @@ class Trainer:
         restored, extra = ckpt.restore(self.options.ckpt_dir, latest,
                                        {"params": params, "opt": opt_state},
                                        shardings=self._shardings())
-        print(f"[resume] restored step {latest}")
+        if self.lead:
+            print(f"[resume] restored step {latest}")
         return restored["params"], restored["opt"], int(extra["next_step"])
 
     # ------------------------------------------------------------- loop
@@ -168,13 +174,14 @@ class Trainer:
             ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
             if dt > opts.straggler_factor * ewma and step > 3:
                 self.straggler_steps.append(step)
-                print(f"[straggler] step {step}: {dt:.3f}s "
-                      f"(ewma {ewma:.3f}s)")
+                if self.lead:
+                    print(f"[straggler] step {step}: {dt:.3f}s "
+                          f"(ewma {ewma:.3f}s)")
             toks = self.shape.global_batch * self.shape.seq_len
             self.metrics_log.append(
                 {"step": step, "loss": loss, "dt": dt,
                  "tokens_per_s": toks / dt})
-            if step % opts.log_every == 0:
+            if step % opts.log_every == 0 and self.lead:
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"{toks / dt:,.0f} tok/s")
             step += 1
@@ -201,13 +208,12 @@ def main() -> None:
     ap.add_argument("--model-axis", type=int, default=0,
                     help="train on a (world / m, m) mesh of the world "
                          "that exists (torchrun's, else one rank); 0: "
-                         "no mesh")
+                         "no mesh (a world of one only)")
     args = ap.parse_args()
 
     cfg = get_config(args.arch, reduced=args.reduced)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
-    mesh = (make_local_mesh(args.model_axis, args.device)
-            if args.model_axis else None)
+    mesh = cli_mesh(args.model_axis, args.device)
     trainer = Trainer(cfg, shape, device=args.device, mesh=mesh,
                       options=TrainOptions(steps=args.steps,
                                            ckpt_every=args.ckpt_every,

@@ -120,31 +120,42 @@ def _init_dec_layer(cfg, gen, device) -> dict:
             "mlp": L.init_mlp(cfg, gen, device)}
 
 
-def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
+def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd,
+          rules=None) -> dict:
     """The parameters in the reference's shapes and scales, drawn in this
     order: embed, lm_head, enc_norm, final_norm, each encoder layer, each
     decoder layer; each item cast by ``lm.cast_params``'s rule as soon as
     it is drawn (``cd=None`` keeps fp32), so that at most one fp32 item
-    is held at a time."""
+    is held at a time; with ``rules`` placed on their mesh before its
+    cast, as ``lm._draw`` places them."""
     check_supported(cfg)
     dev = resolve_device(device)
     if gen.device.type != dev.type and dev.type != "meta":
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
     V, D = cfg.vocab_size, cfg.d_model
+    specs = param_specs(cfg)
 
     def cast(t):
         return t if cd is None else t.to(cd)
 
-    embed = cast(torch.randn((V, D), generator=gen, device=dev).mul_(0.02))
-    lm_head = cast(torch.randn((D, V), generator=gen,
-                               device=dev).mul_(1.0 / math.sqrt(D)))
+    def item(tree, spec):
+        return lm._cast_layer(lm.place_tree(tree, spec, rules), cd)
+
+    embed = cast(lm.place_tree(torch.randn(
+        (V, D), generator=gen, device=dev).mul_(0.02), specs["embed"], rules))
+    lm_head = cast(lm.place_tree(torch.randn(
+        (D, V), generator=gen, device=dev).mul_(1.0 / math.sqrt(D)),
+        specs["lm_head"], rules))
     return {
         "embed": embed, "lm_head": lm_head,
-        "enc_norm": L.init_norm(cfg, dev), "final_norm": L.init_norm(cfg, dev),
-        "encoder": [lm._cast_layer(_init_enc_layer(cfg, gen, dev), cd)
-                    for _ in range(cfg.encoder_layers)],
-        "decoder": [lm._cast_layer(_init_dec_layer(cfg, gen, dev), cd)
-                    for _ in range(cfg.n_layers)],
+        "enc_norm": lm.place_tree(L.init_norm(cfg, dev), specs["enc_norm"],
+                                  rules),
+        "final_norm": lm.place_tree(L.init_norm(cfg, dev),
+                                    specs["final_norm"], rules),
+        "encoder": [item(_init_enc_layer(cfg, gen, dev), specs["encoder"][i])
+                    for i in range(cfg.encoder_layers)],
+        "decoder": [item(_init_dec_layer(cfg, gen, dev), specs["decoder"][i])
+                    for i in range(cfg.n_layers)],
     }
 
 
@@ -170,18 +181,19 @@ def abstract_init(cfg: ArchConfig) -> tuple[dict, dict]:
 
 
 def init(cfg: ArchConfig, gen: torch.Generator,
-         device: str | torch.device | None = None) -> dict:
+         device: str | torch.device | None = None, rules=None) -> dict:
     """Random fp32 parameters drawn on ``device`` from ``gen``; the
     numbers are not the reference's (carry those across with
-    ``convert.encdec_params_from_jax``)."""
-    return _draw(cfg, gen, device, None)
+    ``convert.encdec_params_from_jax``).  With ``rules`` placed on their
+    mesh one item at a time (``lm.init``'s ``rules``)."""
+    return _draw(cfg, gen, device, None, rules)
 
 
 def init_cast(cfg: ArchConfig, gen: torch.Generator,
-              device: str | torch.device | None = None) -> dict:
+              device: str | torch.device | None = None, rules=None) -> dict:
     """``cast_params(cfg, init(cfg, gen, device))``, bit for bit, drawn
-    and cast one item at a time."""
-    return _draw(cfg, gen, device, lm._dtype(cfg.compute_dtype))
+    and cast one item at a time (placed by ``rules`` where given)."""
+    return _draw(cfg, gen, device, lm._dtype(cfg.compute_dtype), rules)
 
 
 def cast_params(cfg: ArchConfig, params: dict) -> dict:

@@ -32,8 +32,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import ops
-from ..parallel.sharding import (constrain, merge_last, split_last,
-                                 write_rows)
+from ..parallel.sharding import (block_index, constrain, from_block,
+                                 merge_last, place, split_last, write_rows)
 
 
 def _init(gen: torch.Generator, shape: tuple[int, ...], device: torch.device,
@@ -300,7 +300,7 @@ def mlp_fwd(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------- moe
 
 def init_moe(cfg, gen: torch.Generator, device: torch.device,
-             dtype: torch.dtype | None = None) -> dict:
+             dtype: torch.dtype | None = None, rules=None) -> dict:
     """The reference's MoE leaves: ``router`` (d, E), kept fp32, and the
     experts' ``w_gate`` / ``w_up`` (E, d, f) and ``w_down`` (E, f, d)
     (no ``w_gate`` unless swiglu), at the reference's scales: its default
@@ -310,20 +310,34 @@ def init_moe(cfg, gen: torch.Generator, device: torch.device,
     Each expert leaf is allocated in ``dtype`` (None: fp32) and filled
     one expert at a time from an fp32 (d, f) or (f, d) draw, cast as it is
     copied in: at most one fp32 expert matrix is live beside the leaves
-    (one fp32 MoE layer of llama4-maverick is 60 GiB)."""
+    (one fp32 MoE layer of llama4-maverick is 60 GiB).  With ``rules``
+    (``sharding.make_rules``) the leaves come placed on their mesh by
+    ``moe_specs``: a rank allocates its block alone and copies in its part
+    of each expert it holds, after every expert is drawn in turn."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    specs = moe_specs(cfg)
     p = {"router": _init(gen, (d, E), device, scale=0.02)}
+    if rules is not None:
+        p["router"] = place(p["router"],
+                            rules.sharding_for(specs["router"], (d, E)))
     leaves = {"w_gate": ((d, f), 1.0 / math.sqrt(E)),
               "w_up": ((d, f), 1.0 / math.sqrt(E)),
               "w_down": ((f, d), 1.0 / math.sqrt(f))}
     if cfg.mlp_kind != "swiglu":
         del leaves["w_gate"]
     for name, (shape, scale) in leaves.items():
-        leaf = torch.empty((E, *shape), dtype=dtype or torch.float32,
-                           device=device)
+        full = (E, *shape)
+        sh = None if rules is None else rules.sharding_for(specs[name], full)
+        block = (tuple(slice(0, n) for n in full) if sh is None
+                 else block_index(full, sh.mesh, sh.placements))
+        leaf = torch.empty(tuple(b.stop - b.start for b in block),
+                           dtype=dtype or torch.float32, device=device)
         for e in range(E):
-            leaf[e].copy_(_init(gen, shape, device, scale))
-        p[name] = leaf
+            draw = _init(gen, shape, device, scale)
+            if block[0].start <= e < block[0].stop:
+                leaf[e - block[0].start].copy_(draw[block[1:]])
+            del draw       # before the next expert is drawn
+        p[name] = leaf if sh is None else from_block(leaf, sh, full)
     return p
 
 

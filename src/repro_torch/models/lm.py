@@ -17,9 +17,9 @@ where the reference's ``dynamic_update_slice`` builds new arrays: the
 cache passed in is the cache returned.
 
 Entry points:
-  init(cfg, gen, device=None)                  -> params (fp32)
+  init(cfg, gen, device=None, rules=None)      -> params (fp32)
   cast_params(cfg, params)                     -> params for compute
-  init_cast(cfg, gen, device=None)             -> cast_params(init(...)),
+  init_cast(cfg, gen, device=None, rules=None) -> cast_params(init(...)),
                                                   one fp32 item at a time
   forward(cfg, params, tokens, positions=None) -> (logits (B, S, V) fp32,
                                                   MoE aux loss)
@@ -50,9 +50,10 @@ runs through ``models.encdec``.
 On a mesh (``parallel.sharding``): ``param_specs`` / ``abstract_init``
 give the logical axes of the parameters (``meta`` tensors for the dry
 run), ``cache_specs`` those of the cache.  Under ``sharding.use_rules``
-with parameters placed by ``sharding.distribute`` every entry point runs
-on DTensors: the ``constrain`` calls sit at the reference's places and
-``init_cache`` lays the cache out by the rules (``sharding.cache_layout``).
+with parameters placed by ``sharding.distribute``, or drawn onto the mesh
+by ``init(..., rules=)``, every entry point runs on DTensors: the
+``constrain`` calls sit at the reference's places and ``init_cache`` lays
+the cache out by the rules (``sharding.cache_layout``).
 """
 
 from __future__ import annotations
@@ -96,10 +97,12 @@ def _pattern(cfg: ArchConfig, i: int):
 
 
 def _init_layer(cfg: ArchConfig, pat, gen: torch.Generator,
-                device: torch.device, cd: torch.dtype | None = None) -> dict:
+                device: torch.device, cd: torch.dtype | None = None,
+                rules=None) -> dict:
     """One layer's fp32 parameters, but for a MoE layer: its mixer is cast
-    to ``cd`` (None: kept fp32) before the experts are drawn, and the
-    experts are drawn into ``cd`` one at a time (``L.init_moe``)."""
+    to ``cd`` (None: kept fp32), and placed by ``rules`` where given,
+    before the experts are drawn, and the experts are drawn into ``cd``
+    one at a time (``L.init_moe``)."""
     p = {"norm1": L.init_norm(cfg, device)}
     if pat.mixer == "attn":
         p["attn"] = L.init_attention(cfg, gen, device)
@@ -109,19 +112,34 @@ def _init_layer(cfg: ArchConfig, pat, gen: torch.Generator,
         p["norm2"] = L.init_norm(cfg, device)
         p["mlp"] = L.init_mlp(cfg, gen, device)
     elif pat.ffn == "moe":
-        p = _cast_layer(p, cd)
+        p = _cast_layer(place_tree(p, layer_specs(cfg, pat), rules), cd)
         p["norm2"] = L.init_norm(cfg, device)
-        p["moe"] = L.init_moe(cfg, gen, device, cd)
+        p["moe"] = L.init_moe(cfg, gen, device, cd, rules)
     # pat.ffn == "none": a mixer-only layer (mamba2)
     return p
 
 
-def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
+def place_tree(tree, specs, rules):
+    """``tree`` laid out on the rules' mesh by its logical axes ``specs``,
+    each rank keeping its block of every leaf not placed yet (the full
+    leaf can then be freed); ``tree`` itself without rules."""
+    if rules is None:
+        return tree
+    return SH.map_specs(lambda t, s: t if isinstance(t, DTensor) else
+                        SH.place(t, rules.sharding_for(s, tuple(t.shape))),
+                        tree, specs)
+
+
+def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd,
+          rules=None) -> dict:
     """``init``'s draws in ``init``'s order (embed, lm_head, final_norm,
     then each layer), each item cast to ``cd`` by ``cast_params``'s rule
     as soon as it is drawn (``cd=None`` keeps fp32), so that at most one
     fp32 item (the embedding, the head, one layer, or in a MoE layer its
-    mixer or one expert matrix) is held at a time."""
+    mixer or one expert matrix) is held at a time.  With ``rules`` each
+    item is placed on their mesh before its cast (``param_specs``), each
+    rank keeping its block: every rank draws the whole sequence from the
+    same generator, so the blocks gathered are the meshless draw."""
     check_supported(cfg)
     if cfg.param_dtype != "float32":
         raise NotImplementedError(f"{cfg.name}: param_dtype "
@@ -131,39 +149,46 @@ def _draw(cfg: ArchConfig, gen: torch.Generator, device, cd) -> dict:
     if gen.device.type != dev.type and dev.type != "meta":
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
     V, D = cfg.vocab_size, cfg.d_model
+    specs = param_specs(cfg)
 
     def cast(t):
         return t if cd is None else t.to(cd)
 
-    embed = cast(torch.randn((V, D), generator=gen, device=dev).mul_(0.02))
-    lm_head = cast(torch.randn((D, V), generator=gen,
-                               device=dev).mul_(1.0 / math.sqrt(D)))
+    embed = cast(place_tree(torch.randn((V, D), generator=gen, device=dev)
+                       .mul_(0.02), specs["embed"], rules))
+    lm_head = cast(place_tree(torch.randn((D, V), generator=gen, device=dev)
+                         .mul_(1.0 / math.sqrt(D)), specs["lm_head"], rules))
     return {
         "embed": embed,
         "lm_head": lm_head,
-        "final_norm": L.init_norm(cfg, dev),
-        "layers": [_cast_layer(_init_layer(cfg, _pattern(cfg, i), gen, dev,
-                                           cd), cd)
-                   for i in range(cfg.n_layers)],
+        "final_norm": place_tree(L.init_norm(cfg, dev), specs["final_norm"],
+                            rules),
+        "layers": [_cast_layer(place_tree(_init_layer(
+            cfg, _pattern(cfg, i), gen, dev, cd, rules), specs["layers"][i],
+            rules), cd) for i in range(cfg.n_layers)],
     }
 
 
 def init(cfg: ArchConfig, gen: torch.Generator,
-         device: str | torch.device | None = None) -> dict:
+         device: str | torch.device | None = None, rules=None) -> dict:
     """Random fp32 parameters drawn on ``device`` from ``gen`` (a generator
     of that device), with the reference's shapes and scales.  The numbers
     are not the reference's: carry those across with
-    ``convert.params_from_jax``."""
-    return _draw(cfg, gen, device, None)
+    ``convert.params_from_jax``.  With ``rules`` (``sharding.make_rules``)
+    the parameters come placed on their mesh, drawn one item at a time
+    (``_draw``): no rank holds the whole fp32 tree."""
+    return _draw(cfg, gen, device, None, rules)
 
 
 def init_cast(cfg: ArchConfig, gen: torch.Generator,
-              device: str | torch.device | None = None) -> dict:
+              device: str | torch.device | None = None, rules=None) -> dict:
     """``cast_params(cfg, init(cfg, gen, device))``, bit for bit, drawn
     and cast one item at a time: the peak is the cast parameters plus the
     largest fp32 item, where ``init`` then ``cast_params`` holds all of
-    both (over one card's memory for internlm2-20b and nemotron-4-15b)."""
-    return _draw(cfg, gen, device, _dtype(cfg.compute_dtype))
+    both (over one card's memory for internlm2-20b and nemotron-4-15b).
+    With ``rules`` placed as ``init`` places them: a rank's peak is its
+    blocks plus the largest fp32 item."""
+    return _draw(cfg, gen, device, _dtype(cfg.compute_dtype), rules)
 
 
 def layer_specs(cfg: ArchConfig, pat) -> dict:
@@ -254,22 +279,17 @@ def _positions(cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(cfg, params, tokens):
-    # rows first, then the cast: the reference's embed.astype(cd)[tokens];
-    # a sharded table takes DTensor's vocab-parallel embedding (each rank
-    # its rows, then a sum in which every other rank adds zeros)
+    # rows first, then the cast: the reference's embed.astype(cd)[tokens]
     e = params["embed"]
     if isinstance(e, DTensor):
-        # FSDP's shards of the embed dim gathered first: DTensor's
-        # embedding takes a table split over the vocab alone.  A table
-        # whole on every rank (a vocab axis of one) is indexed, as without
-        # a mesh, so that its gradient sums in the same order.
+        # FSDP's shards of the embed dim gathered first; the vocab stays
+        # split where it is split over more than one rank
         mesh = e.device_mesh
-        split = [isinstance(p, Shard) and p.dim == 0 and mesh.size(md) > 1
-                 for md, p in enumerate(e.placements)]
-        e = e.redistribute(mesh, [Shard(0) if s else Replicate()
-                                  for s in split])
-        rows = F.embedding(tokens.long(), e) if any(split) \
-            else _lookup(e, tokens.long())
+        e = e.redistribute(mesh, [
+            Shard(0) if isinstance(p, Shard) and p.dim == 0
+            and mesh.size(md) > 1 else Replicate()
+            for md, p in enumerate(e.placements)])
+        rows = _lookup(e, tokens.long())
     else:
         rows = e[tokens.long()]
     return constrain(rows.to(_dtype(cfg.compute_dtype)), "batch", None,
@@ -277,17 +297,37 @@ def _embed(cfg, params, tokens):
 
 
 def _lookup(e: DTensor, tokens: torch.Tensor) -> DTensor:
-    """``e[tokens]`` on each rank's tokens with the whole table (its
-    gradient a partial sum over the tokens' shards)."""
+    """``e[tokens]`` on each rank's tokens, the table's columns whole.  A
+    table whole on every rank is indexed, as without a mesh, so that its
+    gradient sums in the same order.  Where its rows (the vocab) are
+    split, each rank looks its tokens up in its own block (0 for a token
+    outside it) and the blocks sum, a partial sum over the vocab's mesh
+    dims: the gradient of each block then holds its own rows alone, where
+    DTensor's embedding gives every rank a gradient of the whole table
+    (V x d in fp32, 5.9 GiB for nemotron-4-15b)."""
     mesh = e.device_mesh
-    rep = [Replicate()] * mesh.ndim
+    vocab = [md for md, p in enumerate(e.placements) if isinstance(p, Shard)]
+    e_pl = [Shard(0) if md in vocab else Replicate()
+            for md in range(mesh.ndim)]
     tok = tokens if isinstance(tokens, DTensor) else DTensor.from_local(
-        tokens, mesh, rep, run_check=False)
-    pl = [p if isinstance(p, Shard) else Replicate() for p in tok.placements]
-    part = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
-    return local_map(lambda el, tl: el[tl], out_placements=pl,
-                     in_placements=(rep, pl), in_grad_placements=(part, pl),
-                     device_mesh=mesh, redistribute_inputs=True)(e, tok)
+        tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tok_pl = [p if isinstance(p, Shard) and md not in vocab else Replicate()
+              for md, p in enumerate(tok.placements)]
+    out_pl = [Partial() if md in vocab else p for md, p in enumerate(tok_pl)]
+    grad_pl = [Partial() if isinstance(p, Shard) else q
+               for p, q in zip(tok_pl, e_pl)]
+    lo = SH.block_index(tuple(e.shape), mesh, e_pl)[0].start
+
+    def look(el, tl):
+        if not vocab:
+            return el[tl]
+        tl = tl - lo
+        inside = (tl >= 0) & (tl < el.shape[0])
+        rows = el[tl.clamp(0, el.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, rows.new_zeros(()))
+    return local_map(look, out_placements=out_pl, in_placements=(e_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(e, tok)
 
 
 def _logits(cfg, params, h, plain):

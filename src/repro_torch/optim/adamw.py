@@ -38,6 +38,7 @@ import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate
 
 from .. import tree as T
+from ..parallel.sharding import map_specs, zeros_placed
 
 
 @dataclass(frozen=True)
@@ -75,11 +76,22 @@ def lr_at(cfg: OptConfig, step: torch.Tensor | int) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def init_state(params, cfg: OptConfig) -> dict:
+def init_state(params, cfg: OptConfig, shardings=None) -> dict:
+    """Zero moments of ``params``' shapes in ``cfg.moment_dtype`` and step
+    0.  With ``shardings`` (a train step bundle's ``in_shardings[1]``:
+    ``{"m": tree, "v": tree, ...}`` of ``NamedSharding``) each moment is
+    made in its own layout (ZeRO-1's), every rank allocating its block
+    alone."""
     mdt = getattr(torch, cfg.moment_dtype or "float32")
     first = T.leaves(params)[0]
-    return {"m": T.tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
-            "v": T.tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
+
+    def zeros(key):
+        if shardings is None:
+            return T.tree_map(lambda p: torch.zeros_like(p, dtype=mdt),
+                              params)
+        return map_specs(lambda p, sh: zeros_placed(
+            tuple(p.shape), mdt, first.device, sh), params, shardings[key])
+    return {"m": zeros("m"), "v": zeros("v"),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 

@@ -181,18 +181,37 @@ def abstract_params(params):
                                             device="meta"), params)
 
 
-def local_slice(t: torch.Tensor, mesh: DeviceMesh, placements) -> torch.Tensor:
-    """This rank's block of the full tensor ``t`` under ``placements``
-    (mesh dims in order, each splitting what the earlier ones left)."""
+def block_index(shape: tuple[int, ...], mesh: DeviceMesh,
+                placements) -> tuple[slice, ...]:
+    """This rank's block of a tensor of ``shape`` under ``placements``, as
+    one slice a dim (mesh dims in order, each splitting what the earlier
+    ones left)."""
+    lo, size = [0] * len(shape), list(shape)
     coord = mesh.get_coordinate()
     for md, p in enumerate(placements):
         if isinstance(p, Shard):
             n = mesh.size(md)
-            if t.shape[p.dim] % n:
-                raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not "
+            if size[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
                                  f"split over {n}")
-            t = t.chunk(n, dim=p.dim)[coord[md]]
-    return t
+            size[p.dim] //= n
+            lo[p.dim] += coord[md] * size[p.dim]
+    return tuple(slice(a, a + n) for a, n in zip(lo, size))
+
+
+def local_slice(t: torch.Tensor, mesh: DeviceMesh, placements) -> torch.Tensor:
+    """This rank's block of the full tensor ``t`` under ``placements``."""
+    return t[block_index(tuple(t.shape), mesh, placements)]
+
+
+def from_block(local: torch.Tensor, sharding: NamedSharding,
+               shape: tuple[int, ...]) -> DTensor:
+    """The DTensor of global ``shape`` whose block on this rank is
+    ``local`` (no collective: every rank gives its own)."""
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 def place(t: torch.Tensor, sharding: NamedSharding,
@@ -206,10 +225,7 @@ def place(t: torch.Tensor, sharding: NamedSharding,
     local = local.clone() if local.numel() < t.numel() else local.contiguous()
     if device is not None:
         local = local.to(device)
-    return DTensor.from_local(local, sharding.mesh, sharding.placements,
-                              run_check=False, shape=t.shape,
-                              stride=torch.empty(t.shape,
-                                                 device="meta").stride())
+    return from_block(local, sharding, tuple(t.shape))
 
 
 def distribute(tree, specs, rules: ShardingRules):
@@ -426,10 +442,8 @@ def zeros_placed(shape: tuple, dtype: torch.dtype, device,
     """A DTensor of zeros, each rank allocating its block alone."""
     local = local_slice(torch.empty(shape, device="meta"), sharding.mesh,
                         sharding.placements)
-    return DTensor.from_local(
-        torch.zeros(local.shape, dtype=dtype, device=device), sharding.mesh,
-        sharding.placements, run_check=False, shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride())
+    return from_block(torch.zeros(local.shape, dtype=dtype, device=device),
+                      sharding, shape)
 
 
 def zeros_tree(shapes: dict, cspecs: dict, cfg, batch: int, max_len: int,

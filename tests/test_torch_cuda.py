@@ -7,6 +7,10 @@ CUDA device; the file imports no JAX, so it runs wherever the port does:
 
 import dataclasses
 import importlib
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1406,3 +1410,54 @@ def test_cuda_ops_softmax_and_gelu_launch_their_kernel_once(cuda, fn,
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     with pytest.raises(RuntimeError, match="A.5b"):
         getattr(ops, fn)(x.clone().requires_grad_(True))
+
+
+# The four-card mode of chip_smoke.py and the world it starts: a machine
+# with fewer cards refuses the mode at once (a four-card machine is shown
+# one card); on four cards each rank of a FileStore world takes its own.
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.cuda
+def test_cuda_cards_mode_raises_on_fewer_cards(cuda):
+    env = dict(os.environ)
+    if torch.cuda.device_count() >= 4:
+        env["CUDA_VISIBLE_DEVICES"] = "0"
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--cards", "4"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    assert "--cards 4 needs 4 CUDA devices" in proc.stderr
+
+
+_RANK = """
+import sys, torch, torch.distributed as dist
+from repro_torch.launch.mesh import join_world
+rank, store = int(sys.argv[1]), sys.argv[2]
+dev = join_world(rank, 4, store)
+x = torch.full((1,), float(rank), device="cuda")
+dist.all_reduce(x)
+seen = [None] * 4
+dist.all_gather_object(seen, (torch.cuda.current_device(), x.device.index,
+                              float(x)))
+assert dev == torch.device("cuda", rank), dev
+assert seen == [(r, r, 6.0) for r in range(4)], seen
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_each_rank_of_a_world_takes_its_own_card(cuda, tmp_path):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (a rank a card)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r),
+                               str(tmp_path / "store")], env=env)
+             for r in range(4)]
+    try:
+        codes = [p.wait(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert codes == [0, 0, 0, 0]
