@@ -118,18 +118,20 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    causal and not (fp32, and bf16 on the tensor-core kernels), a causal
    case whose first rows see no key (their gradient must be 0), a ragged
    head-128 GQA-4 case with Sq != Skv (bf16), qwen3-4b's training
-   attention and whisper-medium's (D 64, causal and full over 512 tokens,
-   and the served cross shape over 1,500 frames; bf16); layernorm, with
+   attention (4 x 512, and train_4k's 2 x 4,096) and whisper-medium's (D
+   64, causal and full over 512 tokens, and the served cross shape over
+   1,500 frames; bf16); layernorm, with
    and without gamma and beta, over the reference's SFU rows (fp32),
    whisper-medium's and nemotron-4-15b's training rows and ``LN_ODD``
    (fp32 and bf16); ``ssd`` from zero and from an initial state with a
    gradient into the final state, over the reference's SSD sweep (fp32
    and bf16, its tail case, G > 1), mamba2-2.7b's training shape (bf16 and
-   fp32) and jamba's 256 heads (bf16); every gradient within
-   ``FP32_GRAD_TOL`` / ``BF16_GRAD_RTOL`` / ``DGAMMA_RTOL``, and a second
-   backward run equal to the bit.  Model gradients (``lm.loss_fn``,
-   ``encdec.loss_fn``), kernels against plain versions on the same
-   weights and ``SyntheticLM`` batch at full width: qwen3-4b fp32 over 2
+   fp32) and train_4k's 1 x 4,096 (bf16), and jamba's 256 heads (bf16);
+   every gradient within ``FP32_GRAD_TOL`` / ``BF16_GRAD_RTOL`` /
+   ``DGAMMA_RTOL``, and a second backward run equal to the bit.  Model
+   gradients (``lm.loss_fn``, ``encdec.loss_fn``), kernels against plain
+   versions on the same weights and ``SyntheticLM`` batch at full width:
+   qwen3-4b fp32 over 2
    layers (``MODEL_FP32_TOL``) and bf16 over the training cut
    (``MODEL_BF16_RTOL``, each leaf printed); then ``MODEL_GRAD_CUTS``:
    whisper-medium fp32 over 2 + 2 layers and bf16 over 4 + 4, mamba2-2.7b
@@ -207,7 +209,28 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    full-batch descent, both paths' mse and all-reduced bytes).  Prints
    the phase's seconds.  dora_scheduling is numpy only and is tested on
    the CPU.
-9. timing: BERT-L's compile and execute seconds and its device time by
+9. long context: the reference's assigned shapes
+   (``src/repro/configs/shapes.py``) at full width through the same entry
+   points, each global batch cut to fit the card (see ``LONG_*``):
+   qwen3-4b at full depth serves two 32,768-token prompts and 32 new
+   tokens from one ``BatchServer`` of 32,800 cache rows (prefill_32k,
+   decode_32k; ``flash_attention`` alone at those shapes against its
+   plain version; launches a step as the serving phase's; teacher-forced
+   logits, every pass and row, as near fp32 arithmetic on the same bf16
+   weights (the plain versions) as the plain bf16 versions' (whose
+   attention runs over 1,024-row query chunks there), planted faults
+   that must fail that bound, and the kernels against the plain versions
+   within ``SERVE_RTOL`` over the first ``LONG_SHALLOW_LAYERS`` layers);
+   mamba2-2.7b at full depth serves a 524,288-token prompt and 32 new
+   tokens (long_500k; launches, finite logits at every step, the first
+   decode step against the kernels' prefill over the prompt and that
+   token within ``SSM_RTOL``), after its ``ssd`` kernel alone at that
+   length, bf16 and fp32, is held against ``ref.ssd_chained``; then
+   ``Trainer`` on qwen3-4b's training cut at 2 x 4,096 tokens and
+   mamba2-2.7b at full depth at 1 x 4,096 (train_4k; launches, descent,
+   peak; phase 6 holds the backward kernels at these shapes).  Prints every
+   load, serve and phase peak and the phase's seconds.
+10. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
    PyTorch library call where one computes the same function, and the
@@ -696,6 +719,60 @@ MESH_COMPRESS_LEAVES = ("layers/0/attn/wq", "layers/0/mlp/w_down",
 # and touches no device: its tests run it on the CPU.
 EX_TRAIN_STEPS, EX_TRAIN_FAIL_AT = 300, 160
 EX_TRAIN_TAIL, EX_TRAIN_WARM, EX_GD_TOL = 10, 5, 1e-5
+# The long-context phase: the reference's assigned shapes
+# (src/repro/configs/shapes.py: prefill_32k, decode_32k, long_500k,
+# train_4k) on one card at full width, each global batch cut to fit its
+# 80 GB (PERF.md section 4).  qwen3-4b at full depth serves LONG_BATCH
+# prompts of LONG_PROMPT tokens (seeds 0, 1, ...; no padding) and LONG_NEW
+# greedy tokens from one BatchServer of LONG_MAX_LEN cache rows.  Past
+# attn_chunk_threshold both packages' plain attention runs over 1,024-row
+# query chunks and refuses a prompt that they do not divide (ROADMAP C.3),
+# hence 32,768 prompt tokens and 32 more cache rows.  Its launches are the
+# serving phase's a step.  Its teacher-forced logits, kernels against
+# plain versions, are held within SERVE_RTOL over the weights' first
+# LONG_SHALLOW_LAYERS layers.  At full depth no two bf16 runs that differ
+# anywhere stay within SERVE_RTOL at this length: each sits ~1.9 % from
+# fp32 arithmetic on the same weights (PERF.md section 6; ROADMAP C.8).
+# So at full depth the kernels are held as near fp32 arithmetic on the
+# same bf16 weights as the plain versions are, within LONG_FP32_SLACK
+# times (the slack the MoE training cuts give the same kind of witness),
+# every pass and every row; the fp32 run takes the plain versions and so
+# shares no code with the kernels.  Kernels vs plain at full depth is
+# printed.  The bound's power is shown on every run: the kernels with each
+# of LONG_FAULTS planted (through kernels.ops, on the first row) must fail
+# it.  flash_attention alone at L1's prefill and decode shapes, bf16 and
+# fp32, is held against its plain version within LONG_ATTN_RTOL relative
+# L2 (at 32k keys an output is of order 1/sqrt(keys) of v, so an absolute
+# tolerance would not see a fault), and its decode over the rows past its
+# plan's first split must sit outside that bound from the whole.  One
+# cache is held at a time.  mamba2-2.7b at full depth
+# serves one prompt of LONG_SSM_PROMPT tokens and LONG_NEW tokens: its
+# launches, its teacher-forced logits finite at every step, and its first
+# decode step within SSM_RTOL of the kernels' prefill over the prompt and
+# that token (the state after 4,096 chunks carries into decode).  Its
+# plain SSD would hold 80 heads of b and c in fp32 (21.5 GB each), so the
+# ssd kernel alone at (1, LONG_SSM_PROMPT, 80, 64), bf16 and fp32, from
+# zero and from an initial state, is held against ref.ssd_chained over
+# LONG_SSD_SEGMENT positions at a time (the same recurrence) with
+# check_ssd's tolerances.  Trainer takes LONG_TRAIN_STEPS steps of
+# LONG_TRAIN_SEQ tokens a row, LONG_TRAIN_BATCH rows, on qwen3-4b's
+# TRAIN_LAYERS cut and on mamba2-2.7b at full depth (peak lr
+# LONG_TRAIN_PEAK_LR), held as the training phase holds its Trainer runs;
+# phase 6 holds the backward kernels at those shapes.
+LONG_BATCH, LONG_PROMPT, LONG_MAX_LEN, LONG_NEW = 2, 32768, 32800, 32
+LONG_SHALLOW_LAYERS, LONG_FP32_SLACK = 2, 1.25
+LONG_ATTN_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# (what, how much): every rmsnorm kernel's output scaled by 1 + how much;
+# decode's attention without the first split of its plan's rows
+LONG_FAULTS = (("rmsnorm", 2 ** -7), ("attention", "first split"))
+LONG_SSM_PROMPT, LONG_SSD_SEGMENT = 524288, 16384
+LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 4096, 10
+LONG_TRAIN_BATCH = {"qwen3-4b": 2, "mamba2-2.7b": 1}
+# Their peak lr where TRAIN_PEAK_LR does not train them in 10 steps: at
+# 1e-3 qwen3-4b's cut at 2 x 4,096 rises after step 4 (last 3 steps'
+# mean 12.470 against 12.452 first; why is not known, PERF.md section
+# 6), at 5e-4 it falls
+LONG_TRAIN_PEAK_LR = {"qwen3-4b": 5e-4}
 # The four-card mode (``--cards 4``): a world of CARDS ranks, one a card,
 # joined over NCCL by a FileStore; every rank checks itself and a failed
 # rank stops the world.  qwen3-4b served at full width and depth on each
@@ -914,6 +991,45 @@ def train_launches(tcfg) -> tuple[dict, str]:
         + (", each layer again in the remat recompute (the final norm "
            "outside it)" if tcfg.remat else "")
         + ", one backward a forward call")
+
+
+def load_bytes(cfg) -> tuple[int, int, int]:
+    """From the config: bytes of the parameters in the compute dtype;
+    of the largest fp32 item ``lm.init_cast`` holds (the embedding or
+    head, V x d, one layer, or in a MoE layer its mixer, norms and
+    router, or one expert matrix, d x d_ff); and of the most it holds
+    at once if it holds one fp32 item: everything cast so far beside
+    the fp32 item being drawn (a MoE leaf counts whole from its first
+    expert on: it is allocated whole, then filled)."""
+    import dataclasses
+
+    import torch
+    esize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
+                        ).element_size()
+    d, vd = cfg.d_model, cfg.vocab_size * cfg.d_model
+    matrices = 3 if cfg.mlp_kind == "swiglu" else 2
+    cast, held, item = 0, 0, 0
+
+    def draw(fp32, leaf):
+        nonlocal cast, held, item
+        cast += leaf
+        held, item = max(held, esize * cast + 4 * fp32), max(item, fp32)
+
+    draw(vd, vd)                                   # embed
+    draw(vd, vd)                                   # lm_head
+    draw(d, d)                                     # final norm
+    for i in range(cfg.n_layers):
+        pat = cfg.pattern[i % cfg.pattern_len]
+        layer = dataclasses.replace(cfg, pattern=(pat,), n_layers=1
+                                    ).param_count() - 2 * vd - d
+        if pat.ffn != "moe":
+            draw(layer, layer)
+            continue
+        expert = cfg.n_experts * cfg.d_model * cfg.d_ff
+        draw(layer - matrices * expert, layer - matrices * expert)
+        for _ in range(matrices):
+            draw(cfg.d_model * cfg.d_ff, expert)
+    return esize * cfg.param_count(), 4 * item, held
 
 
 def mesh_phase(counters, launches, zero_counts, smi) -> None:
@@ -1263,6 +1379,22 @@ def mesh_phase(counters, launches, zero_counts, smi) -> None:
     print(f"[mesh] phase: {secs:.1f} s on {smi}")
 
 
+def counted_run(fn, counters, launches, zero_counts):
+    """``fn()`` with the kernels' counts from 0: (its result, the counts,
+    its host seconds, the card synchronized); the counts join
+    ``launches``, the main paths' counts."""
+    import torch
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: f.launches for k, f in counters.items()}
+    for k, n in got.items():
+        launches[k] += n
+    return out, got, secs
+
+
 def examples_phase(counters, launches, zero_counts, smi) -> None:
     """The examples of ``examples_torch/`` on the card, each through its
     ``run`` with the counts from 0 (see ``EX_*``); their launches are
@@ -1281,17 +1413,7 @@ def examples_phase(counters, launches, zero_counts, smi) -> None:
     dev = torch.device("cuda")
 
     def counted(fn):
-        """``fn()`` with the counts from 0: (its result, the counts, its
-        host seconds); the counts join ``launches``."""
-        zero_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        got = {k: f.launches for k, f in counters.items()}
-        for k, n in got.items():
-            launches[k] += n
-        return out, got, secs
+        return counted_run(fn, counters, launches, zero_counts)
 
     # quickstart: BERT-S through the DORA kernels
     qs, ran, secs = counted(lambda: quickstart.run(quickstart.parse_args([]),
@@ -1448,6 +1570,438 @@ def examples_phase(counters, launches, zero_counts, smi) -> None:
         r["wire_bytes"] == 4 * grad_compression.D and np.isfinite(r["mse"])
         for r in paths.values()), f"grad_compression: {paths}")
     print(f"[examples] phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+def long_phase(counters, launches, zero_counts, smi) -> None:
+    """The reference's assigned sequence lengths on the card (see
+    ``LONG_*``), a cell at a time: L1 qwen3-4b's prefill_32k and
+    decode_32k, L2 mamba2-2.7b's long_500k, L3 both archs' train_4k,
+    batches cut to fit.  The main paths' launches, each counted from 0,
+    are added to ``launches``."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.flash_attention import (decode_plan,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.launch.train import TrainOptions, Trainer
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    GiB = 2 ** 30
+    sms = _build.sm_count(dev)
+
+    def fresh() -> int:
+        """Returns the cache to the card and restarts the peak; the bytes
+        still allocated."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def counted(fn):
+        return counted_run(fn, counters, launches, zero_counts)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def server_for(cfg, max_len, prompts, note):
+        """A ``BatchServer`` of ``cfg`` drawn from seed 0, its load peak
+        held as the serving phase holds it; then ``prompts`` served with
+        LONG_NEW new tokens, counted: the launches must be ``path_
+        launches``'.  (The server, the served tokens (B, LONG_NEW).)"""
+        before = fresh()
+        t0 = time.perf_counter()
+        server = BatchServer(cfg, max_len=max_len, seed=0, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        cast_bytes, item_bytes, held_bytes = load_bytes(cfg)
+        limit = min(cast_bytes + item_bytes, held_bytes) + GiB
+        print(f"[long] {cfg.name} [{note}]: drawn and cast in {load_s:.2f} "
+              f"s, load peak {peak / GiB:.3f} GiB (limit {limit / GiB:.3f}: "
+              f"the lesser of the cast parameters + the largest fp32 item "
+              f"and one fp32 item held at a time, + 1 GiB)")
+        require(peak <= limit, f"{cfg.name}: load peak {peak} over {limit}")
+        # warm-up: cuBLAS's plans, the allocator
+        server.serve([Request(0, prompts[0][:64], 2)])
+        per_step, per_prefill, why = path_launches(cfg)
+        want = dict.fromkeys(counters, 0) | {
+            k: LONG_NEW * n for k, n in per_step.items()} | per_prefill
+        base = fresh()
+        stats, ran, secs = counted(lambda: server.serve(
+            [Request(i, p, LONG_NEW) for i, p in enumerate(prompts)]))
+        peak = torch.cuda.max_memory_allocated()
+        outs = stats["outputs"]
+        print(f"[long] {cfg.name} [{note}]: {len(prompts)} x "
+              f"{len(prompts[0])} prompt tokens, {LONG_NEW} new: prefill "
+              f"{stats['prefill_s']:.4f} s, decode "
+              f"{stats['decode_tok_per_s']:.2f} tok/s ({len(prompts)} x "
+              f"{LONG_NEW - 1} tokens; host clock around synchronize), "
+              f"{secs:.1f} s in all; peak {peak / GiB:.2f} GiB "
+              f"({base / GiB:.2f} held before: the parameters and what "
+              f"earlier phases keep); launches "
+              f"{ran}, expected {LONG_NEW} steps {why} on {smi}")
+        require(ran == want, f"{cfg.name} [{note}]: launches {ran} differ "
+                f"from {want}")
+        require(sorted(outs) == list(range(len(prompts))) and all(
+            len(t) == LONG_NEW and all(0 <= x < cfg.vocab_size for x in t)
+            for t in outs.values()), f"served outputs malformed: {outs}")
+        return server, torch.tensor([outs[i] for i in range(len(prompts))],
+                                    device=dev)
+
+    def forced(server, tokens, served, cfg=None, params=None, plain=False):
+        """``tokens`` prefilled into a cache of the prompt and LONG_NEW
+        more rows, then a decode step fed each column of ``served`` but
+        the last, through ``server``'s weights (or ``cfg`` and
+        ``params``) on the kernels or the plain versions: each pass's
+        logits, finite and of the right shape.  One cache, freed after."""
+        cfg, params = cfg or server.cfg, params or server.params
+        out, cache, plen = [], None, tokens.shape[1]
+        with torch.no_grad():
+            for t in range(served.shape[1]):
+                if t == 0:
+                    logits, cache = lm.prefill(cfg, params, tokens,
+                                               max_len=plen + LONG_NEW,
+                                               plain=plain)
+                else:
+                    logits, cache = lm.decode_step(
+                        cfg, params, cache, served[:, t - 1:t], plen + t - 1,
+                        plain=plain)
+                require(bool(torch.isfinite(logits).all()) and logits.shape
+                        == (tokens.shape[0], cfg.vocab_size),
+                        f"{cfg.name} pass {t}: logits "
+                        f"{tuple(logits.shape)} or non-finite")
+                out.append(logits)
+        del cache
+        return out
+
+    def drop_first_split(q, k, v, kv_len):
+        """The operands of a decode over ``kv_len`` rows without the first
+        split of its plan: (k, v, kv_len) past those rows."""
+        r = decode_plan(kv_len, q.shape[0] * k.shape[1], sms).rows_per_split
+        return (k[:, :, r:].contiguous(), v[:, :, r:].contiguous(),
+                kv_len - r)
+
+    @contextlib.contextmanager
+    def planted(what, size):
+        """``kernels.ops``'s kernel path with one of LONG_FAULTS while
+        open; the plain versions stay as they are."""
+        own = getattr(ops, what)
+
+        def rmsnorm(x, *args, plain=False, **kw):
+            out = own(x, *args, plain=plain, **kw)
+            return out if plain else (out.float() * (1 + size)).to(out.dtype)
+
+        def attention(q, k, v, *, kv_len=None, plain=False, **kw):
+            if not plain and kv_len is not None and q.shape[2] == 1:
+                k, v, kv_len = drop_first_split(q, k, v, kv_len)
+            return own(q, k, v, kv_len=kv_len, plain=plain, **kw)
+
+        setattr(ops, what, {"rmsnorm": rmsnorm, "attention": attention}[what])
+        try:
+            yield
+        finally:
+            setattr(ops, what, own)
+
+    def attention_32k() -> None:
+        # flash_attention alone at L1's shapes: the prefill of LONG_BATCH
+        # prompts, causal, against the chunked plain version the model's
+        # plain path takes there; decode over the first prompt's rows + 1
+        # and over the whole cache (the plan's splits and their combine)
+        cfg = get_config(SERVE_ARCH)
+        B, Hq, Hkv, D = (LONG_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim)
+        for dt in (torch.bfloat16, torch.float32):
+            fresh()
+            tol, name = LONG_ATTN_RTOL[str(dt)[6:]], str(dt)[6:]
+            q = randn(B, Hq, LONG_PROMPT, D, dtype=dt)
+            k, v = (randn(B, Hkv, LONG_PROMPT, D, dtype=dt)
+                    for _ in range(2))
+            t0 = time.perf_counter()
+            got = flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            kernel_s, t0 = time.perf_counter() - t0, time.perf_counter()
+            want = ref.mha_attention_chunked(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            rel = {"prefill": rel_l2(got, want)}
+            scale = float(want.float().abs().max())
+            del q, k, v, got, want
+            q = randn(B, Hq, 1, D, dtype=dt)
+            k, v = (randn(B, Hkv, LONG_MAX_LEN, D, dtype=dt)
+                    for _ in range(2))
+            for rows in (LONG_PROMPT + 1, LONG_MAX_LEN):
+                want = ref.mha_attention(q, k, v, causal=False, kv_len=rows)
+                rel[f"decode {rows}"] = rel_l2(flash_attention(
+                    q, k, v, causal=False, kv_len=rows), want)
+            plan = decode_plan(LONG_MAX_LEN, B * Hkv, sms)
+            kd, vd, rows = drop_first_split(q, k, v, LONG_MAX_LEN)
+            dropped = rel_l2(flash_attention(q, kd, vd, causal=False,
+                                             kv_len=rows), want)
+            print(f"[long] flash_attention {name} at {cfg.name}'s widths: "
+                  f"prefill ({B}, {Hq}, {LONG_PROMPT}, {D}) over ({B}, "
+                  f"{Hkv}, {LONG_PROMPT}) causal against "
+                  f"ref.mha_attention_chunked, decode over {LONG_PROMPT + 1}"
+                  f" and {LONG_MAX_LEN} of {LONG_MAX_LEN} rows ({plan.splits}"
+                  f" splits of {plan.rows_per_split}) against "
+                  f"ref.mha_attention: rel L2 " + ", ".join(
+                      f"{k_} {r:.3g}" for k_, r in rel.items())
+                  + f" (limit {tol}; the prefill's max |out| {scale:.3g}); "
+                  f"planted, decode without its first split: {dropped:.3g} "
+                  f"(must exceed {tol}); host s prefill kernel "
+                  f"{kernel_s:.3f}, plain {plain_s:.2f}")
+            require(max(rel.values()) <= tol, f"flash_attention {name} at "
+                    f"32k: rel L2 {rel} over {tol}")
+            require(dropped > tol, f"flash_attention {name}: a dropped split "
+                    f"sits {dropped} from the whole, within {tol}")
+            del q, k, v, kd, vd, want
+
+    scfg = get_config(SSM_ARCH)
+    S = LONG_SSM_PROMPT
+    require(S == SHAPES["long_500k"].seq_len, f"{S} is not long_500k's")
+    H, P = scfg.ssm_heads, scfg.ssm_head_dim
+    G, N = scfg.ssm_groups, scfg.ssm_state
+
+    def serve_dense() -> None:
+        # L1: prefill_32k and decode_32k, qwen3-4b at full width and depth
+        cfg = get_config(SERVE_ARCH)
+        require(LONG_PROMPT == SHAPES["prefill_32k"].seq_len
+                == SHAPES["decode_32k"].seq_len
+                and LONG_PROMPT >= cfg.attn_chunk_threshold
+                and LONG_PROMPT % 1024 == 0,
+                f"{LONG_PROMPT} is no prompt of prefill_32k's chunked path")
+        note = (f"prefill_32k + decode_32k, batch {LONG_BATCH} of "
+                f"{SHAPES['prefill_32k'].global_batch} / "
+                f"{SHAPES['decode_32k'].global_batch}, full depth")
+        prompts = [np.random.default_rng(i).integers(
+            0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
+            for i in range(LONG_BATCH)]
+        server, served = server_for(cfg, LONG_MAX_LEN, prompts, note)
+        kv_bytes = (2 * cfg.n_layers * LONG_BATCH * cfg.n_kv_heads
+                    * cfg.kv_cache_repeat * LONG_MAX_LEN * cfg.head_dim * 2)
+        tokens = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
+        # teacher-forced on the served tokens: the kernels, the plain versions
+        # and fp32 arithmetic on the same bf16 weights through the plain
+        # versions, one pass after the other, one cache held at a time
+        fp32 = dataclasses.replace(cfg, compute_dtype="float32")
+        peaks, logits = {}, {}
+        for path, pcfg, plain in (("kernels", cfg, False),
+                                  ("plain", cfg, True), ("fp32", fp32, True)):
+            base = fresh()
+            t0 = time.perf_counter()
+            logits[path] = forced(server, tokens, served, cfg=pcfg,
+                                  plain=plain)
+            peaks[path] = (torch.cuda.max_memory_allocated(),
+                           time.perf_counter() - t0)
+        for t, got in enumerate(logits["kernels"]):
+            require(torch.equal(got.argmax(-1), served[:, t]), f"{cfg.name} "
+                    f"step {t}: the kernels' greedy tokens differ from the "
+                    f"served ones")
+        witness = logits.pop("fp32")
+
+        def near(passes, rows=LONG_BATCH):
+            """Each pass's and row's relative L2 from the fp32 witness."""
+            return np.array([[rel_l2(o[r], w[r]) for r in range(rows)]
+                             for o, w in zip(passes, witness)])
+
+        rel = [rel_l2(k, p)
+               for k, p in zip(logits["kernels"], logits["plain"])]
+        dist = {path: near(logits[path]) for path in ("kernels", "plain")}
+        ratio = dist["kernels"] / dist["plain"]
+        print(f"[long] {cfg.name} [{note}]: the KV cache {kv_bytes / GiB:.3f} "
+              f"GiB ({LONG_MAX_LEN} rows); teacher-forced on the served "
+              f"tokens (the kernels give them again): kernels vs plain "
+              f"versions (their attention over 1,024-row query chunks) logits "
+              f"rel L2 prefill {rel[0]:.4g}, decode max {max(rel[1:]):.4g}, "
+              f"mean {float(np.mean(rel)):.4g}; against fp32 arithmetic on "
+              f"the same bf16 weights (the plain versions), mean of "
+              f"{ratio.shape[0]} passes x {LONG_BATCH} rows: kernels "
+              f"{float(dist['kernels'].mean()):.4g}, plain "
+              f"{float(dist['plain'].mean()):.4g}, ratio mean "
+              f"{float(ratio.mean()):.4g}, worst {float(ratio.max()):.4g} "
+              f"(pass {int(ratio.argmax()) // LONG_BATCH}, limit "
+              f"{LONG_FP32_SLACK}); peak GiB, host s: " + ", ".join(
+                  f"{path} {pk / GiB:.2f}, {sec:.1f}"
+                  for path, (pk, sec) in peaks.items())
+              + f" ({base / GiB:.2f} held: the parameters and what earlier "
+              f"phases keep) on {smi}")
+        require(float(ratio.max()) <= LONG_FP32_SLACK, f"{cfg.name} [{note}]: "
+                f"the kernels sit {dist['kernels'].tolist()} from fp32 "
+                f"arithmetic, the plain versions {dist['plain'].tolist()}")
+        # the bound's power: the kernels with a fault planted, the first row
+        for what, size in LONG_FAULTS:
+            fresh()
+            with planted(what, size):
+                got = near(forced(server, tokens[:1], served[:1]), rows=1)
+            bad = got[:, 0] / dist["plain"][:, 0]
+            over = int((bad > LONG_FP32_SLACK).sum())
+            fault = (f"every rmsnorm x (1 + {size})" if what == "rmsnorm"
+                     else f"decode's attention without its {size}")
+            print(f"[long] {cfg.name} [{note}], planted: {fault}, row 0: "
+                  f"the kernels {float(got.mean()):.4g} from fp32 "
+                  f"arithmetic (mean of {len(bad)} passes), ratio to the "
+                  f"plain versions' mean {float(bad.mean()):.4g}, worst "
+                  f"{float(bad.max()):.4g}, {over} passes over "
+                  f"{LONG_FP32_SLACK} (at least one must be)")
+            require(over > 0, f"{cfg.name}: planted {what} {size} "
+                    f"sits within the bound: ratios {bad.tolist()}")
+        # the same weights cut to their first LONG_SHALLOW_LAYERS layers,
+        # where a rounding has not yet spread through the stack
+        n = LONG_SHALLOW_LAYERS
+        cut = dataclasses.replace(cfg, n_layers=n)
+        cut_params = {**server.params, "layers": server.params["layers"][:n]}
+        shallow = [rel_l2(k, p) for k, p in zip(
+            *(forced(server, tokens, served, cfg=cut, params=cut_params,
+                     plain=plain) for plain in (False, True)))]
+        print(f"[long] {cfg.name} [{note}] cut to its first {n} layers: "
+              f"kernels vs plain versions, teacher-forced, logits rel L2 "
+              f"prefill {shallow[0]:.4g}, decode max {max(shallow[1:]):.4g} "
+              f"(limit {SERVE_RTOL})")
+        require(max(shallow) <= SERVE_RTOL, f"{cfg.name} [{note}] cut to "
+                f"{n} layers: logits rel L2 {shallow}")
+
+    def serve_ssm() -> None:
+        # L2: long_500k, mamba2-2.7b at full width and depth; first its ssd
+        # kernel alone against the chained plain version
+        def long_ssd(dt, init) -> None:
+            """The ssd kernel at (1, S, H, P, G, N) in ``dt``, from zero or
+            from a drawn initial state, against ``ref.ssd_chained``, y a
+            segment at a time and the final state (check_ssd's tolerances)."""
+            dts = torch.rand((1, S, H), generator=gen, device=dev)
+            a = -torch.linspace(1.0, 16.0, H, device=dev)[None, None] * (
+                dts * 0.095 + 0.005)
+            del dts
+            x = randn(1, S, H, P, dtype=dt)
+            b, c = (randn(1, S, G, N, dtype=dt, scale=0.3) for _ in range(2))
+            s0 = randn(1, H, P, N) if init else None
+            rtol = 1e-4 if dt == torch.float32 else 2 ** -7
+            atol = 1e-4
+            what = (f"ssd {(1, S, H, P, G, N)} chunk 128 {str(dt)[6:]}, from "
+                    f"{'an initial state' if init else 'zero'}")
+            t0 = time.perf_counter()
+            y, st = ssd(x, a, b, c, chunk=128, initial_state=s0)
+            torch.cuda.synchronize()
+            kernel_s, t0 = time.perf_counter() - t0, time.perf_counter()
+            worst = 0.0
+            for s, yw, stw in ref.ssd_chained(
+                    x, a, b, c, segment=LONG_SSD_SEGMENT, chunk=128,
+                    initial_state=s0):
+                yk = y[:, s:s + LONG_SSD_SEGMENT]
+                require(close(yk, yw, rtol, atol), f"{what}: y at {s}: max "
+                        f"err {max_err(yk, yw)}")
+                worst = max(worst, max_err(yk, yw))
+            plain_s = time.perf_counter() - t0
+            require(close(st, stw, 1e-4, 1e-4), f"{what}: final state max err "
+                    f"{max_err(st, stw)}")
+            print(f"[long] {what} (long_500k at {scfg.name}'s widths): max "
+                  f"err y {worst:.3g}, final state {max_err(st, stw):.3g} "
+                  f"against ref.ssd_chained over {S // LONG_SSD_SEGMENT} "
+                  f"segments of {LONG_SSD_SEGMENT} (limits rtol {rtol:.3g}, "
+                  f"atol {atol}; state 1e-4); host s kernel {kernel_s:.3f}, "
+                  f"plain {plain_s:.2f}; peak "
+                  f"{torch.cuda.max_memory_allocated() / GiB:.2f} GiB")
+
+        for dt in (torch.bfloat16, torch.float32):
+            for init in (False, True):
+                fresh()
+                long_ssd(dt, init)
+
+        note = (f"long_500k, batch 1 of {SHAPES['long_500k'].global_batch}, "
+                f"full depth")
+        prompt = np.random.default_rng(0).integers(
+            0, scfg.vocab_size, S).astype(np.int32)
+        server, served = server_for(scfg, S + LONG_NEW, [prompt], note)
+        tokens = torch.from_numpy(prompt.astype(np.int64))[None].to(dev)
+        fresh()
+        passes = forced(server, tokens, served)
+        require(all(torch.equal(got.argmax(-1), served[:, t])
+                    for t, got in enumerate(passes)),
+                f"{scfg.name}: the kernels' greedy tokens differ from the "
+                f"served ones")
+        step1 = passes[1]
+        del passes
+        with torch.no_grad():
+            ext, cache = lm.prefill(scfg, server.params,
+                                    torch.cat([tokens, served[:, :1]], dim=1))
+        del cache
+        peak = torch.cuda.max_memory_allocated()
+        rel = rel_l2(step1, ext)
+        print(f"[long] {scfg.name} [{note}]: teacher-forced on the served "
+              f"tokens, every pass's logits finite (the kernels give the "
+              f"tokens again); the first decode step at position {S} vs the "
+              f"kernels' prefill over the prompt and that token ({S + 1} "
+              f"positions, a tail chunk of one): logits rel L2 {rel:.4g} "
+              f"(limit {SSM_RTOL}); peak {peak / GiB:.2f} GiB on {smi}")
+        require(rel <= SSM_RTOL, f"{scfg.name}: decode after {S} positions "
+                f"differs from the prefill by {rel}")
+
+    def train() -> None:
+        # L3: train_4k, Trainer on qwen3-4b's training cut, then on
+        # mamba2-2.7b whole (phase 6 holds the backward kernels at these
+        # shapes)
+        cut = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  n_layers=TRAIN_LAYERS)
+        for arch, tcfg in ((TRAIN_ARCH, cut), (SSM_ARCH, scfg)):
+            rows = LONG_TRAIN_BATCH[arch]
+            shape = dataclasses.replace(SHAPES["train_4k"], global_batch=rows)
+            note = (f"train_4k, batch {rows} of "
+                    f"{SHAPES['train_4k'].global_batch}, {tcfg.n_layers} of "
+                    f"{get_config(arch).n_layers} layers")
+            per_step, why = train_launches(tcfg)
+            want = dict.fromkeys(counters, 0) | {
+                k: LONG_TRAIN_STEPS * n for k, n in per_step.items()}
+            base = fresh()
+            peak_lr = LONG_TRAIN_PEAK_LR.get(arch, TRAIN_PEAK_LR)
+            trainer = Trainer(tcfg, shape, opt=OptConfig(
+                peak_lr=peak_lr, warmup_steps=TRAIN_WARMUP,
+                total_steps=LONG_TRAIN_STEPS), options=TrainOptions(
+                    steps=LONG_TRAIN_STEPS, ckpt_every=0,
+                    log_every=LONG_TRAIN_STEPS), seed=0, device=dev)
+            (params, opt_state), ran, secs = counted(
+                lambda: trainer.run(resume=False))
+            peak = torch.cuda.max_memory_allocated()
+            losses = [m["loss"] for m in trainer.metrics_log]
+            dts = sorted(m["dt"] for m in trainer.metrics_log[1:])
+            step_ms = 1e3 * dts[len(dts) // 2]
+            print(f"[long] {tcfg.name} Trainer [{note}; fp32 parameters, "
+                  f"{tcfg.moment_dtype} moments, {tcfg.compute_dtype} "
+                  f"compute, remat {tcfg.remat}]: {LONG_TRAIN_STEPS} steps "
+                  f"of {rows} x {LONG_TRAIN_SEQ}, AdamW peak lr {peak_lr} "
+                  f"after {TRAIN_WARMUP} warm-up steps, losses " + ", ".join(
+                      f"{v:.4f}" for v in losses)
+                  + f"; step host ms median {step_ms:.2f} (least "
+                  f"{1e3 * dts[0]:.2f}), "
+                  f"{rows * LONG_TRAIN_SEQ / (step_ms / 1e3):,.0f} tokens/s; "
+                  f"peak {peak / GiB:.2f} GiB ({peak / 1e9:.2f} GB; "
+                  f"{base / GiB:.2f} held before) [{secs:.1f} s]; launches "
+                  f"{ran}, expected {LONG_TRAIN_STEPS} x {why} on {smi}")
+            require(ran == want, f"{tcfg.name} [{note}]: launches {ran} "
+                    f"differ from {want}")
+            require(trainer.failures == 0 and len(losses) == LONG_TRAIN_STEPS
+                    and all(np.isfinite(losses))
+                    and np.mean(losses[-3:]) < losses[0],
+                    f"{tcfg.name} [{note}]: {trainer.failures} failures, "
+                    f"losses {losses}")
+            require(peak < CARD_TRAIN_GB * 1e9, f"{tcfg.name} [{note}]: peak "
+                    f"{peak / 1e9:.2f} GB (limit {CARD_TRAIN_GB} GB)")
+            del trainer, params, opt_state
+
+    for cell in (attention_32k, serve_dense, serve_ssm, train):
+        cell()
+        fresh()
+    print(f"[long] phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
 # ---------------------------------------------------------------- four cards
@@ -2939,41 +3493,6 @@ def main() -> None:
             best = min(best, time.perf_counter() - t0)
         return best
 
-    def load_bytes(cfg) -> tuple[int, int, int]:
-        """From the config: bytes of the parameters in the compute dtype;
-        of the largest fp32 item ``lm.init_cast`` holds (the embedding or
-        head, V x d, one layer, or in a MoE layer its mixer, norms and
-        router, or one expert matrix, d x d_ff); and of the most it holds
-        at once if it holds one fp32 item: everything cast so far beside
-        the fp32 item being drawn (a MoE leaf counts whole from its first
-        expert on: it is allocated whole, then filled)."""
-        esize = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)
-                            ).element_size()
-        d, vd = cfg.d_model, cfg.vocab_size * cfg.d_model
-        matrices = 3 if cfg.mlp_kind == "swiglu" else 2
-        cast, held, item = 0, 0, 0
-
-        def draw(fp32, leaf):
-            nonlocal cast, held, item
-            cast += leaf
-            held, item = max(held, esize * cast + 4 * fp32), max(item, fp32)
-
-        draw(vd, vd)                                   # embed
-        draw(vd, vd)                                   # lm_head
-        draw(d, d)                                     # final norm
-        for i in range(cfg.n_layers):
-            pat = cfg.pattern[i % cfg.pattern_len]
-            layer = dataclasses.replace(cfg, pattern=(pat,), n_layers=1
-                                        ).param_count() - 2 * vd - d
-            if pat.ffn != "moe":
-                draw(layer, layer)
-                continue
-            expert = cfg.n_experts * cfg.d_model * cfg.d_ff
-            draw(layer - matrices * expert, layer - matrices * expert)
-            for _ in range(matrices):
-                draw(cfg.d_model * cfg.d_ff, expert)
-        return esize * cfg.param_count(), 4 * item, held
-
     def route_report(label, passes) -> list[float]:
         """Prints one run's differing decisions: the prefill's by MoE layer
         (with their largest margins and the MoE inputs' drift), the decode
@@ -3732,12 +4251,17 @@ def main() -> None:
                                     n_layers=TRAIN_LAYERS)
     train_shape = (TRAIN_BATCH, train_cfg.n_heads, train_cfg.n_kv_heads,
                    TRAIN_SEQ, TRAIN_SEQ, train_cfg.head_dim)
-    e, rel = check_attention_bwd(*train_shape, True, torch.bfloat16)
-    errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
-    print(f"[train] flash_attention backward {train_shape} causal bf16 "
-          f"({TRAIN_ARCH}'s training attention), deterministic: max err "
-          f"{e:.3g}, worst rel L2 {rel:.3g} (dq, dk, dv rel L2 limit "
-          f"{BF16_GRAD_RTOL})")
+    long_shape = (LONG_TRAIN_BATCH[TRAIN_ARCH], *train_shape[1:3],
+                  LONG_TRAIN_SEQ, LONG_TRAIN_SEQ, train_shape[5])
+    for shape, note in ((train_shape, "training attention"),
+                        (long_shape, "attention at train_4k, the long-"
+                                     "context phase's")):
+        e, rel = check_attention_bwd(*shape, True, torch.bfloat16)
+        errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
+        print(f"[train] flash_attention backward {shape} causal bf16 "
+              f"({TRAIN_ARCH}'s {note}), deterministic: max err {e:.3g}, "
+              f"worst rel L2 {rel:.3g} (dq, dk, dv rel L2 limit "
+              f"{BF16_GRAD_RTOL})")
     # whisper-medium's training attention (D 64, 16 heads, 4 x 512 tokens:
     # the encoder's full and the decoder's causal self-attention, its
     # cross-attention over 512 frames) and the served cross shape (a
@@ -3851,9 +4375,12 @@ def main() -> None:
         return worst, worst_rel
 
     # the reference's SSD sweep (fp32 and bf16), its tail case and G > 1
-    # with a tail; mamba2-2.7b's training shape and jamba's 256 heads (bf16)
+    # with a tail; mamba2-2.7b's training shape, its train_4k shape (the
+    # long-context phase's) and jamba's 256 heads (bf16)
     wide_ssd = [(*ssm_prefill, 128, torch.bfloat16),
                 (*ssm_prefill, 128, torch.float32),
+                (LONG_TRAIN_BATCH[SSM_ARCH], LONG_TRAIN_SEQ, *heads, 128,
+                 torch.bfloat16),
                 (*jamba_prefill, 128, torch.bfloat16)]
     for *shape, chunk, dt in ([(*sh, dt) for sh in SSD_SHAPES
                                for dt in (torch.float32, torch.bfloat16)]
@@ -4452,7 +4979,7 @@ def main() -> None:
                 f"the step-to-step spread: {held}, spread {spread}")
         if lr != TRAIN_PEAK_LR:   # printed, not checked: the reason for lr
             side = chip_trainer(mcfg, log_every=TRAIN_STEPS)
-            params, _ = side.run(resume=False)
+            params = side.run(resume=False)[0]    # its moments freed here
             with torch.no_grad():
                 after = float(lm.loss_fn(mcfg, params, late["tokens"],
                                          late["labels"]))
@@ -4539,6 +5066,9 @@ def main() -> None:
 
     # ------------------------------------------------------------ examples
     examples_phase(counters, launches, zero_counts, smi)
+
+    # -------------------------------------------------------- long context
+    long_phase(counters, launches, zero_counts, smi)
 
     # -------------------------------------------------------------- timing
     bert = paper_models.get("BERT-L")

@@ -194,15 +194,22 @@ def mha_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     time: the (Sq, Skv) scores never exist whole (the reference's
     ``mha_attention_chunked``, whose scan over query chunks this loop is;
     the long-prefill plain path).  Each chunk's rows take
-    ``mha_attention``'s arithmetic."""
+    ``mha_attention``'s arithmetic over the keys they can see: causal,
+    the keys before the chunk's last row's position and no others (the
+    rest would add only zeros), so a causal prefill computes half the
+    scores."""
     Sq, Skv = q.shape[2], k.shape[2]
     q_chunk = min(q_chunk, Sq)
     if Sq % q_chunk:
         raise ValueError(f"{Sq} query rows do not split into chunks of "
                          f"{q_chunk}")
-    return torch.cat([_attend(q[:, :, i:i + q_chunk], k, v, causal, Skv,
-                              i + Skv - Sq)
-                      for i in range(0, Sq, q_chunk)], dim=2)
+    out = []
+    for i in range(0, Sq, q_chunk):
+        offset = i + Skv - Sq
+        seen = max(0, min(Skv, offset + q_chunk)) if causal else Skv
+        out.append(_attend(q[:, :, i:i + q_chunk], k, v, causal, seen,
+                           offset))
+    return torch.cat(out, dim=2)
 
 
 def _attend(q, k, v, causal: bool, skv: int, offset: int) -> torch.Tensor:
@@ -377,6 +384,27 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y_off = torch.einsum("bnthi,bnhpi,bnth->bnthp", cf, prev, torch.exp(acs))
     y = (y_diag + y_off).reshape(B, S, H, P)
     return y.to(x.dtype), state
+
+
+def ssd_chained(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, *, segment: int, chunk: int = 128,
+                initial_state: torch.Tensor | None = None):
+    """``ssd_chunked`` over consecutive ``segment``-position slices of the
+    sequence, each from the state the slice before it left: yields
+    (start, y of the slice, the fp32 state after it).  Chunks never cross
+    a slice (``segment`` is a multiple of ``chunk``), so this is one
+    call's recurrence at one slice's memory: the plain version at lengths
+    whose heads-wide b, c and chunk scores would not fit at once."""
+    S = x.shape[1]
+    if segment % chunk or S % segment:
+        raise ValueError(f"ssd_chained: segments of {segment} must hold "
+                         f"whole chunks of {chunk} and divide S {S}")
+    state = initial_state
+    for s in range(0, S, segment):
+        sl = slice(s, s + segment)
+        y, state = ssd_chunked(x[:, sl], a[:, sl], b[:, sl], c[:, sl],
+                               chunk=chunk, initial_state=state)
+        yield s, y, state
 
 
 def ssd_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

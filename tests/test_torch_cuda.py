@@ -1461,3 +1461,65 @@ def test_cuda_each_rank_of_a_world_takes_its_own_card(cuda, tmp_path):
             if p.poll() is None:
                 p.kill()
     assert codes == [0, 0, 0, 0]
+
+
+# The reference's long shapes (src/repro/configs/shapes.py) at the kernels:
+# prefill_32k's 32,768 query rows, decode_32k's cache past 32,768 rows
+# (qwen3-4b's 32 heads over 8 at a batch of 2, 17 splits), long_500k's
+# SSD scan cut to 131,072 positions (1,024 chunks in series).
+def _long_attn_close(got, want, tdt):
+    """Relative L2 within 2e-2 (bf16) or 1e-4 (fp32): over thousands of
+    keys an output is of order 1/sqrt(keys) of v, so a fixed atol at
+    bf16's 3e-2 would pass an error of the output's own size."""
+    rtol = 1e-4 if tdt == torch.float32 else 2e-2
+    assert got.dtype == tdt and torch.isfinite(got.float()).all()
+    err = float((got.float() - want.float()).norm() / want.float().norm())
+    assert err <= rtol, f"relative L2 {err} over {rtol}"
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_prefill_at_32k_rows(cuda):
+    """bf16 on the tensor cores, causal, against the chunked plain version
+    that the model's plain path takes at this length."""
+    q, k, v = _qkv((1, 8, 2, 32768, 32768, 128), 80, cuda, torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.mha_attention_chunked(q, k, v, causal=True)
+    _long_attn_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_decode_over_32769_rows(cuda, tdt):
+    assert fa.decode_plan(32769, 16, _build.sm_count(cuda)).splits > 1
+    q, k, v = _qkv((2, 32, 8, 1, 32769, 128), 83, cuda, tdt, cache=32800)
+    got = flash_attention(q, k, v, causal=False, kv_len=32769)
+    torch.cuda.synchronize()
+    want = ref.mha_attention(q, k, v, causal=False, kv_len=32769)
+    _long_attn_close(got, want, tdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_ssd_at_131072_positions_matches_the_chained_plain(cuda, tdt):
+    """mamba2-2.7b's widths over 131,072 positions, drawn on the card,
+    against ``ref.ssd_chained`` over segments of 16,384 (the same
+    recurrence; one plain call would hold 80 heads of b and c in fp32),
+    segment by segment with ``_ssd_close``'s tolerances."""
+    B, S, H, P, G, N = 1, 131072, 80, 64, 1, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    dt = torch.rand((B, S, H), generator=gen, device=cuda) * 0.095 + 0.005
+    a = -torch.linspace(1.0, 16.0, H, device=cuda)[None, None] * dt
+    x = torch.randn((B, S, H, P), generator=gen, device=cuda).to(tdt)
+    b, c = ((torch.randn((B, S, G, N), generator=gen, device=cuda) * 0.3
+             ).to(tdt) for _ in range(2))
+    y, state = ssd(x, a, b, c, chunk=128)
+    torch.cuda.synchronize()
+    rtol = 1e-4 if tdt == torch.float32 else 2 ** -7
+    for s, y_seg, st in ref.ssd_chained(x, a, b, c, segment=16384,
+                                        chunk=128):
+        torch.testing.assert_close(y[:, s:s + 16384].float(), y_seg.float(),
+                                   rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(state, st, rtol=1e-4, atol=1e-4)

@@ -16,6 +16,7 @@ held against the plain versions on the card in test_torch_cuda.py.
 
 import importlib
 from collections import Counter
+from pathlib import Path
 
 import pytest
 
@@ -334,3 +335,58 @@ def test_ssd_plan_at_mamba2_prefill():
     assert plan.chunks * 80 * 4 == 1280
     assert ssd.ssd_plan(2, 37, 80, 64, 128, 37).chunk == 37
     assert ssd.ssd_plan(1, 2048, 80, 64, 128, 128).chunks == 16
+
+
+# The reference's long shapes (src/repro/configs/shapes.py) as one card
+# runs them: prefill_32k and decode_32k at a batch of 2 over a 32,800-row
+# cache (16 (batch, KV head) pairs of qwen3-4b), long_500k's 524,288
+# positions at mamba2-2.7b's widths, train_4k's 4,096.  A CUDA grid's x
+# may reach 2^31 - 1 blocks, its y and z 65,535.
+LONG_DECODE_LENGTHS = [32769, 32770, 32784, 32799, 32800]
+GRID_X, GRID_YZ = 2**31 - 1, 65535
+
+
+def _in_grid_limits(grid):
+    x, *yz = grid
+    return 1 <= x <= GRID_X and all(1 <= d <= GRID_YZ for d in yz)
+
+
+@pytest.mark.parametrize("skv", LONG_DECODE_LENGTHS)
+def test_decode_plan_covers_a_32k_cache_once_in_whole_chunks(skv):
+    plan = fa.decode_plan(skv, 2 * 8, H100_SMS)
+    assert plan.rows_per_split % fa.DECODE_CHUNK == 0
+    assert (plan.splits - 1) * plan.rows_per_split < skv
+    assert plan.splits * plan.rows_per_split >= skv
+    assert plan.combine and 16 * plan.splits >= 2 * H100_SMS
+    assert _in_grid_limits((plan.splits, 8, 2))
+
+
+def test_ssd_plans_at_long_500k_and_train_4k_stay_in_the_grid():
+    """4,096 chunks of 128 on the scan's x, 10 GiB of entering states,
+    and the backward's grids at mamba2-2.7b's training shape."""
+    plan = ssd.ssd_plan(1, 524_288, 80, 64, 128, 128)
+    assert plan.chunks == 4096 and plan.grid == (4096, 80, 1)
+    assert plan.scratch_bytes == 10_737_418_240
+    assert _in_grid_limits(plan.grid) and _in_grid_limits(plan.state_grid)
+    # the prompt plus one token: a tail chunk of one position
+    assert ssd.ssd_plan(1, 524_289, 80, 64, 128, 128).chunks == 4097
+    bwd = ssd.ssd_bwd_plan(1, 4096, 80, 64, 1, 128, 128, H100_SMS)
+    assert bwd.chunks == 32
+    for grid in (bwd.state_grid, bwd.grid, (*bwd.group_grid, 1)):
+        assert _in_grid_limits(grid)
+
+
+def test_prefill_grids_at_prefill_32k_stay_in_the_grid():
+    """The prefill kernels' grids as csrc/flash_attention.cu launches them
+    (a block per query head, batch and 64 query rows on the tensor cores;
+    per 64 query rows, query head and batch on the FMA kernel), at a
+    batch of 2 of qwen3-4b's 32 heads over 32,768 rows."""
+    src = (Path(fa.__file__).parent / "csrc" / "flash_attention.cu"
+           ).read_text()
+    assert "constexpr int MMA_BQ = 64;" in src
+    assert "dim3 grid(Hq, B, (Sq + MMA_BQ - 1) / MMA_BQ)" in src
+    assert "launch_fma<D, 64, 32>" in src
+    assert "dim3 grid((Sq + BQ - 1) / BQ, Hq, B)" in src
+    B, Hq, Sq = 2, 32, 32768
+    for grid in ((Hq, B, -(-Sq // 64)), (-(-Sq // 64), Hq, B)):
+        assert _in_grid_limits(grid) and sorted(grid) == [2, 32, 512]
