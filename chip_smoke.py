@@ -113,13 +113,15 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 6. training: the backward kernels (rmsnorm's, layernorm's, flash
    attention's and the SSD scan's, no Pallas counterpart) against autograd
    of their plain versions on the card: rmsnorm over the reference's SFU
-   rows (fp32), qwen3-4b's training rows (bf16 and fp32) and a ragged and
-   an unaligned case; attention over the reference's attention shapes,
-   causal and not (fp32, and bf16 on the tensor-core kernels), a causal
+   rows (fp32), qwen3-4b's, qwen2-vl-2b's and internlm2-20b's training
+   rows (bf16 and fp32) and a ragged and an unaligned case; attention
+   over the reference's attention shapes, causal and not (fp32, and bf16
+   on the tensor-core kernels), a causal
    case whose first rows see no key (their gradient must be 0), a ragged
    head-128 GQA-4 case with Sq != Skv (bf16), qwen3-4b's training
-   attention (4 x 512, and train_4k's 2 x 4,096) and whisper-medium's (D
-   64, causal and full over 512 tokens, and the served cross shape over
+   attention (4 x 512, and train_4k's 2 x 4,096), qwen1.5-4b's,
+   qwen2-vl-2b's and internlm2-20b's (fp32 and bf16) and whisper-medium's
+   (D 64, causal and full over 512 tokens, and the served cross shape over
    1,500 frames; bf16); layernorm, with
    and without gamma and beta, over the reference's SFU rows (fp32),
    whisper-medium's and nemotron-4-15b's training rows and ``LN_ODD``
@@ -135,7 +137,8 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    layers (``MODEL_FP32_TOL``) and bf16 over the training cut
    (``MODEL_BF16_RTOL``, each leaf printed); then ``MODEL_GRAD_CUTS``:
    whisper-medium fp32 over 2 + 2 layers and bf16 over 4 + 4, mamba2-2.7b
-   fp32 over 2 and bf16 over 8, nemotron-4-15b bf16 over 2.  Then
+   fp32 over 2 and bf16 over 8, nemotron-4-15b, qwen1.5-4b and
+   internlm2-20b bf16 over 2, qwen2-vl-2b bf16 over 4.  Then
    ``launch.train.Trainer`` trains qwen3-4b at full width cut to
    ``TRAIN_LAYERS`` of 36 layers, and then, one at a time, whisper-medium
    and mamba2-2.7b at full width and depth (``FULL_TRAIN_ARCHS``; fp32
@@ -144,6 +147,10 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    below the first's, the launch counts, zeroed just before, must equal
    what the call structure gives (printed with its derivation); step ms,
    tokens/s, the predicted and measured peak memory and one profiled step.
+   Then qwen1.5-4b and qwen2-vl-2b at full width and depth and
+   internlm2-20b at full width cut to ``DENSE_TRAIN_CUTS`` layers
+   (``DENSE_TRAIN_ARCHS``), one at a time, the same way but timed on the
+   host clock only.
    Then the MoE archs at full width, cut in depth and experts to fit the
    training state (``MOE_TRAIN_CUTS``, printed beside every number), one
    cut at a time: bf16 model gradients, kernels against plain versions,
@@ -252,9 +259,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    the redesign (``MS_BEFORE_REDESIGN``, as recorded in ``PERF.md``), and
    ``ssd_bwd`` at jamba's 256 heads, ``rmsnorm_bwd`` at the MoE archs'
    training rows (5120, 8192, 16,384) and ``flash_attention_bwd`` at their
-   training attention (GQA 6, 5 and 8); the norms' backward plans each beside
-   an alternative in turns, through the wrappers (``[tune]``: rmsnorm's
-   q-norm rows on the warp or the vector kernel; layernorm's
+   training attention (GQA 6, 5 and 8), and both at the other dense
+   archs' (rmsnorm's rows of 1536 and 6144, attention at qwen1.5-4b's GQA
+   1 and qwen2-vl-2b's 12 over 2 heads); the norms' backward plans each
+   beside an alternative in turns, through the wrappers (``[tune]``:
+   rmsnorm's q-norm rows on the warp or the vector kernel; layernorm's
    whisper-medium rows on the vector or the warp kernel, nemotron-4-15b's
    on one or two blocks an SM).
    The profiles sum ``ssd``'s two kernels and each backward's kernels, and
@@ -279,9 +288,14 @@ layer through ``BatchServer``, ``Trainer``, the step bundles and
   each mesh (``lm.init_cast(..., rules=)``), each card's load peak under
   its block of the bf16 parameters plus the largest fp32 item plus 1 GiB;
   the serving phase's traffic with each rank's launches the meshless
-  path's, every rank sampling the same tokens; teacher-forced logits
-  against rank 0's one-card server (``SERVE_RTOL``) and, at fp32 over
-  ``CARDS_FP32_LAYERS`` layers, against one card's (``FP32_DECODE_TOL``);
+  path's, every rank sampling the same tokens; at fp32 over
+  ``CARDS_FP32_LAYERS`` layers, logits against one card's
+  (``FP32_DECODE_TOL``); in bf16, teacher-forced, every pass and row as
+  near fp32 arithmetic on the same bf16 weights as rank 0's one-card
+  server (``LONG_FP32_SLACK``), with two planted faults that must fail
+  that bound (``CARDS_FAULTS``: every rmsnorm, and on (1, 4) and (2, 2)
+  one model rank's block of every ``wo``), and within ``SERVE_RTOL`` of
+  one card over the first ``LONG_SHALLOW_LAYERS`` layers;
 * moe: dbrx-132b at full depth (40 layers, 245 GiB in bf16) on (1, 4),
   4 experts a rank, served the same way, and its first
   ``MOE_SHALLOW_LAYERS`` and ``CARDS_MOE_CUT`` layers teacher-forced with
@@ -583,6 +597,9 @@ FP32_GRAD_TOL, BF16_GRAD_RTOL, DGAMMA_RTOL = 1e-4, 2e-2, 1e-3
 # a ragged width (the block kernel) and an unaligned view (scalar loads)
 RMS_BWD_ROWS = [(2048, 2560, 0), (65536, 128, 0), (16384, 128, 0),
                 (64, 2561, 0), (2048, 2560, 1)]
+# and the training rows of DENSE_TRAIN_ARCHS that no other path reaches:
+# qwen2-vl-2b's 1536 and internlm2-20b's 6144
+RMS_BWD_ROWS += [(2048, 1536, 0), (2048, 6144, 0)]
 # attention's backward besides the reference's sweep (fp32 and bf16) and
 # the training shape: a causal case whose first 40 query rows see no key
 # (Sq > Skv) and a ragged head-128 GQA-4 case with Sq != Skv, whose lengths
@@ -597,11 +614,21 @@ LN_BWD_ROWS = [(2048, 1024, 0), (2048, 6144, 0)]
 # kernels against plain versions at full width: (arch, fp32 layers or
 # None, bf16 layers); whisper's counts are encoder + decoder layers each
 MODEL_GRAD_CUTS = (("whisper-medium", 2, 4), ("mamba2-2.7b", 2, 8),
-                   ("nemotron-4-15b", None, 2))
+                   ("nemotron-4-15b", None, 2), ("qwen1.5-4b", None, 2),
+                   ("qwen2-vl-2b", None, 4), ("internlm2-20b", None, 2))
 # the two new Trainer runs, at full width and depth, on TRAIN_BATCH x
 # TRAIN_SEQ tokens for TRAIN_STEPS steps at TRAIN_PEAK_LR (bf16 compute,
 # remat: their configs' own); one trainer at a time
 FULL_TRAIN_ARCHS = ("whisper-medium", "mamba2-2.7b")
+# the other dense archs' Trainer runs (ROADMAP A.8.1), the same way at full
+# width: qwen1.5-4b (GQA 1, qkv bias) and qwen2-vl-2b (M-RoPE, GQA 6, rows
+# of 1536) at full depth, internlm2-20b (rows of 6144) cut to
+# DENSE_TRAIN_CUTS layers: whole, its state is 296 GiB at 16 bytes a
+# parameter, 74 a card on four; 6 of its 48 layers hold 3.478 B
+# parameters, 51.8 GiB.  Their steps are timed on the host clock only (no
+# profiled step)
+DENSE_TRAIN_ARCHS = ("qwen1.5-4b", "qwen2-vl-2b", "internlm2-20b")
+DENSE_TRAIN_CUTS = {"internlm2-20b": 6}
 # device ms of the backward kernels before their redesign (fp32 FMA
 # attention kernels; rmsnorm's one-row blocks, a partial row of dgamma
 # each, a zero fill), by kernel and operand shape, as PERF.md records them
@@ -768,21 +795,35 @@ LONG_FAULTS = (("rmsnorm", 2 ** -7), ("attention", "first split"))
 LONG_SSM_PROMPT, LONG_SSD_SEGMENT = 524288, 16384
 LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 4096, 10
 LONG_TRAIN_BATCH = {"qwen3-4b": 2, "mamba2-2.7b": 1}
-# Their peak lr where TRAIN_PEAK_LR does not train them in 10 steps: at
-# 1e-3 qwen3-4b's cut at 2 x 4,096 rises after step 4 (last 3 steps'
-# mean 12.470 against 12.452 first; why is not known, PERF.md section
-# 6), at 5e-4 it falls
+# Their peak lr where TRAIN_PEAK_LR does not train them in 10 steps
+# (ROADMAP C.9): at 1e-3 qwen3-4b's cut at 2 x 4,096 falls to step 4
+# (12.452 -> 12.323) and then rises (the last 3 steps' mean 12.470), and
+# so does the same run in fp32 arithmetic on the plain versions, with no
+# kernel and no bf16 rounding (12.478), within 0.01 of it at every step.
+# From step 4 its gradient norm is 0.66-0.89, a sixth of step 0's 4.24,
+# while AdamW, whose step does not shrink with the gradient, still moves
+# the head, attention and MLP weights by 1.6-1.8 % of their RMS at step 4
+# and 1.1-1.3 % at step 5: more than the gradient supports.  At 5e-4 the
+# steps are half that and the loss falls (12.355).  The port's step is
+# the reference's at this shape and schedule (tests/test_torch_train_4k.py);
+# PERF.md section 6 and experiments_torch/train_lr.py give the readings
 LONG_TRAIN_PEAK_LR = {"qwen3-4b": 5e-4}
 # The four-card mode (``--cards 4``): a world of CARDS ranks, one a card,
 # joined over NCCL by a FileStore; every rank checks itself and a failed
 # rank stops the world.  qwen3-4b served at full width and depth on each
-# of CARD_MESHES, (data, model), held per rank to the meshless launches
-# and, teacher-forced, to rank 0's one-card server (SERVE_RTOL; a
-# row-parallel product's bf16 sum is one more rounding on a mesh), and at
-# fp32 over CARDS_FP32_LAYERS layers (FP32_DECODE_TOL); where the bf16 gap
-# opens is read, not held: the prefill's logits after the first k of
-# CARDS_DEPTHS layers, mesh against one card, and both bf16 runs against
-# rank 0's one-card fp32 server on the same weights; dbrx-132b served
+# of CARD_MESHES, (data, model), held per rank to the meshless launches,
+# at fp32 over CARDS_FP32_LAYERS layers to one card's (FP32_DECODE_TOL),
+# and in bf16, teacher-forced, every pass and row, as near fp32 arithmetic
+# on the same bf16 weights (the plain versions on rank 0's card) as rank
+# 0's one-card bf16 server is, within LONG_FP32_SLACK times: a row-parallel
+# product's bf16 sum is one more rounding on a mesh, and two bf16 runs
+# that differ anywhere part to bf16's own error at full depth (ROADMAP
+# C.7, as C.8 on one card); over the first LONG_SHALLOW_LAYERS layers the
+# mesh stays within SERVE_RTOL of one card, and each of CARDS_FAULTS
+# planted on the mesh must fail the ratio bound; where the bf16 gap opens
+# is read, not held: the prefill's logits after the first k of
+# CARDS_DEPTHS layers, mesh against one card and both against the fp32
+# witness; dbrx-132b served
 # at full depth on CARDS_MOE_MESH (its experts over the model axis), its
 # logits over its first MOE_SHALLOW_LAYERS layers and CARDS_MOE_CUT layers
 # held with each MoE call pinned to the plain path's routes (SERVE_RTOL,
@@ -802,6 +843,10 @@ CARDS_MOE_ARCH, CARDS_MOE_MESH, CARDS_MOE_CUT = "dbrx-132b", (1, 4), 8
 CARDS_TRAIN_ARCH, CARDS_TRAIN_MESH = "nemotron-4-15b", (2, 2)
 CARDS_LOSS_RTOL, CARDS_DEADLINE_S = 1e-3, 1140
 CARDS_DEPTHS = (1, 2, 4, 9, 18, 36)
+# the faults planted on each mesh in M4.1, by how much each scales: every
+# rmsnorm output (LONG_FAULTS' first), and where the model axis splits wo,
+# the block of every layer's wo on the ranks at its first coordinate
+CARDS_FAULTS = (2 ** -7, 2 ** -7)
 SERVING_KERNELS = ("rmsnorm", "flash_attention", "ssd")
 TRAINING_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd", "layernorm_bwd",
                     "ssd_bwd")
@@ -1578,7 +1623,6 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
     decode_32k, L2 mamba2-2.7b's long_500k, L3 both archs' train_4k,
     batches cut to fit.  The main paths' launches, each counted from 0,
     are added to ``launches``."""
-    import contextlib
     import dataclasses
 
     import numpy as np
@@ -1586,7 +1630,7 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import (decode_plan,
                                                      flash_attention)
     from repro_torch.kernels.ssd import ssd
@@ -1687,34 +1731,6 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
         del cache
         return out
 
-    def drop_first_split(q, k, v, kv_len):
-        """The operands of a decode over ``kv_len`` rows without the first
-        split of its plan: (k, v, kv_len) past those rows."""
-        r = decode_plan(kv_len, q.shape[0] * k.shape[1], sms).rows_per_split
-        return (k[:, :, r:].contiguous(), v[:, :, r:].contiguous(),
-                kv_len - r)
-
-    @contextlib.contextmanager
-    def planted(what, size):
-        """``kernels.ops``'s kernel path with one of LONG_FAULTS while
-        open; the plain versions stay as they are."""
-        own = getattr(ops, what)
-
-        def rmsnorm(x, *args, plain=False, **kw):
-            out = own(x, *args, plain=plain, **kw)
-            return out if plain else (out.float() * (1 + size)).to(out.dtype)
-
-        def attention(q, k, v, *, kv_len=None, plain=False, **kw):
-            if not plain and kv_len is not None and q.shape[2] == 1:
-                k, v, kv_len = drop_first_split(q, k, v, kv_len)
-            return own(q, k, v, kv_len=kv_len, plain=plain, **kw)
-
-        setattr(ops, what, {"rmsnorm": rmsnorm, "attention": attention}[what])
-        try:
-            yield
-        finally:
-            setattr(ops, what, own)
-
     def attention_32k() -> None:
         # flash_attention alone at L1's shapes: the prefill of LONG_BATCH
         # prompts, causal, against the chunked plain version the model's
@@ -1747,7 +1763,7 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
                 rel[f"decode {rows}"] = rel_l2(flash_attention(
                     q, k, v, causal=False, kv_len=rows), want)
             plan = decode_plan(LONG_MAX_LEN, B * Hkv, sms)
-            kd, vd, rows = drop_first_split(q, k, v, LONG_MAX_LEN)
+            kd, vd, rows = drop_first_split(q, k, v, LONG_MAX_LEN, sms)
             dropped = rel_l2(flash_attention(q, kd, vd, causal=False,
                                              kv_len=rows), want)
             print(f"[long] flash_attention {name} at {cfg.name}'s widths: "
@@ -1843,7 +1859,7 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
         # the bound's power: the kernels with a fault planted, the first row
         for what, size in LONG_FAULTS:
             fresh()
-            with planted(what, size):
+            with planted(what, size, sms):
                 got = near(forced(server, tokens[:1], served[:1]), rows=1)
             bad = got[:, 0] / dist["plain"][:, 0]
             over = int((bad > LONG_FP32_SLACK).sum())
@@ -2004,6 +2020,40 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
     print(f"[long] phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
+def drop_first_split(q, k, v, kv_len: int, sms: int):
+    """The operands of a decode over ``kv_len`` rows without the first split
+    of its plan on ``sms`` SMs: (k, v, kv_len) past those rows."""
+    from repro_torch.kernels.flash_attention import decode_plan
+    r = decode_plan(kv_len, q.shape[0] * k.shape[1], sms).rows_per_split
+    return (k[:, :, r:].contiguous(), v[:, :, r:].contiguous(),
+            kv_len - r)
+
+
+@contextlib.contextmanager
+def planted(what: str, size, sms: int = 0):
+    """``kernels.ops``' kernel path with one of LONG_FAULTS while open
+    (``sms``: the card's, for the attention fault's plan); the plain
+    versions stay as they are.  On a mesh the rmsnorm fault scales each
+    rank's output."""
+    from repro_torch.kernels import ops
+    own = getattr(ops, what)
+
+    def rmsnorm(x, *args, plain=False, **kw):
+        out = own(x, *args, plain=plain, **kw)
+        return out if plain else (out.float() * (1 + size)).to(out.dtype)
+
+    def attention(q, k, v, *, kv_len=None, plain=False, **kw):
+        if not plain and kv_len is not None and q.shape[2] == 1:
+            k, v, kv_len = drop_first_split(q, k, v, kv_len, sms)
+        return own(q, k, v, kv_len=kv_len, plain=plain, **kw)
+
+    setattr(ops, what, {"rmsnorm": rmsnorm, "attention": attention}[what])
+    try:
+        yield
+    finally:
+        setattr(ops, what, own)
+
+
 # ---------------------------------------------------------------- four cards
 
 def kernel_counters() -> dict:
@@ -2088,27 +2138,34 @@ def pass_logits(srv, tokens, served, t: int, cache, cfg=None, params=None,
 
 
 def forced_logits(srv, tokens, served, steps: int, cfg=None,
-                  params=None) -> list:
+                  params=None, plain: bool = False) -> list:
     """The prefill of ``tokens`` and ``steps`` decode steps fed the
     columns of ``served`` through ``srv`` (or ``cfg`` and ``params``
-    there): each pass's full logits."""
+    there), on the kernels or the plain versions: each pass's full
+    logits."""
     out, cache = [], None
     for t in range(steps + 1):
         logits, cache = pass_logits(srv, tokens, served, t, cache, cfg,
-                                    params)
+                                    params, plain)
         out.append(logits)
     return out
 
 
-def depth_logits(srv, tokens, cfg=None, params=None) -> dict:
+def cut_to(cfg, params, n: int):
+    """``cfg`` and ``params`` cut to their first ``n`` layers."""
+    import dataclasses
+    return (dataclasses.replace(cfg, n_layers=n),
+            {**params, "layers": params["layers"][:n]})
+
+
+def depth_logits(srv, tokens, cfg=None, params=None,
+                 plain: bool = False) -> dict:
     """The prefill's logits of ``tokens`` through ``srv`` (or ``cfg`` and
     ``params`` there) after the first k layers, for each k of
     CARDS_DEPTHS: where a gap between two runs opens."""
-    import dataclasses
     cfg, params = cfg or srv.cfg, params or srv.params
-    return {k: pass_logits(srv, tokens, None, 0, None, dataclasses.replace(
-        cfg, n_layers=k), {**params, "layers": params["layers"][:k]})[0]
-        for k in CARDS_DEPTHS}
+    return {k: pass_logits(srv, tokens, None, 0, None, *cut_to(cfg, params, k),
+                           plain)[0] for k in CARDS_DEPTHS}
 
 
 @contextlib.contextmanager
@@ -2326,12 +2383,48 @@ class Cards:
         return stats
 
 
+@contextlib.contextmanager
+def wo_fault(params, mesh, size: float):
+    """While open, every layer's block of ``wo`` on the ranks at the model
+    axis's first coordinate scaled by 1 + ``size``: a fault that only a
+    mesh that splits ``wo`` over its model axis can have (one rank's share
+    of the row-parallel product wrong).  The blocks are restored after."""
+    import torch
+    from torch.distributed.tensor import Shard
+    axis = mesh.mesh_dim_names.index("model")
+    mine = mesh.get_local_rank("model") == 0
+    saved = []
+    with torch.no_grad():
+        for layer in params["layers"]:
+            w = layer["attn"]["wo"]
+            require(isinstance(w.placements[axis], Shard), f"wo is "
+                    f"{w.placements} on {tuple(mesh.shape)}, not split over "
+                    f"the model axis")
+            if mine:
+                local = w.to_local()
+                saved.append((local, local.clone()))
+                local.mul_(1 + size)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for local, was in saved:
+                local.copy_(was)
+
+
 def cards_serve(c: Cards, work: str) -> None:
-    """M4.1: qwen3-4b at full width and depth on each of CARD_MESHES; where
-    its bf16 logits part from one card's is read by depth, and each bf16
-    run is read against fp32 arithmetic on the same weights."""
+    """M4.1: qwen3-4b at full width and depth on each of CARD_MESHES.  Its
+    bf16 logits, teacher-forced on the served tokens, every pass and row,
+    are held as near fp32 arithmetic on the same bf16 weights (the plain
+    versions on one card) as one card's bf16 logits are, within
+    LONG_FP32_SLACK times (ROADMAP C.7), and to one card's within
+    SERVE_RTOL over the first LONG_SHALLOW_LAYERS layers; each planted
+    fault (CARDS_FAULTS: every rmsnorm, and where the model axis splits
+    ``wo`` one rank's block of it) must fail the first bound on some pass.
+    Where the two bf16 runs part is read by depth."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from repro_torch import tree as T
@@ -2340,6 +2433,7 @@ def cards_serve(c: Cards, work: str) -> None:
 
     cfg = get_config(SERVE_ARCH)
     prompts, tokens = serve_prompts(cfg, c.dev)
+    steps, n = SERVE_NEW - 1, LONG_SHALLOW_LAYERS
     c.readings["serve"] = {}
     for shape in CARD_MESHES:
         mesh = c.mesh(shape)
@@ -2349,14 +2443,26 @@ def cards_serve(c: Cards, work: str) -> None:
         stats = c.serve_counted(srv, prompts, label)
         served = torch.tensor([stats["outputs"][i]
                                for i in range(len(prompts))], device=c.dev)
-        got = forced_logits(srv, tokens, served, SERVE_NEW - 1)
+        got = forced_logits(srv, tokens, served, steps)
         depth = depth_logits(srv, tokens)
+        got_cut = forced_logits(srv, tokens, served, steps,
+                                *cut_to(cfg, srv.params, n))
+        # the bound's power: the mesh's run with each fault planted
+        faulty = {}
+        rms, wo = CARDS_FAULTS
+        with planted("rmsnorm", rms):
+            faulty[f"every rmsnorm x (1 + {rms})"] = forced_logits(
+                srv, tokens, served, steps)
+        if shape[1] > 1:
+            with wo_fault(srv.params, mesh, wo):
+                faulty[f"every wo's block at model rank 0 x (1 + {wo})"] = \
+                    forced_logits(srv, tokens, served, steps)
         del srv
         torch.cuda.empty_cache()
 
         # fp32 compute, CARDS_FP32_LAYERS layers: the mesh's prefill and
-        # decode against one card's (first: it tells a fault from the
-        # bf16 roundings the check after it bounds)
+        # decode against one card's (it tells a fault from the bf16
+        # roundings the checks after it bound)
         cfg32 = dataclasses.replace(cfg, n_layers=CARDS_FP32_LAYERS,
                                     compute_dtype="float32")
         srv32 = BatchServer(cfg32, max_len=SERVE_MAX_LEN, seed=0,
@@ -2378,28 +2484,67 @@ def cards_serve(c: Cards, work: str) -> None:
             c.hold(worst <= FP32_DECODE_TOL, f"{label}: fp32 logits "
                    f"{worst} from one card's")
             seen["fp32_err_over_max_logit"] = worst
-            # one card in bf16 and, as a second witness, the same bf16
-            # weights in fp32 arithmetic: each bf16 run's own rounding
+            # one card in bf16 and the witness: the same bf16 weights in
+            # fp32 arithmetic on the plain versions, sharing no code with
+            # the kernels
             one = BatchServer(cfg, max_len=SERVE_MAX_LEN, seed=0,
                               device=c.dev)
-            want = forced_logits(one, tokens, served, SERVE_NEW - 1)
+            want = forced_logits(one, tokens, served, steps)
             want_d = depth_logits(one, tokens)
+            want_cut = forced_logits(one, tokens, served, steps,
+                                     *cut_to(cfg, one.params, n))
             cfg_x = dataclasses.replace(cfg, compute_dtype="float32")
             p_x = T.tree_map(lambda t: t.float(), one.params)
-            exact = forced_logits(one, tokens, served, SERVE_NEW - 1,
-                                  cfg_x, p_x)
-            exact_d = depth_logits(one, tokens, cfg_x, p_x)
+            exact = forced_logits(one, tokens, served, steps, cfg_x, p_x,
+                                  plain=True)
+            exact_d = depth_logits(one, tokens, cfg_x, p_x, plain=True)
             del one, p_x
             torch.cuda.empty_cache()
+
+            def near(passes):
+                """Each pass's and row's relative L2 from the witness."""
+                return np.array([[rel_l2(o[r], w[r]) for r in range(len(o))]
+                                 for o, w in zip(passes, exact)])
+
+            base = near(want)
+            dist = near(got)
+            ratio = dist / base
+            c.say(f"{label}, bf16 teacher-forced on the served tokens, "
+                  f"against fp32 arithmetic on the same bf16 weights (the "
+                  f"plain versions on one card), mean of {ratio.shape[0]} "
+                  f"passes x {ratio.shape[1]} rows: the mesh {dist.mean():.4g}"
+                  f", one card {base.mean():.4g}; ratio mean "
+                  f"{ratio.mean():.4g}, worst {ratio.max():.4g} (pass "
+                  f"{int(ratio.argmax()) // ratio.shape[1]}, limit "
+                  f"{LONG_FP32_SLACK})")
+            c.hold(float(ratio.max()) <= LONG_FP32_SLACK, f"{label}: the "
+                   f"mesh sits {dist.tolist()} from fp32 arithmetic, one "
+                   f"card {base.tolist()}")
+            shallow = [rel_l2(g, w) for g, w in zip(got_cut, want_cut)]
+            c.say(f"{label} cut to its first {n} layers, teacher-forced, "
+                  f"against the one-card server: logits rel L2 prefill "
+                  f"{shallow[0]:.4g}, decode max {max(shallow[1:]):.4g} "
+                  f"(limit {SERVE_RTOL})")
+            c.hold(max(shallow) <= SERVE_RTOL, f"{label} cut to {n} "
+                   f"layers: logits rel L2 {shallow}")
+            seen["faults"] = {}
+            for fault, passes in faulty.items():
+                bad = near(passes) / base
+                over = int((bad > LONG_FP32_SLACK).sum())
+                c.say(f"{label}, planted: {fault}: ratio to one card's "
+                      f"distance from fp32 mean {bad.mean():.4g}, worst "
+                      f"{bad.max():.4g}, {over} of {bad.size} passes x rows "
+                      f"over {LONG_FP32_SLACK} (at least one must be)")
+                c.hold(over > 0, f"{label}: planted {fault} sits within "
+                       f"the bound: ratios {bad.tolist()}")
+                seen["faults"][fault] = {"ratio_mean": float(bad.mean()),
+                                         "ratio_worst": float(bad.max())}
+            # read, not held: the mesh against the one-card server, and by
+            # depth where the two part
             rel = [rel_l2(g, w) for g, w in zip(got, want)]
-            c.say(f"{label} teacher-forced on the served tokens against the "
-                  f"one-card server: logits rel L2 prefill {rel[0]:.4g}, "
-                  f"decode max {max(rel[1:]):.4g} (limit {SERVE_RTOL})")
-            c.hold(max(rel) <= SERVE_RTOL, f"{label}: logits differ from "
-                   f"one card's: {rel}")
-            seen["bf16_rel_l2_max"] = max(rel)
-            vs = {"mesh": [rel_l2(g, e) for g, e in zip(got, exact)],
-                  "one card": [rel_l2(w, e) for w, e in zip(want, exact)]}
+            c.say(f"{label} against the one-card server (read, not held): "
+                  f"logits rel L2 prefill {rel[0]:.4g}, decode max "
+                  f"{max(rel[1:]):.4g}")
             by_depth = {
                 "mesh vs one card": {k: rel_l2(depth[k], want_d[k])
                                      for k in CARDS_DEPTHS},
@@ -2407,25 +2552,22 @@ def cards_serve(c: Cards, work: str) -> None:
                                  for k in CARDS_DEPTHS},
                 "one card vs fp32": {k: rel_l2(want_d[k], exact_d[k])
                                      for k in CARDS_DEPTHS}}
-            c.say(f"{label}, bf16 against fp32 arithmetic on the same bf16 "
-                  f"weights (one card), teacher-forced: " + "; ".join(
-                      f"{who} prefill {r[0]:.4g}, decode max "
-                      f"{max(r[1:]):.4g}, mean {sum(r) / len(r):.4g}"
-                      for who, r in vs.items()))
             c.say(f"{label}, the prefill's logits after the first k layers, "
                   f"rel L2 by k: " + "; ".join(
                       f"{who} " + ", ".join(f"{k}: {r:.3g}"
                                             for k, r in d.items())
                       for who, d in by_depth.items()))
-            seen["bf16_vs_fp32"] = {who: {"prefill": r[0],
-                                          "decode_max": max(r[1:]),
-                                          "mean": sum(r) / len(r)}
-                                    for who, r in vs.items()}
-            seen["prefill_by_depth"] = by_depth
-            del want, want_d, exact, exact_d
+            seen |= {"bf16_rel_l2_max": max(rel),
+                     "fp32_ratio_mean": float(ratio.mean()),
+                     "fp32_ratio_worst": float(ratio.max()),
+                     "bf16_vs_fp32": {"mesh": float(dist.mean()),
+                                      "one card": float(base.mean())},
+                     "shallow_rel_l2_max": max(shallow),
+                     "prefill_by_depth": by_depth}
+            del want, want_d, want_cut, exact, exact_d
             torch.cuda.empty_cache()
         c.barrier()
-        del got, got32, depth
+        del got, got32, got_cut, depth, faulty
         torch.cuda.empty_cache()
         seen |= {"load_peak_gib": peaks, "prefill_s": stats["prefill_s"],
                  "decode_tok_per_s": stats["decode_tok_per_s"]}
@@ -4262,6 +4404,20 @@ def main() -> None:
               f"({TRAIN_ARCH}'s {note}), deterministic: max err {e:.3g}, "
               f"worst rel L2 {rel:.3g} (dq, dk, dv rel L2 limit "
               f"{BF16_GRAD_RTOL})")
+    # the other dense archs' training attention (4 x 512, causal), fp32 and
+    # bf16: qwen1.5-4b's 20 query heads over 20 kv heads (GQA 1), qwen2-vl-
+    # 2b's 12 over 2 and internlm2-20b's 48 over 8 (dbrx-132b's shape)
+    for arch in DENSE_TRAIN_ARCHS:
+        acfg = get_config(arch)
+        shape = (TRAIN_BATCH, acfg.n_heads, acfg.n_kv_heads, TRAIN_SEQ,
+                 TRAIN_SEQ, acfg.head_dim)
+        for dt in (torch.float32, torch.bfloat16):
+            e, rel = check_attention_bwd(*shape, True, dt)
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
+            print(f"[train] flash_attention backward {shape} causal "
+                  f"{str(dt)[6:]} ({arch}'s training attention, GQA "
+                  f"{acfg.n_heads // acfg.n_kv_heads}), deterministic: max "
+                  f"err {e:.3g}, worst rel L2 {rel:.3g}")
     # whisper-medium's training attention (D 64, 16 heads, 4 x 512 tokens:
     # the encoder's full and the decoder's causal self-attention, its
     # cross-attention over 512 frames) and the served cross shape (a
@@ -4697,7 +4853,7 @@ def main() -> None:
             seed=0, device=dev)
 
     def train_run(tcfg, note, per_step, why, inspect=None,
-                  peak_lr=TRAIN_PEAK_LR, steps=TRAIN_STEPS):
+                  peak_lr=TRAIN_PEAK_LR, steps=TRAIN_STEPS, profile=True):
         """``Trainer`` on ``tcfg`` for ``steps`` steps of TRAIN_BATCH x
         TRAIN_SEQ tokens from SyntheticLM seed 0 at ``peak_lr`` (fp32
         parameters, the config's moments, bf16 compute and remat), counted
@@ -4706,8 +4862,8 @@ def main() -> None:
         last 3 steps below the first's; prints the losses, the peak
         device memory against its prediction, ``inspect(params,
         trainer)`` on the trained state, then the step's host ms,
-        tokens/s and one profiled step.  Returns (the losses, the
-        peak)."""
+        tokens/s and, with ``profile``, one profiled step.  Returns (the
+        losses, the peak)."""
         expected = dict.fromkeys(counters, 0) | {
             k: steps * n for k, n in per_step.items()}
         print(f"[train] {tcfg.name} [{note}] expected launches a step: "
@@ -4778,13 +4934,15 @@ def main() -> None:
                 f"{peak / 1e9:.2f} GB (limit {CARD_TRAIN_GB} GB)")
         if inspect is not None:
             inspect(params, trainer)
-        nxt = trainer.data.device_batch(steps, dev)
-        step_s = host_s(lambda: trainer.step_fn(params, opt_state, nxt))
-        device_profile(f"{tcfg.name} [{note}] train step {TRAIN_BATCH}x"
-                       f"{TRAIN_SEQ} on {smi}",
-                       lambda: trainer.step_fn(params, opt_state, nxt),
-                       step_s)
-        del trainer, params, opt_state, nxt
+        if profile:
+            nxt = trainer.data.device_batch(steps, dev)
+            step_s = host_s(lambda: trainer.step_fn(params, opt_state, nxt))
+            device_profile(f"{tcfg.name} [{note}] train step {TRAIN_BATCH}x"
+                           f"{TRAIN_SEQ} on {smi}",
+                           lambda: trainer.step_fn(params, opt_state, nxt),
+                           step_s)
+            del nxt
+        del trainer, params, opt_state
         torch.cuda.empty_cache()
         return losses, peak
 
@@ -4827,6 +4985,15 @@ def main() -> None:
                f"({E} encoder + {D} self + {D} cross) x 2 (forward, "
                f"recompute); flash_attention_bwd {attn}")
         train_run(tcfg, note, per_step, why)
+    # the other dense archs at full width (DENSE_TRAIN_CUTS), one at a time
+    for arch in DENSE_TRAIN_ARCHS:
+        full = get_config(arch)
+        n = DENSE_TRAIN_CUTS.get(arch, full.n_layers)
+        tcfg = dataclasses.replace(full, n_layers=n)
+        note = (f"cut: {n} of {full.n_layers} layers, full width"
+                if n < full.n_layers else
+                f"full width and depth, {n} layers")
+        train_run(tcfg, note, *train_launches(tcfg), profile=False)
 
     # (d) the MoE archs at full width (MOE_TRAIN_CUTS), one cut at a time,
     # each state drawn once and freed before the next: bf16 model
@@ -5386,26 +5553,30 @@ def main() -> None:
                lambda: torch.autograd.grad(owl, wl, dow, retain_graph=True),
                10 * wcfg.head_dim * TRAIN_BATCH * wcfg.n_heads * pairs,
                2 * 8 * qw.numel() + 4 * lsew.numel(), bf16_peak)
-    # the backward kernels at the MoE archs' training shapes (bf16, 4 x 512
-    # tokens): rmsnorm's rows of llama4 (5120), jamba (8192) and jamba's
-    # gated norm (16,384: the block kernel); attention's over 8 kv heads of
-    # 128, causal, at dbrx's 48, llama4's 40 and jamba's 64 query heads
-    # (dbrx's layernorm rows are nemotron-4-15b's, timed above)
-    for R, N in ((TRAIN_BATCH * TRAIN_SEQ, n) for n in (5120, 8192, 16384)):
+    # the backward kernels at the other training shapes (bf16, 4 x 512
+    # tokens): rmsnorm's rows of qwen2-vl-2b (1536), internlm2-20b (6144),
+    # llama4 (5120), jamba (8192) and jamba's gated norm (16,384: the block
+    # kernel); attention's, causal, at qwen1.5-4b's 20 query heads over 20
+    # kv heads, qwen2-vl-2b's 12 over 2, and over 8 kv heads at dbrx's 48
+    # (internlm2-20b's too), llama4's 40 and jamba's 64 query heads (dbrx's
+    # layernorm rows are nemotron-4-15b's, timed above)
+    for who, N in (("qwen2-vl-2b", 1536), ("internlm2-20b", 6144),
+                   ("MoE", 5120), ("MoE", 8192), ("MoE", 16384)):
+        R = TRAIN_BATCH * TRAIN_SEQ
         x, dy, g = randn(R, N, dtype=torch.bfloat16), \
             randn(R, N, dtype=torch.bfloat16), randn(N)
         rs = ref.rmsnorm_rstd(x)
         xl, gl = x.detach().requires_grad_(), \
             g.to(torch.bfloat16).requires_grad_()
         yl = F.rms_norm(xl, (N,), gl, 1e-6)
-        report("rmsnorm_bwd", f"{R}x{N} bf16 +gamma (MoE training rows)",
+        report("rmsnorm_bwd", f"{R}x{N} bf16 +gamma ({who} training rows)",
                lambda: sfu_k.rmsnorm_bwd(x, g, rs, dy),
                lambda: ref.rmsnorm_bwd(x, g, rs, dy),
                lambda: torch.autograd.grad(yl, (xl, gl), dy,
                                            retain_graph=True),
                9 * x.numel(), 6 * x.numel() + 4 * R + 8 * N, fp32_peak)
         del x, dy, xl, yl
-    for arch in MOE_TRAIN_CUTS:
+    for arch in (*DENSE_TRAIN_ARCHS[:2], *MOE_TRAIN_CUTS):
         acfg = get_config(arch)
         qm = randn(TRAIN_BATCH, acfg.n_heads, TRAIN_SEQ, acfg.head_dim,
                    dtype=torch.bfloat16)

@@ -837,6 +837,8 @@ RMS_BWD_ROWS = [(R, N, 0) for R, N in SFU_SHAPES] + [
 # jamba-1.5-large's 8192 (the vector kernel) and its gated norm over
 # 16,384 (past 10,240 bf16: the block kernel)
 RMS_BWD_ROWS += [(2048, 5120, 0), (2048, 8192, 0), (2048, 16384, 0)]
+# qwen2-vl-2b's training rows (1536) and internlm2-20b's (6144)
+RMS_BWD_ROWS += [(2048, 1536, 0), (2048, 6144, 0)]
 # the reference's attention sweep (causal and not, fp32), qwen3-4b's
 # training attention (bf16, causal); then on the bf16 tensor-core kernels
 # the same sweep, a causal case whose first 40 query rows see no key (Sq >
@@ -855,6 +857,12 @@ ATTN_RAGGED_GQA5 = (1, 10, 2, 100, 130, 128)
 ATTN_BWD += [((4, hq, 8, 512, 512, 128), True, torch.bfloat16)
              for hq in (48, 40, 64)] + [
     (ATTN_RAGGED_GQA5, c, torch.bfloat16) for c in (True, False)]
+# the dense archs' training attention (causal, 4 x 512 tokens, head 128)
+# that no other path reaches, both dtypes: qwen1.5-4b's 20 query heads over
+# 20 kv heads (GQA 1) and qwen2-vl-2b's 12 over 2 (GQA 6)
+ATTN_BWD += [((4, hq, hkv, 512, 512, 128), True, tdt)
+             for hq, hkv in ((20, 20), (12, 2))
+             for tdt in (torch.float32, torch.bfloat16)]
 
 
 def _rel_l2(got, want):

@@ -44,8 +44,9 @@ from repro_torch.models import encdec, lm
 from repro_torch.optim import OptConfig, init_state
 
 LOSS_ARCHS = ["qwen3-4b", "mamba2-2.7b", "nemotron-4-15b", "qwen2-vl-2b",
-              "dbrx-132b", "llama4-maverick-400b-a17b",
-              "jamba-1.5-large-398b", "whisper-medium"]
+              "qwen1.5-4b", "internlm2-20b", "dbrx-132b",
+              "llama4-maverick-400b-a17b", "jamba-1.5-large-398b",
+              "whisper-medium"]
 GRAD_TOL = 1e-4
 B, S = 2, 16
 
