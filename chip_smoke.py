@@ -219,23 +219,33 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 9. long context: the reference's assigned shapes
    (``src/repro/configs/shapes.py``) at full width through the same entry
    points, each global batch cut to fit the card (see ``LONG_*``):
+   first the kernels alone at the cells' shapes (``flash_attention``'s
+   prefill and decode, the layernorm and rmsnorm kernels on 65,536 rows),
+   bf16 and fp32, against their plain versions, each bf16 one timed
+   beside its library call and its bound;
    qwen3-4b at full depth serves two 32,768-token prompts and 32 new
    tokens from one ``BatchServer`` of 32,800 cache rows (prefill_32k,
-   decode_32k; ``flash_attention`` alone at those shapes against its
-   plain version; launches a step as the serving phase's; teacher-forced
+   decode_32k; launches a step as the serving phase's; teacher-forced
    logits, every pass and row, as near fp32 arithmetic on the same bf16
    weights (the plain versions) as the plain bf16 versions' (whose
    attention runs over 1,024-row query chunks there), planted faults
    that must fail that bound, and the kernels against the plain versions
    within ``SERVE_RTOL`` over the first ``LONG_SHALLOW_LAYERS`` layers);
+   internlm2-20b, nemotron-4-15b, qwen1.5-4b and qwen2-vl-2b the same way,
+   one at a time, and whisper-medium through ``encdec`` over 32,768 stub
+   frames (launches; their weights' first ``LONG_SHALLOW_LAYERS`` layers
+   teacher-forced, kernels against plain versions, bf16 within
+   ``SERVE_RTOL`` and at fp32 compute within ``FP32_DECODE_TOL``);
    mamba2-2.7b at full depth serves a 524,288-token prompt and 32 new
    tokens (long_500k; launches, finite logits at every step, the first
    decode step against the kernels' prefill over the prompt and that
    token within ``SSM_RTOL``), after its ``ssd`` kernel alone at that
    length, bf16 and fp32, is held against ``ref.ssd_chained``; then
-   ``Trainer`` on qwen3-4b's training cut at 2 x 4,096 tokens and
-   mamba2-2.7b at full depth at 1 x 4,096 (train_4k; launches, descent,
-   peak; phase 6 holds the backward kernels at these shapes).  Prints every
+   ``Trainer`` on qwen3-4b's training cut at 2 x 4,096 tokens,
+   mamba2-2.7b at full depth at 1 x 4,096, whisper-medium (4,096 frames
+   and tokens a row) and qwen2-vl-2b at full depth at 2 x 4,096 (train_4k;
+   launches, descent, peak; phase 6 holds the backward kernels at these
+   shapes).  Prints every
    load, serve and phase peak and the phase's seconds.
 10. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
@@ -322,6 +332,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -771,8 +782,26 @@ EX_TRAIN_TAIL, EX_TRAIN_WARM, EX_GD_TOL = 10, 5, 1e-5
 # fp32, is held against its plain version within LONG_ATTN_RTOL relative
 # L2 (at 32k keys an output is of order 1/sqrt(keys) of v, so an absolute
 # tolerance would not see a fault), and its decode over the rows past its
-# plan's first split must sit outside that bound from the whole.  One
-# cache is held at a time.  mamba2-2.7b at full depth
+# plan's first split must sit outside that bound from the whole.  The
+# other dense archs (DENSE_ARCHS, L4-L7) and whisper-medium (L8, through
+# encdec: its encoder over as many stub frames as prompt tokens, the
+# reference's _enc_len) serve the same prompts at full width and depth,
+# their launches each prefill and step path_launches' (encdec_launches'),
+# every served token in range; at full depth no bound holds them (the
+# full-depth plain and fp32 runs would cost minutes), so their weights'
+# first LONG_SHALLOW_LAYERS layers (whisper's encoder and decoder) are
+# teacher-forced on the served tokens, kernels against plain versions,
+# in bf16 within SERVE_RTOL at every pass, and at fp32 compute on the same
+# weights over the prefill and LONG_FP32_STEPS decode steps within
+# FP32_DECODE_TOL x max|logit| (fp32 reorderings alone).  Before them the
+# kernels alone at their shapes: flash_attention's non-causal prefill at
+# whisper's D 64, the causal ones at internlm2-20b's and qwen1.5-4b's
+# heads, decode over whisper's cross rows and qwen1.5-4b's cache (with a
+# dropped split planted), the layernorm and rmsnorm kernels on the
+# prefill's 65,536 rows of each width, bf16 and fp32, each bf16 one
+# timed over LONG_TIME_ITERS calls beside its library call and its bound
+# (the plain version once).  One cache is held at a time.  mamba2-2.7b at
+# full depth
 # serves one prompt of LONG_SSM_PROMPT tokens and LONG_NEW tokens: its
 # launches, its teacher-forced logits finite at every step, and its first
 # decode step within SSM_RTOL of the kernels' prefill over the prompt and
@@ -783,18 +812,21 @@ EX_TRAIN_TAIL, EX_TRAIN_WARM, EX_GD_TOL = 10, 5, 1e-5
 # LONG_SSD_SEGMENT positions at a time (the same recurrence) with
 # check_ssd's tolerances.  Trainer takes LONG_TRAIN_STEPS steps of
 # LONG_TRAIN_SEQ tokens a row, LONG_TRAIN_BATCH rows, on qwen3-4b's
-# TRAIN_LAYERS cut and on mamba2-2.7b at full depth (peak lr
-# LONG_TRAIN_PEAK_LR), held as the training phase holds its Trainer runs;
-# phase 6 holds the backward kernels at those shapes.
+# TRAIN_LAYERS cut and on mamba2-2.7b, whisper-medium and qwen2-vl-2b at
+# full depth (peak lr LONG_TRAIN_PEAK_LR), held as the training phase
+# holds its Trainer runs; phase 6 holds the backward kernels at those
+# shapes.
 LONG_BATCH, LONG_PROMPT, LONG_MAX_LEN, LONG_NEW = 2, 32768, 32800, 32
-LONG_SHALLOW_LAYERS, LONG_FP32_SLACK = 2, 1.25
+LONG_SHALLOW_LAYERS, LONG_FP32_SLACK, LONG_FP32_STEPS = 2, 1.25, 8
+LONG_TIME_ITERS = 3
 LONG_ATTN_RTOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # (what, how much): every rmsnorm kernel's output scaled by 1 + how much;
 # decode's attention without the first split of its plan's rows
 LONG_FAULTS = (("rmsnorm", 2 ** -7), ("attention", "first split"))
 LONG_SSM_PROMPT, LONG_SSD_SEGMENT = 524288, 16384
 LONG_TRAIN_SEQ, LONG_TRAIN_STEPS = 4096, 10
-LONG_TRAIN_BATCH = {"qwen3-4b": 2, "mamba2-2.7b": 1}
+LONG_TRAIN_BATCH = {"qwen3-4b": 2, "mamba2-2.7b": 1, WHISPER_ARCH: 2,
+                    MROPE_ARCH: 2}
 # Their peak lr where TRAIN_PEAK_LR does not train them in 10 steps
 # (ROADMAP C.9): at 1e-3 qwen3-4b's cut at 2 x 4,096 falls to step 4
 # (12.452 -> 12.323) and then rises (the last 3 steps' mean 12.470), and
@@ -955,6 +987,87 @@ def cuda_ms(torch, fn, iters: int = 50) -> tuple[float, float]:
     return times[0], times[1]
 
 
+def event_ms(torch, fn):
+    """(``fn()``, its ms between CUDA events recorded around the one call):
+    for calls too long to repeat, the card synchronized first."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def time_row(smi: str, bw_peak: float, name: str, shape: str, kernel, plain,
+             library, flops: float, nbytes: float, peak: float,
+             before=None, iters: int = 50):
+    """Prints and returns a kernel's device ms (``cuda_ms``) beside its
+    plain version's (timed the same way, or a float of ms taken before),
+    the library call's (None: there is none), and the card's bound,
+    max(``flops`` / ``peak``, ``nbytes`` / ``bw_peak``); ``before``: its
+    ms before a redesign, as recorded.  (ms, plain ms, library ms, bound
+    ms, what bounds it.)"""
+    import torch
+    ms, ms_b2b = cuda_ms(torch, kernel, iters)
+    plain_ms, plain_b2b = ((plain, None) if isinstance(plain, float)
+                           else cuda_ms(torch, plain, iters))
+    lib_ms, lib_b2b = (cuda_ms(torch, library, iters) if library
+                       else (None, None))
+    t_ops, t_bytes = flops / peak, nbytes / bw_peak
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    lib = "library none" if library is None else f"library {lib_ms:.4f}"
+    once = " (one call)" if plain_b2b is None else ""
+    was = ("" if before is None else
+           f" [before the redesign, recorded in PERF.md: {before:.4f}]")
+    b2b = "" if plain_b2b is None else f", plain {plain_b2b:.4f}"
+    lib_b = "" if library is None else f", library {lib_b2b:.4f}"
+    print(f"[time] {name} {shape}: device ms: kernel {ms:.4f}{was}, plain "
+          f"{plain_ms:.4f}{once}, {lib}, bound {bound_ms:.4f} ({bound_by}, "
+          f"{flops / 1e9:.4g} GFLOP, {nbytes / 1e6:.4g} MB); back-to-back "
+          f"ms: kernel {ms_b2b:.4f}{b2b}{lib_b}; on {smi}")
+    return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+
+def ln_affine(xb, g, bt):
+    """The gamma and beta ``F.layer_norm`` takes beside bf16 rows: fp32,
+    or bf16 where PyTorch refuses fp32 ones there (the yardstick's choice
+    only; the kernel takes fp32)."""
+    import torch
+    import torch.nn.functional as F
+    try:
+        F.layer_norm(xb[:1], (xb.shape[1],), g, bt, 1e-5)
+    except RuntimeError:
+        return g.to(torch.bfloat16), bt.to(torch.bfloat16)
+    return g, bt
+
+
+def sdpa_call(q, k, v, causal: bool):
+    """A call of ``F.scaled_dot_product_attention`` computing what
+    ``flash_attention`` computes on these operands, on PyTorch's
+    FlashAttention backend (its math backend would hold every score):
+    with ``enable_gqa`` where that backend takes it, else over k and v
+    repeated to q's heads beforehand."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call(kk, vv, **kw):
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(q, kk, vv,
+                                                  is_causal=causal, **kw)
+    if q.shape[1] == k.shape[1]:
+        return lambda: call(k, v)
+    try:
+        call(k, v, enable_gqa=True)
+        return lambda: call(k, v, enable_gqa=True)
+    except RuntimeError:
+        r = q.shape[1] // k.shape[1]
+        kr, vr = (t.repeat_interleave(r, dim=1) for t in (k, v))
+        return lambda: call(kr, vr)
+
+
 def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
@@ -1016,12 +1129,47 @@ def path_launches(cfg) -> tuple[dict, dict, str]:
     return dict(steps), prefill, "x (" + "; ".join(why) + ")"
 
 
+def encdec_launches(cfg) -> tuple[dict, dict, str]:
+    """Kernel launches of an encoder-decoder's prefill and of each decode
+    step, with their derivation: two layernorms an encoder layer and its
+    final norm, three a decoder layer and its final norm; attention once
+    an encoder layer and twice a decoder layer (self, cross).  A decode
+    step runs the decoder alone."""
+    E, D = cfg.encoder_layers, cfg.n_layers
+    prefill = {"sfu_layernorm": 2 * E + 1 + 3 * D + 1,
+               "flash_attention": E + 2 * D}
+    step = {"sfu_layernorm": 3 * D + 1, "flash_attention": 2 * D}
+    return prefill, step, (
+        f"prefill sfu_layernorm {prefill['sfu_layernorm']} = 2 x {E} encoder"
+        f" layers + 1 + 3 x {D} decoder layers + 1, flash_attention "
+        f"{prefill['flash_attention']} = {E} encoder + {D} self + {D} cross;"
+        f" a decode step sfu_layernorm {step['sfu_layernorm']}, "
+        f"flash_attention {step['flash_attention']} = {D} self + {D} cross")
+
+
 def train_launches(tcfg) -> tuple[dict, str]:
-    """Kernel launches a train step of a decoder, with their
-    derivation: the forward's (``path_launches``, ``ssd`` included),
-    each layer's again in the remat recompute (all but the final
-    norm, which runs outside it), and one backward a forward call
-    outside the recompute."""
+    """Kernel launches a train step, with their derivation: the forward's
+    (``path_launches``, ``ssd`` included; an encoder-decoder's prefill,
+    ``encdec_launches``), each layer's again in the remat recompute (all
+    but the final norms, which run outside it), and one backward a
+    forward call outside the recompute."""
+    if tcfg.is_encdec:
+        E, D = tcfg.encoder_layers, tcfg.n_layers
+        norms, attn = 2 * E + 3 * D, E + 2 * D
+        again = tcfg.remat
+        per_step = {"sfu_layernorm": norms + 2 + again * norms,
+                    "layernorm_bwd": norms + 2,
+                    "flash_attention": attn * (1 + again),
+                    "flash_attention_bwd": attn}
+        return per_step, (
+            f"sfu_layernorm {per_step['sfu_layernorm']} = ({2 * E} encoder "
+            f"norms + 1 final encoder norm + {3 * D} decoder norms + 1 final "
+            f"norm) in the forward" + (f" + {norms} in the remat recompute"
+                                       if again else "")
+            + f"; layernorm_bwd {norms + 2}; flash_attention "
+            f"{per_step['flash_attention']} = ({E} encoder + {D} self + {D} "
+            f"cross){' x 2 (forward, recompute)' if again else ''}; "
+            f"flash_attention_bwd {attn}")
     steps, prefill, why = path_launches(tcfg)
     norm = "sfu_layernorm" if tcfg.norm_kind == "layernorm" \
         else "rmsnorm"
@@ -1619,24 +1767,29 @@ def examples_phase(counters, launches, zero_counts, smi) -> None:
 
 def long_phase(counters, launches, zero_counts, smi) -> None:
     """The reference's assigned sequence lengths on the card (see
-    ``LONG_*``), a cell at a time: L1 qwen3-4b's prefill_32k and
-    decode_32k, L2 mamba2-2.7b's long_500k, L3 both archs' train_4k,
-    batches cut to fit.  The main paths' launches, each counted from 0,
-    are added to ``launches``."""
+    ``LONG_*``), a cell at a time, batches cut to fit: the kernels alone at
+    the cells' shapes; L1 qwen3-4b's prefill_32k and decode_32k, L4-L7
+    the other dense archs', L8 whisper-medium's; L2 mamba2-2.7b's
+    long_500k; L3 train_4k (qwen3-4b's cut, mamba2-2.7b, whisper-medium,
+    qwen2-vl-2b).  The main paths' launches, each counted from 0, are
+    added to ``launches``."""
     import dataclasses
 
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
+    from repro_torch import tree as T
     from repro_torch.configs import get_config
-    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.configs.shapes import SHAPES, enc_len
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import (decode_plan,
                                                      flash_attention)
+    from repro_torch.kernels.sfu import layernorm_rows, rmsnorm_rows
     from repro_torch.kernels.ssd import ssd
     from repro_torch.launch.serve import BatchServer, Request
     from repro_torch.launch.train import TrainOptions, Trainer
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.optim import OptConfig
 
     t_phase = time.perf_counter()
@@ -1644,6 +1797,10 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     GiB = 2 ** 30
     sms = _build.sm_count(dev)
+    fp32_peak, bf16_peak, bw_peak = peaks(torch.cuda.get_device_name(0))
+    note32 = (f"prefill_32k + decode_32k, batch {LONG_BATCH} of "
+              f"{SHAPES['prefill_32k'].global_batch} / "
+              f"{SHAPES['decode_32k'].global_batch}, full depth")
 
     def fresh() -> int:
         """Returns the cache to the card and restarts the peak; the bytes
@@ -1705,22 +1862,25 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
         return server, torch.tensor([outs[i] for i in range(len(prompts))],
                                     device=dev)
 
-    def forced(server, tokens, served, cfg=None, params=None, plain=False):
+    def forced(server, tokens, served, cfg=None, params=None, plain=False,
+               frames=None):
         """``tokens`` prefilled into a cache of the prompt and LONG_NEW
-        more rows, then a decode step fed each column of ``served`` but
+        more rows (an encoder-decoder's after its encoder over
+        ``frames``), then a decode step fed each column of ``served`` but
         the last, through ``server``'s weights (or ``cfg`` and
         ``params``) on the kernels or the plain versions: each pass's
         logits, finite and of the right shape.  One cache, freed after."""
         cfg, params = cfg or server.cfg, params or server.params
+        model, head = (encdec, (frames,)) if cfg.is_encdec else (lm, ())
         out, cache, plen = [], None, tokens.shape[1]
         with torch.no_grad():
             for t in range(served.shape[1]):
                 if t == 0:
-                    logits, cache = lm.prefill(cfg, params, tokens,
-                                               max_len=plen + LONG_NEW,
-                                               plain=plain)
+                    logits, cache = model.prefill(cfg, params, *head, tokens,
+                                                  max_len=plen + LONG_NEW,
+                                                  plain=plain)
                 else:
-                    logits, cache = lm.decode_step(
+                    logits, cache = model.decode_step(
                         cfg, params, cache, served[:, t - 1:t], plen + t - 1,
                         plain=plain)
                 require(bool(torch.isfinite(logits).all()) and logits.shape
@@ -1731,58 +1891,194 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
         del cache
         return out
 
-    def attention_32k() -> None:
-        # flash_attention alone at L1's shapes: the prefill of LONG_BATCH
-        # prompts, causal, against the chunked plain version the model's
-        # plain path takes there; decode over the first prompt's rows + 1
-        # and over the whole cache (the plan's splits and their combine)
-        cfg = get_config(SERVE_ARCH)
-        B, Hq, Hkv, D = (LONG_BATCH, cfg.n_heads, cfg.n_kv_heads,
-                         cfg.head_dim)
+    def timed(name, shape, kernel, plain_ms, library, flops, nbytes, peak):
+        return time_row(smi, bw_peak, name, shape, kernel, plain_ms, library,
+                        flops, nbytes, peak, iters=LONG_TIME_ITERS)
+
+    def prefill_alone(label, B, Hq, Hkv, S, D, causal, dt) -> None:
+        """flash_attention's prefill (B, Hq, S, D) over (B, Hkv, S) in
+        ``dt`` against the chunked plain version the model's plain path
+        takes at this length, within LONG_ATTN_RTOL by relative L2 (over
+        thousands of keys an output is of order 1/sqrt(keys) of v, so an
+        absolute tolerance would not see a fault); each timed once by
+        CUDA events, and bf16 by ``cuda_ms`` beside SDPA and its bound."""
+        fresh()
+        name = str(dt)[6:]
+        tol = LONG_ATTN_RTOL[name]
+        q = randn(B, Hq, S, D, dtype=dt)
+        k, v = (randn(B, Hkv, S, D, dtype=dt) for _ in range(2))
+        got, kernel_ms = event_ms(torch, lambda: flash_attention(
+            q, k, v, causal=causal))
+        want, plain_ms = event_ms(torch, lambda: ref.mha_attention_chunked(
+            q, k, v, causal=causal))
+        rel, scale = rel_l2(got, want), float(want.float().abs().max())
+        del got, want
+        shape = (f"{label} prefill ({B}, {Hq}, {S}, {D}) over ({B}, {Hkv}, "
+                 f"{S}) {'causal' if causal else 'non-causal'} {name}")
+        print(f"[long] flash_attention {shape} against "
+              f"ref.mha_attention_chunked: rel L2 {rel:.3g} (limit {tol}; "
+              f"max |out| {scale:.3g}); one call's device ms: kernel "
+              f"{kernel_ms:.2f}, plain {plain_ms:.2f}")
+        require(rel <= tol, f"flash_attention {shape}: rel L2 {rel} over "
+                f"{tol}")
+        if dt == torch.bfloat16:
+            pairs = causal_pairs(S, S) if causal else S * S
+            timed("flash_attention", shape, lambda: flash_attention(
+                q, k, v, causal=causal), plain_ms, sdpa_call(q, k, v, causal),
+                4 * D * B * Hq * pairs, 2 * (2 * q.numel() + 2 * k.numel()),
+                bf16_peak)
+        del q, k, v
+
+    def decode_alone(label, B, Hq, Hkv, cache, rows, D, dt) -> None:
+        """flash_attention's decode of one query row a head over the first
+        r of ``cache`` KV rows, for each r of ``rows``, against
+        ``ref.mha_attention`` within LONG_ATTN_RTOL by relative L2; over
+        the last of ``rows`` without its plan's first split it must sit
+        outside that bound (the plan's splits and their combine carry the
+        whole); bf16 timed at the last beside SDPA and its bound."""
+        fresh()
+        name = str(dt)[6:]
+        tol = LONG_ATTN_RTOL[name]
+        q = randn(B, Hq, 1, D, dtype=dt)
+        k, v = (randn(B, Hkv, cache, D, dtype=dt) for _ in range(2))
+        rel = {}
+        for r in rows:
+            want, plain_ms = event_ms(torch, lambda: ref.mha_attention(
+                q, k, v, causal=False, kv_len=r))
+            rel[r] = rel_l2(flash_attention(q, k, v, causal=False, kv_len=r),
+                            want)
+        r = rows[-1]
+        plan = decode_plan(r, B * Hkv, sms)
+        kd, vd, left = drop_first_split(q, k, v, r, sms)
+        dropped = rel_l2(flash_attention(q, kd, vd, causal=False,
+                                         kv_len=left), want)
+        del kd, vd, want
+        shape = (f"{label} decode ({B}, {Hq}, 1, {D}) over {r} of ({B}, "
+                 f"{Hkv}, {cache}) rows {name} ({plan.splits} splits of "
+                 f"{plan.rows_per_split})")
+        print(f"[long] flash_attention {shape} against ref.mha_attention: "
+              f"rel L2 " + ", ".join(f"over {n} rows {e:.3g}"
+                                     for n, e in rel.items())
+              + f" (limit {tol}); planted, without its first split: "
+              f"{dropped:.3g} (must exceed {tol})")
+        require(max(rel.values()) <= tol, f"flash_attention {shape}: rel L2 "
+                f"{rel} over {tol}")
+        require(dropped > tol, f"flash_attention {shape}: a dropped split "
+                f"sits {dropped} from the whole, within {tol}")
+        if dt == torch.bfloat16:
+            timed("flash_attention", shape, lambda: flash_attention(
+                q, k, v, causal=False, kv_len=r), plain_ms,
+                sdpa_call(q, k[:, :, :r], v[:, :, :r], False),
+                4 * D * B * Hq * r, 2 * (2 * q.numel() + 2 * B * Hkv * r * D),
+                bf16_peak)
+        del q, k, v
+
+    def norm_alone(kind, R, N, dt, label) -> None:
+        """``rmsnorm`` (+gamma) or ``sfu_layernorm`` (+gamma +beta) on (R, N)
+        rows of ``dt`` against the plain version, as the card's norm checks
+        hold it (fp32 rtol 1e-4 / atol 1e-5, bf16 one ulp), the same bits on
+        a repeated call; bf16 timed beside F.rms_norm / F.layer_norm and
+        its bound."""
+        fresh()
+        x = randn(R, N, dtype=dt, scale=2.0)
+        g, bt = randn(N), randn(N)
+        if kind == "rmsnorm":
+            fn, plain, args, flops = rmsnorm_rows, ref.rmsnorm_rows, (g,), 4
+            gl = g.to(dt)
+            library = lambda: F.rms_norm(x, (N,), gl, 1e-6)  # noqa: E731
+        else:
+            fn, plain, args, flops = layernorm_rows, ref.layernorm_rows, \
+                (g, bt), 7
+            gb = ln_affine(x, g, bt)
+            library = lambda: F.layer_norm(x, (N,), *gb, 1e-5)  # noqa: E731
+        got, again = fn(x, *args), fn(x, *args)
+        want, plain_ms = event_ms(torch, lambda: plain(x, *args))
+        rtol, atol = (1e-4, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-6)
+        err, same = max_err(got, want), torch.equal(got, again)
+        ok = got.dtype == dt and same and close(got, want, rtol, atol)
+        shape = (f"{R}x{N} {str(dt)[6:]} +gamma"
+                 f"{' +beta' if kind == 'sfu_layernorm' else ''} ({label})")
+        del got, again, want
+        print(f"[long] {kind} {shape}: max err {err:.3g} against the plain "
+              f"version (rtol {rtol:.3g}, atol {atol}), a repeated call "
+              f"{'equal' if same else 'different'}")
+        require(ok, f"{kind} {shape}: max err {err}, repeat equal {same}")
+        if dt == torch.bfloat16:
+            timed(kind, shape, lambda: fn(x, *args), plain_ms, library,
+                  flops * x.numel(),
+                  2 * x.numel() * x.element_size() + 4 * len(args) * N,
+                  fp32_peak)
+        del x
+
+    def kernels_alone() -> None:
+        # flash_attention alone at L1's and L4-L8's shapes (a prefill of
+        # LONG_BATCH prompts, a decode over the cache's rows past the
+        # prompt), then the norms on the rows of those prefills
+        qcfg, wcfg = get_config(SERVE_ARCH), get_config(WHISPER_ARCH)
+        icfg, q15 = get_config("internlm2-20b"), get_config("qwen1.5-4b")
+        B, S, M = LONG_BATCH, LONG_PROMPT, LONG_MAX_LEN
         for dt in (torch.bfloat16, torch.float32):
+            for cfg, causal in ((qcfg, True), (wcfg, False), (icfg, True),
+                                (q15, True)):
+                prefill_alone(cfg.name + (" encoder and cross" if not causal
+                                          else ""), B, cfg.n_heads,
+                              cfg.n_kv_heads, S, cfg.head_dim, causal, dt)
+            for cfg in (qcfg, q15):
+                decode_alone(cfg.name, B, cfg.n_heads, cfg.n_kv_heads, M,
+                             (S + 1, M), cfg.head_dim, dt)
+            decode_alone(f"{wcfg.name} cross", B, wcfg.n_heads,
+                         wcfg.n_kv_heads, S, (S,), wcfg.head_dim, dt)
+            for kind, arch in (("sfu_layernorm", "nemotron-4-15b"),
+                               ("sfu_layernorm", WHISPER_ARCH),
+                               ("rmsnorm", "internlm2-20b"),
+                               ("rmsnorm", MROPE_ARCH)):
+                norm_alone(kind, B * S, get_config(arch).d_model, dt, arch)
+
+    def long_prompts(cfg) -> list:
+        return [np.random.default_rng(i).integers(
+            0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
+            for i in range(LONG_BATCH)]
+
+    def kv_cache_bytes(cfg, rows: int) -> int:
+        """Bytes of the self-attention k and v caches of LONG_BATCH rows
+        in bf16."""
+        attn = sum(cfg.pattern[i % cfg.pattern_len].mixer == "attn"
+                   for i in range(cfg.n_layers))
+        return (2 * attn * LONG_BATCH * cfg.n_kv_heads * cfg.kv_cache_repeat
+                * rows * cfg.head_dim * 2)
+
+    def shallow(label, cut, params, tokens, served, frames=None) -> None:
+        """``cut`` on ``params`` (the served weights' first layers)
+        teacher-forced on the served tokens: bf16, the kernels against the
+        plain versions within SERVE_RTOL at every pass; fp32 compute on the
+        same weights, the prefill and LONG_FP32_STEPS decode steps, the
+        kernels against the plain versions within FP32_DECODE_TOL x
+        max|logit| at every pass."""
+        def run(c, plain, steps):
             fresh()
-            tol, name = LONG_ATTN_RTOL[str(dt)[6:]], str(dt)[6:]
-            q = randn(B, Hq, LONG_PROMPT, D, dtype=dt)
-            k, v = (randn(B, Hkv, LONG_PROMPT, D, dtype=dt)
-                    for _ in range(2))
-            t0 = time.perf_counter()
-            got = flash_attention(q, k, v, causal=True)
-            torch.cuda.synchronize()
-            kernel_s, t0 = time.perf_counter() - t0, time.perf_counter()
-            want = ref.mha_attention_chunked(q, k, v, causal=True)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-            rel = {"prefill": rel_l2(got, want)}
-            scale = float(want.float().abs().max())
-            del q, k, v, got, want
-            q = randn(B, Hq, 1, D, dtype=dt)
-            k, v = (randn(B, Hkv, LONG_MAX_LEN, D, dtype=dt)
-                    for _ in range(2))
-            for rows in (LONG_PROMPT + 1, LONG_MAX_LEN):
-                want = ref.mha_attention(q, k, v, causal=False, kv_len=rows)
-                rel[f"decode {rows}"] = rel_l2(flash_attention(
-                    q, k, v, causal=False, kv_len=rows), want)
-            plan = decode_plan(LONG_MAX_LEN, B * Hkv, sms)
-            kd, vd, rows = drop_first_split(q, k, v, LONG_MAX_LEN, sms)
-            dropped = rel_l2(flash_attention(q, kd, vd, causal=False,
-                                             kv_len=rows), want)
-            print(f"[long] flash_attention {name} at {cfg.name}'s widths: "
-                  f"prefill ({B}, {Hq}, {LONG_PROMPT}, {D}) over ({B}, "
-                  f"{Hkv}, {LONG_PROMPT}) causal against "
-                  f"ref.mha_attention_chunked, decode over {LONG_PROMPT + 1}"
-                  f" and {LONG_MAX_LEN} of {LONG_MAX_LEN} rows ({plan.splits}"
-                  f" splits of {plan.rows_per_split}) against "
-                  f"ref.mha_attention: rel L2 " + ", ".join(
-                      f"{k_} {r:.3g}" for k_, r in rel.items())
-                  + f" (limit {tol}; the prefill's max |out| {scale:.3g}); "
-                  f"planted, decode without its first split: {dropped:.3g} "
-                  f"(must exceed {tol}); host s prefill kernel "
-                  f"{kernel_s:.3f}, plain {plain_s:.2f}")
-            require(max(rel.values()) <= tol, f"flash_attention {name} at "
-                    f"32k: rel L2 {rel} over {tol}")
-            require(dropped > tol, f"flash_attention {name}: a dropped split "
-                    f"sits {dropped} from the whole, within {tol}")
-            del q, k, v, kd, vd, want
+            return forced(None, tokens, served[:, :steps], cfg=c,
+                          params=params, plain=plain, frames=frames)
+
+        bf16 = [rel_l2(k, p) for k, p in zip(run(cut, False, LONG_NEW),
+                                            run(cut, True, LONG_NEW))]
+        c32 = dataclasses.replace(cut, compute_dtype="float32")
+        steps = LONG_FP32_STEPS + 1
+        fp32 = [max_err(k, p) / float(p.abs().max()) for k, p in zip(
+            run(c32, False, steps), run(c32, True, steps))]
+        depth = (f"{cut.encoder_layers} + {cut.n_layers}" if cut.is_encdec
+                 else f"{cut.n_layers}")
+        print(f"[long] {label} cut to its first {depth} layers, teacher-"
+              f"forced on the served tokens, kernels vs plain versions: bf16 "
+              f"logits rel L2 prefill {bf16[0]:.4g}, decode max "
+              f"{max(bf16[1:]):.4g} (step {int(np.argmax(bf16[1:])) + 1}; "
+              f"limit {SERVE_RTOL}); fp32 compute on the same weights, "
+              f"prefill + {LONG_FP32_STEPS} decode steps: max |err| / "
+              f"max|logit| prefill {fp32[0]:.3g}, decode max "
+              f"{max(fp32[1:]):.3g} (limit {FP32_DECODE_TOL})")
+        require(max(bf16) <= SERVE_RTOL, f"{label} cut to {depth} layers: "
+                f"bf16 logits rel L2 {bf16}")
+        require(max(fp32) <= FP32_DECODE_TOL, f"{label} cut to {depth} "
+                f"layers: fp32 max |err| / max|logit| {fp32}")
 
     scfg = get_config(SSM_ARCH)
     S = LONG_SSM_PROMPT
@@ -1798,15 +2094,10 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
                 and LONG_PROMPT >= cfg.attn_chunk_threshold
                 and LONG_PROMPT % 1024 == 0,
                 f"{LONG_PROMPT} is no prompt of prefill_32k's chunked path")
-        note = (f"prefill_32k + decode_32k, batch {LONG_BATCH} of "
-                f"{SHAPES['prefill_32k'].global_batch} / "
-                f"{SHAPES['decode_32k'].global_batch}, full depth")
-        prompts = [np.random.default_rng(i).integers(
-            0, cfg.vocab_size, LONG_PROMPT).astype(np.int32)
-            for i in range(LONG_BATCH)]
+        note = note32
+        prompts = long_prompts(cfg)
         server, served = server_for(cfg, LONG_MAX_LEN, prompts, note)
-        kv_bytes = (2 * cfg.n_layers * LONG_BATCH * cfg.n_kv_heads
-                    * cfg.kv_cache_repeat * LONG_MAX_LEN * cfg.head_dim * 2)
+        kv_bytes = kv_cache_bytes(cfg, LONG_MAX_LEN)
         tokens = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
         # teacher-forced on the served tokens: the kernels, the plain versions
         # and fp32 arithmetic on the same bf16 weights through the plain
@@ -1878,15 +2169,116 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
         n = LONG_SHALLOW_LAYERS
         cut = dataclasses.replace(cfg, n_layers=n)
         cut_params = {**server.params, "layers": server.params["layers"][:n]}
-        shallow = [rel_l2(k, p) for k, p in zip(
+        cut_rel = [rel_l2(k, p) for k, p in zip(
             *(forced(server, tokens, served, cfg=cut, params=cut_params,
                      plain=plain) for plain in (False, True)))]
         print(f"[long] {cfg.name} [{note}] cut to its first {n} layers: "
               f"kernels vs plain versions, teacher-forced, logits rel L2 "
-              f"prefill {shallow[0]:.4g}, decode max {max(shallow[1:]):.4g} "
+              f"prefill {cut_rel[0]:.4g}, decode max {max(cut_rel[1:]):.4g} "
               f"(limit {SERVE_RTOL})")
-        require(max(shallow) <= SERVE_RTOL, f"{cfg.name} [{note}] cut to "
-                f"{n} layers: logits rel L2 {shallow}")
+        require(max(cut_rel) <= SERVE_RTOL, f"{cfg.name} [{note}] cut to "
+                f"{n} layers: logits rel L2 {cut_rel}")
+
+    def serve_archs() -> None:
+        # L4-L7: prefill_32k and decode_32k of the other dense archs at full
+        # width and depth, one server at a time; then the served weights'
+        # first LONG_SHALLOW_LAYERS layers, the rest freed
+        for arch in DENSE_ARCHS:
+            cfg = get_config(arch)
+            server, served = server_for(cfg, LONG_MAX_LEN, long_prompts(cfg),
+                                        note32)
+            tokens = torch.from_numpy(np.stack(long_prompts(cfg)).astype(
+                np.int64)).to(dev)
+            print(f"[long] {cfg.name} [{note32}]: the KV cache "
+                  f"{kv_cache_bytes(cfg, LONG_MAX_LEN) / GiB:.3f} GiB "
+                  f"({LONG_MAX_LEN} rows, heads {cfg.n_heads}/"
+                  f"{cfg.n_kv_heads})")
+            n = LONG_SHALLOW_LAYERS
+            params = {**server.params, "layers": server.params["layers"][:n]}
+            del server
+            shallow(f"{cfg.name} [{note32}]", dataclasses.replace(
+                cfg, n_layers=n), params, tokens, served)
+            del params
+
+    def serve_whisper() -> None:
+        # L8: whisper-medium's prefill_32k and decode_32k through encdec (no
+        # server, as in the reference): its encoder over as many stub
+        # frames as the cell's sequence, LONG_BATCH prompts, greedy tokens;
+        # then its first LONG_SHALLOW_LAYERS encoder and decoder layers
+        cfg = get_config(WHISPER_ARCH)
+        frames_n = enc_len(cfg, SHAPES["prefill_32k"])
+        require(frames_n == LONG_PROMPT >= cfg.attn_chunk_threshold,
+                f"{frames_n} frames: not prefill_32k's chunked path")
+        before = fresh()
+        t0 = time.perf_counter()
+        params = encdec.init_cast(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        cast = sum(t.numel() * t.element_size() for t in T.leaves(params))
+        item = 4 * max(cfg.vocab_size * cfg.d_model, *(
+            sum(t.numel() for t in T.leaves(lp))
+            for lp in params["encoder"] + params["decoder"]))
+        print(f"[long] {cfg.name} [{note32}]: drawn and cast in {load_s:.2f}"
+              f" s, load peak {peak / GiB:.3f} GiB (limit "
+              f"{(cast + item + GiB) / GiB:.3f}: the cast parameters + the "
+              f"largest fp32 item + 1 GiB)")
+        require(peak <= cast + item + GiB, f"{cfg.name}: load peak {peak} "
+                f"over {cast + item + GiB}")
+        frames = torch.randn(
+            (LONG_BATCH, frames_n, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0)).to(
+                torch.bfloat16)
+        tokens = torch.from_numpy(np.stack(long_prompts(cfg)).astype(
+            np.int64)).to(dev)
+
+        def decode(cache, first):
+            out = [first]
+            for t in range(1, LONG_NEW):
+                logits, cache = encdec.decode_step(
+                    cfg, params, cache, out[-1][:, None], LONG_PROMPT + t - 1)
+                out.append(logits.argmax(-1))
+            return torch.stack(out, 1)
+
+        # warm-up: cuBLAS's plans, the allocator
+        _, cache = encdec.prefill(cfg, params, frames[:, :64], tokens[:, :64],
+                                  max_len=65)
+        encdec.decode_step(cfg, params, cache, tokens[:, 64:65], 64)
+        per_prefill, per_step, why = encdec_launches(cfg)
+        want_pre = dict.fromkeys(counters, 0) | per_prefill
+        want_dec = dict.fromkeys(counters, 0) | {
+            k: (LONG_NEW - 1) * n for k, n in per_step.items()}
+        base = fresh()
+        (logits, cache), pre, pre_s = counted(lambda: encdec.prefill(
+            cfg, params, frames, tokens, max_len=LONG_MAX_LEN))
+        served, dec, dec_s = counted(lambda: decode(cache, logits.argmax(-1)))
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in cache.values())
+        del cache, logits
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[long] {cfg.name} [{note32}]: {LONG_BATCH} x {frames_n} stub "
+              f"frames and {LONG_BATCH} x {LONG_PROMPT} prompt tokens, "
+              f"{LONG_NEW} new: prefill {pre_s:.4f} s (the encoder "
+              f"included), decode {LONG_BATCH * (LONG_NEW - 1) / dec_s:.2f} "
+              f"tok/s ({LONG_BATCH} x {LONG_NEW - 1} tokens; host clock "
+              f"around synchronize); peak {peak / GiB:.2f} GiB "
+              f"({base / GiB:.2f} held before); the self and cross caches "
+              f"{cache_bytes / GiB:.3f} GiB; launches prefill {pre}, decode "
+              f"steps {dec}, expected {why}, {LONG_NEW - 1} decode steps on "
+              f"{smi}")
+        require(pre == want_pre and dec == want_dec, f"{cfg.name}: launches "
+                f"{pre} / {dec} differ from {want_pre} / {want_dec}")
+        require(served.shape == (LONG_BATCH, LONG_NEW) and bool(
+            ((served >= 0) & (served < cfg.vocab_size)).all()),
+            f"{cfg.name}: served tokens malformed")
+        n = LONG_SHALLOW_LAYERS
+        cut_params = {**params, "encoder": params["encoder"][:n],
+                      "decoder": params["decoder"][:n]}
+        del params
+        shallow(f"{cfg.name} [{note32}]", dataclasses.replace(
+            cfg, n_layers=n, encoder_layers=n), cut_params, tokens, served,
+            frames)
 
     def serve_ssm() -> None:
         # L2: long_500k, mamba2-2.7b at full width and depth; first its ssd
@@ -1906,10 +2298,8 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
             atol = 1e-4
             what = (f"ssd {(1, S, H, P, G, N)} chunk 128 {str(dt)[6:]}, from "
                     f"{'an initial state' if init else 'zero'}")
-            t0 = time.perf_counter()
-            y, st = ssd(x, a, b, c, chunk=128, initial_state=s0)
-            torch.cuda.synchronize()
-            kernel_s, t0 = time.perf_counter() - t0, time.perf_counter()
+            (y, st), kernel_ms = event_ms(torch, lambda: ssd(
+                x, a, b, c, chunk=128, initial_state=s0))
             worst = 0.0
             for s, yw, stw in ref.ssd_chained(
                     x, a, b, c, segment=LONG_SSD_SEGMENT, chunk=128,
@@ -1918,16 +2308,27 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
                 require(close(yk, yw, rtol, atol), f"{what}: y at {s}: max "
                         f"err {max_err(yk, yw)}")
                 worst = max(worst, max_err(yk, yw))
-            plain_s = time.perf_counter() - t0
             require(close(st, stw, 1e-4, 1e-4), f"{what}: final state max err "
                     f"{max_err(st, stw)}")
+            del y
             print(f"[long] {what} (long_500k at {scfg.name}'s widths): max "
                   f"err y {worst:.3g}, final state {max_err(st, stw):.3g} "
                   f"against ref.ssd_chained over {S // LONG_SSD_SEGMENT} "
                   f"segments of {LONG_SSD_SEGMENT} (limits rtol {rtol:.3g}, "
-                  f"atol {atol}; state 1e-4); host s kernel {kernel_s:.3f}, "
-                  f"plain {plain_s:.2f}; peak "
+                  f"atol {atol}; state 1e-4); one call's device ms: kernel "
+                  f"{kernel_ms:.2f}; peak "
                   f"{torch.cuda.max_memory_allocated() / GiB:.2f} GiB")
+            if dt == torch.bfloat16 and not init:
+                def chained():
+                    # the plain version alone, each segment dropped after
+                    for _ in ref.ssd_chained(x, a, b, c, chunk=128,
+                                             segment=LONG_SSD_SEGMENT):
+                        pass
+                _, plain_ms = event_ms(torch, chained)
+                timed("ssd", f"{(1, S, H, P, G, N)} chunk 128 bf16 "
+                      f"(long_500k)", lambda: ssd(x, a, b, c, chunk=128),
+                      plain_ms, None, *ssd_work(1, S, H, P, G, N, 128, 2),
+                      bf16_peak)
 
         for dt in (torch.bfloat16, torch.float32):
             for init in (False, True):
@@ -1965,16 +2366,21 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
 
     def train() -> None:
         # L3: train_4k, Trainer on qwen3-4b's training cut, then on
-        # mamba2-2.7b whole (phase 6 holds the backward kernels at these
+        # mamba2-2.7b, whisper-medium (as many frames as tokens a row) and
+        # qwen2-vl-2b whole (phase 6 holds the backward kernels at these
         # shapes)
         cut = dataclasses.replace(get_config(TRAIN_ARCH),
                                   n_layers=TRAIN_LAYERS)
-        for arch, tcfg in ((TRAIN_ARCH, cut), (SSM_ARCH, scfg)):
+        for arch, tcfg in ((TRAIN_ARCH, cut), (SSM_ARCH, scfg),
+                           (WHISPER_ARCH, get_config(WHISPER_ARCH)),
+                           (MROPE_ARCH, get_config(MROPE_ARCH))):
             rows = LONG_TRAIN_BATCH[arch]
             shape = dataclasses.replace(SHAPES["train_4k"], global_batch=rows)
+            depth = (f"{tcfg.encoder_layers} + {tcfg.n_layers}"
+                     if tcfg.is_encdec else
+                     f"{tcfg.n_layers} of {get_config(arch).n_layers}")
             note = (f"train_4k, batch {rows} of "
-                    f"{SHAPES['train_4k'].global_batch}, {tcfg.n_layers} of "
-                    f"{get_config(arch).n_layers} layers")
+                    f"{SHAPES['train_4k'].global_batch}, {depth} layers")
             per_step, why = train_launches(tcfg)
             want = dict.fromkeys(counters, 0) | {
                 k: LONG_TRAIN_STEPS * n for k, n in per_step.items()}
@@ -2014,9 +2420,13 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
                     f"{peak / 1e9:.2f} GB (limit {CARD_TRAIN_GB} GB)")
             del trainer, params, opt_state
 
-    for cell in (attention_32k, serve_dense, serve_ssm, train):
+    for cell in (kernels_alone, serve_dense, serve_archs, serve_whisper,
+                 serve_ssm, train):
+        t_cell = time.perf_counter()
         cell()
         fresh()
+        print(f"[long] {cell.__name__}: {time.perf_counter() - t_cell:.1f} s "
+              f"on {smi}")
     print(f"[long] phase: {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
@@ -4082,19 +4492,12 @@ def main() -> None:
         t0 = time.perf_counter()
         served, pre, dec = generate(new)
         gen_s = time.perf_counter() - t0
-        want_pre = dict.fromkeys(counters, 0) | {
-            "sfu_layernorm": 2 * Le + 1 + 3 * Ld + 1,
-            "flash_attention": Le + 2 * Ld}
+        per_prefill, per_step, why = encdec_launches(cfg)
+        want_pre = dict.fromkeys(counters, 0) | per_prefill
         want_dec = dict.fromkeys(counters, 0) | {
-            "sfu_layernorm": (new - 1) * (3 * Ld + 1),
-            "flash_attention": (new - 1) * 2 * Ld}
-        print(f"[serve] {cfg.name} expected launches: prefill "
-              f"sfu_layernorm {want_pre['sfu_layernorm']} = 2 x {Le} encoder "
-              f"layers + 1 + 3 x {Ld} decoder layers + 1, flash_attention "
-              f"{want_pre['flash_attention']} = {Le} encoder + {Ld} self + "
-              f"{Ld} cross; {new - 1} decode steps x (sfu_layernorm "
-              f"{3 * Ld + 1}, flash_attention {2 * Ld} = {Ld} self + {Ld} "
-              f"cross); the other kernels 0")
+            k: (new - 1) * n for k, n in per_step.items()}
+        print(f"[serve] {cfg.name} expected launches: {why}, {new - 1} "
+              f"decode steps; the other kernels 0")
         print(f"[serve] launches over {cfg.name}'s prefill: {pre}; its "
               f"decode steps: {dec}")
         require(pre == want_pre and dec == want_dec,
@@ -4418,20 +4821,31 @@ def main() -> None:
                   f"{str(dt)[6:]} ({arch}'s training attention, GQA "
                   f"{acfg.n_heads // acfg.n_kv_heads}), deterministic: max "
                   f"err {e:.3g}, worst rel L2 {rel:.3g}")
-    # whisper-medium's training attention (D 64, 16 heads, 4 x 512 tokens:
-    # the encoder's full and the decoder's causal self-attention, its
-    # cross-attention over 512 frames) and the served cross shape (a
-    # 64-token prompt over 1,500 frames)
-    for shape, causal in (((TRAIN_BATCH, wcfg.n_heads, wcfg.n_kv_heads,
-                            TRAIN_SEQ, TRAIN_SEQ, wcfg.head_dim), True),
-                          ((TRAIN_BATCH, wcfg.n_heads, wcfg.n_kv_heads,
-                            TRAIN_SEQ, TRAIN_SEQ, wcfg.head_dim), False),
-                          ((WB, wcfg.n_heads, wcfg.n_kv_heads, WP, WF,
-                            wcfg.head_dim), False)):
+    # whisper-medium's training attention (D 64, 16 heads, 4 x 512 tokens
+    # and 2 x 4,096 at train_4k: the encoder's full and the decoder's causal
+    # self-attention, its cross-attention over as many frames), the served
+    # cross shape (a 64-token prompt over 1,500 frames), and qwen2-vl-2b's
+    # at train_4k (12 query heads over 2)
+    wrows = LONG_TRAIN_BATCH[WHISPER_ARCH]
+    vlcfg = get_config(MROPE_ARCH)
+    for shape, causal, arch in (
+            ((TRAIN_BATCH, wcfg.n_heads, wcfg.n_kv_heads, TRAIN_SEQ,
+              TRAIN_SEQ, wcfg.head_dim), True, WHISPER_ARCH),
+            ((TRAIN_BATCH, wcfg.n_heads, wcfg.n_kv_heads, TRAIN_SEQ,
+              TRAIN_SEQ, wcfg.head_dim), False, WHISPER_ARCH),
+            ((WB, wcfg.n_heads, wcfg.n_kv_heads, WP, WF, wcfg.head_dim),
+             False, WHISPER_ARCH),
+            ((wrows, wcfg.n_heads, wcfg.n_kv_heads, LONG_TRAIN_SEQ,
+              LONG_TRAIN_SEQ, wcfg.head_dim), True, WHISPER_ARCH),
+            ((wrows, wcfg.n_heads, wcfg.n_kv_heads, LONG_TRAIN_SEQ,
+              LONG_TRAIN_SEQ, wcfg.head_dim), False, WHISPER_ARCH),
+            ((LONG_TRAIN_BATCH[MROPE_ARCH], vlcfg.n_heads, vlcfg.n_kv_heads,
+              LONG_TRAIN_SEQ, LONG_TRAIN_SEQ, vlcfg.head_dim), True,
+             MROPE_ARCH)):
         e, rel = check_attention_bwd(*shape, causal, torch.bfloat16)
         errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
         print(f"[train] flash_attention backward {shape} "
-              f"{'causal' if causal else 'full'} bf16 ({WHISPER_ARCH}), "
+              f"{'causal' if causal else 'full'} bf16 ({arch}), "
               f"deterministic: max err {e:.3g}, worst rel L2 {rel:.3g}")
 
     def check_layernorm_bwd(R, N, dt, offset=0) -> tuple[float, float]:
@@ -4969,22 +5383,7 @@ def main() -> None:
         depth = (f"{tcfg.encoder_layers} + {tcfg.n_layers}"
                  if tcfg.is_encdec else f"{tcfg.n_layers}")
         note = f"full width and depth, {depth} layers"
-        if not tcfg.is_encdec:
-            train_run(tcfg, note, *train_launches(tcfg))
-            continue
-        E, D = tcfg.encoder_layers, tcfg.n_layers
-        norms, attn = 2 * E + 3 * D, E + 2 * D
-        per_step = {"sfu_layernorm": 2 * norms + 2,
-                    "layernorm_bwd": norms + 2,
-                    "flash_attention": 2 * attn,
-                    "flash_attention_bwd": attn}
-        why = (f"sfu_layernorm {2 * norms + 2} = ({2 * E} encoder norms "
-               f"+ 1 final encoder norm + {3 * D} decoder norms + 1 final "
-               f"norm) in the forward + {norms} in the remat recompute; "
-               f"layernorm_bwd {norms + 2}; flash_attention {2 * attn} = "
-               f"({E} encoder + {D} self + {D} cross) x 2 (forward, "
-               f"recompute); flash_attention_bwd {attn}")
-        train_run(tcfg, note, per_step, why)
+        train_run(tcfg, note, *train_launches(tcfg))
     # the other dense archs at full width (DENSE_TRAIN_CUTS), one at a time
     for arch in DENSE_TRAIN_ARCHS:
         full = get_config(arch)
@@ -5306,16 +5705,6 @@ def main() -> None:
     # ssd at mamba2-2.7b's prefill (bf16, chunk 128)
     ssd_in = ssd_inputs(*ssm_prefill, torch.bfloat16)
 
-    def ln_affine(xb, g, bt):
-        """The gamma and beta ``F.layer_norm`` takes beside bf16 rows: fp32,
-        or bf16 where PyTorch refuses fp32 ones there (the yardstick's
-        choice only; the kernel takes fp32)."""
-        try:
-            F.layer_norm(xb[:1], (xb.shape[1],), g, bt, 1e-5)
-        except RuntimeError:
-            return g.to(torch.bfloat16), bt.to(torch.bfloat16)
-        return g, bt
-
     def ln_bwd_case(R, N):
         """bf16 rows with fp32 gamma and beta, dy, the forward's mean and
         rstd, and ``F.layer_norm``'s graph on the same rows for its
@@ -5422,25 +5811,7 @@ def main() -> None:
     ops_peak = {"flash_attention": bf16_peak, "ssd": bf16_peak,
                 "flash_attention_bwd": bf16_peak, "ssd_bwd": bf16_peak}
 
-    def report(name, shape, kernel, plain, library, flops, nbytes, peak,
-               before=None):
-        (ms, ms_b2b), (plain_ms, plain_b2b) = (
-            cuda_ms(torch, fn) for fn in (kernel, plain))
-        lib_ms, lib_b2b = cuda_ms(torch, library) if library else (None, None)
-        t_ops, t_bytes = flops / peak, nbytes / bw_peak
-        bound_ms = 1e3 * max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        lib = ("library none" if library is None else
-               f"library {lib_ms:.4f}")
-        lib_b = "" if library is None else f", library {lib_b2b:.4f}"
-        was = ("" if before is None else
-               f" [before the redesign, recorded in PERF.md: {before:.4f}]")
-        print(f"[time] {name} {shape}: device ms: kernel {ms:.4f}{was}, plain "
-              f"{plain_ms:.4f}, {lib}, bound {bound_ms:.4f} ({bound_by}, "
-              f"{flops / 1e9:.4g} GFLOP, {nbytes / 1e6:.4g} MB); "
-              f"back-to-back ms: kernel {ms_b2b:.4f}, plain {plain_b2b:.4f}"
-              f"{lib_b}; on {smi}")
-        return ms, plain_ms, lib_ms, bound_ms, bound_by
+    report = functools.partial(time_row, smi, bw_peak)
 
     # the serving kernels' other shapes, printed only
     for R, N in RMS_SERVING[1:] + RMS_SSM + RMS_WIDE + RMS_VL + RMS_MOE:

@@ -48,12 +48,19 @@ def applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
     return True, ""
 
 
+def enc_len(cfg: ArchConfig, shape: ShapeSpec) -> int:
+    """Encoder frames of an encoder-decoder's cell (the reference's
+    ``_enc_len``): the audio stub's frames scale with the assigned
+    seq_len, so whisper's encoder reads 32,768 frames at prefill_32k."""
+    return shape.seq_len
+
+
 def input_specs(cfg: ArchConfig, shape: ShapeSpec,
                 compute_dtype: torch.dtype | None = None
                 ) -> dict[str, torch.Tensor]:
     """``meta`` stand-ins for every model input of this cell: tokens and
-    labels int32, whisper's frames (B, S, d_model) in the compute dtype;
-    a decode cell takes one token a row."""
+    labels int32, whisper's frames (B, ``enc_len``, d_model) in the
+    compute dtype; a decode cell takes one token a row."""
     B, S = shape.global_batch, shape.seq_len
     cd = compute_dtype or getattr(torch, cfg.compute_dtype)
 
@@ -64,7 +71,7 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec,
         return {"tokens": spec((B, 1))}
     out = {}
     if cfg.is_encdec:
-        out["frames"] = spec((B, S, cfg.d_model), cd)
+        out["frames"] = spec((B, enc_len(cfg, shape), cfg.d_model), cd)
     out["tokens"] = spec((B, S))
     if shape.kind == "train":
         out["labels"] = spec((B, S))

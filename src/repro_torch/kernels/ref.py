@@ -214,12 +214,18 @@ def mha_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _attend(q, k, v, causal: bool, skv: int, offset: int) -> torch.Tensor:
     """``mha_attention`` over KV rows ``[0, skv)``, query row i at
-    position ``i + offset``."""
+    position ``i + offset``.  Where autograd records nothing, the passes
+    over the scores run in place, the masks only over the key columns
+    past ``offset`` (every row sees the earlier ones): the same numbers
+    with one (Sq, skv) tensor live instead of three, and fewer passes (a
+    32k prefill's score chunks are up to 12 GiB)."""
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
     if Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} KV heads")
     group = Hq // Hkv
+    inplace = not (torch.is_grad_enabled()
+                   and (q.requires_grad or k.requires_grad or v.requires_grad))
     qf = q.float() * (1.0 / math.sqrt(D))
     kf = k[:, :, :skv].float().repeat_interleave(group, dim=1)
     vf = v[:, :, :skv].float().repeat_interleave(group, dim=1)
@@ -228,14 +234,24 @@ def _attend(q, k, v, causal: bool, skv: int, offset: int) -> torch.Tensor:
         qi = torch.arange(Sq, device=q.device)[:, None] + offset
         ki = torch.arange(skv, device=q.device)[None, :]
         mask = ki <= qi
-        s = torch.where(mask, s, NEG_INF)
+        seen = max(0, min(skv, offset + 1))
+        s = _keep(s, mask, NEG_INF, seen, inplace)
     m = s.amax(dim=-1, keepdim=True) if skv else s.sum(-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = s.sub_(m).exp_() if inplace else torch.exp(s - m)
     if causal:
-        p = torch.where(mask, p, 0.0)
+        p = _keep(p, mask, 0.0, seen, inplace)
     l = p.sum(dim=-1, keepdim=True)
     out = (p @ vf) / torch.where(l == 0.0, 1.0, l)
     return out.to(q.dtype)
+
+
+def _keep(t, mask, value: float, seen: int, inplace: bool) -> torch.Tensor:
+    """``torch.where(mask, t, value)``; in place, over the columns from
+    ``seen`` on (the mask holds every earlier one)."""
+    if not inplace:
+        return torch.where(mask, t, value)
+    t[..., seen:].masked_fill_(~mask[:, seen:], value)
+    return t
 
 
 def _scores(q, k, causal):

@@ -24,6 +24,7 @@ from torch.distributed.tensor import DTensor
 
 from .. import tree as T
 from ..configs.shapes import ShapeSpec, input_specs
+from ..configs.shapes import enc_len as enc_frames
 from ..convert import resolve_device
 from ..models import encdec, lm
 from ..models.config import ArchConfig
@@ -223,7 +224,8 @@ def make_prefill_step(cfg: ArchConfig, mesh: DeviceMesh, shape: ShapeSpec,
             return lm.prefill(cfg, params, batch["tokens"], plain=plain)
 
     cache_sh, _ = _cache_shardings(cfg, rules, shape.global_batch,
-                                   shape.seq_len, enc_len=shape.seq_len)
+                                   shape.seq_len,
+                                   enc_len=enc_frames(cfg, shape))
     return StepBundle(
         name=f"{cfg.name}:{shape.name}:prefill",
         fn=prefill_step,
@@ -264,7 +266,8 @@ def make_decode_step(cfg: ArchConfig, mesh: DeviceMesh, shape: ShapeSpec,
     st = abstract_state(cfg, mesh, None)
     rules = st["rules"]
     B, S = shape.global_batch, shape.seq_len
-    cache_sh, acache = _cache_shardings(cfg, rules, B, S, enc_len=S)
+    cache_sh, acache = _cache_shardings(cfg, rules, B, S,
+                                        enc_len=enc_frames(cfg, shape))
     model = _model_mod(cfg)
 
     def serve_step(params, cache, tokens, pos):

@@ -1531,3 +1531,68 @@ def test_cuda_ssd_at_131072_positions_matches_the_chained_plain(cuda, tdt):
         torch.testing.assert_close(y[:, s:s + 16384].float(), y_seg.float(),
                                    rtol=rtol, atol=1e-4)
     torch.testing.assert_close(state, st, rtol=1e-4, atol=1e-4)
+
+
+# prefill_32k and decode_32k of the other archs at the kernels, cut in
+# batch and heads: the norms on a prefill's 65,536 rows (nemotron-4-15b's
+# and whisper-medium's layernorm, internlm2-20b's and qwen2-vl-2b's
+# rmsnorm), whisper's non-causal D-64 attention over 32,768 keys, the
+# decode over 32,800 rows at qwen1.5-4b's 40 (batch, KV head) pairs and
+# over whisper's 32,768 cross rows at 32.
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N", [("layernorm", 6144), ("layernorm", 1024),
+                                    ("rmsnorm", 6144), ("rmsnorm", 1536)])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_norms_on_65536_rows(cuda, kind, N, tdt):
+    """The plan's kernel on 65,536 rows, with gamma (and beta), within the
+    plain version's tolerance (bf16: one ulp) and the same bits on a
+    repeated call: every row of the grid written."""
+    x = torch.from_numpy(_np((65536, N), 91, scale=2.0)).to(cuda, tdt)
+    g = torch.from_numpy(_np((N,), 92)).to(cuda)
+    b = torch.from_numpy(_np((N,), 93)).to(cuda)
+    fn, plain, args = ((layernorm_rows, ref.layernorm_rows, (g, b))
+                       if kind == "layernorm"
+                       else (rmsnorm_rows, ref.rmsnorm_rows, (g,)))
+    got, again = fn(x, *args), fn(x, *args)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt and torch.equal(got, again)
+    rtol, atol = _ln_tol(tdt)
+    torch.testing.assert_close(got.float(), plain(x, *args).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_non_causal_d64_over_32k_keys(cuda, tdt):
+    """whisper-medium's encoder and cross-attention prefill at 32,768 frames
+    for one (batch, head): non-causal at D 64 against the chunked plain
+    version the model's plain path takes there."""
+    q, k, v = _qkv((1, 1, 1, 32768, 32768, 64), 94, cuda, tdt)
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = ref.mha_attention_chunked(q, k, v, causal=False)
+    _long_attn_close(got, want, tdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kv_len", [
+    ((2, 20, 20, 1, 32800, 128), 32769), ((2, 20, 20, 1, 32800, 128), 32800),
+    ((2, 16, 16, 1, 32768, 64), 32768)],
+    ids=["qwen1.5-4b-32769", "qwen1.5-4b-32800", "whisper-cross-32768"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_decode_at_40_and_32_pairs(cuda, shape, kv_len,
+                                                        tdt):
+    """Split-KV decode over a 32k cache at qwen1.5-4b's 40 (batch, KV head)
+    pairs (GQA 1) and whisper-medium's 32 cross pairs (D 64), its splits
+    and combine against the plain version; rows past ``kv_len`` are NaN
+    and never read."""
+    B, Hq, Hkv, _, rows, D = shape
+    assert fa.decode_plan(kv_len, B * Hkv, _build.sm_count(cuda)).splits > 1
+    q, k, v = _qkv((B, Hq, Hkv, 1, kv_len, D), 95, cuda, tdt, cache=rows)
+    got = flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    want = ref.mha_attention(q, k, v, causal=False, kv_len=kv_len)
+    _long_attn_close(got, want, tdt)

@@ -390,3 +390,112 @@ def test_prefill_grids_at_prefill_32k_stay_in_the_grid():
     B, Hq, Sq = 2, 32, 32768
     for grid in ((Hq, B, -(-Sq // 64)), (-(-Sq // 64), Hq, B)):
         assert _in_grid_limits(grid) and sorted(grid) == [2, 32, 512]
+
+
+# prefill_32k and decode_32k of the other archs (LONG_* of chip_smoke.py):
+# a batch of 2 prompts of 32,768 tokens, 65,536 rows a norm call, a cache of
+# 32,800 rows; (arch, Hq, Hkv, D, causal) of each prefill's attention
+LONG_ROWS = 2 * 32768
+LONG_PREFILLS = [("whisper-medium", 16, 16, 64, False),
+                 ("internlm2-20b", 48, 8, 128, True),
+                 ("nemotron-4-15b", 48, 8, 128, True),
+                 ("qwen1.5-4b", 20, 20, 128, True),
+                 ("qwen2-vl-2b", 12, 2, 128, True)]
+# (arch, (batch, KV head) pairs, KV rows) of each decode: whisper's
+# cross-attention over 32,768 frames, the self-attention over the cache
+LONG_DECODES = [("whisper-medium", 32, 32768), ("whisper-medium", 32, 32799),
+                ("internlm2-20b", 16, 32800), ("nemotron-4-15b", 16, 32769),
+                ("qwen1.5-4b", 40, 32769), ("qwen1.5-4b", 40, 32800),
+                ("qwen2-vl-2b", 4, 32800)]
+
+
+@pytest.mark.parametrize("arch,Hq,Hkv,D,causal", LONG_PREFILLS,
+                         ids=[a for a, *_ in LONG_PREFILLS])
+def test_prefill_grids_of_the_other_archs_at_32k_stay_in_the_grid(
+        arch, Hq, Hkv, D, causal):
+    """Each arch's heads as its config gives them, and both prefill
+    kernels' grids (as csrc/flash_attention.cu launches them) within
+    CUDA's limits at a batch of 2 over 32,768 rows."""
+    cfg = get_config(arch)
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (Hq, Hkv, D)
+    assert D in fa.HEAD_DIMS and Hq % Hkv == 0
+    # a prefill, not the decode path
+    assert 32768 * (Hq // Hkv) > fa.DECODE_ROWS
+    for grid in ((Hq, 2, -(-32768 // 64)), (-(-32768 // 64), Hq, 2)):
+        assert _in_grid_limits(grid)
+
+
+@pytest.mark.parametrize("arch,pairs,skv", LONG_DECODES,
+                         ids=[f"{a}-{s}" for a, _, s in LONG_DECODES])
+def test_decode_plan_of_the_other_archs_covers_32k_rows_once(arch, pairs,
+                                                             skv):
+    """The split-KV plan over each decode's rows: whole chunks covering
+    them once, a block on every SM (two an SM but for the rounding of a
+    split to whole chunks: qwen2-vl-2b's 4 pairs take 65 splits of 512,
+    260 blocks), the grid within CUDA's limits, and the combine's blocks
+    (one a (batch, query head))."""
+    cfg = get_config(arch)
+    assert pairs == 2 * cfg.n_kv_heads * cfg.kv_cache_repeat
+    plan = fa.decode_plan(skv, pairs, H100_SMS)
+    assert plan.rows_per_split % fa.DECODE_CHUNK == 0
+    assert (plan.splits - 1) * plan.rows_per_split < skv
+    assert plan.splits * plan.rows_per_split >= skv
+    assert plan.combine and pairs * plan.splits > H100_SMS
+    assert pairs * (plan.splits + 1) >= 2 * H100_SMS
+    Hkv = pairs // 2
+    group = cfg.n_heads // cfg.n_kv_heads
+    assert _in_grid_limits((plan.splits, Hkv, 2))
+    assert _in_grid_limits((2 * Hkv * group,))
+
+
+@pytest.mark.parametrize("kind,N", [("layernorm", 6144), ("layernorm", 1024),
+                                    ("rmsnorm", 6144), ("rmsnorm", 1536)])
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "fp32"])
+def test_norm_plans_at_65536_rows_stay_in_the_grid(kind, N, esize):
+    """The norms on a 32k prefill's 65,536 rows (nemotron-4-15b's and
+    whisper-medium's layernorm, internlm2-20b's and qwen2-vl-2b's rmsnorm):
+    the one-pass kernel a block a row, or layernorm's warp kernel
+    ROW_WARPS rows a block, its grid's x within CUDA's limit; each row's
+    vectors or elements held once as the plans' tests above hold them."""
+    src = (Path(sfu.__file__).parent / "csrc" / "sfu.cu").read_text()
+    threads = sfu.norm_plan(N, esize, True)
+    if N > sfu.WARP_ROW_MAX:
+        assert threads == N * esize // 16 // sfu.ROW_VPT
+        assert "norm_vec_kernel<T, true><<<R, threads" in src
+        blocks = LONG_ROWS
+    else:
+        assert kind == "layernorm" and threads == 0
+        slots, vector = sfu.warp_plan(N, esize, True)
+        assert vector and 32 * slots >= N * esize // 16
+        warps = int(src.split("constexpr int ROW_WARPS = ")[1].split(";")[0])
+        assert "<<<warp_blocks(R), ROW_WARPS * 32" in src
+        blocks = -(-LONG_ROWS // warps)
+    assert _in_grid_limits((blocks,))
+
+
+def test_long_offsets_are_64_bit():
+    """At 32k the largest tensors a kernel call addresses hold up to
+    402,653,184 elements (internlm2-20b's queries (2, 48, 32,768, 128), the
+    65,536 x 6,144 norm rows) and 671,744,000 bytes (qwen1.5-4b's 20-head
+    cache of 32,800 rows): every base offset of a row, a (batch, head) or a
+    cache is computed in 64 bits (size_t) before it is scaled, as the
+    kernels' sources write them."""
+    fa_src = (Path(fa.__file__).parent / "csrc" / "flash_attention.cu"
+              ).read_text()
+    sfu_src = (Path(sfu.__file__).parent / "csrc" / "sfu.cu").read_text()
+    for want in ("((size_t)b * Hq + h) * Sq * D",
+                 "((size_t)b * Hkv + hk) * kv_stride * D",
+                 "((size_t)b * Hkv + hk) * Skv * D",
+                 "((size_t)b * Hq + h) * Sq + qi",
+                 "const size_t rows0 = ((size_t)b * Hkv + hk) * G"):
+        assert want in fa_src
+    for want in ("x + (size_t)row * N", "x + (size_t)blockIdx.x * N",
+                 "reinterpret_cast<const uint4*>(x) + (size_t)blockIdx.x * V"):
+        assert want in sfu_src
+    # no base pointer is offset by a product of 32-bit ints
+    for src in (fa_src, sfu_src):
+        for line in src.splitlines():
+            if "* Sq * D" in line or "* kv_stride * D" in line:
+                assert "(size_t)" in line, line
+    assert 2 * 48 * 32768 * 128 == 65536 * 6144 == 402_653_184 < 2**31
+    assert 2 * 20 * 32800 * 128 * 2 * 2 == 671_744_000
