@@ -195,7 +195,8 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    ``MESH_SSM_LAYERS`` (its prefill's ``ssd`` calls) and whisper-medium
    cut to ``MESH_WHISPER_LAYERS`` + ``MESH_WHISPER_LAYERS`` (encoder over
    1,500 frames, prefill, decode) equal their meshless runs; ``Trainer``
-   on qwen3-4b's training cut for ``MESH_TRAIN_STEPS`` steps gives the
+   on qwen3-4b cut to ``MESH_TRAIN_LAYERS`` layers for
+   ``MESH_TRAIN_STEPS`` steps gives the
    meshless losses and backward launches, its checkpoint holds the
    meshless one's bytes (every leaf's crc32, shape and dtype in the two
    manifests), and the meshless one restores onto the mesh bit for bit;
@@ -245,8 +246,18 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    mamba2-2.7b at full depth at 1 x 4,096, whisper-medium (4,096 frames
    and tokens a row) and qwen2-vl-2b at full depth at 2 x 4,096 (train_4k;
    launches, descent, peak; phase 6 holds the backward kernels at these
-   shapes).  Prints every
-   load, serve and phase peak and the phase's seconds.
+   shapes); then the kernels alone at the MoE archs' and mamba2-2.7b's
+   32k shapes (llama4's and jamba's attention, the rmsnorm kernel on
+   65,536 rows of 5,120, 8,192 and 16,384, ``ssd`` at jamba's 256 heads
+   and mamba2-2.7b's 80 over 2 x 32,768 positions), dbrx-132b,
+   llama4-maverick and jamba-1.5-large at full width cut in depth
+   (``LONG_MOE_CUTS``) serving the same two 32,768-token prompts and 32
+   new tokens, held as the serving phase holds the MoE cuts (launches,
+   the load peak, pinned routes; fp32 over their first 2 layers), and
+   mamba2-2.7b at full depth the same (launches, finite logits, its first
+   8 layers in bf16 and the full depth at fp32 compute, kernels against
+   plain versions).  Prints every load, serve and phase peak and the
+   phase's seconds.
 10. timing: BERT-L's compile and execute seconds and its device time by
    kernel (profiler); each kernel's device time at its main path's
    shapes (CUDA events, see ``cuda_ms``) beside its plain version, one
@@ -737,6 +748,12 @@ DORA_KERNELS = ("flex_gemm", "sfu_softmax", "sfu_layernorm", "sfu_act")
 # gain) of the meshless training state.  The phase prints its seconds.
 MESH_SSM_LAYERS, MESH_WHISPER_LAYERS, MESH_DECODE_STEPS = 8, 4, 8
 MESH_TRAIN_STEPS, MESH_RTOL = 3, 2e-3
+# the mesh's Trainer and checkpoint check on qwen3-4b cut to
+# MESH_TRAIN_LAYERS layers: it holds the two runs bit for bit, which
+# depth does not change, and at 2 layers (0.980 B parameters, 11.8 GB of
+# fp32 parameters and moments) its three checkpoint transfers move less
+# than TRAIN_LAYERS' 19.0 GB (1.585 B) each (ROADMAP H.9)
+MESH_TRAIN_LAYERS = 2
 MESH_COMPRESS_LEAVES = ("layers/0/attn/wq", "layers/0/mlp/w_down",
                         "final_norm/scale")
 # The examples phase: examples_torch/ on the card, each through its run()
@@ -840,6 +857,71 @@ LONG_TRAIN_BATCH = {"qwen3-4b": 2, "mamba2-2.7b": 1, WHISPER_ARCH: 2,
 # the reference's at this shape and schedule (tests/test_torch_train_4k.py);
 # PERF.md section 6 and experiments_torch/train_lr.py give the readings
 LONG_TRAIN_PEAK_LR = {"qwen3-4b": 5e-4}
+# The MoE archs' prefill_32k and decode_32k (L9-L11): L1's traffic through
+# BatchServer at full width (d, heads, d_ff, vocab, top-k, capacity factor
+# 1.25, route groups of 1,024 tokens), cut in depth, and jamba in experts
+# as MOE_CUTS cuts it: ``dataclasses.replace(get_config(arch), **cut)``,
+# jamba's pattern cut to its first n_layers positions.  At 2 x 32,768
+# tokens a MoE layer routes 64 groups of 1,024, each expert taking cap =
+# ceil(1,024 K / E x 1.25) slots of each; bf16 GiB by
+# ArchConfig.param_count, peaks estimated from the shapes:
+# - dbrx-132b, its first 4 of 40 layers (26.58 GiB; MOE_CUTS' 8 hold
+#   50.86): 64 x 320 x 16 = 327,680 slots, xe 3.75 GiB, each 10,752-wide
+#   intermediate 6.56 GiB (three live), the KV cache 1.00 GiB: ~58 GiB;
+# - llama4-maverick, MOE_CUTS' block of 2 (34.32 GiB): 64 x 10 x 128 =
+#   81,920 slots, each 8,192-wide intermediate 1.25 GiB, the dense FFN's
+#   1.0 GiB, KV 0.50 GiB: ~42 GiB;
+# - jamba-1.5-large, its first 4 pattern positions (attn+dense, ssm+moe,
+#   ssm+dense, ssm+moe) with 8 of 16 experts (24.81 GiB): 64 x 320 x 8 =
+#   163,840 slots, each 24,576-wide intermediate 7.50 GiB, xe 2.50 GiB,
+#   the dense FFN's 3.0 GiB, ssd's x 2.0 GiB, KV 0.25 GiB: ~57 GiB
+#   (served peak 58.44 on the H100).  MOE_CUTS' 12 experts (33.81 GiB;
+#   64 x 214 x 12 = 164,352 slots, estimated ~65 GiB) served at 67.52
+#   GiB alone, and after the earlier phases the served prefill ran out
+#   of memory (63.21 GiB allocated, 10.09 more reserved in pieces, 7.52
+#   asked), so the cut takes 8.  The plain SSD's (1, 256, 256, 128, 128)
+#   fp32 chunk terms at 256 heads take 4 GiB each over one row of 32,768
+#   positions, and one row's plain pass ran out of memory with them:
+#   ref.ssd_plain runs SSD_PLAIN_SEGMENT positions at a time.
+# Held as the serving phase holds MOE_CUTS (MOE_SHALLOW_LAYERS, ROUTE_
+# MARGIN, MOE_RTOL), at fp32 compute on the served weights' first
+# MOE_SHALLOW_LAYERS layers over the prefill and LONG_FP32_STEPS decode
+# steps; llama4's fp32 MoE layer alone (60 GiB) on the 32k prompt's MoE
+# inputs.  On LONG_ROUTES_VS_FP32's cuts the first MOE_SHALLOW_LAYERS
+# layers' routes are held as ROUTES_VS_FP32 holds jamba's training cut,
+# against an fp32 evaluation (``routes_vs_fp32``), and that bound's power
+# is shown: with every norm kernel's output scaled by 1 + LONG_ROUTE_FAULT
+# the kernels' routes must fall outside it.  jamba for the reason C.6
+# gives; dbrx-132b because at 32k its second MoE layer's pinned run
+# decides otherwise than the plain path at margins of 0.0122-0.0170 over
+# two seeds, and the plain path otherwise than fp32 at 0.0161-0.0193
+# (ROADMAP C.10).  A teacher-forced pass holds the plain path beside the served
+# weights: its one-hot dispatch at dbrx's 2 rows ((64, 4,096, 16, 320)
+# fp32, 5.0 GiB, plus the one-hot xe and three 6.56 GiB intermediates)
+# and the plain SSD at jamba's 256 heads would pass the card's 79 GiB, so
+# those passes run LONG_MOE_ROWS rows at a time on the same tokens (a
+# route group never spans rows), and so does llama4's fp32 layer (60 GiB
+# of weights)
+LONG_MOE_CUTS = {"dbrx-132b": {"n_layers": 4},
+                 "llama4-maverick-400b-a17b": {"n_layers": 2},
+                 "jamba-1.5-large-398b": {"n_layers": 4, "n_experts": 8}}
+LONG_MOE_ROWS = {"dbrx-132b": 1, "llama4-maverick-400b-a17b": 2,
+                 "jamba-1.5-large-398b": 1}
+LONG_ROUTES_VS_FP32 = ("dbrx-132b", "jamba-1.5-large-398b")
+# On LONG_LOGITS_VS_FP32's cuts the pinned runs of the first
+# MOE_SHALLOW_LAYERS layers are held by C.8's method: the kernels as near
+# an fp32 witness as the plain versions (``pinned_witness``), each row's
+# mean over its passes within LONG_FP32_SLACK times, the planted norm
+# fault past that; the SERVE_RTOL reading is printed.  jamba-1.5-large
+# because at 32k its first 2 layers (attention + dense FFN, SSM + MoE)
+# through the kernels sat 0.015-0.026 from the plain versions at 8 and
+# 12 experts, while over row 0's 32 passes the plain versions themselves
+# sat 0.015-0.033 from fp32 and the kernels 0.016-0.037 (means 0.0200
+# and 0.0214), none nearer with any one of ssd, rmsnorm or attention on
+# its plain version: bf16's own drift.  A pass's ratio of two such
+# distances spread from 0.68 to 1.55, so the mean is held (ROADMAP C.11)
+LONG_LOGITS_VS_FP32 = ("jamba-1.5-large-398b",)
+LONG_ROUTE_FAULT = 2 ** -7
 # The four-card mode (``--cards 4``): a world of CARDS ranks, one a card,
 # joined over NCCL by a FileStore; every rank checks itself and a failed
 # rank stops the world.  qwen3-4b served at full width and depth on each
@@ -1456,7 +1538,8 @@ def mesh_phase(counters, launches, zero_counts, smi) -> None:
     torch.cuda.empty_cache()
 
     # training: qwen3-4b's training cut, with and without the mesh
-    tcfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    tcfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=MESH_TRAIN_LAYERS)
     work = Path(tempfile.mkdtemp(prefix="mesh_ckpt_", dir=Path.cwd()))
 
     def trainer(on_mesh):
@@ -1527,8 +1610,8 @@ def mesh_phase(counters, launches, zero_counts, smi) -> None:
     require(n1 == n0 and n1["rmsnorm_bwd"] > 0
             and n1["flash_attention_bwd"] > 0,
             f"training launches on the mesh {n1} vs without {n0}")
-    print(f"[mesh] {tcfg.name} ({TRAIN_LAYERS} of 36 layers) Trainer on the "
-          f"mesh, {MESH_TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}: "
+    print(f"[mesh] {tcfg.name} ({MESH_TRAIN_LAYERS} of 36 layers) Trainer on "
+          f"the mesh, {MESH_TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ}: "
           f"losses {l1} as without it; launches {n1}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB" + lap())
 
@@ -1771,8 +1854,10 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
     the cells' shapes; L1 qwen3-4b's prefill_32k and decode_32k, L4-L7
     the other dense archs', L8 whisper-medium's; L2 mamba2-2.7b's
     long_500k; L3 train_4k (qwen3-4b's cut, mamba2-2.7b, whisper-medium,
-    qwen2-vl-2b).  The main paths' launches, each counted from 0, are
-    added to ``launches``."""
+    qwen2-vl-2b); the kernels alone at the MoE archs' and mamba2-2.7b's
+    32k shapes, L9-L11 the MoE cuts' prefill_32k and decode_32k
+    (``LONG_MOE_CUTS``) and L12 mamba2-2.7b's.  The main paths'
+    launches, each counted from 0, are added to ``launches``."""
     import dataclasses
 
     import numpy as np
@@ -1798,9 +1883,10 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
     GiB = 2 ** 30
     sms = _build.sm_count(dev)
     fp32_peak, bf16_peak, bw_peak = peaks(torch.cuda.get_device_name(0))
-    note32 = (f"prefill_32k + decode_32k, batch {LONG_BATCH} of "
-              f"{SHAPES['prefill_32k'].global_batch} / "
-              f"{SHAPES['decode_32k'].global_batch}, full depth")
+    batch32 = (f"prefill_32k + decode_32k, batch {LONG_BATCH} of "
+               f"{SHAPES['prefill_32k'].global_batch} / "
+               f"{SHAPES['decode_32k'].global_batch}")
+    note32 = f"{batch32}, full depth"
 
     def fresh() -> int:
         """Returns the cache to the card and restarts the peak; the bytes
@@ -2280,60 +2366,63 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
             cfg, n_layers=n, encoder_layers=n), cut_params, tokens, served,
             frames)
 
+    def ssd_alone(B, S, H, dt, init, label) -> None:
+        """The ssd kernel at (B, S, H, P, G, N) of mamba2-2.7b's head width
+        and state in ``dt``, from zero or from a drawn initial state,
+        against ``ref.ssd_chained``, y a segment at a time and the final
+        state (check_ssd's tolerances); bf16 from zero timed beside its
+        bound (no PyTorch call computes the scan)."""
+        fresh()
+        dts = torch.rand((B, S, H), generator=gen, device=dev)
+        a = -torch.linspace(1.0, 16.0, H, device=dev)[None, None] * (
+            dts * 0.095 + 0.005)
+        del dts
+        x = randn(B, S, H, P, dtype=dt)
+        b, c = (randn(B, S, G, N, dtype=dt, scale=0.3) for _ in range(2))
+        s0 = randn(B, H, P, N) if init else None
+        rtol = 1e-4 if dt == torch.float32 else 2 ** -7
+        atol = 1e-4
+        what = (f"ssd {(B, S, H, P, G, N)} chunk 128 {str(dt)[6:]}, from "
+                f"{'an initial state' if init else 'zero'}")
+        (y, st), kernel_ms = event_ms(torch, lambda: ssd(
+            x, a, b, c, chunk=128, initial_state=s0))
+        worst = 0.0
+        for s, yw, stw in ref.ssd_chained(
+                x, a, b, c, segment=LONG_SSD_SEGMENT, chunk=128,
+                initial_state=s0):
+            yk = y[:, s:s + LONG_SSD_SEGMENT]
+            require(close(yk, yw, rtol, atol), f"{what}: y at {s}: max "
+                    f"err {max_err(yk, yw)}")
+            worst = max(worst, max_err(yk, yw))
+        require(close(st, stw, 1e-4, 1e-4), f"{what}: final state max err "
+                f"{max_err(st, stw)}")
+        del y
+        print(f"[long] {what} ({label}): max "
+              f"err y {worst:.3g}, final state {max_err(st, stw):.3g} "
+              f"against ref.ssd_chained over {S // LONG_SSD_SEGMENT} "
+              f"segments of {LONG_SSD_SEGMENT} (limits rtol {rtol:.3g}, "
+              f"atol {atol}; state 1e-4); one call's device ms: kernel "
+              f"{kernel_ms:.2f}; peak "
+              f"{torch.cuda.max_memory_allocated() / GiB:.2f} GiB")
+        if dt == torch.bfloat16 and not init:
+            def chained():
+                # the plain version alone, each segment dropped after
+                for _ in ref.ssd_chained(x, a, b, c, chunk=128,
+                                         segment=LONG_SSD_SEGMENT):
+                    pass
+            _, plain_ms = event_ms(torch, chained)
+            timed("ssd", f"{(B, S, H, P, G, N)} chunk 128 bf16 ({label})",
+                  lambda: ssd(x, a, b, c, chunk=128),
+                  plain_ms, None, *ssd_work(B, S, H, P, G, N, 128, 2),
+                  bf16_peak)
+
     def serve_ssm() -> None:
         # L2: long_500k, mamba2-2.7b at full width and depth; first its ssd
         # kernel alone against the chained plain version
-        def long_ssd(dt, init) -> None:
-            """The ssd kernel at (1, S, H, P, G, N) in ``dt``, from zero or
-            from a drawn initial state, against ``ref.ssd_chained``, y a
-            segment at a time and the final state (check_ssd's tolerances)."""
-            dts = torch.rand((1, S, H), generator=gen, device=dev)
-            a = -torch.linspace(1.0, 16.0, H, device=dev)[None, None] * (
-                dts * 0.095 + 0.005)
-            del dts
-            x = randn(1, S, H, P, dtype=dt)
-            b, c = (randn(1, S, G, N, dtype=dt, scale=0.3) for _ in range(2))
-            s0 = randn(1, H, P, N) if init else None
-            rtol = 1e-4 if dt == torch.float32 else 2 ** -7
-            atol = 1e-4
-            what = (f"ssd {(1, S, H, P, G, N)} chunk 128 {str(dt)[6:]}, from "
-                    f"{'an initial state' if init else 'zero'}")
-            (y, st), kernel_ms = event_ms(torch, lambda: ssd(
-                x, a, b, c, chunk=128, initial_state=s0))
-            worst = 0.0
-            for s, yw, stw in ref.ssd_chained(
-                    x, a, b, c, segment=LONG_SSD_SEGMENT, chunk=128,
-                    initial_state=s0):
-                yk = y[:, s:s + LONG_SSD_SEGMENT]
-                require(close(yk, yw, rtol, atol), f"{what}: y at {s}: max "
-                        f"err {max_err(yk, yw)}")
-                worst = max(worst, max_err(yk, yw))
-            require(close(st, stw, 1e-4, 1e-4), f"{what}: final state max err "
-                    f"{max_err(st, stw)}")
-            del y
-            print(f"[long] {what} (long_500k at {scfg.name}'s widths): max "
-                  f"err y {worst:.3g}, final state {max_err(st, stw):.3g} "
-                  f"against ref.ssd_chained over {S // LONG_SSD_SEGMENT} "
-                  f"segments of {LONG_SSD_SEGMENT} (limits rtol {rtol:.3g}, "
-                  f"atol {atol}; state 1e-4); one call's device ms: kernel "
-                  f"{kernel_ms:.2f}; peak "
-                  f"{torch.cuda.max_memory_allocated() / GiB:.2f} GiB")
-            if dt == torch.bfloat16 and not init:
-                def chained():
-                    # the plain version alone, each segment dropped after
-                    for _ in ref.ssd_chained(x, a, b, c, chunk=128,
-                                             segment=LONG_SSD_SEGMENT):
-                        pass
-                _, plain_ms = event_ms(torch, chained)
-                timed("ssd", f"{(1, S, H, P, G, N)} chunk 128 bf16 "
-                      f"(long_500k)", lambda: ssd(x, a, b, c, chunk=128),
-                      plain_ms, None, *ssd_work(1, S, H, P, G, N, 128, 2),
-                      bf16_peak)
-
         for dt in (torch.bfloat16, torch.float32):
             for init in (False, True):
-                fresh()
-                long_ssd(dt, init)
+                ssd_alone(1, S, H, dt, init,
+                          f"long_500k at {scfg.name}'s widths")
 
         note = (f"long_500k, batch 1 of {SHAPES['long_500k'].global_batch}, "
                 f"full depth")
@@ -2420,8 +2509,290 @@ def long_phase(counters, launches, zero_counts, smi) -> None:
                     f"{peak / 1e9:.2f} GB (limit {CARD_TRAIN_GB} GB)")
             del trainer, params, opt_state
 
+    def moe_kernels_alone() -> None:
+        # the kernels alone at L9-L12's shapes that L1-L8's do not cover:
+        # llama4-maverick's 40 and jamba-1.5-large's 64 query heads over 8
+        # (dbrx-132b's 48 over 8 are internlm2-20b's), the rmsnorm kernel
+        # on the prefill's 65,536 rows of llama4's 5,120, jamba's 8,192 and
+        # its gated norm's 16,384 (dbrx's layernorm rows of 6,144 are
+        # nemotron-4-15b's), ssd at jamba's 256 heads and mamba2-2.7b's 80
+        # over 2 x 32,768 positions
+        lcfg, jcfg = (get_config(a) for a in ("llama4-maverick-400b-a17b",
+                                              "jamba-1.5-large-398b"))
+        require((jcfg.ssm_head_dim, jcfg.ssm_groups, jcfg.ssm_state)
+                == (P, G, N), f"{jcfg.name}'s SSD heads are not {scfg.name}'s")
+        B, S32, M = LONG_BATCH, LONG_PROMPT, LONG_MAX_LEN
+        for dt in (torch.bfloat16, torch.float32):
+            for cfg in (lcfg, jcfg):
+                prefill_alone(cfg.name, B, cfg.n_heads, cfg.n_kv_heads, S32,
+                              cfg.head_dim, True, dt)
+                decode_alone(cfg.name, B, cfg.n_heads, cfg.n_kv_heads, M,
+                             (S32 + 1, M), cfg.head_dim, dt)
+            for n, label in ((lcfg.d_model, lcfg.name),
+                             (jcfg.d_model, jcfg.name),
+                             (jcfg.ssm_expand * jcfg.d_model,
+                              f"{jcfg.name}'s gated norm")):
+                norm_alone("rmsnorm", B * S32, n, dt, label)
+            for cfg in (jcfg, scfg):
+                for init in (False, True):
+                    ssd_alone(B, S32, cfg.ssm_heads, dt, init,
+                              f"prefill_32k, {cfg.name}'s heads")
+
+    def pinned_held(label, rcfg, o, limit) -> None:
+        """A teacher-forced run of the kernels with each MoE call pinned to
+        the plain path's routes (``o``): its own differing decisions
+        printed and its logits within ``limit`` of the plain path's; at
+        SERVE_RTOL, but on LONG_ROUTES_VS_FP32's cuts, each decision its
+        own router would have made otherwise within ROUTE_MARGIN of a
+        tie (there the ROUTE_MARGIN reading is printed; ``routes_near_
+        fp32`` holds their routes; on LONG_LOGITS_VS_FP32's the SERVE_RTOL
+        reading is printed, ``logits_near_fp32`` holds their logits)."""
+        label = f"{label} kernels with each route pinned to the plain path's"
+        margins = route_report(f"{label} (their own decisions) vs plain "
+                               f"versions", o["routes"])
+        logits_report(label, o, limit, tag="long",
+                      held=limit != SERVE_RTOL
+                      or rcfg.name not in LONG_LOGITS_VS_FP32)
+        if limit != SERVE_RTOL:
+            return
+        worst = max(margins, default=0)
+        if rcfg.name in LONG_ROUTES_VS_FP32:
+            print(f"[routes] {label}: the largest differing decision's "
+                  f"margin {worst:.4g} against ROUTE_MARGIN {ROUTE_MARGIN} "
+                  f"(printed: held against fp32 below)")
+            return
+        require(all(m < ROUTE_MARGIN for m in margins), f"{label}: a route "
+                f"differs {worst} from a tie (limit {ROUTE_MARGIN})")
+        print(f"[routes] {label}: every differing decision within "
+              f"{ROUTE_MARGIN} of a tie over {rcfg.n_layers} layers")
+
+    def logits_near_fp32(label, rcfg, params, tokens, served) -> None:
+        """The pinned kernels' teacher-forced logits of ``rcfg`` and
+        ``params`` held as near an fp32 witness as the plain versions'
+        (``pinned_witness``): each row's mean distance over its passes
+        within LONG_FP32_SLACK times the plain versions' (each pass's
+        ratio printed); with every norm kernel's output scaled by 1 +
+        LONG_ROUTE_FAULT, over that."""
+        norm = "layernorm" if rcfg.norm_kind == "layernorm" else "rmsnorm"
+        d = pinned_witness(rcfg, params, tokens, served, LONG_MAX_LEN,
+                           (norm, LONG_ROUTE_FAULT))
+        ratio, bad = (d[path].mean(0) / d["plain"].mean(0)
+                      for path in ("kernels", "fault"))
+        each = d["kernels"] / d["plain"]
+        print(f"[long] {label}, pinned, against fp32 arithmetic on the "
+              f"same bf16 weights (the plain versions, pinned alike), mean "
+              f"of {each.shape[0]} passes: kernels "
+              f"{float(d['kernels'].mean()):.4g}, plain "
+              f"{float(d['plain'].mean()):.4g}, ratio "
+              f"{float(ratio.max()):.4g} (limit {LONG_FP32_SLACK}; a "
+              f"pass's from {float(each.min()):.4g} to "
+              f"{float(each.max()):.4g}); planted, every {norm} kernel's "
+              f"output x (1 + {LONG_ROUTE_FAULT}): "
+              f"{float(d['fault'].mean()):.4g}, ratio "
+              f"{float(bad.min()):.4g} (must exceed {LONG_FP32_SLACK}) on "
+              f"{smi}")
+        require(float(ratio.max()) <= LONG_FP32_SLACK, f"{label}: the "
+                f"kernels sit {d['kernels'].tolist()} from fp32 "
+                f"arithmetic, the plain versions {d['plain'].tolist()}")
+        require(float(bad.min()) > LONG_FP32_SLACK, f"{label}: the planted "
+                f"{norm} fault sits within the bound: {d['fault'].tolist()}")
+
+    def routes_near_fp32(label, rcfg, params, tokens) -> None:
+        """The prefill's MoE decisions of ``rcfg`` and ``params`` on the
+        kernels, pinned to the plain path's routes, held no farther from
+        an fp32 evaluation than the plain versions' (``routes_vs_fp32``,
+        ``hold_fp32_routes``); then with every norm kernel's output
+        scaled by 1 + LONG_ROUTE_FAULT (the plain and fp32 runs as they
+        were), outside those bounds."""
+        vs32, pin, f32 = routes_vs_fp32(rcfg, params, tokens, pinned=True,
+                                        max_len=LONG_MAX_LEN)
+        hold_fp32_routes(f"{label}, prefill", vs32)
+        norm = "layernorm" if rcfg.norm_kind == "layernorm" else "rmsnorm"
+        with torch.no_grad(), planted(norm, LONG_ROUTE_FAULT), \
+                moe_calls(pin) as faulted:
+            lm.prefill(rcfg, params, tokens, max_len=LONG_MAX_LEN)
+        near, why = fp32_routes_near(
+            {"plain": vs32["plain"], "kernels": route_diffs(faulted, f32)})
+        del pin, f32, faulted
+        print(f"[routes] {label}, prefill, planted: every {norm} kernel's "
+              f"output x (1 + {LONG_ROUTE_FAULT}): the kernels against "
+              f"fp32 beside the plain versions: {why} (must fall outside)")
+        require(not near, f"{label}: the planted {norm} fault sits within "
+                f"the fp32 route bounds: {why}")
+
+    def serve_moe() -> None:
+        # L9-L11: prefill_32k and decode_32k of the MoE archs at full width,
+        # cut (LONG_MOE_CUTS), held as the serving phase holds MOE_CUTS, a
+        # teacher-forced pass LONG_MOE_ROWS rows at a time
+        for arch, cut in LONG_MOE_CUTS.items():
+            serve_moe_arch(arch, cut)
+
+    def serve_moe_arch(arch, cut) -> None:
+        """One MoE cut of LONG_MOE_CUTS, served and held."""
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, **cut,
+                                  pattern=full.pattern[:cut["n_layers"]])
+        why = "cut: " + ", ".join(f"{k} {v} of {getattr(full, k)}"
+                                  for k, v in cut.items())
+        note = f"{batch32}, {why}"
+        prompts = long_prompts(cfg)
+        server, served = server_for(cfg, LONG_MAX_LEN, prompts, note)
+        tokens = torch.from_numpy(np.stack(prompts).astype(
+            np.int64)).to(dev)
+        label = f"{cfg.name} [{note}]"
+        groups = LONG_BATCH * LONG_PROMPT // 1024
+        cap = math.ceil(1024 * cfg.top_k / cfg.n_experts
+                        * cfg.capacity_factor)
+        print(f"[long] {label}: the KV cache "
+              f"{kv_cache_bytes(cfg, LONG_MAX_LEN) / GiB:.3f} GiB "
+              f"({LONG_MAX_LEN} rows, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}); a MoE layer's prefill routes "
+              f"{groups} groups of 1,024 tokens, top-{cfg.top_k} of "
+              f"{cfg.n_experts} experts, cap {cap}: "
+              f"{groups * cap * cfg.n_experts:,} slots")
+        rows = LONG_MOE_ROWS[arch]
+        blocks = [slice(r, r + rows) for r in range(0, LONG_BATCH, rows)]
+
+        def part(sl) -> str:
+            return "" if rows == LONG_BATCH else f", row {sl.start}"
+        m = MOE_SHALLOW_LAYERS
+        # the served batch teacher-forced through the kernels gives the
+        # served tokens again (one row alone takes other product shapes,
+        # and so other roundings)
+        fresh()
+        passes = forced(server, tokens, served)
+        require(all(torch.equal(got.argmax(-1), served[:, t])
+                    for t, got in enumerate(passes)),
+                f"{label}: the kernels' greedy tokens differ from the "
+                f"served ones")
+        del passes
+        # the whole cut, teacher-forced on the served tokens: the kernels
+        # (their own routes), the kernels pinned to the plain path's
+        for sl in blocks:
+            fresh()
+            t0 = time.perf_counter()
+            o = teacher_forced(cfg, server.params, tokens[sl], served[sl],
+                               ("kernels", "pinned"), LONG_MAX_LEN)
+            peak, secs = (torch.cuda.max_memory_allocated(),
+                          time.perf_counter() - t0)
+            free = o["kernels"]
+            route_report(f"{label}{part(sl)} kernels vs plain versions",
+                         free["routes"])
+            print(f"[long] {label}{part(sl)} kernels vs plain versions, "
+                  f"teacher-forced (the served batch through the kernels "
+                  f"gives the served tokens again), routes free: logits "
+                  f"rel L2 prefill "
+                  f"{free['rel'][0]:.4g}, decode max "
+                  f"{max(free['rel'][1:]):.4g}; greedy tokens agree on "
+                  f"{float(np.mean(free['agree'])):.1%} (held on the "
+                  f"pinned runs); the three runs' peak {peak / GiB:.2f} "
+                  f"GiB, {secs:.1f} s")
+            pinned_held(f"{label}{part(sl)}", cfg, o["pinned"],
+                        SERVE_RTOL if cfg.n_layers <= m else MOE_RTOL)
+            del o
+        # the served weights' first MOE_SHALLOW_LAYERS layers, the rest
+        # freed: pinned in bf16, and at fp32 compute
+        cfg_s = dataclasses.replace(cfg, n_layers=m,
+                                    pattern=cfg.pattern[:m])
+        p_s = {**server.params, "layers": server.params["layers"][:m]}
+        del server
+        shallow_label = f"{label}, cut to its first {m} layers"
+        if cfg.n_layers > m:
+            for sl in blocks:
+                fresh()
+                o = teacher_forced(cfg_s, p_s, tokens[sl], served[sl],
+                                   ("pinned",), LONG_MAX_LEN)["pinned"]
+                pinned_held(f"{shallow_label}{part(sl)}", cfg_s, o,
+                            SERVE_RTOL)
+                del o
+                if cfg.name in LONG_LOGITS_VS_FP32:
+                    fresh()
+                    logits_near_fp32(f"{shallow_label}{part(sl)}", cfg_s,
+                                     p_s, tokens[sl], served[sl])
+                if cfg.name in LONG_ROUTES_VS_FP32:
+                    fresh()
+                    routes_near_fp32(f"{shallow_label}{part(sl)}", cfg_s,
+                                     p_s, tokens[sl])
+        steps = LONG_FP32_STEPS + 1
+        if arch in MOE_FP32_LAYERS:
+            c32 = dataclasses.replace(cfg_s, compute_dtype="float32")
+            for sl in blocks:
+                fresh()
+                moe_fp32_check(c32, p_s, tokens[sl], served[sl, :steps],
+                               f"{note}; fp32 check: the first {m} "
+                               f"layers{part(sl)}", LONG_MAX_LEN,
+                               tag="long", free=False)
+        else:
+            # llama4: its fp32 MoE layer alone (60 GiB) on the MoE
+            # inputs of the kernels' prefill and first decode step
+            with torch.no_grad():
+                with moe_calls() as pre:
+                    _, cache = lm.prefill(cfg_s, p_s, tokens,
+                                          max_len=LONG_MAX_LEN)
+                with moe_calls() as dec:
+                    lm.decode_step(cfg_s, p_s, cache, served[:, :1],
+                                   LONG_PROMPT)
+            d = cfg.d_model
+            x_pre = pre[0].xg.reshape(LONG_BATCH, LONG_PROMPT, d)
+            xs = [x_pre[r:r + 1].float() for r in range(LONG_BATCH)] \
+                + [dec[0].xg.reshape(LONG_BATCH, 1, d).float()]
+            del cache, pre, dec, x_pre, p_s
+            fresh()
+            moe_layer_fp32_check(cfg, f"{note}; the MoE inputs of the "
+                                 f"kernels' prefill, a row at a time, "
+                                 f"and first decode step", xs,
+                                 tag="long")
+            del xs
+        print(f"[long] {cfg.name} [{note}]: "
+              f"{time.perf_counter() - t_arch:.1f} s on {smi}")
+
+    def serve_ssm_32k() -> None:
+        # L12: mamba2-2.7b's prefill_32k and decode_32k at full width and
+        # depth, held as the serving phase holds it: launches, every pass's
+        # logits finite, the first SSM_SHALLOW_LAYERS layers' bf16 prefill
+        # and the full depth's at fp32 compute, kernels vs plain versions
+        prompts = long_prompts(scfg)
+        server, served = server_for(scfg, LONG_MAX_LEN, prompts, note32)
+        tokens = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
+        fresh()
+        passes = forced(server, tokens, served)
+        require(all(torch.equal(got.argmax(-1), served[:, t])
+                    for t, got in enumerate(passes)),
+                f"{scfg.name}: the kernels' greedy tokens differ from the "
+                f"served ones")
+        del passes
+        n = SSM_SHALLOW_LAYERS
+        rel = {}
+        for what, c, p in (
+                (f"bf16, the served weights' first {n} layers",
+                 *cut_to(scfg, server.params, n)),
+                ("fp32 compute on the served weights, full depth",
+                 dataclasses.replace(scfg, compute_dtype="float32"),
+                 server.params)):
+            fresh()
+            with torch.no_grad():
+                k, _ = lm.prefill(c, p, tokens, max_len=LONG_MAX_LEN)
+                pl, _ = lm.prefill(c, p, tokens, max_len=LONG_MAX_LEN,
+                                   plain=True)
+            require(bool(torch.isfinite(k).all()), f"{scfg.name} {what}: "
+                    f"non-finite logits")
+            rel[what] = (rel_l2(k, pl), torch.cuda.max_memory_allocated())
+            del k, pl
+        limits = (SSM_SHALLOW_RTOL, SSM_FP32_RTOL)
+        print(f"[long] {scfg.name} [{note32}]: teacher-forced on the served "
+              f"tokens, every pass's logits finite (the kernels give the "
+              f"tokens again); prefill logits kernels vs plain versions rel "
+              f"L2: " + "; ".join(
+                  f"{what} {e:.4g} (limit {lim}, peak {pk / GiB:.2f} GiB)"
+                  for (what, (e, pk)), lim in zip(rel.items(), limits))
+              + f" on {smi}")
+        require(all(e <= lim for (e, _), lim in zip(rel.values(), limits)),
+                f"{scfg.name} [{note32}]: kernels vs plain {rel}")
+
     for cell in (kernels_alone, serve_dense, serve_archs, serve_whisper,
-                 serve_ssm, train):
+                 serve_ssm, train, moe_kernels_alone, serve_moe,
+                 serve_ssm_32k):
         t_cell = time.perf_counter()
         cell()
         fresh()
@@ -2441,14 +2812,15 @@ def drop_first_split(q, k, v, kv_len: int, sms: int):
 
 @contextlib.contextmanager
 def planted(what: str, size, sms: int = 0):
-    """``kernels.ops``' kernel path with one of LONG_FAULTS while open
+    """``kernels.ops``' kernel path with one of LONG_FAULTS while open, or
+    the layernorm kernel's output scaled as that fault scales rmsnorm's
     (``sms``: the card's, for the attention fault's plan); the plain
     versions stay as they are.  On a mesh the rmsnorm fault scales each
     rank's output."""
     from repro_torch.kernels import ops
     own = getattr(ops, what)
 
-    def rmsnorm(x, *args, plain=False, **kw):
+    def norm(x, *args, plain=False, **kw):
         out = own(x, *args, plain=plain, **kw)
         return out if plain else (out.float() * (1 + size)).to(out.dtype)
 
@@ -2457,7 +2829,8 @@ def planted(what: str, size, sms: int = 0):
             k, v, kv_len = drop_first_split(q, k, v, kv_len, sms)
         return own(q, k, v, kv_len=kv_len, plain=plain, **kw)
 
-    setattr(ops, what, {"rmsnorm": rmsnorm, "attention": attention}[what])
+    setattr(ops, what, {"rmsnorm": norm, "layernorm": norm,
+                        "attention": attention}[what])
     try:
         yield
     finally:
@@ -2627,21 +3000,22 @@ def moe_calls(pin=None):
         layers.moe_fwd = fwd
 
 
-def route_diffs(kcalls, pcalls):
+def route_diffs(kcalls, pcalls, batch: int | None = None):
     """One pass's routing, MoE layer by layer, on a kernels' path
     (``kcalls``) against the plain path (``pcalls``): the decisions
     (expert or kept) that differ at each layer, the decisions a layer,
     the margin of each differing choice (the plain path's gap between
     that choice's router probability and its nearer top-k neighbour),
     the largest margin and the relative L2 difference of the MoE
-    input at each layer, and the rows (B,) with any difference."""
+    input at each layer, and the rows (``batch``; by default one a route
+    group) with any difference."""
     import torch
     require(len(kcalls) == len(pcalls), f"{len(kcalls)} MoE calls on "
             f"the kernels' path, {len(pcalls)} on the plain one")
     d = {"per_layer": [], "margins": [], "layer_margin": [], "drift": [],
          "n": 0, "rows": None}
     for kr, pr in zip(kcalls, pcalls):
-        B, K = kr.probs.shape[0], kr.idx.shape[-1]
+        B, K = batch or kr.probs.shape[0], kr.idx.shape[-1]
         top = pr.probs.sort(-1, descending=True).values[..., :K + 1]
         gap = top[..., :-1] - top[..., 1:]
         near = torch.minimum(gap, torch.cat([gap[..., :1], gap[..., :-1]],
@@ -2657,6 +3031,346 @@ def route_diffs(kcalls, pcalls):
         rows = diff.reshape(B, -1).any(1)
         d["rows"] = rows if d["rows"] is None else d["rows"] | rows
     return d
+
+
+def route_report(label, passes) -> list[float]:
+    """Prints one run's differing decisions: the prefill's by MoE layer
+    (with their largest margins and the MoE inputs' drift), the decode
+    steps' that have any, the largest margin and the rows whose routes
+    all agree; returns every differing choice's margin."""
+    pre = passes[0]
+    margins = [m for d in passes for m in d["margins"]]
+    rows = pre["rows"]
+    for d in passes[1:]:
+        rows = rows | d["rows"]
+    moved = {t: d["per_layer"] for t, d in enumerate(passes)
+             if t and any(d["per_layer"])}
+    steps = (f"; decode steps 1-{len(passes) - 1} (of {passes[-1]['n']} "
+             f"a layer): {moved or 'none'}"
+             f"{', every other step none' if moved else ''}"
+             if len(passes) > 1 else "")
+    print(f"[routes] {label}: prefill, differing decisions by MoE layer "
+          f"{pre['per_layer']} of {pre['n']} each (largest margins "
+          f"{[float(f'{m:.3g}') for m in pre['layer_margin']]}, MoE "
+          f"input rel L2 {[float(f'{x:.3g}') for x in pre['drift']]})"
+          f"{steps}; {len(margins)} differing choices, largest margin "
+          f"{max(margins, default=0):.4g}; rows whose routes all agree: "
+          f"{int((~rows).sum())} of {rows.numel()}")
+    return margins
+
+
+def teacher_forced(cfg, params, tokens, served, paths,
+                   max_len: int = SERVE_MAX_LEN):
+    """Tokens teacher-forced through the plain versions and through
+    each of ``paths``: the prefill of ``tokens`` into caches of
+    ``max_len`` rows, then one decode step for each column of ``served``
+    but the last, fed that column's tokens.  A path is "kernels", or
+    "pinned": the kernels with each MoE call dispatched by the plain
+    path's choices of the same call (``moe_calls(pin=)``).  Returns, per
+    path, each pass's logits relative L2 and max |err| against the plain
+    path's, max|logit| of the plain path's, its greedy tokens, the share
+    of them the plain path's agree with, and its ``route_diffs`` (none
+    without MoE)."""
+    import torch
+
+    from repro_torch.models import lm
+    plen = tokens.shape[1]
+    caches = {}
+    out = {path: {"rel": [], "err": [], "scale": [], "argmax": [],
+                  "agree": [], "routes": []} for path in paths}
+    for t in range(served.shape[1]):
+        logits, calls = {}, {}
+        for path in ("plain", *paths):
+            with moe_calls(calls["plain"] if path == "pinned" else None
+                           ) as calls[path]:
+                if t == 0:
+                    logits[path], caches[path] = lm.prefill(
+                        cfg, params, tokens, max_len=max_len,
+                        plain=path == "plain")
+                else:
+                    logits[path], _ = lm.decode_step(
+                        cfg, params, caches[path], served[:, t - 1:t],
+                        plen + t - 1, plain=path == "plain")
+            require(bool(torch.isfinite(logits[path]).all())
+                    and logits[path].shape == (tokens.shape[0],
+                                               cfg.vocab_size),
+                    f"{path} step {t}: logits "
+                    f"{tuple(logits[path].shape)} or non-finite")
+        want = logits["plain"]
+        for path in paths:
+            o = out[path]
+            o["rel"].append(rel_l2(logits[path], want))
+            o["err"].append(max_err(logits[path], want))
+            o["scale"].append(float(want.abs().max()))
+            o["argmax"].append(logits[path].argmax(-1))
+            o["agree"].append(float((o["argmax"][-1] == want.argmax(-1))
+                                    .float().mean()))
+            if calls["plain"]:
+                o["routes"].append(route_diffs(calls[path], calls["plain"],
+                                               tokens.shape[0]))
+    caches.clear()
+    return out
+
+
+def logits_report(label, o, rtol, tag="serve", held=True):
+    """Prints (as a ``tag`` line) and, if ``held``, holds a teacher-forced
+    path's logits: relative L2 to the plain path's <= ``rtol`` at every
+    pass."""
+    import numpy as np
+    rel = o["rel"]
+    steps = (f", decode max {max(rel[1:]):.4g} (step "
+             f"{int(np.argmax(rel[1:])) + 1}), mean "
+             f"{float(np.mean(rel[1:])):.4g}" if len(rel) > 1 else "")
+    print(f"[{tag}] {label} vs plain versions, teacher-forced: logits rel "
+          f"L2 prefill {rel[0]:.4g}{steps}; greedy tokens agree on "
+          f"{float(np.mean(o['agree'])):.1%} ("
+          + (f"limit rel L2 {rtol})" if held else
+             f"{sum(r > rtol for r in rel)} of {len(rel)} passes over "
+             f"{rtol}: printed, held against fp32 below)"))
+    require(not held or max(rel) <= rtol, f"{label}: logits differ from "
+            f"the plain path: {rel}")
+
+
+def pinned_witness(cfg, params, tokens, served, max_len: int,
+                   fault) -> dict:
+    """Tokens teacher-forced as ``teacher_forced`` forces them through
+    the plain versions, which choose the routes, through the kernels and
+    through fp32 compute on the same weights on the plain versions (the
+    witness, sharing no kernel with the kernels' path), these two with
+    each MoE call pinned to the plain path's choices of the same call,
+    and through the pinned kernels with ``fault`` (``planted``'s what and
+    size) planted.  Each pass's and row's relative L2 from the witness,
+    by path: arrays (passes, rows)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    runs = {"plain": (cfg, True, None), "kernels": (cfg, False, None),
+            "fault": (cfg, False, fault),
+            "fp32": (dataclasses.replace(cfg, compute_dtype="float32"),
+                     True, None)}
+    plen, rows, caches = tokens.shape[1], tokens.shape[0], {}
+    dist = {path: [] for path in runs if path != "fp32"}
+    with torch.no_grad():
+        for t in range(served.shape[1]):
+            logits, pin = {}, None
+            for path, (c, plain, f) in runs.items():
+                with contextlib.ExitStack() as stack:
+                    if f is not None:
+                        stack.enter_context(planted(*f))
+                    calls = stack.enter_context(moe_calls(pin))
+                    if t == 0:
+                        logits[path], caches[path] = lm.prefill(
+                            c, params, tokens, max_len=max_len, plain=plain)
+                    else:
+                        logits[path], _ = lm.decode_step(
+                            c, params, caches[path], served[:, t - 1:t],
+                            plen + t - 1, plain=plain)
+                if path == "plain":
+                    pin = calls
+            witness = logits.pop("fp32")
+            for path, got in logits.items():
+                dist[path].append([rel_l2(got[r], witness[r])
+                                   for r in range(rows)])
+    caches.clear()
+    return {path: np.array(d) for path, d in dist.items()}
+
+
+def moe_fp32_check(cfg32, params, tokens, served, cut,
+                   max_len: int = SERVE_MAX_LEN, tag="serve", free=True):
+    """fp32 compute at full width and cut depth: ``tokens``' prefill and
+    a decode step fed each column of ``served`` but the last, through
+    the kernels with each route pinned to the plain path's, and with
+    ``free`` through the kernels on their own routes (printed), against
+    the plain versions (the MoE in its one-hot form): the decisions that
+    differ (each of the pinned run's within FP32_ROUTE_MARGIN of a tie),
+    and the pinned run's logits within FP32_DECODE_TOL x max|logit| at
+    every pass."""
+    forced = teacher_forced(cfg32, params, tokens, served,
+                            ("kernels", "pinned") if free else ("pinned",),
+                            max_len)
+    label = f"fp32 {cfg32.name} [{cut}]"
+    if free:
+        route_report(f"{label} kernels vs plain versions",
+                     forced["kernels"]["routes"])
+    margins = route_report(f"{label} kernels with each route pinned to "
+                           f"the plain path's (their own decisions) vs "
+                           f"plain versions", forced["pinned"]["routes"])
+    o = forced["pinned"]
+    err, scale = o["err"][0], o["scale"][0]
+    ratios = [e / s for e, s in zip(o["err"], o["scale"])]
+    steps = (f"; {len(ratios) - 1} decode steps: max |err| / max|logit| "
+             f"{max(ratios[1:]):.3g} (limit {FP32_DECODE_TOL})"
+             if len(ratios) > 1 else "")
+    print(f"[{tag}] {label} at full width: prefill {tuple(tokens.shape)}, "
+          f"kernels with the routes pinned vs plain versions max |err| "
+          f"{err:.4g} (limit {FP32_DECODE_TOL} x max|logit| {scale:.4g} = "
+          f"{FP32_DECODE_TOL * scale:.4g}), rel L2 {o['rel'][0]:.3g}"
+          + (f"; routes free: max |err| {forced['kernels']['err'][0]:.4g}"
+             if free else "") + steps)
+    require(all(m < FP32_ROUTE_MARGIN for m in margins),
+            f"{label}: a route differs {max(margins, default=0)} from a "
+            f"tie (limit {FP32_ROUTE_MARGIN})")
+    require(max(ratios) <= FP32_DECODE_TOL,
+            f"{label}: kernels differ from the plain versions: {ratios}")
+
+
+def moe_layer_fp32_check(cfg, cut, xs=None, tag="serve"):
+    """One MoE layer at full width in fp32, drawn one expert at a time
+    (llama4's is 60 GiB, so its fp32 check runs the layer alone):
+    ``moe_fwd`` by index against its one-hot plain version on each of
+    ``xs`` (B, S, d) in turn, by default N(0, 1) rows of the served
+    prefill's shape and a decode step's; y within FP32_DECODE_TOL x
+    max|y|, the aux loss equal."""
+    import torch
+
+    from repro_torch.models import layers
+    dev = torch.device("cuda")
+    gen1 = torch.Generator(device=dev).manual_seed(1)
+    p = layers.init_moe(cfg, gen1, dev)
+    gib = sum(t.numel() for t in p.values()) * 4 / 2**30
+    for x in xs or (torch.randn((len(SERVE_PROMPTS), S, cfg.d_model),
+                                generator=gen1, device=dev)
+                    for S in (max(SERVE_PROMPTS), 1)):
+        r = layers.moe_route(cfg, p, x)
+        (y, aux), (yp, auxp) = (layers.moe_fwd(cfg, p, x, plain=plain)
+                                for plain in (False, True))
+        err, scale = max_err(y, yp), float(yp.abs().max())
+        print(f"[{tag}] fp32 {cfg.name} [{cut}] MoE layer alone at full "
+              f"width ({cfg.n_experts} experts of {cfg.d_model} x "
+              f"{cfg.d_ff}, top-{cfg.top_k}, "
+              f"{gib:.2f} GiB): "
+              f"{tuple(x.shape)}, cap {r.cap}, "
+              f"{float((r.pos < r.cap).float().mean()):.1%} of choices "
+              f"kept; by index vs one-hot max |err| {err:.4g} (limit "
+              f"{FP32_DECODE_TOL} x max|y| {scale:.4g}), aux {float(aux)} "
+              f"vs {float(auxp)}")
+        require(bool(torch.isfinite(y).all())
+                and err <= FP32_DECODE_TOL * scale
+                and abs(float(aux) - float(auxp)) <= 1e-6 * float(auxp),
+                f"fp32 {cfg.name} MoE layer: index and one-hot differ")
+    del p
+
+
+def routes_vs_fp32(mcfg, params, tokens, pinned, max_len=None):
+    """The plain versions' and the kernels' MoE decisions in ``mcfg``'s
+    compute dtype, each against an fp32 evaluation of the same weights
+    and tokens (``route_diffs``, margins in the fp32 run's router
+    probabilities); with ``pinned`` the kernels' and the fp32 run's MoE
+    calls dispatch by the plain run's choices of their layer, so that
+    every layer decides on the same upstream routes.  Each run is
+    ``lm.forward``, or with ``max_len`` ``lm.prefill`` into a cache of
+    that many rows (the last position's logits alone: at 32k a forward's
+    would take gigabytes).  Returns those two comparisons, the plain
+    run's routes and the fp32 run's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm
+
+    def run(cfg, plain=False):
+        if max_len is None:
+            return lm.forward(cfg, params, tokens, plain=plain)
+        return lm.prefill(cfg, params, tokens, max_len=max_len, plain=plain)
+    calls = {}
+    fp32 = dataclasses.replace(mcfg, compute_dtype="float32")
+    with torch.no_grad():
+        with moe_calls() as calls["plain"]:
+            run(mcfg, plain=True)
+        pin = calls["plain"] if pinned else None
+        with moe_calls(pin) as calls["kernels"]:
+            run(mcfg)
+        with moe_calls(pin) as calls["fp32"]:
+            run(fp32, plain=True)
+    return ({who: route_diffs(calls[who], calls["fp32"])
+             for who in ("plain", "kernels")}, calls["plain"], calls["fp32"])
+
+
+def print_routes(label, routes) -> float:
+    """Prints a pass's differing MoE decisions by layer, with their
+    margins (the reference path's gap to the neighbouring top-k
+    probability) and the MoE inputs' drift; returns the largest
+    margin."""
+    m = routes["margins"]
+    worst = max(m, default=0.0)
+    print(f"[routes] {label}: differing decisions by MoE layer "
+          f"{routes['per_layer']} of {routes['n']} each (largest "
+          f"margins {[float(f'{x:.3g}') for x in routes['layer_margin']]}"
+          f", MoE input rel L2 "
+          f"{[float(f'{x:.3g}') for x in routes['drift']]}); "
+          f"{len(m)} differing choices, margins "
+          f"{[float(f'{x:.3g}') for x in sorted(m, reverse=True)[:12]]}"
+          f"{' ...' if len(m) > 12 else ''}; largest {worst:.4g}")
+    return worst
+
+
+def hold_routes(label, routes, limit) -> None:
+    """Prints a pass's differing MoE decisions by layer and holds each
+    one's margin below ``limit``."""
+    if routes is None:
+        return
+    worst = print_routes(f"{label} (limit {limit})", routes)
+    require(worst < limit, f"{label}: a route differs {worst} from a "
+            f"tie (limit {limit})")
+
+
+def hold_moe_routes(label, mcfg, routes, vs32) -> None:
+    """A bf16 pass's routes on the kernels: against the plain versions'
+    within ROUTE_MARGIN of a tie (printed only on ROUTES_VS_FP32's
+    cuts), and against an fp32 evaluation (``routes_vs_fp32``) no
+    farther than the plain versions' are: differing decisions n_k <= n
+    + 3 sqrt(2n) for the plain versions' n, the largest margin within
+    ROUTE_FP32_SLACK x theirs (at least ROUTE_MARGIN) and each MoE
+    layer's input drift within ROUTE_FP32_SLACK x theirs."""
+    if mcfg.name in ROUTES_VS_FP32:
+        print_routes(f"{label}, against the plain versions (held to the "
+                     f"fp32 evaluation below instead: ROUTES_VS_FP32)",
+                     routes)
+    else:
+        hold_routes(label, routes, ROUTE_MARGIN)
+    hold_fp32_routes(label, vs32)
+
+
+def hold_fp32_routes(label, vs32) -> None:
+    """Prints the kernels' and the plain versions' MoE decisions against
+    an fp32 evaluation (``routes_vs_fp32``) and holds the kernels' no
+    farther from it than the plain versions' (``fp32_routes_near``)."""
+    print_routes(f"{label}; the kernels against an fp32 evaluation",
+                 vs32["kernels"])
+    print_routes(f"{label}; the plain versions against an fp32 evaluation",
+                 vs32["plain"])
+    near, why = fp32_routes_near(vs32)
+    print(f"[routes] {label}, the kernels against fp32 as far as the "
+          f"plain versions: {why}")
+    require(near, f"{label}: the kernels' routes are farther from fp32 "
+            f"than the plain versions': {why}")
+
+
+def fp32_routes_near(vs32) -> tuple[bool, str]:
+    """Whether the kernels' MoE decisions (``routes_vs_fp32``) lie no
+    farther from an fp32 evaluation than the plain versions' do:
+    differing decisions n_k <= n + 3 sqrt(2n) for the plain versions' n,
+    the largest margin within ROUTE_FP32_SLACK x theirs (at least
+    ROUTE_MARGIN) and each MoE layer's input drift within
+    ROUTE_FP32_SLACK x theirs; and those numbers against their limits."""
+    kern, plain = vs32["kernels"], vs32["plain"]
+    n_k, n_p = sum(kern["per_layer"]), sum(plain["per_layer"])
+    n_lim = n_p + 3 * math.sqrt(2 * max(n_p, 1))
+    m_k = max(kern["margins"], default=0.0)
+    m_lim = max(ROUTE_FP32_SLACK * max(plain["margins"], default=0.0),
+                ROUTE_MARGIN)
+    drift = [(k, ROUTE_FP32_SLACK * p)
+             for k, p in zip(kern["drift"], plain["drift"])]
+    return (n_k <= n_lim and m_k <= m_lim
+            and all(k <= x for k, x in drift),
+            f"{n_k} differing decisions (limit {n_lim:.1f} from the plain "
+            f"versions' {n_p}), largest margin {m_k:.4g} (limit "
+            f"{m_lim:.4g}), MoE input rel L2 "
+            f"{[float(f'{k:.3g}') for k, _ in drift]} (limits "
+            f"{[float(f'{x:.3g}') for _, x in drift]})")
 
 
 class Cards:
@@ -3431,7 +4145,13 @@ def main() -> None:
           f"cuda {torch.version.cuda}")
     fp32_peak, bf16_peak, bw_peak = peaks(kind)
 
+    def mark(phase: str) -> None:
+        """Prints where the script's clock stands as ``phase`` begins."""
+        print(f"[main] {phase} begins at {time.perf_counter() - t_script:.1f}"
+              f" s")
+
     # ---------------------------------------------------------------- build
+    mark("build")
     t0 = time.perf_counter()
     _build.build()
     print(f"[build] {len(_build.SOURCES)} libraries in "
@@ -3453,6 +4173,7 @@ def main() -> None:
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     # ------------------------------------------------------- kernel checks
+    mark("kernel checks")
     def check_gemm(M, K, N, dt, epis, accs) -> tuple[float, str]:
         """Max |kernel - plain| over ``epis`` x ``accs``; raises past
         tests/test_kernels.py's tolerance (fp32 2e-5*sqrt(K), bf16 2e-2)."""
@@ -3831,6 +4552,7 @@ def main() -> None:
               f"initial state: max err (y, state) {e:.3g}")
 
     # ----------------------------------------------------------- DORA path
+    mark("DORA path")
     counters = kernel_counters()
     whole = dict.fromkeys(counters, 0)     # launches over the whole script
 
@@ -3972,6 +4694,7 @@ def main() -> None:
         check_layers(label, res, mt_inputs[label], out)
 
     # -------------------------------------------------------- serving path
+    mark("serving")
     def device_profile(label, fn, host_s):
         """Device time by kernel over one call of ``fn`` (CUPTI trace),
         beside ``host_s``, the same call's unprofiled host time, and the
@@ -4044,91 +4767,6 @@ def main() -> None:
             torch.cuda.synchronize()
             best = min(best, time.perf_counter() - t0)
         return best
-
-    def route_report(label, passes) -> list[float]:
-        """Prints one run's differing decisions: the prefill's by MoE layer
-        (with their largest margins and the MoE inputs' drift), the decode
-        steps' that have any, the largest margin and the rows whose routes
-        all agree; returns every differing choice's margin."""
-        pre = passes[0]
-        margins = [m for d in passes for m in d["margins"]]
-        rows = pre["rows"]
-        for d in passes[1:]:
-            rows = rows | d["rows"]
-        moved = {t: d["per_layer"] for t, d in enumerate(passes)
-                 if t and any(d["per_layer"])}
-        steps = (f"; decode steps 1-{len(passes) - 1} (of {passes[-1]['n']} "
-                 f"a layer): {moved or 'none'}"
-                 f"{', every other step none' if moved else ''}"
-                 if len(passes) > 1 else "")
-        print(f"[routes] {label}: prefill, differing decisions by MoE layer "
-              f"{pre['per_layer']} of {pre['n']} each (largest margins "
-              f"{[float(f'{m:.3g}') for m in pre['layer_margin']]}, MoE "
-              f"input rel L2 {[float(f'{x:.3g}') for x in pre['drift']]})"
-              f"{steps}; {len(margins)} differing choices, largest margin "
-              f"{max(margins, default=0):.4g}; rows whose routes all agree: "
-              f"{int((~rows).sum())} of {rows.numel()}")
-        return margins
-
-    def teacher_forced(cfg, params, tokens, served, paths):
-        """Tokens teacher-forced through the plain versions and through
-        each of ``paths``: the prefill of ``tokens``, then one decode step
-        for each column of ``served`` but the last, fed that column's
-        tokens.  A path is "kernels", or "pinned": the kernels with each
-        MoE call dispatched by the plain path's choices of the same call
-        (``moe_calls(pin=)``).  Returns, per path, each pass's logits
-        relative L2 and max |err| against the plain path's, max|logit| of
-        the plain path's, its greedy tokens, the share of them the plain
-        path's agree with, and its ``route_diffs`` (none without MoE)."""
-        plen = tokens.shape[1]
-        caches = {}
-        out = {path: {"rel": [], "err": [], "scale": [], "argmax": [],
-                      "agree": [], "routes": []} for path in paths}
-        for t in range(served.shape[1]):
-            logits, calls = {}, {}
-            for path in ("plain", *paths):
-                with moe_calls(calls["plain"] if path == "pinned" else None
-                               ) as calls[path]:
-                    if t == 0:
-                        logits[path], caches[path] = lm.prefill(
-                            cfg, params, tokens, max_len=SERVE_MAX_LEN,
-                            plain=path == "plain")
-                    else:
-                        logits[path], _ = lm.decode_step(
-                            cfg, params, caches[path], served[:, t - 1:t],
-                            plen + t - 1, plain=path == "plain")
-                require(bool(torch.isfinite(logits[path]).all())
-                        and logits[path].shape == (tokens.shape[0],
-                                                   cfg.vocab_size),
-                        f"{path} step {t}: logits "
-                        f"{tuple(logits[path].shape)} or non-finite")
-            want = logits["plain"]
-            for path in paths:
-                o = out[path]
-                o["rel"].append(rel_l2(logits[path], want))
-                o["err"].append(max_err(logits[path], want))
-                o["scale"].append(float(want.abs().max()))
-                o["argmax"].append(logits[path].argmax(-1))
-                o["agree"].append(float((o["argmax"][-1] == want.argmax(-1))
-                                        .float().mean()))
-                if calls["plain"]:
-                    o["routes"].append(route_diffs(calls[path],
-                                                   calls["plain"]))
-        caches.clear()
-        return out
-
-    def logits_report(label, o, rtol):
-        """Prints and holds a teacher-forced path's logits: relative L2 to
-        the plain path's <= ``rtol`` at every pass."""
-        rel = o["rel"]
-        steps = (f", decode max {max(rel[1:]):.4g} (step "
-                 f"{int(np.argmax(rel[1:])) + 1}), mean "
-                 f"{float(np.mean(rel[1:])):.4g}" if len(rel) > 1 else "")
-        print(f"[serve] {label} vs plain versions, teacher-forced: logits rel "
-              f"L2 prefill {rel[0]:.4g}{steps}; greedy tokens agree on "
-              f"{float(np.mean(o['agree'])):.1%} (limit rel L2 {rtol})")
-        require(max(rel) <= rtol, f"{label}: logits differ from the plain "
-                f"path: {rel}")
 
     def serve_model(cfg, rtol, shape, cut=""):
         """Serves ``cfg`` at full width on the card (cut in depth where
@@ -4611,67 +5249,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ MoE archs
-    def moe_fp32_check(cfg32, tokens, cut):
-        """fp32 compute at full width and cut depth: the served prompts'
-        prefill through the kernels, and through the kernels with each
-        route pinned to the plain path's, against the plain versions (the
-        MoE in its one-hot form): the decisions that differ (each of the
-        pinned run's within FP32_ROUTE_MARGIN of a tie), and the pinned
-        run's logits within FP32_DECODE_TOL x max|logit|."""
-        p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(1), dev)
-        forced = teacher_forced(cfg32, p32, tokens, tokens[:, :1],
-                                ("kernels", "pinned"))
-        del p32
-        label = f"fp32 {cfg32.name} [{cut}]"
-        route_report(f"{label} kernels vs plain versions",
-                     forced["kernels"]["routes"])
-        margins = route_report(f"{label} kernels with each route pinned to "
-                               f"the plain path's (their own decisions) vs "
-                               f"plain versions", forced["pinned"]["routes"])
-        o = forced["pinned"]
-        err, scale = o["err"][0], o["scale"][0]
-        print(f"[serve] {label} at full width: prefill {tuple(tokens.shape)}, "
-              f"kernels with the routes pinned vs plain versions max |err| "
-              f"{err:.4g} (limit {FP32_DECODE_TOL} x max|logit| {scale:.4g} = "
-              f"{FP32_DECODE_TOL * scale:.4g}), rel L2 {o['rel'][0]:.3g}; "
-              f"routes free: max |err| {forced['kernels']['err'][0]:.4g}")
-        require(all(m < FP32_ROUTE_MARGIN for m in margins),
-                f"{label}: a route differs {max(margins, default=0)} from a "
-                f"tie (limit {FP32_ROUTE_MARGIN})")
-        require(err <= FP32_DECODE_TOL * scale,
-                f"{label}: kernels differ from the plain versions")
-
-    def moe_layer_fp32_check(cfg, cut):
-        """One MoE layer at full width in fp32, drawn one expert at a time
-        (llama4's is 60 GiB, so its fp32 check runs the layer alone):
-        ``moe_fwd`` by index against its one-hot plain version on N(0, 1)
-        rows of the served prefill's shape and a decode step's; y within
-        FP32_DECODE_TOL x max|y|, the aux loss equal."""
-        gen1 = torch.Generator(device=dev).manual_seed(1)
-        p = layers.init_moe(cfg, gen1, dev)
-        gib = sum(t.numel() for t in p.values()) * 4 / 2**30
-        for S in (max(SERVE_PROMPTS), 1):
-            x = torch.randn((len(SERVE_PROMPTS), S, cfg.d_model),
-                            generator=gen1, device=dev)
-            r = layers.moe_route(cfg, p, x)
-            (y, aux), (yp, auxp) = (layers.moe_fwd(cfg, p, x, plain=plain)
-                                    for plain in (False, True))
-            err, scale = max_err(y, yp), float(yp.abs().max())
-            print(f"[serve] fp32 {cfg.name} [{cut}] MoE layer alone at full "
-                  f"width ({cfg.n_experts} experts of {cfg.d_model} x "
-                  f"{cfg.d_ff}, top-{cfg.top_k}, "
-                  f"{gib:.2f} GiB): "
-                  f"{tuple(x.shape)}, cap {r.cap}, "
-                  f"{float((r.pos < r.cap).float().mean()):.1%} of choices "
-                  f"kept; by index vs one-hot max |err| {err:.4g} (limit "
-                  f"{FP32_DECODE_TOL} x max|y| {scale:.4g}), aux {float(aux)} "
-                  f"vs {float(auxp)}")
-            require(bool(torch.isfinite(y).all())
-                    and err <= FP32_DECODE_TOL * scale
-                    and abs(float(aux) - float(auxp)) <= 1e-6 * float(auxp),
-                    f"fp32 {cfg.name} MoE layer: index and one-hot differ")
-        del p
-
+    mark("MoE serving")
     for arch, cut in MOE_CUTS.items():
         full_cfg = get_config(arch)
         mcfg = dataclasses.replace(full_cfg, **cut)
@@ -4694,14 +5272,18 @@ def main() -> None:
                 mcfg, n_layers=n, pattern=mcfg.pattern[:n]
                 if n < mcfg.pattern_len else mcfg.pattern,
                 compute_dtype="float32")
-            moe_fp32_check(cfg32, mtokens, f"{why}; fp32 check: the first "
-                           f"{n} layers")
+            p32 = lm.init(cfg32, torch.Generator(device=dev).manual_seed(1),
+                          dev)
+            moe_fp32_check(cfg32, p32, mtokens, mtokens[:, :1],
+                           f"{why}; fp32 check: the first {n} layers")
+            del p32
         else:
             moe_layer_fp32_check(mcfg, why)
         del mtokens
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- training
+    mark("training")
     # (a) each backward kernel against autograd of its plain version
     def grad_close(what, got, want, dt, rel_tol=BF16_GRAD_RTOL) -> float:
         """fp32: max |err| within FP32_GRAD_TOL x max|ref|; bf16: relative
@@ -5015,89 +5597,6 @@ def main() -> None:
             for n, fn in saved.items():
                 setattr(ops, n, fn)
 
-    def routes_vs_fp32(mcfg, params, tokens, pinned):
-        """The plain versions' and the kernels' MoE decisions in ``mcfg``'s
-        compute dtype, each against an fp32 evaluation of the same weights
-        and tokens (``route_diffs``, margins in the fp32 run's router
-        probabilities); with ``pinned`` the kernels' and the fp32 run's MoE
-        calls dispatch by the plain run's choices of their layer, so that
-        every layer decides on the same upstream routes.  Returns those
-        two comparisons and the plain run's routes."""
-        calls = {}
-        fp32 = dataclasses.replace(mcfg, compute_dtype="float32")
-        with torch.no_grad():
-            with moe_calls() as calls["plain"]:
-                lm.forward(mcfg, params, tokens, plain=True)
-            pin = calls["plain"] if pinned else None
-            with moe_calls(pin) as calls["kernels"]:
-                lm.forward(mcfg, params, tokens)
-            with moe_calls(pin) as calls["fp32"]:
-                lm.forward(fp32, params, tokens, plain=True)
-        return ({who: route_diffs(calls[who], calls["fp32"])
-                 for who in ("plain", "kernels")}, calls["plain"])
-
-    def print_routes(label, routes) -> float:
-        """Prints a pass's differing MoE decisions by layer, with their
-        margins (the reference path's gap to the neighbouring top-k
-        probability) and the MoE inputs' drift; returns the largest
-        margin."""
-        m = routes["margins"]
-        worst = max(m, default=0.0)
-        print(f"[routes] {label}: differing decisions by MoE layer "
-              f"{routes['per_layer']} of {routes['n']} each (largest "
-              f"margins {[float(f'{x:.3g}') for x in routes['layer_margin']]}"
-              f", MoE input rel L2 "
-              f"{[float(f'{x:.3g}') for x in routes['drift']]}); "
-              f"{len(m)} differing choices, margins "
-              f"{[float(f'{x:.3g}') for x in sorted(m, reverse=True)[:12]]}"
-              f"{' ...' if len(m) > 12 else ''}; largest {worst:.4g}")
-        return worst
-
-    def hold_routes(label, routes, limit) -> None:
-        """Prints a pass's differing MoE decisions by layer and holds each
-        one's margin below ``limit``."""
-        if routes is None:
-            return
-        worst = print_routes(f"{label} (limit {limit})", routes)
-        require(worst < limit, f"{label}: a route differs {worst} from a "
-                f"tie (limit {limit})")
-
-    def hold_moe_routes(label, mcfg, routes, vs32) -> None:
-        """A bf16 pass's routes on the kernels: against the plain versions'
-        within ROUTE_MARGIN of a tie (printed only on ROUTES_VS_FP32's
-        cuts), and against an fp32 evaluation (``routes_vs_fp32``) no
-        farther than the plain versions' are: differing decisions n_k <= n
-        + 3 sqrt(2n) for the plain versions' n, the largest margin within
-        ROUTE_FP32_SLACK x theirs (at least ROUTE_MARGIN) and each MoE
-        layer's input drift within ROUTE_FP32_SLACK x theirs."""
-        if mcfg.name in ROUTES_VS_FP32:
-            print_routes(f"{label}, against the plain versions (held to the "
-                         f"fp32 evaluation below instead: ROUTES_VS_FP32)",
-                         routes)
-        else:
-            hold_routes(label, routes, ROUTE_MARGIN)
-        kern, plain = vs32["kernels"], vs32["plain"]
-        n_k, n_p = sum(kern["per_layer"]), sum(plain["per_layer"])
-        n_lim = n_p + 3 * math.sqrt(2 * max(n_p, 1))
-        m_k = print_routes(f"{label}; the kernels against an fp32 evaluation",
-                           kern)
-        m_p = print_routes(f"{label}; the plain versions against an fp32 "
-                           f"evaluation", plain)
-        m_lim = max(ROUTE_FP32_SLACK * m_p, ROUTE_MARGIN)
-        drift = [(k, ROUTE_FP32_SLACK * p)
-                 for k, p in zip(kern["drift"], plain["drift"])]
-        print(f"[routes] {label}, the kernels against fp32 as far as the "
-              f"plain versions: {n_k} differing decisions (limit "
-              f"{n_lim:.1f} from the plain versions' {n_p}), largest margin "
-              f"{m_k:.4g} (limit {m_lim:.4g}), MoE input rel L2 "
-              f"{[float(f'{k:.3g}') for k, _ in drift]} (limits "
-              f"{[float(f'{x:.3g}') for _, x in drift]})")
-        require(n_k <= n_lim and m_k <= m_lim
-                and all(k <= x for k, x in drift),
-                f"{label}: the kernels' routes are farther from fp32 than "
-                f"the plain versions': {n_k} vs {n_p} decisions, margin "
-                f"{m_k} vs {m_p}, drift {drift}")
-
     def grad_rel(ga, gb) -> float:
         """The whole flattened gradient ``ga``'s relative L2 against
         ``gb`` (a leaf of ``gb`` may lie on the host)."""
@@ -5151,8 +5650,8 @@ def main() -> None:
         for t in leaves:
             t.requires_grad_(True)
         moe = any(p.ffn == "moe" for p in mcfg.pattern)
-        vs32, pin = routes_vs_fp32(mcfg, params, tokens, pinned=True) \
-            if moe else (None, None)
+        vs32, pin, _ = routes_vs_fp32(mcfg, params, tokens, pinned=True) \
+            if moe else (None, None, None)
         if attribute:   # on the host while the bf16 gradients are taken
             with moe_calls(pin):
                 g32 = [g.cpu() for g in torch.autograd.grad(lm.loss_fn(
@@ -5437,7 +5936,7 @@ def main() -> None:
         inputs' drift again with each kernel family on its plain version.
         Returns the kernels' loss on ``batch``."""
         tokens = batch["tokens"]
-        vs32, _ = routes_vs_fp32(tcfg, params, tokens, pinned=False)
+        vs32, _, _ = routes_vs_fp32(tcfg, params, tokens, pinned=False)
         logits, calls = {}, {}
         with torch.no_grad():
             for plain in (True, False):
@@ -5628,15 +6127,19 @@ def main() -> None:
                 f"losses {clean} vs {resumed}")
 
     # ---------------------------------------------------------------- mesh
+    mark("mesh")
     mesh_phase(counters, launches, zero_counts, smi)
 
     # ------------------------------------------------------------ examples
+    mark("examples")
     examples_phase(counters, launches, zero_counts, smi)
 
     # -------------------------------------------------------- long context
+    mark("long context")
     long_phase(counters, launches, zero_counts, smi)
 
     # -------------------------------------------------------------- timing
+    mark("timing")
     bert = paper_models.get("BERT-L")
     t0 = time.perf_counter()
     res = DoraCompiler().compile(bert, CompileOptions(engine="list"))

@@ -15,7 +15,9 @@ the Pallas kernel where it and the jnp oracle differ (see
 (``ssd_scan``, ``ssd_chunked``, ``ssd_decode_step``) copy the
 reference's contract, ``(B, S, H, P)`` heads over ``(B, S, G, N)``
 groups returning ``(y, final_state)``; ``ssd_plain`` is the choice
-between the first two that the reference's ``ops.ssd`` makes.
+between the first two that the reference's ``ops.ssd`` makes, except
+that past ``SSD_PLAIN_SEGMENT`` positions it runs the chunked one a
+segment at a time (``ssd_chained``), for memory alone.
 """
 
 from __future__ import annotations
@@ -423,15 +425,31 @@ def ssd_chained(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         yield s, y, state
 
 
+# ``ssd_plain`` runs the chunked algorithm over consecutive segments of
+# this many positions where they divide a longer sequence, so that its
+# heads-wide fp32 b and c and its (L, L) chunk terms, which grow with S x
+# heads, take one segment's memory
+SSD_PLAIN_SEGMENT = 8192
+
+
 def ssd_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               c: torch.Tensor, *, chunk: int = 128,
               initial_state: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain side of ``ops.ssd``, chosen as the reference chooses
     (``src/repro/kernels/ops.py:127-131``): the chunked algorithm when S
-    is a multiple of ``chunk`` and longer than it, else the recurrence."""
+    is a multiple of ``chunk`` and longer than it, else the recurrence.
+    One departure, for memory alone: past SSD_PLAIN_SEGMENT positions
+    that it divides, the chunked algorithm runs over segments chained
+    through the state (``ssd_chained``: the same recurrence, computed a
+    segment at a time, where the reference makes one call)."""
     S = x.shape[1]
     if S % chunk == 0 and S > chunk:
+        seg = SSD_PLAIN_SEGMENT
+        if S > seg and S % seg == 0 and seg % chunk == 0:
+            parts = list(ssd_chained(x, a, b, c, segment=seg, chunk=chunk,
+                                     initial_state=initial_state))
+            return torch.cat([y for _, y, _ in parts], 1), parts[-1][2]
         return ssd_chunked(x, a, b, c, chunk=chunk,
                            initial_state=initial_state)
     return ssd_scan(x, a, b, c, initial_state=initial_state)

@@ -1596,3 +1596,88 @@ def test_cuda_flash_attention_decode_at_40_and_32_pairs(cuda, shape, kv_len,
     torch.cuda.synchronize()
     want = ref.mha_attention(q, k, v, causal=False, kv_len=kv_len)
     _long_attn_close(got, want, tdt)
+
+
+# prefill_32k and decode_32k of the MoE archs and mamba2-2.7b at the
+# kernels: llama4-maverick's 40 and jamba-1.5-large's 64 query heads over 8
+# (a batch of 1 in the prefill, 2 over a 32,800-row cache in decode), the
+# rmsnorm kernel on a prefill's 65,536 rows of llama4's 5,120, jamba's
+# 8,192 and its gated norm's 16,384 (fp32 takes the block kernel there),
+# and ssd at jamba's 256 heads and mamba2-2.7b's 80 over 2 x 32,768
+# positions.
+MOE_HEADS = [(40, 8), (64, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv", MOE_HEADS, ids=["llama4", "jamba"])
+def test_cuda_flash_attention_prefill_at_32k_of_the_moe_archs(cuda, Hq, Hkv):
+    """bf16 on the tensor cores, causal, every query head of the arch over
+    32,768 rows, against the chunked plain version."""
+    q, k, v = _qkv((1, Hq, Hkv, 32768, 32768, 128), 96, cuda,
+                   torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.mha_attention_chunked(q, k, v, causal=True)
+    _long_attn_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [32769, 32800])
+@pytest.mark.parametrize("Hq,Hkv", MOE_HEADS, ids=["llama4", "jamba"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_flash_attention_decode_of_the_moe_archs_over_32k_rows(
+        cuda, Hq, Hkv, kv_len, tdt):
+    """Split-KV decode at GQA 5 and 8 over a 32,800-row cache, a batch of
+    2: the splits and their combine against the plain version."""
+    assert fa.decode_plan(kv_len, 2 * Hkv, _build.sm_count(cuda)).splits > 1
+    q, k, v = _qkv((2, Hq, Hkv, 1, kv_len, 128), 97, cuda, tdt, cache=32800)
+    got = flash_attention(q, k, v, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    want = ref.mha_attention(q, k, v, causal=False, kv_len=kv_len)
+    _long_attn_close(got, want, tdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [5120, 8192, 16384])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_rmsnorm_on_65536_rows_of_the_moe_archs(cuda, N, tdt):
+    """The plan's kernel (the one-pass kernel, or fp32's block kernel at
+    16,384) on 65,536 rows with gamma, within the plain version's
+    tolerance, the same bits on a repeated call."""
+    x = torch.from_numpy(_np((65536, N), 98, scale=2.0)).to(cuda, tdt)
+    g = torch.from_numpy(_np((N,), 99)).to(cuda)
+    got, again = rmsnorm_rows(x, g), rmsnorm_rows(x, g)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt and torch.equal(got, again)
+    rtol, atol = _ln_tol(tdt)
+    torch.testing.assert_close(got.float(), ref.rmsnorm_rows(x, g).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 80], ids=["jamba", "mamba2"])
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_ssd_at_prefill_32k_matches_the_chained_plain(cuda, H, tdt):
+    """Two rows of 32,768 positions (256 chunks each) at H heads of 64,
+    state 128, from an initial state, drawn on the card, against
+    ``ref.ssd_chained`` over segments of 16,384, with ``_ssd_close``'s
+    tolerances."""
+    B, S, P, G, N = 2, 32768, 64, 1, 128
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dt = torch.rand((B, S, H), generator=gen, device=cuda) * 0.095 + 0.005
+    a = -torch.linspace(1.0, 16.0, H, device=cuda)[None, None] * dt
+    x = torch.randn((B, S, H, P), generator=gen, device=cuda).to(tdt)
+    b, c = ((torch.randn((B, S, G, N), generator=gen, device=cuda) * 0.3
+             ).to(tdt) for _ in range(2))
+    s0 = torch.randn((B, H, P, N), generator=gen, device=cuda)
+    y, state = ssd(x, a, b, c, chunk=128, initial_state=s0)
+    torch.cuda.synchronize()
+    rtol = 1e-4 if tdt == torch.float32 else 2 ** -7
+    for s, y_seg, st in ref.ssd_chained(x, a, b, c, segment=16384,
+                                        chunk=128, initial_state=s0):
+        torch.testing.assert_close(y[:, s:s + 16384].float(), y_seg.float(),
+                                   rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(state, st, rtol=1e-4, atol=1e-4)

@@ -499,3 +499,95 @@ def test_long_offsets_are_64_bit():
                 assert "(size_t)" in line, line
     assert 2 * 48 * 32768 * 128 == 65536 * 6144 == 402_653_184 < 2**31
     assert 2 * 20 * 32800 * 128 * 2 * 2 == 671_744_000
+
+
+# prefill_32k and decode_32k of the MoE archs (LONG_MOE_CUTS of
+# chip_smoke.py) and mamba2-2.7b: the same batch of 2 prompts of 32,768
+# tokens; (arch, Hq, Hkv, D) of each attention, the rmsnorm widths of
+# llama4-maverick (5,120), jamba-1.5-large (8,192 and its gated norm's
+# 16,384) and the SSD heads of jamba (256) and mamba2-2.7b (80)
+LONG_MOE_ATTENTION = [("dbrx-132b", 48, 8, 128),
+                      ("llama4-maverick-400b-a17b", 40, 8, 128),
+                      ("jamba-1.5-large-398b", 64, 8, 128)]
+
+
+@pytest.mark.parametrize("arch,Hq,Hkv,D", LONG_MOE_ATTENTION,
+                         ids=[a for a, *_ in LONG_MOE_ATTENTION])
+def test_prefill_grids_of_the_moe_archs_at_32k_stay_in_the_grid(arch, Hq,
+                                                               Hkv, D):
+    """Both prefill kernels' grids at a batch of 2 over 32,768 rows, up to
+    jamba's 64 query heads (536,870,912 query elements, under 2^31)."""
+    cfg = get_config(arch)
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (Hq, Hkv, D)
+    assert D in fa.HEAD_DIMS and Hq % Hkv == 0
+    assert 32768 * (Hq // Hkv) > fa.DECODE_ROWS
+    for grid in ((Hq, 2, -(-32768 // 64)), (-(-32768 // 64), Hq, 2)):
+        assert _in_grid_limits(grid)
+    assert 2 * Hq * 32768 * D <= 2 * 64 * 32768 * 128 == 2**29 < 2**31
+
+
+@pytest.mark.parametrize("skv", [32769, 32800])
+@pytest.mark.parametrize("arch", [a for a, *_ in LONG_MOE_ATTENTION])
+def test_decode_plan_of_the_moe_archs_covers_32k_rows_once(arch, skv):
+    """Their decode over a 32,800-row cache: 16 (batch, KV head) pairs, the
+    splits' whole chunks covering the rows once with a block on every SM,
+    the grid and the combine's blocks (2 x 64 at jamba) within CUDA's
+    limits."""
+    cfg = get_config(arch)
+    pairs = 2 * cfg.n_kv_heads * cfg.kv_cache_repeat
+    assert pairs == 16
+    plan = fa.decode_plan(skv, pairs, H100_SMS)
+    assert plan.rows_per_split % fa.DECODE_CHUNK == 0
+    assert (plan.splits - 1) * plan.rows_per_split < skv
+    assert plan.splits * plan.rows_per_split >= skv
+    assert plan.combine and pairs * plan.splits >= 2 * H100_SMS
+    assert _in_grid_limits((plan.splits, cfg.n_kv_heads, 2))
+    assert _in_grid_limits((2 * cfg.n_heads,))
+
+
+@pytest.mark.parametrize("N", [5120, 8192, 16384])
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "fp32"])
+def test_rmsnorm_plans_of_the_moe_archs_at_65536_rows_stay_in_the_grid(
+        N, esize):
+    """The rmsnorm kernel on 65,536 rows: the one-pass kernel a block a
+    row (bf16's gated norm at 16,384 in 1,024 threads), or for fp32 at
+    16,384 (2,048 threads of two vectors would pass a block's 1,024) the
+    block kernel, a block a row; the grid's x within CUDA's limit and
+    each row's base offset 64-bit (the gated rows hold 2^30 elements, 4
+    GiB in fp32)."""
+    src = (Path(sfu.__file__).parent / "csrc" / "sfu.cu").read_text()
+    threads = sfu.norm_plan(N, esize, True)
+    if (N, esize) == (16384, 4):
+        assert threads == 0
+        assert "rmsnorm_block_kernel<T><<<R, ROW_THREADS" in src
+        assert "x + (size_t)blockIdx.x * N" in src
+    else:
+        assert threads == N * esize // 16 // sfu.ROW_VPT <= sfu.MAX_THREADS
+        assert "norm_vec_kernel<T, false><<<R, threads" in src
+        assert ("reinterpret_cast<const uint4*>(x) + (size_t)blockIdx.x * V"
+                in src)
+    assert _in_grid_limits((LONG_ROWS,))
+    assert LONG_ROWS * 16384 == 2**30
+
+
+@pytest.mark.parametrize("H", [256, 80], ids=["jamba", "mamba2"])
+def test_ssd_plans_at_prefill_32k_stay_in_the_grid(H):
+    """ssd over 2 x 32,768 positions at H heads of 64, state 128: 256
+    chunks of 128 on the scan's x, the state kernel's blocks, and the
+    states entering each chunk (4 GiB at jamba's 256 heads) addressed in
+    64 bits, as are x's and y's rows (2^30 elements at 256 heads)."""
+    plan = ssd.ssd_plan(2, 32768, H, 64, 128, 128)
+    assert plan.chunks == 256 and plan.grid == (256, H, 2)
+    assert plan.state_grid == (128 // ssd.STATE_COLS, H, 2)
+    assert plan.scratch_bytes == 4 * 2 * 256 * H * 64 * 128
+    assert _in_grid_limits(plan.grid) and _in_grid_limits(plan.state_grid)
+    src = (Path(ssd.__file__).parent / "csrc" / "ssd.cu").read_text()
+    for want in ("return ((size_t)bi * nc + ci) * H + h;",
+                 "states + slot(bi, ci, h, nc, H) * P * N",
+                 "row = ((size_t)bi * H + h) * PN",
+                 "y + ((size_t)bi * S + c0 + t) * H * P + (size_t)h * P",
+                 "x + bi * xsb + c0 * xss + (long long)h * P"):
+        assert want in src
+    if H == 256:
+        assert plan.scratch_bytes == 2**32
+        assert 2 * 32768 * H * 64 == 2**30
